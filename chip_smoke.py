@@ -6,25 +6,47 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from kernels/csrc, checks each against
-its plain PyTorch version on the card, renders the Cornell main path at
-full size through the user entry points, and prints a JSON summary. Phases:
+its plain PyTorch version on the card, renders the Cornell main path and
+the two .obj town paths at full size through the user entry points, and
+prints a JSON summary. Phases:
 
   1. card, power limit, torch/CUDA versions, kernel build time;
   2. K1/K2 (mt_closest, mt_any) against their plain versions and the brute
-     tracer on 131072 rays: prims and occlusion exact, t/u/v within 1e-6,
-     the live-count skip; timed at the pool width of the main path;
+     tracer on 131072 Cornell rays: prims and occlusion exact, t/u/v
+     within 1e-6, the live-count skip;
   3. K4 (trace_shade_refill) against its plain version: teacher-forced for
      8 launches on one 256-lane block (deterministic claims), then one
      launch at the main path's pool width from a mid-render state (claims
      compared as a set keyed by pixel); timed per launch;
   4. the gate (bench.py:115-116) of kernels against plain versions at 96^2,
      2 spp, max_depth 6, ray_block 4096;
-  5. the main path: Cornell 768^2, 8 spp, max_depth 16, ray_block 32768,
-     pixel-major pool; 1 warm-up and 4 timed subframes with the kernels and
-     with the plain versions; Mray/s counted as radiance + shadow rays; the
-     kernel image's mean within 1% of the plain image's, every pixel
-     finite; then a profile of one more subframe;
-  6. the PNG of the kernel render.
+  5. the Cornell main path: 768^2, 8 spp, max_depth 16, ray_block 32768,
+     pixel-major pool; 1 warm-up and 4 timed subframes with the kernels
+     and with the plain versions; Mray/s counted as radiance + shadow rays;
+     the kernel image's mean within 1% of the plain image's, the first
+     subframes through the gate, every pixel finite; then a profile of one
+     more subframe;
+  6. the PNG of the kernel render;
+  7. K1/K2 on the static and K3 (mt_closest_motion, mt_any_motion) on the
+     2-key 16054-face town, against their plain versions and the brute
+     tracer on 131072 rays (camera rays and one cosine bounce, uniform
+     random times): prims and occlusion exact, t/u/v within 1e-6, the
+     count skip on 128-ray tiles for K3; timed at 32768 rays;
+  8. K6 (external_shade) teacher-forced against its plain version at 32768
+     lanes for 8 iterations on both towns: every output bit for bit; timed
+     per launch;
+  9. the gate of phase 4 on the external path, the 4294-face town, static
+     and 2-key;
+ 10. both 16054-face towns at the main path's config: 1 warm-up and 4
+     timed subframes with the kernels, 1 with the plain versions; Mray/s,
+     launches per subframe, image means within 1%, the first subframes
+     through the gate, every pixel finite, and the device idle share of
+     one profiled subframe.
+
+Each kernel's bound is the larger of the bytes it must move over 3.35 TB/s
+and the operations these inputs need (the MT tests left after the cull,
+replayed with the plain per-tile results, and the shading body) over the
+67 TFLOP/s fp32 peak outside the tensor cores (H100 SXM data sheet).
 
 Any failed phase exits non-zero. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -46,8 +68,20 @@ MAIN = dict(width=768, height=768, samples_per_launch=8, max_depth=16,
             ray_block=32768, integrator="pool", pool_pixel_major=True)
 GATE = dict(width=96, height=96, samples_per_launch=2, max_depth=6,
             ray_block=4096, integrator="pool", pool_pixel_major=True)
+TOWN_FACES = 16000  # generate_town gives 16054 faces (16384 padded)
+GATE_TOWN_FACES = 4000  # 4294 faces
 MT_SRC = "rendertoy3c_tpu_torch/kernels/csrc/mt_kernels.cu"
 K4_SRC = "rendertoy3c_tpu_torch/kernels/csrc/megakernel.cu"
+K6_SRC = "rendertoy3c_tpu_torch/kernels/csrc/external.cu"
+MEM_BPS = 3.35e12  # H100 SXM HBM3 bytes/s
+FP32_OPS = 67e12  # H100 SXM fp32 operations/s outside the tensor cores
+# operations counted from the CUDA sources, one per arithmetic operation,
+# compare, select or intrinsic: one Moller-Trumbore test (mt_test_tri),
+# the per-triangle lerp of a motion test, shade_lane, and K4's epilogue
+MT_TEST_OPS = 54
+LERP_OPS = 27
+SHADE_OPS = 300
+REFILL_OPS = 170
 
 
 class PhaseFailed(Exception):
@@ -82,6 +116,126 @@ def cuda_ms(calls) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / len(calls)
+
+
+def bound(n_bytes: float, ops: float):
+    """(least time in ms, what bounds it) on one H100 SXM."""
+    t_bytes = n_bytes / MEM_BPS * 1e3
+    t_ops = ops / FP32_OPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def mt_work(rays, count, table, any_hit: bool, time=None, want=None):
+    """(ray-triangle tests, table bytes read) of one K1/K2/K3 sweep over
+    these rays: the kernel's block votes replayed in tile order with the
+    plain per-tile results. A closest ray's bound shrinks with its best hit
+    so far; an any-hit ray stops at its first hit; rays outside `want`
+    vote but test nothing (K4's lanes without a shadow ray)."""
+    import torch
+
+    from rendertoy3c_tpu_torch.trace import mt
+
+    motion = time is not None
+    tris = table.tris0 if motion else table.tris
+    n_tiles, _, ct = tris.shape
+    tile_r = mt.MOTION_RAY_TILE if motion else mt.RAY_TILE
+    r = rays.shape[0]
+    live = mt.live_rows(r, count, tile_r)
+    want = live if want is None else want & live
+    cols = tuple(rays[:, c:c + 1] for c in range(8))
+    o, d, tmin = rays[:, 0:3], rays[:, 3:6], rays[:, 6]
+    inv = torch.where(d.abs() > 1e-20, 1.0 / d, torch.full_like(d, 1e30))
+    best = rays[:, 7].clone()
+    done = torch.zeros(r, dtype=torch.bool, device=rays.device)
+    tests = torch.zeros(r, dtype=torch.int64, device=rays.device)
+    staged = 0
+
+    def vote(box):
+        t0, t1 = (box[0:3] - o) * inv, (box[3:6] - o) * inv
+        tn = torch.minimum(t0, t1).amax(dim=1)
+        tf = torch.maximum(t0, t1).amin(dim=1)
+        tcur = rays[:, 7] if any_hit else best
+        hit = (box[0] <= box[3]) & (tn <= tf) & (tf >= tmin) & (tn <= tcur)
+        return hit.view(-1, tile_r).any(dim=1).repeat_interleave(tile_r) & live
+
+    def visit(k, m):
+        nonlocal best, done, tests, staged
+        staged += int(m.view(-1, tile_r)[:, 0].any())
+        extra = (table.tris1[k], time[:, None]) if motion else ()
+        t, _, _, hit, _ = mt.mt_test(cols, tris[k], k * ct, *extra)
+        if any_hit:
+            m = m & want & ~done
+            first = torch.where(hit.any(dim=1), hit.int().argmax(dim=1) + 1,
+                                ct)
+            tests += torch.where(m, first, 0)
+            done |= m & hit.any(dim=1)
+        else:
+            tests += torch.where(m, ct, 0)
+            tc = torch.where(hit, t, torch.full_like(t, 1e30)).amin(dim=1)
+            best = torch.where(m & (tc < best), tc, best)
+
+    if n_tiles == 1:
+        visit(0, live)
+    elif n_tiles <= 2 * mt.SUPER_TILE:
+        for k in range(n_tiles):
+            visit(k, vote(table.aabb[k]))
+    else:
+        for ks in range(-(-n_tiles // mt.SUPER_TILE)):
+            ms = vote(table.super_aabb[ks])
+            for j in range(mt.SUPER_TILE):
+                k = ks * mt.SUPER_TILE + j
+                if k < n_tiles:
+                    visit(k, ms & vote(table.aabb[k]))
+    table_bytes = (staged * 9 * ct * 4 * (2 if motion else 1)
+                   + 4 * (table.aabb.numel() + table.super_aabb.numel()))
+    return int(tests.sum()), table_bytes
+
+
+def mt_bound(rays, count, table, any_hit: bool, time=None):
+    """bound() of one K1/K2/K3 launch on these rays."""
+    tests, table_bytes = mt_work(rays, count, table, any_hit, time)
+    r = rays.shape[0]
+    n_bytes = r * (32 + 16) + 4 + table_bytes + (0 if time is None else 4 * r)
+    ops = tests * (MT_TEST_OPS + (0 if time is None else LERP_OPS))
+    return bound(n_bytes, ops)
+
+
+def camera_and_bounce_rays(scene, camera, n_cam, n_total, dev, rng,
+                           times=None):
+    """n_total rays: n_cam camera rays, one cosine bounce from each hit,
+    then rays from random points in the scene's box to fill. `times` (for
+    a motion scene) places the bounce origins at the camera rays' times."""
+    import torch
+
+    from rendertoy3c_tpu_torch.trace.intersect import trace_closest_bruteforce
+
+    p = camera.params()
+    xy = rng.uniform(-1, 1, (n_cam, 2)).astype(np.float32)
+    d = xy[:, :1] * p.u + xy[:, 1:] * p.v + p.w
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o = np.broadcast_to(p.eye, d.shape)
+    to = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32),  # noqa: E731
+                                   device=dev)
+    tc = None if times is None else to(times[:n_cam])
+    hit = trace_closest_bruteforce(scene, to(o), to(d), 0.01, 1e16, tc)
+    prim = hit.prim.cpu().numpy()
+    ok = prim >= 0
+    g = scene.geom
+    n = np.cross(g.e1[0][prim[ok]], g.e2[0][prim[ok]])
+    n /= np.linalg.norm(n, axis=1, keepdims=True)
+    n *= -np.sign(np.sum(n * d[ok], axis=1, keepdims=True))
+    w = rng.normal(size=(int(ok.sum()), 3))
+    w /= np.linalg.norm(w, axis=1, keepdims=True)
+    bd = n + w
+    bd /= np.linalg.norm(bd, axis=1, keepdims=True)
+    bo = (o + hit.t.cpu().numpy()[:, None] * d)[ok]
+    n_rand = n_total - n_cam - len(bo)
+    v = g.v0[0][:scene.num_faces]
+    ro = rng.uniform(v.min(axis=0), v.max(axis=0), (n_rand, 3))
+    ro[:, 1] = np.abs(ro[:, 1])
+    rd = rng.normal(size=(n_rand, 3))
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    return to(np.concatenate([o, bo, ro])), to(np.concatenate([d, bd, rd]))
 
 
 # ---------------------------------------------------------------- phase 2
@@ -167,9 +321,9 @@ def phase_mt(dev, scene, camera):
         ms = cuda_ms([lambda: kern(rp, cp, soup)] * 50)
         plain_ms = cuda_ms([lambda: ref(rp, cp, soup)] * 10)
         results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-        print(f"phase 2 {name}: exact prims vs plain and brute on {r} rays; "
-              f"max|d| {err:.3g}; {ms:.4f} ms vs plain {plain_ms:.4f} ms "
-              f"at {pool} rays")
+        print(f"phase 2 {name} (Cornell): exact prims vs plain and brute on "
+              f"{r} rays; max|d| {err:.3g}; {ms:.4f} ms vs plain "
+              f"{plain_ms:.4f} ms at {pool} rays")
     return results
 
 
@@ -216,6 +370,38 @@ def _compare_lanes(got, want, claimed_as_set: bool):
     err = max((fk - fr).abs().max().item(),
               (lane_k - lane_r).abs().max().item())
     return err, int(bad.sum().item()) + int(lane_bad.sum().item())
+
+
+def k4_bound(state, stats_in, tables, rc):
+    """bound() of one K4 launch from this state: the closest and shadow
+    sweeps' tests (the shadow rays from the plain shading body) and the
+    shading and refill operations of every lane."""
+    import torch
+
+    from rendertoy3c_tpu_torch.trace import mt, shade
+
+    rays, misc, _ = state
+    count = stats_in[1:2]
+    pool = rays.shape[0]
+    closest_tests, table_bytes = mt_work(rays, count, tables.soup, False)
+    hit4 = mt.closest_ref(rays, count, tables.soup)
+    a = tables.attr_t[:, torch.clamp(hit4[:, 1], min=0.0).to(torch.int64)]
+    shadow = {}
+
+    def occluded(sh):
+        shadow["rays"] = sh
+        return mt.any_ref(sh, count, tables.soup)[:, 0]
+
+    out = shade._shade_lanes(rays, hit4, misc, a, tables.lights_t, rc,
+                             occluded)
+    shadow_tests, _ = mt_work(shadow["rays"], count, tables.soup, True,
+                              want=out["want_shadow"])
+    n_bytes = (pool * 2 * (32 + 64 + 64) + 2 * 16 + table_bytes
+               + 4 * (tables.attr_t.numel() + tables.lights_t.numel()
+                      + tables.jump_u32.numel()))
+    ops = ((closest_tests + shadow_tests) * MT_TEST_OPS
+           + pool * (SHADE_OPS + REFILL_OPS))
+    return bound(n_bytes, ops)
 
 
 def phase_k4(dev, scene, camera):
@@ -284,32 +470,51 @@ def phase_k4(dev, scene, camera):
 
     ms = cuda_ms(calls(kern, 41))
     plain_ms = cuda_ms(calls(ref, 6))
+    bound_ms, bound_by = k4_bound(state, stats, kern.keywords["tables"],
+                                  kern.keywords["rc"])
     print(f"phase 3 K4 time per launch at {pool} lanes: {ms:.4f} ms vs "
-          f"plain {plain_ms:.4f} ms")
-    return dict(max_abs_err=max(err_a, err_b), ms=ms, plain_ms=plain_ms)
+          f"plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by}")
+    return dict(max_abs_err=max(err_a, err_b), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
 
 
 # ---------------------------------------------------------------- phase 4/5
+def plain_tracer(scene, cfg, dev):
+    """(scene, pipeline) as choose_tracer gives them, over the plain
+    versions of the kernels."""
+    from rendertoy3c_tpu_torch.trace import mt, shade
+    from rendertoy3c_tpu_torch.trace.auto import choose_tracer
+
+    scene, pipe = choose_tracer(scene, cfg, dev)
+    if isinstance(pipe, shade.FusedPipeline):
+        return scene, shade.FusedPipeline(
+            scene, cfg, dev, refill_fn=shade.trace_shade_refill_ref)
+    return scene, shade.ExternalPipeline(
+        scene, cfg, mt.make_mt_tracer(scene, dev, plain=True), dev,
+        shade_fn=shade.external_shade_ref)
+
+
 def render(scene, camera, cfg_kw, dev, plain: bool, warmup: int, timed: int):
     """Render through make_render_fn, the plain versions if `plain`.
     Returns (film, Mray/s per timed subframe, launches, seconds per timed
-    subframe, the step function)."""
+    subframe, the step function, the image after the first subframe)."""
     import torch
 
     from rendertoy3c_tpu_torch.film.film import film_create
     from rendertoy3c_tpu_torch.integrate.config import RenderConfig
     from rendertoy3c_tpu_torch.integrate.path import make_render_fn
-    from rendertoy3c_tpu_torch.trace import shade
 
     cfg = RenderConfig(**cfg_kw)
-    tracer = (shade.FusedPipeline(scene, cfg, dev,
-                                  refill_fn=shade.trace_shade_refill_ref)
-              if plain else None)
+    tracer = None
+    if plain:
+        scene, tracer = plain_tracer(scene, cfg, dev)
     step = make_render_fn(scene, cfg, tracer=tracer, device=dev)
     cam = camera.params()
     film = film_create(cfg.height, cfg.width, device=dev)
+    first = None
     for _ in range(warmup):
         film, _ = step(cam, film)
+        first = film.accum.clone() if first is None else first
     torch.cuda.synchronize()
     rates, secs, launches = [], [], 0
     for _ in range(timed):
@@ -321,7 +526,8 @@ def render(scene, camera, cfg_kw, dev, plain: bool, warmup: int, timed: int):
         rates.append(rays / dt / 1e6)
         secs.append(dt)
         launches += stats.pool_iters
-    return film, rates, launches, secs, step
+        first = film.accum.clone() if first is None else first
+    return film, rates, launches, secs, step, first
 
 
 def gate_diff(a, b):
@@ -329,10 +535,22 @@ def gate_diff(a, b):
     return diff.mean(), int((diff.max(axis=-1) > 0.35).sum()), diff.max()
 
 
-def profile_subframe(step, film, camera, untraced_s: float):
+def gate(scene, camera, dev, what: str, phase: int):
+    f_k = render(scene, camera, GATE, dev, False, 0, 1)[0]
+    f_p = render(scene, camera, GATE, dev, True, 0, 1)[0]
+    mean_d, outl, max_d = gate_diff(f_k.accum.cpu().numpy(),
+                                    f_p.accum.cpu().numpy())
+    check(mean_d <= 2e-3 and outl <= 8 and max_d <= 8.0,
+          f"gate ({what}) failed: mean|d| {mean_d:.3g}, {outl} outliers, "
+          f"max|d| {max_d:.3g}")
+    print(f"phase {phase} gate 96^2 2spp {what}, kernels vs plain: mean|d| "
+          f"{mean_d:.3g}, outliers {outl}, max|d| {max_d:.3g}")
+
+
+def profile_subframe(step, film, camera, untraced_s: float, phase: int):
     """Device time by kernel over one subframe (torch.profiler, CUDA
     activity only). The idle share is taken against the median untraced
-    subframe, since tracing slows the host."""
+    subframe, since tracing slows the host. Returns the idle share."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -354,11 +572,261 @@ def profile_subframe(step, film, camera, untraced_s: float):
         rows.append((dt, evt.key, evt.count))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
-    print(f"phase 5 profile of one subframe: device busy {busy:.4f} s; "
-          f"traced wall {wall:.4f} s; untraced median {untraced_s:.4f} s; "
-          f"idle share {max(0.0, 1 - busy / untraced_s):.3f} of untraced")
-    for dt, key, cnt in rows[:8]:
+    idle = max(0.0, 1 - busy / untraced_s)
+    print(f"phase {phase} profile of one subframe: device busy {busy:.4f} "
+          f"s; traced wall {wall:.4f} s; untraced median {untraced_s:.4f} "
+          f"s; idle share {idle:.3f} of untraced")
+    for dt, key, cnt in rows[:10]:
         print(f"  {dt / 1e3:10.3f} ms  x{cnt:<6d} {key[:70]}")
+    return idle
+
+
+def full_size(name, scene, camera, dev, smi, phase: int, counters):
+    """One main path at full size: kernels (1 warm-up, 4 timed) with the
+    launch counters zeroed just before and read just after, then the plain
+    versions, means compared, a profile. Returns (kernel film, launches
+    by kernel)."""
+    for fn in counters.values():
+        fn.launches = 0
+    film_k, rates_k, it_k, secs_k, step_k, first_k = render(
+        scene, camera, MAIN, dev, False, 1, 4)
+    launches = {n: fn.launches for n, fn in counters.items()}
+    for n, cnt in launches.items():
+        check(cnt > 0, f"{name}: the main path launched {n} no time")
+    plain_timed = 4 if name == "cornell" else 1
+    n_plain = 5 if name == "cornell" else 1
+    film_p, rates_p, _, secs_p, _, first_p = render(
+        scene, camera, MAIN, dev, True, n_plain - plain_timed, plain_timed)
+    img_k = film_k.accum.cpu().numpy()
+    img_p = film_p.accum.cpu().numpy()
+    check(bool(np.isfinite(img_k).all()), f"{name}: kernel image not finite")
+    check(img_k.shape == (768, 768, 3), f"{name}: image shape {img_k.shape}")
+    rel = abs(img_k.mean() - img_p.mean()) / img_p.mean()
+    check(rel <= 0.01, f"{name}: image mean {img_k.mean()} vs plain "
+          f"{img_p.mean()} ({rel:.3%})")
+    # the first subframes: the same estimator on the same streams
+    mean_d, outl, max_d = gate_diff(first_k.cpu().numpy(),
+                                    first_p.cpu().numpy())
+    check(mean_d <= 2e-3 and outl <= 8 and max_d <= 8.0,
+          f"{name}: first subframe fails the gate: mean|d| {mean_d:.3g}, "
+          f"{outl} outliers, max|d| {max_d:.3g}")
+    print(f"phase {phase} {name} 768^2 8spp depth 16 pool 32768 on {smi}:")
+    print(f"  kernels: Mray/s per subframe {rates_k}, median "
+          f"{float(np.median(rates_k)):.6g}; s {secs_k}; "
+          f"{it_k / 4:.1f} launches/subframe")
+    print(f"  plain:   Mray/s per subframe {rates_p}, median "
+          f"{float(np.median(rates_p)):.6g}; s {secs_p}")
+    print(f"  image mean kernels {img_k.mean():.6f}, plain "
+          f"{img_p.mean():.6f} (rel {rel:.3g}) over 5 and {n_plain} "
+          f"subframes; "
+          f"first subframe kernels vs plain: mean|d| {mean_d:.3g}, max|d| "
+          f"{max_d:.3g}; launches {launches}")
+    try:  # informational: the render phases above decide the result
+        profile_subframe(step_k, film_k, camera, float(np.median(secs_k)),
+                         phase)
+    except Exception as e:  # noqa: BLE001
+        print(f"phase {phase} profile: not measured ({type(e).__name__}: "
+              f"{e})")
+    return film_k, launches
+
+
+# ---------------------------------------------------------------- phase 7
+def phase_town_mt(dev, towns):
+    """K1/K2 on the static town (in its Morton face order) and K3 on the
+    2-key town: plain versions and brute on 131072 rays, timed and bounded
+    at 32768."""
+    import torch
+
+    from rendertoy3c_tpu_torch.trace import mt
+    from rendertoy3c_tpu_torch.trace.intersect import (
+        trace_any_bruteforce, trace_closest_bruteforce)
+
+    results = {}
+    n_total = 131072
+    pool = MAIN["ray_block"]
+    for motion in (False, True):
+        scene, camera = towns[motion]
+        rng = np.random.default_rng(SEED + 7 + int(motion))
+        tm = rng.uniform(0, 1, n_total).astype(np.float32) if motion else None
+        o, d = camera_and_bounce_rays(scene, camera, 65536, n_total, dev, rng,
+                                      tm)
+        tt = None if tm is None else torch.as_tensor(tm, device=dev)
+        if motion:
+            table = mt.build_motion_soup(scene.geom, dev,
+                                         num_faces=scene.num_faces)
+            cases = (("mt_closest_motion", mt.mt_closest_motion,
+                      mt.closest_motion_ref, False),
+                     ("mt_any_motion", mt.mt_any_motion, mt.any_motion_ref,
+                      True))
+            tile = mt.MOTION_RAY_TILE
+        else:
+            table = mt.build_tri_soup(scene.geom, dev,
+                                      num_faces=scene.num_faces)
+            cases = (("mt_closest", mt.mt_closest, mt.closest_ref, False),
+                     ("mt_any", mt.mt_any, mt.any_ref, True))
+            tile = mt.RAY_TILE
+        t_any = torch.as_tensor(rng.uniform(0.5, 20.0, n_total)
+                                .astype(np.float32), device=dev)
+        for name, kern, ref, any_hit in cases:
+            tmin, tmax = (0.001, t_any) if any_hit else (0.01, 1e16)
+            rays, _ = mt.pack_rays(o, d, tmin, tmax, tile)
+            args = (tt,) if motion else ()
+            err = 0.0
+            count = n_total - 1000
+            check(not motion or -(-count // tile) * tile % 256 != 0,
+                  "the count must end a 128-ray tile inside a 256-ray one")
+            for c_val in (n_total, count):
+                c = torch.tensor([c_val], dtype=torch.int32, device=dev)
+                got = kern(rays, *args, c, table)
+                want = ref(rays, *args, c, table)
+                torch.cuda.synchronize()
+                col = 0 if any_hit else 1
+                check(torch.equal(got[:, col], want[:, col]),
+                      f"{name}: prim/occlusion differs from the plain version")
+                diff = (got - want).abs()
+                check(bool((diff <= 1e-6 + 1e-6 * want.abs()).all()),
+                      f"{name}: t/u/v differ from the plain version by "
+                      f"{diff.max().item()}")
+                err = max(err, diff.max().item())
+                if c_val < n_total:  # whole ray tiles past the count miss
+                    tail = -(-c_val // tile) * tile
+                    miss = torch.zeros_like(got[tail:])
+                    if not any_hit:
+                        miss[:, 0] = rays[tail:, 7]
+                        miss[:, 1] = -1.0
+                    check(torch.equal(got[tail:], miss),
+                          f"{name}: tiles past count were not skipped")
+                    check(torch.equal(got[c_val:tail], want[c_val:tail]),
+                          f"{name}: the tile holding the count was skipped")
+            if any_hit:
+                trace = mt.trace_any_mt_motion if motion else mt.trace_any_mt
+                occ = trace(table, o, d, 0.001, t_any, *args)
+                occ_b = trace_any_bruteforce(scene, o, d, 0.001, t_any, tt)
+                check(torch.equal(occ, occ_b), f"{name}: occlusion != brute")
+                frac = float(occ.float().mean())
+            else:
+                trace = (mt.trace_closest_mt_motion if motion
+                         else mt.trace_closest_mt)
+                h = trace(table, o, d, 0.01, 1e16, *args)
+                b = trace_closest_bruteforce(scene, o, d, 0.01, 1e16, tt)
+                check(torch.equal(h.prim, b.prim), f"{name}: prim != brute")
+                for x, y in ((h.t, b.t), (h.u, b.u), (h.v, b.v)):
+                    check(bool(((x - y).abs() <= 1e-6 + 1e-6 * y.abs())
+                               .all()), f"{name}: t/u/v differ from brute")
+                frac = float((h.prim >= 0).float().mean())
+            # timed and bounded on a pool-wide random subset
+            sel = torch.as_tensor(rng.permutation(n_total)[:pool],
+                                  device=dev)
+            rp = rays[sel].contiguous()
+            ap = tuple(a[sel].contiguous() for a in args)
+            cp = torch.tensor([pool], dtype=torch.int32, device=dev)
+            ms = cuda_ms([lambda: kern(rp, *ap, cp, table)] * 50)
+            plain_ms = cuda_ms([lambda: ref(rp, *ap, cp, table)] * 5)
+            bound_ms, bound_by = mt_bound(rp, cp, table, any_hit,
+                                          ap[0] if motion else None)
+            results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                 bound_ms=bound_ms, bound_by=bound_by)
+            print(f"phase 7 {name} ({'2-key' if motion else 'static'} "
+                  f"town, {scene.num_faces} faces): exact vs plain and brute "
+                  f"on {n_total} rays (hit/occluded share {frac:.3f}); "
+                  f"max|d| {err:.3g}; {ms:.4f} ms vs plain {plain_ms:.4f} ms "
+                  f"at {pool} rays; bound {bound_ms:.4f} ms by {bound_by}")
+    return results
+
+
+# ---------------------------------------------------------------- phase 8
+def _fresh_lanes(camera, n, rng, dev):
+    """A first-bounce pool state: camera rays, fresh paths, random seeds,
+    90% of the lanes alive."""
+    import torch
+
+    p = camera.params()
+    xy = rng.uniform(-1, 1, (n, 2)).astype(np.float32)
+    d = xy[:, :1] * p.u + xy[:, 1:] * p.v + p.w
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    rays = np.zeros((n, 8), np.float32)
+    rays[:, 0:3] = p.eye
+    rays[:, 3:6] = d
+    rays[:, 6], rays[:, 7] = 0.01, 1e16
+    misc = np.zeros((n, 16), np.float32)
+    misc[:, 0] = rng.integers(0, 2**32, n, dtype=np.uint64).astype(
+        np.uint32).view(np.float32)
+    misc[:, 1:7] = 1.0
+    misc[:, 9] = (rng.uniform(size=n) < 0.9).astype(np.float32)
+    misc[:, 13] = np.arange(n)
+    misc[:, 14] = 1.0
+    return (torch.as_tensor(rays, device=dev),
+            torch.as_tensor(misc, device=dev))
+
+
+def phase_k6(dev, towns):
+    """K6 teacher-forced against external_shade_ref for 8 iterations on
+    both towns; timed and bounded on the static town's 5th state."""
+    import torch
+
+    from rendertoy3c_tpu_torch.integrate.config import RenderConfig
+    from rendertoy3c_tpu_torch.trace import shade
+    from rendertoy3c_tpu_torch.trace.auto import choose_tracer
+
+    cfg = RenderConfig(**MAIN)
+    pool = cfg.ray_block
+    res = dict(max_abs_err=0.0)
+    for motion in (False, True):
+        scene, camera = towns[motion]
+        _, pipe = choose_tracer(scene, cfg, dev)
+        rng = np.random.default_rng(SEED + 8 + int(motion))
+        rays, misc = _fresh_lanes(camera, pool, rng, dev)
+        count = torch.tensor([pool], dtype=torch.int32, device=dev)
+        deep = 0
+        for it in range(8):
+            tm = (torch.as_tensor(rng.uniform(0, 1, pool).astype(np.float32),
+                                  device=dev) if motion else None)
+            hit = pipe._closest(rays[:, 0:3], rays[:, 3:6], rays[:, 6],
+                                rays[:, 7], tm, count)
+            hit4 = torch.stack([hit.t, hit.prim.to(torch.float32), hit.u,
+                                hit.v], dim=1)
+            got = shade.external_shade(rays, hit4, misc, pipe.tables,
+                                       pipe.config)
+            want = shade.external_shade_ref(rays, hit4, misc, pipe.tables,
+                                            pipe.config)
+            torch.cuda.synchronize()
+            for g, w, what in zip(got, want, ("rays", "misc", "shadow")):
+                n_bad = int((g.view(torch.int32) != w.view(torch.int32))
+                            .any(dim=1).sum())
+                check(n_bad == 0, f"K6 iteration {it} ({what}): {n_bad} "
+                      "lanes differ from the plain version")
+            if it == 4 and not motion:
+                args = (rays, hit4, misc, pipe.tables, pipe.config)
+                res["ms"] = cuda_ms([lambda: shade.external_shade(*args)]
+                                    * 50)
+                res["plain_ms"] = cuda_ms(
+                    [lambda: shade.external_shade_ref(*args)] * 10)
+                uniq = torch.unique(hit4[:, 1].clamp(min=0)).numel()
+                n_bytes = (pool * (32 + 16 + 64 + 32 + 96 + 32) + uniq * 64
+                           + 4 * pipe.tables.lights_t.numel())
+                res["bound_ms"], res["bound_by"] = bound(n_bytes,
+                                                         pool * SHADE_OPS)
+            # the next state: the plain output, NEE added on unoccluded
+            # lanes, dead lanes restarted as fresh camera paths
+            r2, m2, sh = want
+            occ = pipe._any(sh[:, 0:3], sh[:, 3:6], sh[:, 6], sh[:, 7],
+                            sh[:, 8] if motion else None, count)
+            nee = torch.where(occ[:, None], 0.0, m2[:, 16:19])
+            misc = torch.cat([m2[:, :10], m2[:, 10:13] + nee, m2[:, 13:16]],
+                             dim=1)
+            rays = r2
+            deep = max(deep, int(misc[:, 8].max()))
+            dead = misc[:, 9] <= 0
+            fr, fm = _fresh_lanes(camera, pool, rng, dev)
+            rays = torch.where(dead[:, None], fr, rays)
+            misc = torch.where(dead[:, None], fm, misc)
+        print(f"phase 8 K6 ({'2-key' if motion else 'static'} town): "
+              f"{pool} lanes x 8 iterations bit-equal to the plain version "
+              f"(paths up to depth {deep})")
+    print(f"phase 8 K6 time per launch at {pool} lanes: {res['ms']:.4f} ms "
+          f"vs plain {res['plain_ms']:.4f} ms; bound {res['bound_ms']:.4f} "
+          f"ms by {res['bound_by']}")
+    return res
 
 
 def main() -> int:
@@ -374,6 +842,7 @@ def main() -> int:
         from rendertoy3c_tpu_torch.film.tonemap import make_color
         from rendertoy3c_tpu_torch.scene.builtin import cornell_box
         from rendertoy3c_tpu_torch.scene.scene import build_scene
+        from rendertoy3c_tpu_torch.scene.town import town_scene
         from rendertoy3c_tpu_torch.trace import mt, shade
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})",
@@ -385,6 +854,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = smi_line()
     name = torch.cuda.get_device_name(0)
+    t_start = time.perf_counter()
     try:
         # ---- phase 1: card and build
         print(f"phase 1 card: {smi}")
@@ -397,62 +867,25 @@ def main() -> int:
               f"{time.perf_counter() - t0:.2f} s with load: {lib_path}")
         log = (lib_path.parent / "build.log").read_text()
         for line in log.splitlines():
-            if "Used" in line or "spill" in line:
+            if "Used" in line or "spill" in line or "Compiling" in line:
                 print("  ptxas:", line.strip())
 
         meshes, camera = cornell_box()
         scene = build_scene(meshes)
 
-        # ---- phase 2: K1/K2
-        mt_res = phase_mt(dev, scene, camera)
+        # ---- phase 2: K1/K2 on Cornell
+        phase_mt(dev, scene, camera)
 
         # ---- phase 3: K4
         k4 = phase_k4(dev, scene, camera)
 
         # ---- phase 4: the gate at 96^2
-        f_k, _, _, _, _ = render(scene, camera, GATE, dev, False, 0, 1)
-        f_p, _, _, _, _ = render(scene, camera, GATE, dev, True, 0, 1)
-        mean_d, outl, max_d = gate_diff(f_k.accum.cpu().numpy(),
-                                        f_p.accum.cpu().numpy())
-        check(mean_d <= 2e-3 and outl <= 8 and max_d <= 8.0,
-              f"gate failed: mean|d| {mean_d:.3g}, {outl} outliers, "
-              f"max|d| {max_d:.3g}")
-        print(f"phase 4 gate 96^2 2spp kernels vs plain: mean|d| "
-              f"{mean_d:.3g}, outliers {outl}, max|d| {max_d:.3g}")
+        gate(scene, camera, dev, "Cornell", 4)
 
-        # ---- phase 5: the main path
-        shade.trace_shade_refill.launches = 0
-        mt.mt_closest.launches = 0
-        mt.mt_any.launches = 0
-        film_k, rates_k, it_k, secs_k, step_k = render(
-            scene, camera, MAIN, dev, False, 1, 4)
-        launches = {"trace_shade_refill": shade.trace_shade_refill.launches,
-                    "mt_closest": mt.mt_closest.launches,
-                    "mt_any": mt.mt_any.launches}
-        check(launches["trace_shade_refill"] > 0,
-              "main path launched trace_shade_refill no time")
-        film_p, rates_p, _, secs_p, _ = render(scene, camera, MAIN, dev,
-                                               True, 1, 4)
-        img_k = film_k.accum.cpu().numpy()
-        img_p = film_p.accum.cpu().numpy()
-        check(bool(np.isfinite(img_k).all()), "kernel image not finite")
-        check(img_k.shape == (768, 768, 3), f"image shape {img_k.shape}")
-        rel = abs(img_k.mean() - img_p.mean()) / img_p.mean()
-        check(rel <= 0.01, f"image mean {img_k.mean()} vs plain "
-              f"{img_p.mean()} ({rel:.3%})")
-        print(f"phase 5 main path 768^2 8spp depth 16 pool 32768 on {smi}:")
-        print(f"  kernels: Mray/s per subframe {rates_k}, median "
-              f"{float(np.median(rates_k)):.6g}; s {secs_k}; "
-              f"{it_k / 4:.1f} launches/subframe")
-        print(f"  plain:   Mray/s per subframe {rates_p}, median "
-              f"{float(np.median(rates_p)):.6g}; s {secs_p}")
-        print(f"  image mean kernels {img_k.mean():.6f}, plain "
-              f"{img_p.mean():.6f} (rel {rel:.3g}); launches {launches}")
-        try:  # informational: the render phases above decide the result
-            profile_subframe(step_k, film_k, camera,
-                             float(np.median(secs_k)))
-        except Exception as e:  # noqa: BLE001
-            print(f"phase 5 profile: not measured ({type(e).__name__}: {e})")
+        # ---- phase 5: the Cornell main path
+        film_k, launches_c = full_size(
+            "cornell", scene, camera, dev, smi, 5,
+            {"trace_shade_refill": shade.trace_shade_refill})
 
         # ---- phase 6: PNG
         out_dir = tempfile.mkdtemp(prefix="rt3c_smoke_")
@@ -460,26 +893,77 @@ def main() -> int:
         write_png(png, np.ascontiguousarray(
             make_color(film_k.accum, alpha=False).cpu().numpy()[::-1]))
         print(f"phase 6 wrote {png}")
+
+        # ---- phase 7: K1/K2 and K3 on the 16054-face towns
+        t0 = time.perf_counter()
+        towns = {k: town_scene(TOWN_FACES, k) for k in (False, True)}
+        for k, (s, _) in towns.items():
+            check(s.num_faces == 16054 and s.num_keys == (2 if k else 1),
+                  f"town: {s.num_faces} faces, {s.num_keys} keys")
+        print(f"phase 7 towns generated and loaded in "
+              f"{time.perf_counter() - t0:.2f} s: {towns[False][0].num_faces}"
+              f" faces, {towns[False][0].num_lights} lights")
+        mt_res = phase_town_mt(dev, {
+            False: (mt_scene_order(towns[False][0], dev), towns[False][1]),
+            True: towns[True]})
+
+        # ---- phase 8: K6
+        k6 = phase_k6(dev, towns)
+
+        # ---- phase 9: the gate on the 4294-face town
+        for k in (False, True):
+            s, c = town_scene(GATE_TOWN_FACES, k)
+            gate(s, c, dev, f"{'2-key' if k else 'static'} town "
+                 f"({s.num_faces} faces)", 9)
+
+        # ---- phase 10: the towns at full size
+        launches_s = full_size(
+            "static town", *towns[False], dev, smi, 10,
+            {"mt_closest": mt.mt_closest, "mt_any": mt.mt_any,
+             "external_shade": shade.external_shade})[1]
+        launches_m = full_size(
+            "2-key town", *towns[True], dev, smi, 10,
+            {"mt_closest_motion": mt.mt_closest_motion,
+             "mt_any_motion": mt.mt_any_motion,
+             "external_shade": shade.external_shade})[1]
+        print(f"phase 10 done; {time.perf_counter() - t_start:.1f} s since "
+              "the start")
     except PhaseFailed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
 
+    mt_replaces = "rendertoy3c_tpu/trace/pallas_mt.py:"
     kernels = [dict(name="trace_shade_refill", route="cuda", source=K4_SRC,
                     replaces="rendertoy3c_tpu/trace/pallas_shade.py:1329",
-                    launches=launches["trace_shade_refill"], **k4)]
-    checks = [
-        dict(name=n, route="cuda", source=MT_SRC,
-             replaces="rendertoy3c_tpu/trace/pallas_mt.py:353",
-             launches_in_main_path=launches[n],
-             inlined_in="trace_shade_refill (csrc/mt.cuh)", **mt_res[n])
-        for n in ("mt_closest", "mt_any")]
-    print(json.dumps({"kernel_checks": checks}))
+                    launches=launches_c["trace_shade_refill"], **k4,
+                    library_ms=None)]
+    for n, line in (("mt_closest", 353), ("mt_any", 353),
+                    ("mt_closest_motion", 643), ("mt_any_motion", 643)):
+        path_launches = launches_m if "motion" in n else launches_s
+        kernels.append(dict(name=n, route="cuda", source=MT_SRC,
+                            replaces=f"{mt_replaces}{line}",
+                            launches=path_launches[n], **mt_res[n],
+                            library_ms=None))
+    kernels.append(dict(
+        name="external_shade", route="cuda", source=K6_SRC,
+        replaces="rendertoy3c_tpu/trace/pallas_shade.py:1778",
+        launches=launches_s["external_shade"] + launches_m["external_shade"],
+        **k6, library_ms=None))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def mt_scene_order(scene, dev):
+    """The static scene in the face order its pipeline traces (the Morton
+    order choose_tracer applies)."""
+    from rendertoy3c_tpu_torch.integrate.config import RenderConfig
+    from rendertoy3c_tpu_torch.trace.auto import choose_tracer
+
+    return choose_tracer(scene, RenderConfig(**MAIN), dev)[0]
 
 
 if __name__ == "__main__":

@@ -1,0 +1,28 @@
+"""30-bit 3D Morton codes for spatial sorting.
+
+Port of `morton3d_np` of rendertoy3c_tpu/accel/morton.py (:13-30): points
+quantized to a 1024^3 grid, bits interleaved x/y/z. Host numpy.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+
+def _expand_bits_np(v: np.ndarray) -> np.ndarray:
+    """Spread the low 10 bits of v so there are 2 zero bits between each."""
+    v = v.astype(np.uint32) & 0x3FF
+    v = (v | (v << 16)) & 0x030000FF
+    v = (v | (v << 8)) & 0x0300F00F
+    v = (v | (v << 4)) & 0x030C30C3
+    v = (v | (v << 2)) & 0x09249249
+    return v
+
+
+def morton3d_np(xyz01: np.ndarray) -> np.ndarray:
+    """Normalized [N,3] float coords in [0,1] -> uint32 Morton codes."""
+    q = np.clip(xyz01 * 1024.0, 0, 1023).astype(np.uint32)
+    return (
+        (_expand_bits_np(q[:, 0]) << 2)
+        | (_expand_bits_np(q[:, 1]) << 1)
+        | _expand_bits_np(q[:, 2])
+    )

@@ -4,9 +4,15 @@ Port of the path-render subset of rendertoy3c_tpu/app/cli.py:
 
   python -m rendertoy3c_tpu_torch.app.cli --scene cornell --size 768x768 \\
       --spp 8 --subframes 4 -o out.png --device cuda
+  python -m rendertoy3c_tpu_torch.app.cli --scene a.obj b.obj \\
+      --eye 38,26,46 --lookat 0,1.5,0 --fov 42 -o out.png --device cuda
 
-It renders the builtin Cornell box with the main path's pool settings
-(pixel-major pool, max_depth 16, ray_block 32768) and writes a PNG.
+`--scene` takes the builtin Cornell box or .obj files, where N files are N
+motion keyframes (the reference loader's rule). The .obj camera defaults to
+the reference app's framing, eye (5,5,5) toward (0,1,0) at fov 45
+(rendertoy3c_tpu/app/cli.py:192-197); `--eye --lookat --fov` override it.
+It renders with the main path's pool settings (pixel-major pool,
+max_depth 16, ray_block 32768) and writes a PNG.
 """
 from __future__ import annotations
 
@@ -23,21 +29,50 @@ from ..film.tonemap import make_color
 from ..integrate.config import RenderConfig
 from ..integrate.path import make_render_fn
 from ..scene.builtin import cornell_box
+from ..scene.camera import Camera
 from ..scene.scene import build_scene
+
+
+def _vec3(s: str):
+    parts = [float(x) for x in s.split(",")]
+    if len(parts) != 3:
+        raise argparse.ArgumentTypeError("expected x,y,z")
+    return tuple(parts)
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="rendertoy3c_tpu_torch",
                                 description="Progressive Monte-Carlo path "
                                 "tracer (PyTorch + CUDA port)")
-    p.add_argument("--scene", choices=["cornell"], required=True)
+    p.add_argument("--scene", nargs="+", required=True,
+                   help="cornell, or .obj path(s): N files = N motion "
+                   "keyframes")
     p.add_argument("--size", default="768x768", help="WxH")
     p.add_argument("--spp", type=int, default=8, help="samples per launch")
     p.add_argument("--subframes", type=int, default=16,
                    help="progressive launches to accumulate")
     p.add_argument("-o", "--output", default="out.png")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    p.add_argument("--eye", type=_vec3, default=None)
+    p.add_argument("--lookat", type=_vec3, default=None)
+    p.add_argument("--fov", type=float, default=None,
+                   help="vertical fov, degrees")
     return p
+
+
+def load_scene(names):
+    """(meshes, camera) of the builtin Cornell box or of .obj keyframes.
+    Textured scenes load here and are refused by the tracer choice."""
+    if names == ["cornell"]:
+        return cornell_box()
+    if not all(n.endswith(".obj") for n in names):
+        raise SystemExit(f"--scene: expected cornell or .obj files, got "
+                         f"{names}")
+    from ..io.obj import load_obj
+
+    meshes, _ = load_obj(names)
+    return meshes, Camera(eye=(5.0, 5.0, 5.0), lookat=(0.0, 1.0, 0.0),
+                          fov_y=45.0)
 
 
 def main(argv=None) -> int:
@@ -54,7 +89,13 @@ def main(argv=None) -> int:
     cfg = RenderConfig(width=w, height=h, samples_per_launch=args.spp,
                        max_depth=16, ray_block=32768, integrator="pool",
                        pool_pixel_major=True)
-    meshes, camera = cornell_box()
+    meshes, camera = load_scene(args.scene)
+    if args.eye:
+        camera.eye = args.eye
+    if args.lookat:
+        camera.lookat = args.lookat
+    if args.fov:
+        camera.fov_y = args.fov
     camera.aspect_ratio = w / h
     step = make_render_fn(build_scene(meshes), cfg, device=device)
     cam = camera.params()

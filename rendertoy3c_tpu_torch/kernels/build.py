@@ -1,8 +1,9 @@
 """Build and bind the port's CUDA kernels (kernels/csrc/*).
 
-The sources are compiled by `nvcc` for sm_90a into one shared library with
-a plain C interface, loaded with ctypes. Nothing compiles at import: the
-first CUDA launch calls `library()`, which builds into
+The sources are compiled by `nvcc` for sm_90a, one process per source, all
+started together, and linked into one shared library with a plain C
+interface, loaded with ctypes. Nothing compiles at import: the first CUDA
+launch calls `library()`, which builds into
 `kernels/_build/<hash of sources and flags>/` (ignored by git) and reuses
 that build in later processes. A missing `nvcc` or a failed build raises.
 
@@ -24,12 +25,12 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
-SOURCES = ("mt_kernels.cu", "megakernel.cu")
-HEADERS = ("mt.cuh",)
+SOURCES = ("mt_kernels.cu", "megakernel.cu", "external.cu")
+HEADERS = ("mt.cuh", "shade.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false", "-prec-div=true", "-prec-sqrt=true",
-    "--ptxas-options=-v", "-shared", "-Xcompiler", "-fPIC",
+    "--ptxas-options=-v", "-Xcompiler", "-fPIC",
 )
 LIB_NAME = "librt3c_kernels.so"
 
@@ -54,6 +55,18 @@ class RefillParams(ctypes.Structure):
     ]
 
 
+class ExternalParams(ctypes.Structure):
+    """Mirror of `ExternalParams` in csrc/external.cu, field for field."""
+
+    _fields_ = [
+        ("max_depth", ctypes.c_int), ("num_lights", ctypes.c_int),
+        ("light_stride", ctypes.c_int), ("motion", ctypes.c_int),
+        ("shadow_tmin", ctypes.c_float), ("shadow_eps", ctypes.c_float),
+        ("pick_pdf", ctypes.c_float),
+        ("bg", ctypes.c_float * 3),
+    ]
+
+
 def _nvcc() -> str:
     for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
         if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):
@@ -74,23 +87,42 @@ def _digest() -> str:
 
 
 def build() -> tuple[Path, float]:
-    """Compile the library if no build of these exact sources exists.
-    Returns (library path, seconds spent compiling; 0.0 when reused)."""
+    """Compile the library if no build of these exact sources exists: one
+    nvcc per source in parallel, then one link. Returns (library path,
+    seconds spent compiling and linking; 0.0 when reused)."""
     out_dir = BUILD_ROOT / _digest()
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib, 0.0
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs = [out_dir / f"{Path(src).stem}.{tag}.o" for src in SOURCES]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in ([nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o",
+                          str(obj), str(CSRC / src)]
+                         for src, obj in zip(SOURCES, objs))]
+    log, failed = [], []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out + err)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} ({proc.returncode}):\n{err}")
+    tmp = out_dir / f"{LIB_NAME}.{tag}"
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link ({proc.returncode}):\n{proc.stderr}")
     seconds = time.perf_counter() - t0
-    (out_dir / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    (out_dir / "build.log").write_text("\n".join(log))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, lib)
     return lib, seconds
 
@@ -108,6 +140,13 @@ def library() -> ctypes.CDLL:
         ci, ctypes.POINTER(RefillParams), vp, vp, vp, ci, vp, vp, vp, vp, vp,
         vp, vp, vp, vp]
     lib.rt3c_trace_shade_refill.restype = ci
+    lib.rt3c_mt_trace_motion.argtypes = [ci, ci, vp, vp, ci, vp, vp, vp, vp,
+                                         vp, ci, ci, vp, vp]
+    lib.rt3c_mt_trace_motion.restype = ci
+    lib.rt3c_external_shade.argtypes = [
+        ci, ctypes.POINTER(ExternalParams), vp, vp, vp, vp, ci, vp, ci, vp,
+        vp, vp, vp]
+    lib.rt3c_external_shade.restype = ci
     return lib
 
 

@@ -1,12 +1,15 @@
-// Moller-Trumbore test and the two-level tile-culled sweep, shared by the
-// MT kernels (mt_kernels.cu) and the refill megakernel (megakernel.cu).
+// Moller-Trumbore tests and the two-level tile-culled sweep, shared by the
+// MT kernels (mt_kernels.cu: K1/K2 static, K3 motion) and the refill
+// megakernel (megakernel.cu).
 //
 // Replaces the Pallas helpers of rendertoy3c_tpu/trace/pallas_mt.py:
-// _mt_test_cols (:119), _tile_box_hits (:175), _culled_sweep (:195) and
-// _inv_cols (:247). One thread carries one ray; a 256-thread block is one
-// ray tile (RAY_TILE), and the block walks the triangle tiles in order,
-// staging each [9, CT] tile in shared memory so every thread reads the
-// same triangle at the same time (a broadcast, no bank conflicts).
+// _mt_test_cols (:119), _mt_test_motion (:502), _tile_box_hits (:175),
+// _culled_sweep (:195) and _inv_cols (:247). One thread carries one ray; a
+// block is one ray tile (RAY_TILE = 256 static, MOTION_RAY_TILE = 128
+// motion), and the block walks the triangle tiles in order, staging each
+// [9, CT] tile (both keys' tiles for motion) in shared memory so every
+// thread reads the same triangle at the same time (a broadcast, no bank
+// conflicts).
 //
 // Float order: every expression keeps the left-to-right order of the JAX
 // code, and the build passes --fmad=false, so no a*b+c is contracted.
@@ -18,6 +21,7 @@
 namespace rt3c {
 
 constexpr int RAY_TILE = 256;
+constexpr int MOTION_RAY_TILE = 128;
 constexpr int SUPER_TILE = 8;
 constexpr int MAX_CT = 512;
 constexpr float BIG = 1e30f;
@@ -38,6 +42,17 @@ struct Soup {
   int ct;
 };
 
+// The 2-key soup of build_motion_soup: both keys tiled alike, and the
+// union of both keys' boxes for the cull.
+struct MotionSoup {
+  const float* tris0;
+  const float* tris1;
+  const float* aabb;
+  const float* super_aabb;
+  int n_tiles;
+  int ct;
+};
+
 __device__ __forceinline__ Ray load_ray(const float* rays, int i) {
   const float4* p = reinterpret_cast<const float4*>(rays + 8 * (size_t)i);
   float4 a = p[0];
@@ -49,17 +64,13 @@ __device__ __forceinline__ float inv_dir(float d) {
   return fabsf(d) > 1e-20f ? 1.0f / d : BIG;
 }
 
-// One ray x one triangle of a staged tile (tile = smem [9][ct]).
-// Returns the hit predicate of _mt_test_cols with `tmax` as the upper bound.
-__device__ __forceinline__ bool mt_test(const Ray& r, float tmax,
-                                        const float* tile, int ct, int j,
-                                        float& t, float& u, float& v) {
-  const float v0x = tile[0 * ct + j], v0y = tile[1 * ct + j],
-              v0z = tile[2 * ct + j];
-  const float e1x = tile[3 * ct + j], e1y = tile[4 * ct + j],
-              e1z = tile[5 * ct + j];
-  const float e2x = tile[6 * ct + j], e2y = tile[7 * ct + j],
-              e2z = tile[8 * ct + j];
+// One ray x one triangle (v0, e1, e2). Returns the hit predicate of
+// _mt_test_cols with `tmax` as the upper bound.
+__device__ __forceinline__ bool mt_test_tri(const Ray& r, float tmax,
+                                            float v0x, float v0y, float v0z,
+                                            float e1x, float e1y, float e1z,
+                                            float e2x, float e2y, float e2z,
+                                            float& t, float& u, float& v) {
   // pvec = d x e2
   const float px = r.dy * e2z - r.dz * e2y;
   const float py = r.dz * e2x - r.dx * e2z;
@@ -80,6 +91,34 @@ __device__ __forceinline__ bool mt_test(const Ray& r, float tmax,
   t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
   return ok && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) &&
          (t > r.tmin) && (t < tmax);
+}
+
+// Triangle j of a staged tile (tile = smem [9][ct]).
+__device__ __forceinline__ bool mt_test(const Ray& r, float tmax,
+                                        const float* tile, int ct, int j,
+                                        float& t, float& u, float& v) {
+  return mt_test_tri(r, tmax, tile[0 * ct + j], tile[1 * ct + j],
+                     tile[2 * ct + j], tile[3 * ct + j], tile[4 * ct + j],
+                     tile[5 * ct + j], tile[6 * ct + j], tile[7 * ct + j],
+                     tile[8 * ct + j], t, u, v);
+}
+
+// _mt_test_motion: triangle j lerped to the ray's time, component by
+// component, r0 + (r1 - r0) * time.
+__device__ __forceinline__ bool mt_test_motion(const Ray& r, float tmax,
+                                               float time, const float* tile0,
+                                               const float* tile1, int ct,
+                                               int j, float& t, float& u,
+                                               float& v) {
+  float c[9];
+#pragma unroll
+  for (int q = 0; q < 9; ++q) {
+    const float r0 = tile0[q * ct + j];
+    const float r1 = tile1[q * ct + j];
+    c[q] = r0 + (r1 - r0) * time;
+  }
+  return mt_test_tri(r, tmax, c[0], c[1], c[2], c[3], c[4], c[5], c[6], c[7],
+                     c[8], t, u, v);
 }
 
 // Slab test of _tile_box_hits for one ray. The min/max form alone passes
@@ -109,10 +148,12 @@ __device__ __forceinline__ bool block_box_vote(const float* box, const Ray& r,
   return __syncthreads_or(box_hit(box, r, ix, iy, iz, tcur)) != 0;
 }
 
-// Stage tile k of the soup into shared memory (every thread participates).
-__device__ __forceinline__ void stage_tile(const Soup& s, int k, float* smem) {
-  const int n = 9 * s.ct;
-  const float* src = s.tris + (size_t)k * n;
+// Stage tile k of a [n_tiles, 9, ct] table into shared memory (every
+// thread participates).
+__device__ __forceinline__ void stage_tile(const float* tris, int k, int ct,
+                                           float* smem) {
+  const int n = 9 * ct;
+  const float* src = tris + (size_t)k * n;
   __syncthreads();  // the previous tile's readers are done
   for (int i = threadIdx.x; i < n; i += blockDim.x) smem[i] = src[i];
   __syncthreads();
@@ -121,100 +162,152 @@ __device__ __forceinline__ void stage_tile(const Soup& s, int k, float* smem) {
 // _culled_sweep: visits the triangle tiles a block's rays may hit, in tile
 // order. `live` (block-uniform) is the compaction gate: tiles of rays at or
 // past the live count skip the whole sweep. tcur() is the ray's current
-// upper t bound, visit(tile_smem, k) runs the per-thread test of tile k.
-// The specialisation by tile count matches the JAX sweep: one tile runs
-// unconditionally, up to 16 tiles use one cull level, more use two.
-template <class Tcur, class Visit>
-__device__ __forceinline__ void culled_sweep(const Soup& s, float* smem,
-                                             const Ray& r, float ix, float iy,
-                                             float iz, bool live, Tcur tcur,
-                                             Visit visit) {
+// upper t bound, stage(k) stages tile k, visit(k) runs the per-thread test
+// of the staged tile k. The specialisation by tile count matches the JAX
+// sweep: one tile runs unconditionally, up to 16 tiles use one cull level,
+// more use two.
+template <class Tcur, class Stage, class Visit>
+__device__ __forceinline__ void culled_sweep(const float* aabb,
+                                             const float* super_aabb,
+                                             int n_tiles, const Ray& r,
+                                             bool live, Tcur tcur,
+                                             Stage stage, Visit visit) {
   if (!live) return;
-  if (s.n_tiles == 1) {
-    stage_tile(s, 0, smem);
-    visit(smem, 0);
+  const float ix = inv_dir(r.dx), iy = inv_dir(r.dy), iz = inv_dir(r.dz);
+  if (n_tiles == 1) {
+    stage(0);
+    visit(0);
     return;
   }
-  if (s.n_tiles <= 2 * SUPER_TILE) {
-    for (int k = 0; k < s.n_tiles; ++k) {
-      if (block_box_vote(s.aabb + 8 * k, r, ix, iy, iz, tcur())) {
-        stage_tile(s, k, smem);
-        visit(smem, k);
+  if (n_tiles <= 2 * SUPER_TILE) {
+    for (int k = 0; k < n_tiles; ++k) {
+      if (block_box_vote(aabb + 8 * k, r, ix, iy, iz, tcur())) {
+        stage(k);
+        visit(k);
       }
     }
     return;
   }
-  const int n_super = (s.n_tiles + SUPER_TILE - 1) / SUPER_TILE;
+  const int n_super = (n_tiles + SUPER_TILE - 1) / SUPER_TILE;
   for (int ks = 0; ks < n_super; ++ks) {
-    if (!block_box_vote(s.super_aabb + 8 * ks, r, ix, iy, iz, tcur()))
+    if (!block_box_vote(super_aabb + 8 * ks, r, ix, iy, iz, tcur()))
       continue;
     for (int j = 0; j < SUPER_TILE; ++j) {
       const int k = ks * SUPER_TILE + j;
-      if (block_box_vote(s.aabb + 8 * k, r, ix, iy, iz, tcur()) &&
-          k < s.n_tiles) {
-        stage_tile(s, k, smem);
-        visit(smem, k);
+      if (block_box_vote(aabb + 8 * k, r, ix, iy, iz, tcur()) &&
+          k < n_tiles) {
+        stage(k);
+        visit(k);
       }
     }
   }
 }
 
-// Closest hit of one ray (carried in `best`): min t, lowest prim at
-// equal t. The running best_t bounds each test, so a later triangle at the
-// same t never replaces an earlier (lower) prim.
+// Closest hit of one ray: min t, lowest prim at equal t. The running
+// best_t bounds each test, so a later triangle at the same t never
+// replaces an earlier (lower) prim. test(j, tmax, t, u, v) tests triangle
+// j of the staged tile. Miss lanes keep t = tmax.
 struct ClosestHit {
   float t, prim, u, v;
 };
 
-__device__ __forceinline__ void closest_tile(const Ray& r, const float* tile,
-                                             int ct, int prim_base,
-                                             ClosestHit& best) {
-  for (int j = 0; j < ct; ++j) {
-    float t, u, v;
-    if (mt_test(r, best.t, tile, ct, j, t, u, v)) {
-      best.t = t;
-      best.prim = (float)(prim_base + j);
-      best.u = u;
-      best.v = v;
-    }
-  }
-}
-
-__device__ __forceinline__ bool any_tile(const Ray& r, const float* tile,
-                                         int ct) {
-  for (int j = 0; j < ct; ++j) {
-    float t, u, v;
-    if (mt_test(r, r.tmax, tile, ct, j, t, u, v)) return true;
-  }
-  return false;
-}
-
-// Full closest sweep (the _closest_kernel body). Miss lanes keep t = tmax.
-__device__ __forceinline__ ClosestHit sweep_closest(const Soup& s, float* smem,
-                                                    const Ray& r, bool live) {
-  const float ix = inv_dir(r.dx), iy = inv_dir(r.dy), iz = inv_dir(r.dz);
+template <class Stage, class Test>
+__device__ __forceinline__ ClosestHit sweep_closest_with(
+    const float* aabb, const float* super_aabb, int n_tiles, int ct,
+    const Ray& r, bool live, Stage stage, Test test) {
   ClosestHit best{r.tmax, -1.0f, 0.0f, 0.0f};
   culled_sweep(
-      s, smem, r, ix, iy, iz, live, [&]() { return best.t; },
-      [&](const float* tile, int k) {
-        closest_tile(r, tile, s.ct, k * s.ct, best);
+      aabb, super_aabb, n_tiles, r, live, [&]() { return best.t; }, stage,
+      [&](int k) {
+        for (int j = 0; j < ct; ++j) {
+          float t, u, v;
+          if (test(j, best.t, t, u, v)) {
+            best.t = t;
+            best.prim = (float)(k * ct + j);
+            best.u = u;
+            best.v = v;
+          }
+        }
       });
   return best;
 }
 
-// Full any-hit sweep (the _any_kernel body). `test` (per thread) skips the
-// triangle tests of a ray that cannot hit anything (tmax <= tmin); the ray
-// still takes part in the block's cull votes, as in the JAX sweep.
-__device__ __forceinline__ bool sweep_any(const Soup& s, float* smem,
-                                          const Ray& r, bool live, bool test) {
-  const float ix = inv_dir(r.dx), iy = inv_dir(r.dy), iz = inv_dir(r.dz);
+// Any hit of one ray below its tmax. `want` (per thread) skips the
+// triangle tests of a ray that needs none (a lane with no shadow ray); the
+// ray still takes part in the block's cull votes, as in the JAX sweep.
+template <class Stage, class Test>
+__device__ __forceinline__ bool sweep_any_with(const float* aabb,
+                                               const float* super_aabb,
+                                               int n_tiles, int ct,
+                                               const Ray& r, bool live,
+                                               bool want, Stage stage,
+                                               Test test) {
   bool occ = false;
   culled_sweep(
-      s, smem, r, ix, iy, iz, live, [&]() { return r.tmax; },
-      [&](const float* tile, int) {
-        if (test && !occ) occ = any_tile(r, tile, s.ct);
+      aabb, super_aabb, n_tiles, r, live, [&]() { return r.tmax; }, stage,
+      [&](int) {
+        if (!want || occ) return;
+        for (int j = 0; j < ct; ++j) {
+          float t, u, v;
+          if (test(j, r.tmax, t, u, v)) {
+            occ = true;
+            return;
+          }
+        }
       });
   return occ;
+}
+
+// The static sweeps (the _closest_kernel / _any_kernel bodies).
+__device__ __forceinline__ ClosestHit sweep_closest(const Soup& s, float* smem,
+                                                    const Ray& r, bool live) {
+  return sweep_closest_with(
+      s.aabb, s.super_aabb, s.n_tiles, s.ct, r, live,
+      [&](int k) { stage_tile(s.tris, k, s.ct, smem); },
+      [&](int j, float tmax, float& t, float& u, float& v) {
+        return mt_test(r, tmax, smem, s.ct, j, t, u, v);
+      });
+}
+
+__device__ __forceinline__ bool sweep_any(const Soup& s, float* smem,
+                                          const Ray& r, bool live, bool want) {
+  return sweep_any_with(
+      s.aabb, s.super_aabb, s.n_tiles, s.ct, r, live, want,
+      [&](int k) { stage_tile(s.tris, k, s.ct, smem); },
+      [&](int j, float tmax, float& t, float& u, float& v) {
+        return mt_test(r, tmax, smem, s.ct, j, t, u, v);
+      });
+}
+
+// The motion sweeps (the _closest_kernel_motion / _any_kernel_motion
+// bodies): both keys' tiles staged, triangles lerped to `time`.
+__device__ __forceinline__ ClosestHit sweep_closest_motion(
+    const MotionSoup& s, float* smem0, float* smem1, const Ray& r, float time,
+    bool live) {
+  return sweep_closest_with(
+      s.aabb, s.super_aabb, s.n_tiles, s.ct, r, live,
+      [&](int k) {
+        stage_tile(s.tris0, k, s.ct, smem0);
+        stage_tile(s.tris1, k, s.ct, smem1);
+      },
+      [&](int j, float tmax, float& t, float& u, float& v) {
+        return mt_test_motion(r, tmax, time, smem0, smem1, s.ct, j, t, u, v);
+      });
+}
+
+__device__ __forceinline__ bool sweep_any_motion(const MotionSoup& s,
+                                                 float* smem0, float* smem1,
+                                                 const Ray& r, float time,
+                                                 bool live, bool want) {
+  return sweep_any_with(
+      s.aabb, s.super_aabb, s.n_tiles, s.ct, r, live, want,
+      [&](int k) {
+        stage_tile(s.tris0, k, s.ct, smem0);
+        stage_tile(s.tris1, k, s.ct, smem1);
+      },
+      [&](int j, float tmax, float& t, float& u, float& v) {
+        return mt_test_motion(r, tmax, time, smem0, smem1, s.ct, j, t, u, v);
+      });
 }
 
 }  // namespace rt3c

@@ -67,6 +67,26 @@ def rnd_masked(state: torch.Tensor, mask: torch.Tensor):
     return torch.where(mask, new, state), u
 
 
+def sample_start(pixel, subframe_index: int, seed_rot: int, samp_idx,
+                 jump: torch.Tensor):
+    """(state, jx, jy): the stream of sample `samp_idx` of each pixel (both
+    int64 [R]) after its two jitter draws (raygen.cu:32-39). The stream is
+    tea(pixel, subframe) XOR seed_rot, moved past the two draws of each
+    earlier sample by row samp_idx of `jump` ([spp, 2] int64 (a, c) rows,
+    integrate/path.py `_lcg_advance_table`); indices outside [1, spp) take
+    row 0."""
+    st = tea(pixel, subframe_index)
+    if seed_rot:
+        st = st ^ (seed_rot & M32)
+    spp = jump.shape[0]
+    aj = jump[torch.where((samp_idx >= 1) & (samp_idx < spp), samp_idx,
+                          torch.zeros_like(samp_idx))]
+    st = (mul32(aj[:, 0], st) + aj[:, 1]) & M32
+    st, jx = rnd(st)
+    st, jy = rnd(st)
+    return st, jx, jy
+
+
 def rot_seed(seed, frame) -> torch.Tensor:
     """cuda/random.h:74-77."""
     seed = as_u32(seed)

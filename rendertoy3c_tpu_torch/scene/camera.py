@@ -12,6 +12,9 @@ from dataclasses import dataclass
 from typing import NamedTuple
 
 import numpy as np
+import torch
+
+from ..math.vec import normalize3
 
 
 class CameraParams(NamedTuple):
@@ -48,3 +51,20 @@ class Camera:
         u, v, w = self.uvw_frame()
         return CameraParams(eye=np.asarray(self.eye, np.float32), u=u, v=v,
                             w=w)
+
+
+def camera_ray_dir(scf, pixel, width: int, height: int, jx, jy):
+    """Jittered pinhole ray direction through each `pixel` (int64 [R],
+    row-major from the bottom row) as (dx, dy, dz) (raygen.cu:32-39); scf is
+    (eye, u, v, w) as 12 floats and the origin is the eye. Divides by
+    tensors: CUDA torch turns division by a Python scalar into a
+    multiplication by its reciprocal, which the kernels do not do."""
+    px = (pixel % width).to(torch.float32)
+    py = (pixel // width).to(torch.float32)
+    dx = 2.0 * ((px + jx) / torch.full_like(jx, float(width))) - 1.0
+    dy = 2.0 * ((py + jy) / torch.full_like(jy, float(height))) - 1.0
+    cdx = dx * scf[3] + dy * scf[6] + scf[9]
+    cdy = dx * scf[4] + dy * scf[7] + scf[10]
+    cdz = dx * scf[5] + dy * scf[8] + scf[11]
+    cdx, cdy, cdz, _ = normalize3(cdx, cdy, cdz)
+    return cdx, cdy, cdz

@@ -46,6 +46,9 @@ class MaterialTable(NamedTuple):
     diffuse: np.ndarray  # [M, 3] f32
     emission: np.ndarray  # [M, 3] f32
     diffuse_tex: np.ndarray  # [M] int32, -1 = none
+    emissive_tex: np.ndarray  # [M] int32
+    roughness_tex: np.ndarray  # [M] int32
+    normal_tex: np.ndarray  # [M] int32
 
 
 @dataclass
@@ -64,7 +67,9 @@ class Scene:
 
     @property
     def textured(self) -> bool:
-        return bool((self.materials.diffuse_tex >= 0).any())
+        m = self.materials
+        return bool(any((t >= 0).any() for t in (
+            m.diffuse_tex, m.emissive_tex, m.roughness_tex, m.normal_tex)))
 
 
 def _apply_affine(m: np.ndarray, pts: np.ndarray) -> np.ndarray:
@@ -88,6 +93,12 @@ def build_material_table(materials: Sequence[Material]) -> MaterialTable:
         emission=np.asarray([m.emissive for m in materials], np.float32),
         diffuse_tex=np.asarray([m.diffuse_texture_id for m in materials],
                                np.int32),
+        emissive_tex=np.asarray([m.emissive_texture_id for m in materials],
+                                np.int32),
+        roughness_tex=np.asarray([m.roughness_texture_id for m in materials],
+                                 np.int32),
+        normal_tex=np.asarray([m.normal_texture_id for m in materials],
+                              np.int32),
     )
 
 

@@ -1,9 +1,11 @@
 """Ray-triangle intersection and the brute-force tracers.
 
-Port of rendertoy3c_tpu/trace/intersect.py for static scenes: every ray
-tests every triangle, chunk by chunk. Triangles are two-sided, barycentrics
-follow OptiX (P = (1-u-v)*p0 + u*p1 + v*p2), and the closest hit takes the
-lowest prim among equal t. This is the oracle the MT kernels are held to.
+Port of rendertoy3c_tpu/trace/intersect.py: every ray tests every
+triangle, chunk by chunk. Triangles are two-sided, barycentrics follow
+OptiX (P = (1-u-v)*p0 + u*p1 + v*p2), and the closest hit takes the lowest
+prim among equal t. Motion scenes lerp each triangle to the ray's time in
+[0, 1] between its keys, `a + (b - a) * frac` (`_tri_chunk`, :75-100).
+This is the oracle the MT kernels are held to.
 """
 from __future__ import annotations
 
@@ -47,19 +49,45 @@ def ray_triangle(o, d, v0, e1, e2, tmin, tmax):
     return t, u, v, hit
 
 
-def _static_geom(scene, device):
-    if scene.num_keys != 1:
-        raise NotImplementedError(
-            "motion (num_keys > 1) is not ported yet (ROADMAP A11)")
+def _geom(scene, device):
     g = scene.geom
-    return tuple(torch.as_tensor(a[0], device=device)
-                 for a in (g.v0, g.e1, g.e2))
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in (g.v0, g.e1, g.e2))  # each [K, F, 3]
 
 
-def trace_closest_bruteforce(scene, o, d, tmin, tmax, chunk: int = 256) -> Hit:
-    """Closest hit over all real faces, carrying the best hit over chunks."""
-    v0, e1, e2 = _static_geom(scene, o.device)
+def _tri_chunk(geom, start: int, stop: int, time):
+    """Triangles [start, stop) as (v0, e1, e2), each [1, C, 3] for a static
+    scene or [R, C, 3] lerped to each ray's time for a motion scene."""
+    k = geom[0].shape[0]
+    if k == 1:
+        return tuple(a[0, start:stop][None] for a in geom)
+    ts = time * float(k - 1)
+    k0 = torch.clamp(torch.floor(ts).to(torch.int64), 0, k - 2)
+    frac = (ts - k0.to(torch.float32))[:, None, None]
+    out = []
+    for a in geom:
+        chunk = a[:, start:stop]  # [K, C, 3]
+        lo, hi = chunk[k0], chunk[torch.clamp(k0 + 1, max=k - 1)]
+        out.append(lo + (hi - lo) * frac)
+    return tuple(out)
+
+
+def _times(scene, time, r, device):
+    if scene.num_keys == 1:
+        return None
+    if time is None:
+        raise ValueError("a motion scene needs per-ray times")
+    return torch.as_tensor(time, dtype=torch.float32,
+                           device=device).expand(r)
+
+
+def trace_closest_bruteforce(scene, o, d, tmin, tmax, time=None,
+                             chunk: int = 256) -> Hit:
+    """Closest hit over all real faces, carrying the best hit over chunks.
+    `time` ([R] or scalar in [0, 1]) is needed for motion scenes."""
+    geom = _geom(scene, o.device)
     r = o.shape[0]
+    time = _times(scene, time, r, o.device)
     tmin = torch.as_tensor(tmin, dtype=torch.float32,
                            device=o.device).expand(r)
     tmax = torch.as_tensor(tmax, dtype=torch.float32,
@@ -70,10 +98,9 @@ def trace_closest_bruteforce(scene, o, d, tmin, tmax, chunk: int = 256) -> Hit:
     best_v = torch.zeros(r, dtype=torch.float32, device=o.device)
     for start in range(0, scene.num_faces, chunk):
         stop = min(start + chunk, scene.num_faces)
-        t, u, v, hit = ray_triangle(o[:, None], d[:, None],
-                                    v0[None, start:stop], e1[None, start:stop],
-                                    e2[None, start:stop], tmin[:, None],
-                                    tmax[:, None])
+        v0, e1, e2 = _tri_chunk(geom, start, stop, time)
+        t, u, v, hit = ray_triangle(o[:, None], d[:, None], v0, e1, e2,
+                                    tmin[:, None], tmax[:, None])
         t = torch.where(hit, t, torch.full_like(t, float("inf")))
         t_c, idx = torch.min(t, dim=1)
         # torch.min's index is the first minimum: the lowest prim at equal t
@@ -88,11 +115,12 @@ def trace_closest_bruteforce(scene, o, d, tmin, tmax, chunk: int = 256) -> Hit:
     return Hit(t=best_t, prim=best_prim, u=best_u, v=best_v)
 
 
-def trace_any_bruteforce(scene, o, d, tmin, tmax,
+def trace_any_bruteforce(scene, o, d, tmin, tmax, time=None,
                          chunk: int = 256) -> torch.Tensor:
     """Any-hit occlusion probe (traceOcclusion, shader_common.h:110-134)."""
-    v0, e1, e2 = _static_geom(scene, o.device)
+    geom = _geom(scene, o.device)
     r = o.shape[0]
+    time = _times(scene, time, r, o.device)
     tmin = torch.as_tensor(tmin, dtype=torch.float32,
                            device=o.device).expand(r)
     tmax = torch.as_tensor(tmax, dtype=torch.float32,
@@ -100,9 +128,8 @@ def trace_any_bruteforce(scene, o, d, tmin, tmax,
     occluded = torch.zeros(r, dtype=torch.bool, device=o.device)
     for start in range(0, scene.num_faces, chunk):
         stop = min(start + chunk, scene.num_faces)
-        _, _, _, hit = ray_triangle(o[:, None], d[:, None],
-                                    v0[None, start:stop], e1[None, start:stop],
-                                    e2[None, start:stop], tmin[:, None],
-                                    tmax[:, None])
+        v0, e1, e2 = _tri_chunk(geom, start, stop, time)
+        _, _, _, hit = ray_triangle(o[:, None], d[:, None], v0, e1, e2,
+                                    tmin[:, None], tmax[:, None])
         occluded |= hit.any(dim=1)
     return occluded

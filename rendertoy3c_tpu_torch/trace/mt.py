@@ -1,9 +1,13 @@
-"""Dense Moller-Trumbore tracers over a tiled triangle soup (K1/K2).
+"""Dense Moller-Trumbore tracers over a tiled triangle soup (K1/K2, K3).
 
-Port of rendertoy3c_tpu/trace/pallas_mt.py for static scenes:
-`build_tri_soup` (:70), the closest/any kernels `_closest_kernel` (:256) and
-`_any_kernel` (:302), and their entry points `trace_closest_mt` (:382) and
-`trace_any_mt` (:408).
+Port of rendertoy3c_tpu/trace/pallas_mt.py: `build_tri_soup` (:70), the
+static closest/any kernels `_closest_kernel` (:256) and `_any_kernel`
+(:302) with their entry points `trace_closest_mt` (:382) and
+`trace_any_mt` (:408); the 2-key motion kernels `_closest_kernel_motion`
+(:545) and `_any_kernel_motion` (:593) with `motion_union_aabbs` (:488),
+`_motion_cull_tables` (:620) and the entry points `trace_closest_mt_motion`
+(:693) and `trace_any_mt_motion` (:715); and `make_pallas_mt_tracer`
+(:420) as `make_mt_tracer`.
 
 `mt_closest` / `mt_any` take packed rays [R, 8] (o, d, tmin, tmax; R a
 multiple of 256) and a live-ray `count` (int32 [1] on the rays' device) and
@@ -11,6 +15,13 @@ return [R, 4]. On a CUDA tensor they launch the hand-written kernel
 (kernels/csrc/mt_kernels.cu); on a CPU tensor they run `closest_ref` /
 `any_ref`, the plain PyTorch versions of the same function. Ray tiles of
 256 at or past `count` skip the sweep and write the miss row.
+
+`mt_closest_motion` / `mt_any_motion` (K3) take the same rays plus a
+per-ray time [R] in [0, 1] and lerp each triangle between the key-0 and
+key-1 soups, `r0 + (r1 - r0) * time`; they cull by the union of both keys'
+boxes and skip ray tiles of 128 (MOTION_RAY_TILE) at or past `count`
+(kernels/csrc/mt_kernels.cu; plain versions `closest_motion_ref` /
+`any_motion_ref`).
 
 The plain versions sweep every tile densely; the kernels cull tiles by
 their boxes. Culling only skips tiles no ray of the block can hit, so both
@@ -27,6 +38,7 @@ from ..kernels import build as kbuild
 from .intersect import Hit
 
 RAY_TILE = 256
+MOTION_RAY_TILE = 128  # the motion kernels' ray tile (pallas_mt.py:485)
 TRI_TILE = 512
 SUPER_TILE = 8  # tri tiles per supertile (2-level cull)
 _BIG = 1e30
@@ -40,6 +52,16 @@ class TriSoup(NamedTuple):
     num_faces: int  # real faces (padding beyond is all-zero, never hit)
     aabb: torch.Tensor  # [ceil8(F/CT), 8] f32 per-tile lo.xyz hi.xyz pad2
     super_aabb: torch.Tensor  # [ceil8(F/CT)/8, 8] f32 supertile boxes
+
+
+class MotionSoup(NamedTuple):
+    """Both keys of a 2-key scene, tiled alike, with union cull boxes."""
+
+    tris0: torch.Tensor  # [F/CT, 9, CT] f32, key 0
+    tris1: torch.Tensor  # [F/CT, 9, CT] f32, key 1
+    num_faces: int
+    aabb: torch.Tensor  # union of both keys' tile boxes
+    super_aabb: torch.Tensor  # union of both keys' supertile boxes
 
 
 def _soup_arrays(geom, key: int = 0, num_faces: int | None = None):
@@ -91,12 +113,43 @@ def build_tri_soup(geom, device, key: int = 0,
                    super_aabb=torch.as_tensor(super_aabb, device=device))
 
 
-def mt_test(cols, tile: torch.Tensor, prim_base: int):
+def motion_union_aabbs(soup0: TriSoup, soup1: TriSoup):
+    """(aabb, super_aabb) covering both motion keys: a triangle lerped to
+    any time in [0, 1] stays inside the union of its endpoint boxes."""
+    def union(a, b):
+        return torch.cat([torch.minimum(a[:, 0:3], b[:, 0:3]),
+                          torch.maximum(a[:, 3:6], b[:, 3:6]), a[:, 6:8]],
+                         dim=1)
+
+    return (union(soup0.aabb, soup1.aabb),
+            union(soup0.super_aabb, soup1.super_aabb))
+
+
+def build_motion_soup(geom, device, num_faces: int | None = None
+                      ) -> MotionSoup:
+    """Both keys' soups and the union cull tables (`_motion_cull_tables`;
+    the boxes always exist here, so its cull-disabled branch is not
+    needed)."""
+    s0 = build_tri_soup(geom, device, key=0, num_faces=num_faces)
+    s1 = build_tri_soup(geom, device, key=1, num_faces=num_faces)
+    aabb, super_aabb = motion_union_aabbs(s0, s1)
+    return MotionSoup(tris0=s0.tris, tris1=s1.tris, num_faces=s0.num_faces,
+                      aabb=aabb.contiguous(), super_aabb=super_aabb.contiguous())
+
+
+def mt_test(cols, tile: torch.Tensor, prim_base: int, tile1=None,
+            tcol=None):
     """One Moller-Trumbore block: ray columns (each [R, 1]) against one
-    tile [9, CT]. Returns (t, u, v, hit, prim_f), each [R, CT]."""
+    tile [9, CT]. With `tile1` and `tcol` ([R, 1] times) each triangle
+    component is lerped per ray, `r0 + (r1 - r0) * t` (`_mt_test_motion`).
+    Returns (t, u, v, hit, prim_f), each [R, CT]."""
     ox, oy, oz, dx, dy, dz, tmin, tmax = cols
-    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = (tile[c][None]
-                                                   for c in range(9))
+    if tile1 is None:
+        rows = [tile[c][None] for c in range(9)]
+    else:
+        rows = [tile[c][None] + (tile1[c][None] - tile[c][None]) * tcol
+                for c in range(9)]
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = rows
     px = dy * e2z - dz * e2y
     py = dz * e2x - dx * e2z
     pz = dx * e2y - dy * e2x
@@ -120,25 +173,24 @@ def mt_test(cols, tile: torch.Tensor, prim_base: int):
     return t, u, v, hit, prim_f
 
 
-def live_rows(n: int, count: torch.Tensor) -> torch.Tensor:
-    """[n] bool: rays whose 256-ray tile starts before `count`."""
-    tile_start = (torch.arange(n, device=count.device) // RAY_TILE) * RAY_TILE
+def live_rows(n: int, count: torch.Tensor,
+              tile: int = RAY_TILE) -> torch.Tensor:
+    """[n] bool: rays whose `tile`-ray tile starts before `count`."""
+    tile_start = (torch.arange(n, device=count.device) // tile) * tile
     return tile_start < count.reshape(()).to(torch.int64)
 
 
-def closest_ref(rays: torch.Tensor, count: torch.Tensor,
-                soup: TriSoup) -> torch.Tensor:
-    """Plain version of K1: [R, 8] rays -> [R, 4] (t, prim_f, u, v), miss =
-    (tmax, -1, 0, 0). min t, lowest prim at equal t."""
+def _closest_dense(rays: torch.Tensor, n_tiles: int, test) -> torch.Tensor:
+    """Dense closest sweep: test(cols, k) -> (t, u, v, hit, prim_f) of tile
+    k; min t, lowest prim at equal t. Returns [R, 4] (t, prim_f, u, v)."""
     cols = tuple(rays[:, c:c + 1] for c in range(8))
     r = rays.shape[0]
     best_t = rays[:, 7].clone()
     best_prim = torch.full((r,), -1.0, dtype=torch.float32, device=rays.device)
     best_u = torch.zeros(r, dtype=torch.float32, device=rays.device)
     best_v = torch.zeros(r, dtype=torch.float32, device=rays.device)
-    ct = soup.tris.shape[2]
-    for k in range(soup.tris.shape[0]):
-        t, u, v, hit, prim_f = mt_test(cols, soup.tris[k], k * ct)
+    for k in range(n_tiles):
+        t, u, v, hit, prim_f = test(cols, k)
         t = torch.where(hit, t, torch.full_like(t, _BIG))
         t_c, idx = torch.min(t, dim=1)  # first minimum = lowest prim
         better = t_c < best_t
@@ -148,27 +200,72 @@ def closest_ref(rays: torch.Tensor, count: torch.Tensor,
                              best_u)
         best_v = torch.where(better, torch.gather(v, 1, idx[:, None])[:, 0],
                              best_v)
-    out = torch.stack([best_t, best_prim, best_u, best_v], dim=1)
-    miss = torch.stack([rays[:, 7], torch.full_like(best_t, -1.0),
-                        torch.zeros_like(best_t), torch.zeros_like(best_t)],
-                       dim=1)
-    return torch.where(live_rows(r, count)[:, None], out, miss)
+    return torch.stack([best_t, best_prim, best_u, best_v], dim=1)
+
+
+def _any_dense(rays: torch.Tensor, n_tiles: int, test) -> torch.Tensor:
+    """Dense any-hit sweep -> [R] bool."""
+    cols = tuple(rays[:, c:c + 1] for c in range(8))
+    occ = torch.zeros(rays.shape[0], dtype=torch.bool, device=rays.device)
+    for k in range(n_tiles):
+        occ |= test(cols, k)[3].any(dim=1)
+    return occ
+
+
+def _closest_out(rays, out, live):
+    miss = torch.stack([rays[:, 7], torch.full_like(out[:, 0], -1.0),
+                        torch.zeros_like(out[:, 0]),
+                        torch.zeros_like(out[:, 0])], dim=1)
+    return torch.where(live[:, None], out, miss)
+
+
+def _any_out(occ, live):
+    out = torch.zeros((occ.shape[0], 4), dtype=torch.float32,
+                      device=occ.device)
+    out[:, 0] = (occ & live).to(torch.float32)
+    return out
+
+
+def closest_ref(rays: torch.Tensor, count: torch.Tensor,
+                soup: TriSoup) -> torch.Tensor:
+    """Plain version of K1: [R, 8] rays -> [R, 4] (t, prim_f, u, v), miss =
+    (tmax, -1, 0, 0). min t, lowest prim at equal t."""
+    ct = soup.tris.shape[2]
+    out = _closest_dense(rays, soup.tris.shape[0],
+                         lambda cols, k: mt_test(cols, soup.tris[k], k * ct))
+    return _closest_out(rays, out, live_rows(rays.shape[0], count))
 
 
 def any_ref(rays: torch.Tensor, count: torch.Tensor,
             soup: TriSoup) -> torch.Tensor:
     """Plain version of K2: [R, 8] rays -> [R, 4], column 0 = occluded."""
-    cols = tuple(rays[:, c:c + 1] for c in range(8))
-    r = rays.shape[0]
-    occ = torch.zeros(r, dtype=torch.bool, device=rays.device)
     ct = soup.tris.shape[2]
-    for k in range(soup.tris.shape[0]):
-        _, _, _, hit, _ = mt_test(cols, soup.tris[k], k * ct)
-        occ |= hit.any(dim=1)
-    occ &= live_rows(r, count)
-    out = torch.zeros((r, 4), dtype=torch.float32, device=rays.device)
-    out[:, 0] = occ.to(torch.float32)
-    return out
+    occ = _any_dense(rays, soup.tris.shape[0],
+                     lambda cols, k: mt_test(cols, soup.tris[k], k * ct))
+    return _any_out(occ, live_rows(rays.shape[0], count))
+
+
+def _motion_test(time: torch.Tensor, msoup: MotionSoup):
+    tcol = time[:, None]
+    ct = msoup.tris0.shape[2]
+    return lambda cols, k: mt_test(cols, msoup.tris0[k], k * ct,
+                                   msoup.tris1[k], tcol)
+
+
+def closest_motion_ref(rays: torch.Tensor, time: torch.Tensor,
+                       count: torch.Tensor, msoup: MotionSoup) -> torch.Tensor:
+    """Plain version of K3 closest: rays [R, 8] at per-ray times [R] ->
+    [R, 4] as closest_ref; ray tiles of 128 past `count` miss."""
+    out = _closest_dense(rays, msoup.tris0.shape[0], _motion_test(time, msoup))
+    return _closest_out(rays, out,
+                        live_rows(rays.shape[0], count, MOTION_RAY_TILE))
+
+
+def any_motion_ref(rays: torch.Tensor, time: torch.Tensor,
+                   count: torch.Tensor, msoup: MotionSoup) -> torch.Tensor:
+    """Plain version of K3 any-hit: [R, 4], column 0 = occluded."""
+    occ = _any_dense(rays, msoup.tris0.shape[0], _motion_test(time, msoup))
+    return _any_out(occ, live_rows(rays.shape[0], count, MOTION_RAY_TILE))
 
 
 def _launch_mt(any_hit: bool, rays, count, soup: TriSoup) -> torch.Tensor:
@@ -207,14 +304,60 @@ def mt_any(rays: torch.Tensor, count: torch.Tensor,
     return out
 
 
+def _launch_mt_motion(any_hit: bool, rays, time, count,
+                      msoup: MotionSoup) -> torch.Tensor:
+    kbuild.require_cuda("mt_motion", rays, time, msoup.tris0, msoup.tris1,
+                        msoup.aabb, msoup.super_aabb)
+    kbuild.require_cuda("mt_motion", count, dtype=torch.int32)
+    r = rays.shape[0]
+    if (rays.ndim != 2 or rays.shape[1] != 8 or r % MOTION_RAY_TILE
+            or time.shape != (r,)):
+        raise ValueError("mt_motion: rays [R, 8] and time [R] with R a "
+                         "multiple of 128")
+    out = torch.empty((r, 4), dtype=torch.float32, device=rays.device)
+    index, stream = kbuild.launch_target(rays.device)
+    err = kbuild.library().rt3c_mt_trace_motion(
+        index, int(any_hit), rays.data_ptr(), time.data_ptr(), r,
+        count.data_ptr(), msoup.tris0.data_ptr(), msoup.tris1.data_ptr(),
+        msoup.aabb.data_ptr(), msoup.super_aabb.data_ptr(),
+        msoup.tris0.shape[0], msoup.tris0.shape[2], out.data_ptr(), stream)
+    kbuild.check(err, "mt_any_motion" if any_hit else "mt_closest_motion")
+    return out
+
+
+def mt_closest_motion(rays: torch.Tensor, time: torch.Tensor,
+                      count: torch.Tensor, msoup: MotionSoup) -> torch.Tensor:
+    """K3 closest wrapper: the CUDA kernel for CUDA rays,
+    `closest_motion_ref` on the CPU."""
+    if rays.device.type == "cpu":
+        return closest_motion_ref(rays, time, count, msoup)
+    out = _launch_mt_motion(False, rays, time, count, msoup)
+    mt_closest_motion.launches += 1
+    return out
+
+
+def mt_any_motion(rays: torch.Tensor, time: torch.Tensor,
+                  count: torch.Tensor, msoup: MotionSoup) -> torch.Tensor:
+    """K3 any-hit wrapper: the CUDA kernel for CUDA rays, `any_motion_ref`
+    on the CPU."""
+    if rays.device.type == "cpu":
+        return any_motion_ref(rays, time, count, msoup)
+    out = _launch_mt_motion(True, rays, time, count, msoup)
+    mt_any_motion.launches += 1
+    return out
+
+
 mt_closest.launches = 0
 mt_any.launches = 0
+mt_closest_motion.launches = 0
+mt_any_motion.launches = 0
 
 
-def pack_rays(o, d, tmin, tmax):
-    """[R, 3] o/d + scalar or [R] tmin/tmax -> ([R_pad, 8] rays, R)."""
+def pack_rays(o, d, tmin, tmax, tile: int = RAY_TILE):
+    """[R, 3] o/d + scalar or [R] tmin/tmax -> ([R_pad, 8] rays, R), R_pad
+    a multiple of `tile`."""
     r = o.shape[0]
-    r_pad = -(-r // RAY_TILE) * RAY_TILE
+    r_pad = -(-r // tile) * tile
     opts = dict(dtype=torch.float32, device=o.device)
     tmin = torch.as_tensor(tmin, **opts).expand(r)
     tmax = torch.as_tensor(tmax, **opts).expand(r)
@@ -227,17 +370,17 @@ def pack_rays(o, d, tmin, tmax):
 
 
 def _count_tensor(count, r, device):
+    if isinstance(count, torch.Tensor):
+        return count.reshape(1).to(device=device, dtype=torch.int32)
     return torch.as_tensor([r if count is None else count],
                            dtype=torch.int32, device=device)
 
 
-def trace_closest_mt(soup: TriSoup, o, d, tmin, tmax, *, count=None) -> Hit:
-    """Closest hit over the soup; only the first `count` rays are live."""
-    rays, r = pack_rays(o, d, tmin, tmax)
-    out = mt_closest(rays, _count_tensor(count, r, o.device), soup)[:r]
+def _to_hit(out, rays, r, num_faces) -> Hit:
+    out = out[:r]
     t, prim_f = out[:, 0], out[:, 1]
     # hits on padding faces (prim >= num_faces) count as misses
-    valid = (prim_f >= 0.0) & (prim_f < soup.num_faces) & (t < _BIG)
+    valid = (prim_f >= 0.0) & (prim_f < num_faces) & (t < _BIG)
     zero = torch.zeros_like(t)
     return Hit(t=torch.where(valid, t, rays[:r, 7]),
                prim=torch.where(valid, prim_f.to(torch.int32),
@@ -246,8 +389,81 @@ def trace_closest_mt(soup: TriSoup, o, d, tmin, tmax, *, count=None) -> Hit:
                v=torch.where(valid, out[:, 3], zero))
 
 
+def _trace(fn, table, o, d, tmin, tmax, count, time):
+    """Pack the rays (and times, for a motion table) and launch fn."""
+    tile = RAY_TILE if time is None else MOTION_RAY_TILE
+    rays, r = pack_rays(o, d, tmin, tmax, tile)
+    c = _count_tensor(count, r, o.device)
+    if time is None:
+        return fn(rays, c, table), rays, r
+    t = _pack_time(time, r, rays.shape[0], o.device)
+    return fn(rays, t, c, table), rays, r
+
+
+def _closest(fn, table, o, d, tmin, tmax, count, time=None) -> Hit:
+    out, rays, r = _trace(fn, table, o, d, tmin, tmax, count, time)
+    return _to_hit(out, rays, r, table.num_faces)
+
+
+def _any(fn, table, o, d, tmin, tmax, count, time=None) -> torch.Tensor:
+    out, _, r = _trace(fn, table, o, d, tmin, tmax, count, time)
+    return out[:r, 0] > 0.0
+
+
+def _pack_time(time, r, r_pad, device):
+    t = torch.zeros(r_pad, dtype=torch.float32, device=device)
+    t[:r] = torch.as_tensor(time, dtype=torch.float32, device=device)
+    return t
+
+
+def trace_closest_mt(soup: TriSoup, o, d, tmin, tmax, *, count=None) -> Hit:
+    """Closest hit over the soup; only the first `count` rays are live."""
+    return _closest(mt_closest, soup, o, d, tmin, tmax, count)
+
+
 def trace_any_mt(soup: TriSoup, o, d, tmin, tmax, *, count=None):
     """Any-hit occlusion over the soup -> [R] bool."""
-    rays, r = pack_rays(o, d, tmin, tmax)
-    out = mt_any(rays, _count_tensor(count, r, o.device), soup)
-    return out[:r, 0] > 0.0
+    return _any(mt_any, soup, o, d, tmin, tmax, count)
+
+
+def trace_closest_mt_motion(msoup: MotionSoup, o, d, tmin, tmax, time, *,
+                            count=None) -> Hit:
+    """Closest hit over the 2-key soup at per-ray times in [0, 1]."""
+    return _closest(mt_closest_motion, msoup, o, d, tmin, tmax, count, time)
+
+
+def trace_any_mt_motion(msoup: MotionSoup, o, d, tmin, tmax, time, *,
+                        count=None):
+    """Any-hit occlusion over the 2-key soup -> [R] bool."""
+    return _any(mt_any_motion, msoup, o, d, tmin, tmax, count, time)
+
+
+def make_mt_tracer(scene, device, plain: bool = False):
+    """(closest, any_hit) over the MT kernels, each called as
+    f(o, d, tmin, tmax, time, count=None): K1/K2 for a static scene (time
+    ignored), K3 for a 2-key scene. Only the real faces enter the soup.
+    plain=True runs the kernels' plain versions on any device."""
+    if scene.num_keys > 2:
+        raise NotImplementedError(
+            "the MT tracers take at most 2 motion keys; more keys need the "
+            "N-key brute tracer (ROADMAP A5)")
+    device = torch.device(device)
+    if scene.num_keys == 2:
+        table = build_motion_soup(scene.geom, device,
+                                  num_faces=scene.num_faces)
+        fns = ((closest_motion_ref, any_motion_ref) if plain
+               else (mt_closest_motion, mt_any_motion))
+    else:
+        table = build_tri_soup(scene.geom, device, num_faces=scene.num_faces)
+        fns = (closest_ref, any_ref) if plain else (mt_closest, mt_any)
+    motion = scene.num_keys == 2
+
+    def closest(o, d, tmin, tmax, time, count=None):
+        return _closest(fns[0], table, o, d, tmin, tmax, count,
+                        time if motion else None)
+
+    def any_hit(o, d, tmin, tmax, time, count=None):
+        return _any(fns[1], table, o, d, tmin, tmax, count,
+                    time if motion else None)
+
+    return closest, any_hit

@@ -1,13 +1,18 @@
-"""The fused pool pipeline: shade tables, the slice gate, and the
-in-kernel-refill megakernel (K4).
+"""The pool pipelines: shade tables, the slice gates, the in-kernel-refill
+megakernel (K4) and the external shade kernel (K6).
 
-Port of rendertoy3c_tpu/trace/pallas_shade.py for the slice's
-configuration: static (one key), untextured, all-diffuse (the Lambertian
-branch, :557-563 and :816-863), uniform light sampler, no AOV, retire
-stash on, misc width 16. It holds `build_shade_tables` (:72, untextured
-and without dispatch), `fused_unsupported` (the slice's narrowing of
-`fused_shade_eligible`, :1116), `FusedPipeline` (:1379) with
-`refill_shader` (:1437), and the wrapper of kernel K4.
+Port of rendertoy3c_tpu/trace/pallas_shade.py for the port's
+configurations: untextured, all-diffuse (the Lambertian branch, :557-563
+and :816-863), uniform light sampler, no AOV, misc width 16. It holds
+`build_shade_tables` (:72, untextured and without dispatch);
+`fused_unsupported` (the narrowing of `fused_shade_eligible`, :1116),
+`FusedPipeline` (:1379) with `refill_shader` (:1437) and the wrapper of
+K4, for static scenes of up to 2048 faces with the retire stash on; and
+`external_unsupported` (the narrowing of `external_shade_eligible`,
+:1459), `ExternalPipeline` (:1820) and the wrapper of K6
+(`make_external_shader`, :1678), for static or 2-key scenes of up to
+16384 faces, with the closest and shadow any-hit traced outside the shade
+kernel by an MT tracer (trace/mt.py `make_mt_tracer`).
 
 Per-lane state layout (pallas_shade.py:32-36), updated in place:
   rays  [P, 8]  f32: org.xyz dir.xyz tmin tmax
@@ -16,6 +21,12 @@ Per-lane state layout (pallas_shade.py:32-36), updated in place:
         | 14 samp | 15 want_shadow
   stash [P, 16] f32: 0 pixel (-1 = free) | 1-3 acc | 4-15 zero
   stats [4] int32  : next_work, count_hint, n_live, 0
+
+K6 reads rays, the closest hit hit4 [R, 4] (t, prim_f, u, v) and misc,
+and writes new arrays: rays_out [R, 8], misc_out [R, 24] (columns 0-15 as
+misc, 16-18 the pending NEE term, 19-23 zero) and the shadow rays
+[R, 8] (org, dir, tmin, tmax), [R, 16] for motion with the ray time in
+column 8.
 """
 from __future__ import annotations
 
@@ -31,11 +42,14 @@ from ..math import rng
 from ..math.onb import onb_from_normal
 from ..math.sampling import sample_cosine_hemisphere, sample_uniform_triangle
 from ..math.vec import normalize3
+from ..scene.camera import camera_ray_dir
 from ..scene.light import pick_light_uniform
 from .mt import RAY_TILE, TriSoup, any_ref, build_tri_soup, closest_ref
 
 _INV_PI = 1.0 / math.pi
 MAX_FACES = 2048  # the fused path's face limit (pallas_shade.py:59)
+EXTERNAL_MAX_FACES = 16384  # the MT band's limit (auto.py:28)
+MISC_OUT_W = 24  # K6's misc output: 16 state columns + 3 NEE, 8-aligned
 
 
 def build_shade_tables(scene, f_limit: int | None = None):
@@ -84,8 +98,8 @@ def fused_unsupported(scene, cfg) -> str | None:
          "K5 (ROADMAP A8)"),
         (cfg.pool_stash == 0, "the stashless pool is not ported yet "
          "(ROADMAP A8)"),
-        (scene.num_keys != 1, "motion (num_keys > 1) is not ported yet "
-         "(ROADMAP A11, kernel K3)"),
+        (scene.num_keys != 1, "motion on scenes of up to 2048 faces needs "
+         "the megakernel's motion variant (ROADMAP A11)"),
         (scene.textured, "textures are not ported yet (ROADMAP A12)"),
         (not scene.all_diffuse, "material dispatch (non-diffuse "
          "materials) is not ported yet (ROADMAP A12)"),
@@ -97,9 +111,40 @@ def fused_unsupported(scene, cfg) -> str | None:
         (scene.num_lights < 1, "scenes without lights take the general "
          "pool, not ported yet (ROADMAP A7)"),
         (scene.num_faces > MAX_FACES,
-         f"scenes of more than {MAX_FACES} faces need the external "
-         "pipeline (ROADMAP A16)"),
+         f"scenes of more than {MAX_FACES} faces take the external "
+         "pipeline (ExternalPipeline)"),
     )
+    return _first_failed(checks)
+
+
+def external_unsupported(scene, cfg) -> str | None:
+    """Why (scene, cfg) is outside the external pipeline's slice, naming
+    the ROADMAP item that adds it; None when ExternalPipeline renders it."""
+    checks = (
+        (cfg.integrator != "pool",
+         "the wave integrator is not ported yet (ROADMAP A6)"),
+        (not cfg.pool_pixel_major or cfg.sort_rays,
+         "sample-major or sorted pools are not ported yet (ROADMAP A8)"),
+        (scene.num_keys > 2, "more than 2 motion keys need the N-key "
+         "brute tracer (ROADMAP A5)"),
+        (scene.textured, "textures are not ported yet (ROADMAP A12)"),
+        (not scene.all_diffuse, "material dispatch (non-diffuse "
+         "materials) is not ported yet (ROADMAP A12)"),
+        (cfg.light_sampler != "uniform",
+         "the power light sampler is not ported yet (ROADMAP A12)"),
+        (cfg.aov, "AOV buffers are not ported yet (ROADMAP A13)"),
+        (cfg.throughput_model != "reference",
+         "the physical throughput model is not ported yet (ROADMAP A22)"),
+        (scene.num_lights < 1, "scenes without lights take the general "
+         "pool, not ported yet (ROADMAP A7)"),
+        (scene.num_faces > EXTERNAL_MAX_FACES,
+         f"scenes of more than {EXTERNAL_MAX_FACES} faces take the "
+         "hierwalk band and its walk pool (ROADMAP A17/A18)"),
+    )
+    return _first_failed(checks)
+
+
+def _first_failed(checks) -> str | None:
     for failed, reason in checks:
         if failed:
             return reason
@@ -135,20 +180,18 @@ class ShadeTables:
     jump_u32: torch.Tensor  # the same table as uint32 bits (int32), for K4
 
 
-def trace_shade_refill_ref(rays, misc, stash, stats_in, stats_out,
-                           pixel_base: int, subframe_index: int, scf,
-                           tables: ShadeTables, rc: RefillConfig) -> None:
-    """Plain version of K4: one pool launch over all lanes, in place.
+def _shade_lanes(rays, hit4, misc, a, lights_t, sc, shadow_occluded=None):
+    """The shading body shared by K4 and K6 (pallas_shade.py :436-880, the
+    Lambertian, uniform-light branch): emission at depth 0, miss ambient,
+    Lambertian draw, NEE light pick and area sample, RR, the next state.
 
-    Pixels are claimed by a cumulative sum over idle lanes in lane order,
-    which is the TPU kernel's sequential claim order, so on the CPU this
-    matches the reference kernel lane for lane. stats_in = (next_work,
-    count, ...) of the previous launch; stats_out receives this launch's."""
-    dev = rays.device
-    count = stats_in[1:2]
-
-    # --- closest sweep ---
-    hit4 = closest_ref(rays, count, tables.soup)
+    hit4 [R, 4] (t, prim_f, u, v); a: attribute rows [>=15, R] gathered by
+    prim. `shadow_occluded(shadow_rays [R, 8]) -> occ [R]` runs the
+    in-kernel shadow sweep (K4); None is the external variant (K6): NEE is
+    provisional on want_shadow and leaves as `nee`, for the caller to add
+    on unoccluded lanes, and the shadow rays leave with the post-NEE time
+    peek. sc carries max_depth, num_lights, shadow_tmin, shadow_eps, bg.
+    Returns a dict of the per-lane results."""
     t_hit, prim_f, bu, bv = hit4.unbind(1)
     ox, oy, oz, dx, dy, dz = rays[:, :6].unbind(1)
 
@@ -162,8 +205,7 @@ def trace_shade_refill_ref(rays, misc, stash, stats_in, stats_out,
     emit_gate = torch.where((depth == 0.0) | (prev_delta > 0.0), one, zero)
     is_hit = prim_f >= 0.0
 
-    # --- attribute fetch by prim (indexed fp32 loads) ---
-    a = tables.attr_t[:, torch.clamp(prim_f, min=0.0).to(torch.int64)]
+    # --- shading attributes ---
     w0 = 1.0 - bu - bv
     ngx = w0 * a[0] + bu * a[3] + bv * a[6]
     ngy = w0 * a[1] + bu * a[4] + bv * a[7]
@@ -193,8 +235,8 @@ def trace_shade_refill_ref(rays, misc, stash, stats_in, stats_out,
     seed, u_pick = rng.rnd_masked(seed, adv)
     seed, lu = rng.rnd_masked(seed, adv)
     seed, lv = rng.rnd_masked(seed, adv)
-    lidx, pick_pdf = pick_light_uniform(u_pick, rc.num_lights)
-    lrow = tables.lights_t[:, lidx.to(torch.int64)]
+    lidx, pick_pdf = pick_light_uniform(u_pick, sc.num_lights)
+    lrow = lights_t[:, lidx.to(torch.int64)]
     b0, b1, b2 = sample_uniform_triangle(lu, lv)
     lpx = b0 * lrow[0] + b1 * lrow[3] + b2 * lrow[6]
     lpy = b0 * lrow[1] + b1 * lrow[4] + b2 * lrow[7]
@@ -214,20 +256,29 @@ def trace_shade_refill_ref(rays, misc, stash, stats_in, stats_out,
     n_dl = nsx * ldx + nsy * ldy + nsz * ldz
     want_shadow = adv & (n_dl > 0.0)
 
-    # --- shadow sweep ---
-    tmax_s = torch.where(want_shadow, ldist - rc.shadow_eps, zero)
-    sh = torch.stack([px, py, pz, ldx, ldy, ldz,
-                      torch.full_like(px, rc.shadow_tmin), tmax_s], dim=1)
-    occ = any_ref(sh, count, tables.soup)[:, 0]
-    lit = want_shadow & (occ < 0.5)
+    # --- shadow rays: swept here (K4) or handed to the caller (K6) ---
+    tmax_s = torch.where(want_shadow, ldist - sc.shadow_eps, zero)
+    shadow = torch.stack([px, py, pz, ldx, ldy, ldz,
+                          torch.full_like(px, sc.shadow_tmin), tmax_s], dim=1)
+    external = shadow_occluded is None
+    if external:
+        lit = want_shadow
+        # the shadow ray's time: a peek of the post-NEE stream
+        occl_time = rng.rnd(seed)[1]
+    else:
+        lit = want_shadow & (shadow_occluded(shadow) < 0.5)
 
     pdf_sc = torch.abs(n_dl) * _INV_PI
     ph = (pdf_light * pdf_light) / torch.clamp(
         pdf_light * pdf_light + pdf_sc * pdf_sc, min=1e-20)
     radiance = [torch.where(lit, le[c] * albedo[c] * (ph * _INV_PI), zero)
                 for c in range(3)]
+    nee = None
+    if external:
+        nee = [radiance[c] * last_at[c] for c in range(3)]
+        radiance = [zero] * 3
     radiance = [torch.where(is_hit, radiance[c], torch.full_like(zero, b))
-                for c, b in zip(range(3), rc.bg)]
+                for c, b in zip(range(3), sc.bg)]
     contrib = [emitted[c] + radiance[c] * last_at[c] for c in range(3)]
     new_at = [torch.where(adv, atten[c] * (albedo[c] * inv_cos), atten[c])
               for c in range(3)]
@@ -242,8 +293,42 @@ def trace_shade_refill_ref(rays, misc, stash, stats_in, stats_out,
               for c in range(3)]
     accs = [acc[c] + torch.where(alive, contrib[c], zero) for c in range(3)]
     depth_new = depth + alive.to(torch.float32)
-    alive_b = survive & (depth_new < float(rc.max_depth))
+    alive_b = survive & (depth_new < float(sc.max_depth))
     pdelta_new = torch.where(alive, zero, prev_delta)
+    out = dict(seed=seed, survive=survive, alive=alive, alive_b=alive_b,
+               want_shadow=want_shadow, new_at=new_at, new_last=new_last,
+               accs=accs, depth_new=depth_new, pdelta_new=pdelta_new,
+               p=(px, py, pz), nd=(ndx, ndy, ndz), o=(ox, oy, oz),
+               d=(dx, dy, dz), one=one, zero=zero, nee=nee, shadow=shadow)
+    if external:
+        out["occl_time"] = occl_time
+    return out
+
+
+def trace_shade_refill_ref(rays, misc, stash, stats_in, stats_out,
+                           pixel_base: int, subframe_index: int, scf,
+                           tables: ShadeTables, rc: RefillConfig) -> None:
+    """Plain version of K4: one pool launch over all lanes, in place.
+
+    Pixels are claimed by a cumulative sum over idle lanes in lane order,
+    which is the TPU kernel's sequential claim order, so on the CPU this
+    matches the reference kernel lane for lane. stats_in = (next_work,
+    count, ...) of the previous launch; stats_out receives this launch's."""
+    dev = rays.device
+    count = stats_in[1:2]
+    hit4 = closest_ref(rays, count, tables.soup)
+    a = tables.attr_t[:, torch.clamp(hit4[:, 1], min=0.0).to(torch.int64)]
+    r = _shade_lanes(rays, hit4, misc, a, tables.lights_t, rc,
+                     lambda sh: any_ref(sh, count, tables.soup)[:, 0])
+    seed, survive, alive_b = r["seed"], r["survive"], r["alive_b"]
+    one, zero = r["one"], r["zero"]
+    new_at, new_last, accs = r["new_at"], r["new_last"], r["accs"]
+    px, py, pz = r["p"]
+    ox, oy, oz = r["o"]
+    dx, dy, dz = r["d"]
+    ndx, ndy, ndz = r["nd"]
+    depth_new, pdelta_new = r["depth_new"], r["pdelta_new"]
+    want_shadow = r["want_shadow"]
 
     # ==== refill epilogue ====
     deadr = ~alive_b
@@ -271,25 +356,9 @@ def trace_shade_refill_ref(rays, misc, stash, stats_in, stats_out,
     samp_idx = sampf
     sampf = torch.where(take, sampf + 1.0, sampf)
     npix = torch.clamp(pixf, min=0.0).to(torch.int64)
-    s_new = rng.tea(npix, subframe_index)
-    if rc.seed_rot:
-        s_new = s_new ^ (rc.seed_rot & rng.M32)
-    si = torch.where((samp_idx >= 1.0) & (samp_idx < float(rc.spp)),
-                     samp_idx.to(torch.int64), torch.zeros_like(npix))
-    jump = tables.jump[si]
-    s_new = (rng.mul32(jump[:, 0], s_new) + jump[:, 1]) & rng.M32
-    s_new, jx = rng.rnd(s_new)
-    s_new, jy = rng.rnd(s_new)
-    pxc = (npix % rc.width).to(torch.float32)
-    pyc = (npix // rc.width).to(torch.float32)
-    # tensor divisors: CUDA torch turns division by a Python scalar into a
-    # multiplication by its reciprocal, which the kernel does not do
-    dxc = 2.0 * ((pxc + jx) / torch.full_like(zero, float(rc.width))) - 1.0
-    dyc = 2.0 * ((pyc + jy) / torch.full_like(zero, float(rc.height))) - 1.0
-    cdx = dxc * scf[3] + dyc * scf[6] + scf[9]
-    cdy = dxc * scf[4] + dyc * scf[7] + scf[10]
-    cdz = dxc * scf[5] + dyc * scf[8] + scf[11]
-    cdx, cdy, cdz, _ = normalize3(cdx, cdy, cdz)
+    s_new, jx, jy = rng.sample_start(npix, subframe_index, rc.seed_rot,
+                                     samp_idx.to(torch.int64), tables.jump)
+    cdx, cdy, cdz = camera_ray_dir(scf, npix, rc.width, rc.height, jx, jy)
 
     seed_u = torch.where(take, s_new, seed)
     alive2 = alive_b | take
@@ -418,3 +487,130 @@ class FusedPipeline:
             bg=tuple(float(b) for b in cfg.bg_radiance),
             seed_rot=int(cfg.seed or 0))
         return partial(self.refill_fn, tables=self.tables, rc=rc)
+
+
+# ---------------------------------------------------------------- K6
+@dataclass(frozen=True)
+class ExternalConfig:
+    """Static parameters of the external shade kernel."""
+
+    max_depth: int
+    num_lights: int
+    shadow_tmin: float
+    shadow_eps: float
+    bg: tuple
+    motion: bool
+
+
+@dataclass(frozen=True)
+class ExternalTables:
+    """Device tables K6 reads."""
+
+    attr: torch.Tensor  # [F, 16] f32 attribute rows, read by prim
+    lights_t: torch.Tensor  # [24, Lp] f32
+
+
+def external_shade_ref(rays, hit4, misc, tables: ExternalTables,
+                       ec: ExternalConfig):
+    """Plain version of K6: (rays_out [R, 8], misc_out [R, 24], shadow
+    [R, 8|16]) from rays [R, 8], hit4 [R, 4] and misc [R, 16]."""
+    a = tables.attr[torch.clamp(hit4[:, 1], min=0.0).to(torch.int64)].T
+    r = _shade_lanes(rays, hit4, misc, a, tables.lights_t, ec)
+    survive, zero = r["survive"], r["zero"]
+    rays_out = torch.stack(
+        [torch.where(survive, p, o) for p, o in zip(r["p"] + r["nd"],
+                                                    r["o"] + r["d"])]
+        + [rays[:, 6], rays[:, 7]], dim=1)
+    misc_out = torch.stack(
+        [rng.state_to_bits(r["seed"])] + r["new_at"] + r["new_last"]
+        + [r["pdelta_new"], r["depth_new"], r["alive_b"].to(torch.float32)]
+        + r["accs"] + [misc[:, 13], misc[:, 14],
+                       r["want_shadow"].to(torch.float32)]
+        + r["nee"] + [zero] * (MISC_OUT_W - 19), dim=1)
+    shadow = r["shadow"]
+    if ec.motion:
+        shadow = torch.cat([shadow, r["occl_time"][:, None],
+                            torch.zeros_like(shadow[:, :7])], dim=1)
+    return rays_out, misc_out, shadow
+
+
+def external_shade(rays, hit4, misc, tables: ExternalTables,
+                   ec: ExternalConfig):
+    """K6 wrapper: the CUDA kernel for CUDA tensors
+    (kernels/csrc/external.cu), `external_shade_ref` on the CPU."""
+    if rays.device.type == "cpu":
+        return external_shade_ref(rays, hit4, misc, tables, ec)
+    kbuild.require_cuda("external_shade", rays, hit4, misc, tables.attr,
+                        tables.lights_t)
+    n = rays.shape[0]
+    if (rays.shape != (n, 8) or hit4.shape != (n, 4)
+            or misc.shape != (n, 16) or tables.attr.shape[1] != 16):
+        raise ValueError("external_shade: rays [R, 8], hit4 [R, 4], misc "
+                         "[R, 16], attr [F, 16]")
+    f32 = dict(dtype=torch.float32, device=rays.device)
+    rays_out = torch.empty((n, 8), **f32)
+    misc_out = torch.empty((n, MISC_OUT_W), **f32)
+    shadow = torch.empty((n, 16 if ec.motion else 8), **f32)
+    p = kbuild.ExternalParams(
+        max_depth=ec.max_depth, num_lights=ec.num_lights,
+        light_stride=tables.lights_t.shape[1], motion=int(ec.motion),
+        shadow_tmin=ec.shadow_tmin, shadow_eps=ec.shadow_eps,
+        pick_pdf=1.0 / float(ec.num_lights),
+        bg=(ec.bg[0], ec.bg[1], ec.bg[2]))
+    index, stream = kbuild.launch_target(rays.device)
+    err = kbuild.library().rt3c_external_shade(
+        index, p, rays.data_ptr(), hit4.data_ptr(), misc.data_ptr(),
+        tables.attr.data_ptr(), tables.attr.shape[0],
+        tables.lights_t.data_ptr(), n, rays_out.data_ptr(),
+        misc_out.data_ptr(), shadow.data_ptr(), stream)
+    kbuild.check(err, "external_shade")
+    external_shade.launches += 1
+    return rays_out, misc_out, shadow
+
+
+external_shade.launches = 0
+
+
+class ExternalPipeline:
+    """K6 between an external (closest, any_hit) tracer pair, for the pool
+    integrator's XLA-refill loop (integrate/path.py).
+
+    tracer: callables f(o, d, tmin, tmax, time, count) as returned by
+    trace/mt.py `make_mt_tracer`. shade_fn is the K6 launch function; the
+    default picks the kernel or its plain version by the tensors' device,
+    and external_shade_ref runs the plain version on any device."""
+
+    def __init__(self, scene, cfg, tracer, device, shade_fn=external_shade):
+        reason = external_unsupported(scene, cfg)
+        if reason is not None:
+            raise NotImplementedError(reason)
+        self.device = torch.device(device)
+        self.motion = scene.num_keys == 2
+        self._closest, self._any = tracer
+        attr_t, lights_t = build_shade_tables(scene)
+        self.tables = ExternalTables(
+            attr=torch.as_tensor(np.ascontiguousarray(attr_t.T),
+                                 device=self.device),
+            lights_t=torch.as_tensor(lights_t, device=self.device))
+        self.config = ExternalConfig(
+            max_depth=cfg.max_depth, num_lights=scene.num_lights,
+            shadow_tmin=cfg.shadow_tmin, shadow_eps=cfg.shadow_tmax_eps,
+            bg=tuple(float(b) for b in cfg.bg_radiance), motion=self.motion)
+        self.shade_fn = shade_fn
+
+    def trace_shade(self, rays, misc, count, time=None):
+        """One pool iteration (pallas_shade.py:1857-1891): closest hit,
+        K6, shadow any-hit, and the NEE term added on unoccluded lanes.
+        count: int32 [1] live-lane hint; time: per-lane ray time [R] of a
+        motion scene. Returns (rays [R, 8], misc [R, 16])."""
+        hit = self._closest(rays[:, 0:3], rays[:, 3:6], rays[:, 6],
+                            rays[:, 7], time, count)
+        hit4 = torch.stack([hit.t, hit.prim.to(torch.float32), hit.u,
+                            hit.v], dim=1)
+        rays2, misc_e, sh = self.shade_fn(rays, hit4, misc, self.tables,
+                                          self.config)
+        occ = self._any(sh[:, 0:3], sh[:, 3:6], sh[:, 6], sh[:, 7],
+                        sh[:, 8] if self.motion else None, count)
+        nee = torch.where(occ[:, None], 0.0, misc_e[:, 16:19])
+        return rays2, torch.cat(
+            [misc_e[:, :10], misc_e[:, 10:13] + nee, misc_e[:, 13:16]], dim=1)

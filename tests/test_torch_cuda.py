@@ -130,3 +130,123 @@ def test_kernels_pass_gate_against_plain_versions(dev):
     diff = np.abs(images[0] - images[1])
     assert diff.mean() <= 2e-3
     assert int((diff.max(axis=-1) > 0.35).sum()) <= 8 and diff.max() <= 8.0
+
+
+@pytest.fixture(scope="module")
+def towns():
+    """(static, 2-key) town scenes of 4294 faces, loaded from .obj files."""
+    from rendertoy3c_tpu_torch.scene.town import town_scene
+
+    return town_scene(4000, False), town_scene(4000, True)
+
+
+def _town_rays(n, seed):
+    rng = np.random.default_rng(seed)
+    o = rng.uniform((-20, 0.2, -20), (20, 8, 20), (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3))
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    return o, d, rng.uniform(0, 1, n).astype(np.float32)
+
+
+def test_motion_kernels_match_plain_versions_and_brute(dev, towns):
+    """K3 on the 2-key town: exact prims and occlusion, t/u/v within 1e-6,
+    and the count skip at 128-ray granularity."""
+    from rendertoy3c_tpu_torch.trace.intersect import (
+        trace_any_bruteforce, trace_closest_bruteforce)
+
+    scene = towns[1][0]
+    msoup = mt.build_motion_soup(scene.geom, dev, num_faces=scene.num_faces)
+    o, d, tm = (torch.as_tensor(x, device=dev) for x in _town_rays(8192, 4))
+    rays, r = mt.pack_rays(o, d, 0.01, 30.0, mt.MOTION_RAY_TILE)
+    for count in (r, r - 200):  # 128- and 256-ray tiles end apart
+        c = torch.tensor([count], dtype=torch.int32, device=dev)
+        for kern, ref, col in ((mt.mt_closest_motion, mt.closest_motion_ref,
+                                1),
+                               (mt.mt_any_motion, mt.any_motion_ref, 0)):
+            got = kern(rays, tm, c, msoup).cpu().numpy()
+            want = ref(rays, tm, c, msoup).cpu().numpy()
+            np.testing.assert_array_equal(got[:, col], want[:, col])
+            np.testing.assert_allclose(got, want, **TOL)
+            tail = -(-count // 128) * 128
+            assert (got[tail:, 1] == (-1.0 if col == 1 else 0.0)).all()
+    hit = mt.trace_closest_mt_motion(msoup, o, d, 0.01, 30.0, tm)
+    brute = trace_closest_bruteforce(scene, o, d, 0.01, 30.0, tm)
+    assert torch.equal(hit.prim, brute.prim)
+    np.testing.assert_allclose(hit.t.cpu().numpy(), brute.t.cpu().numpy(),
+                               **TOL)
+    assert torch.equal(mt.trace_any_mt_motion(msoup, o, d, 0.01, 3.0, tm),
+                       trace_any_bruteforce(scene, o, d, 0.01, 3.0, tm))
+
+
+def _lane_state(scene, cam, n, seed, dev):
+    """A first-bounce pool state: camera rays, fresh paths, random seeds."""
+    rng = np.random.default_rng(seed)
+    p = cam.params()
+    xy = rng.uniform(-1, 1, (n, 2)).astype(np.float32)
+    d = xy[:, :1] * p.u + xy[:, 1:] * p.v + p.w
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    rays = np.zeros((n, 8), np.float32)
+    rays[:, 0:3] = p.eye
+    rays[:, 3:6] = d
+    rays[:, 6], rays[:, 7] = 0.01, 1e16
+    misc = np.zeros((n, 16), np.float32)
+    misc[:, 0] = rng.integers(0, 2**32, n, dtype=np.uint64).astype(
+        np.uint32).view(np.float32)
+    misc[:, 1:7] = 1.0
+    misc[:, 9] = (rng.uniform(size=n) < 0.9).astype(np.float32)
+    misc[:, 13] = np.arange(n)
+    misc[:, 14] = 1.0
+    return (torch.as_tensor(rays, device=dev),
+            torch.as_tensor(misc, device=dev))
+
+
+@pytest.mark.parametrize("motion", [False, True])
+def test_external_shade_matches_plain_version(dev, towns, motion):
+    """K6 teacher-forced for 8 iterations from the plain pipeline's states:
+    every output bit for bit."""
+    scene, cam = towns[int(motion)]
+    cfg = RenderConfig(width=64, height=64, samples_per_launch=2,
+                       max_depth=8, ray_block=4096, integrator="pool",
+                       pool_pixel_major=True)
+    pipe = shade.ExternalPipeline(scene, cfg,
+                                  mt.make_mt_tracer(scene, dev, plain=True),
+                                  dev, shade_fn=shade.external_shade_ref)
+    rays, misc = _lane_state(scene, cam, 4096, 5 + int(motion), dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    count = torch.tensor([4096], dtype=torch.int32, device=dev)
+    for _ in range(8):
+        time = torch.rand(4096, device=dev, generator=gen) if motion else None
+        hit = pipe._closest(rays[:, 0:3], rays[:, 3:6], rays[:, 6],
+                            rays[:, 7], time, count)
+        hit4 = torch.stack([hit.t, hit.prim.float(), hit.u, hit.v], dim=1)
+        got = shade.external_shade(rays, hit4, misc, pipe.tables,
+                                   pipe.config)
+        want = shade.external_shade_ref(rays, hit4, misc, pipe.tables,
+                                        pipe.config)
+        for g, w in zip(got, want):
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+        rays, misc = pipe.trace_shade(rays, misc, count, time)
+    assert (misc[:, 8] > 2).any()  # paths went several bounces deep
+
+
+@pytest.mark.parametrize("motion", [False, True])
+def test_external_pipeline_passes_gate(dev, towns, motion):
+    """bench.py:115-116, kernels against plain versions, on the town."""
+    scene, cam = towns[int(motion)]
+    cfg = RenderConfig(width=64, height=64, samples_per_launch=2,
+                       max_depth=6, ray_block=4096, integrator="pool",
+                       pool_pixel_major=True)
+    images = []
+    for plain in (False, True):
+        from rendertoy3c_tpu_torch.trace.auto import choose_tracer
+
+        s2, pipe = choose_tracer(scene, cfg, dev)
+        if plain:
+            pipe = shade.ExternalPipeline(
+                s2, cfg, mt.make_mt_tracer(s2, dev, plain=True), dev,
+                shade_fn=shade.external_shade_ref)
+        f, _ = render_frame(s2, cam.params(), cfg, tracer=pipe, device=dev)
+        images.append(f.accum.cpu().numpy())
+    diff = np.abs(images[0] - images[1])
+    assert diff.mean() <= 2e-3
+    assert int((diff.max(axis=-1) > 0.35).sum()) <= 8 and diff.max() <= 8.0

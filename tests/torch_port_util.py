@@ -3,11 +3,17 @@ built in both packages and the reference-to-port scene carry-over."""
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from rendertoy3c_tpu.scene.builtin import cornell_box as j_cornell_box
 from rendertoy3c_tpu.scene.scene import build_scene as j_build_scene
 from rendertoy3c_tpu_torch.scene.builtin import cornell_box
 from rendertoy3c_tpu_torch.scene.scene import build_scene, scene_from_numpy
+
+# The plain versions run many small tensor ops. Under pytest-xdist every
+# worker would start an intra-op thread pool as wide as the machine, and the
+# pools' spinning threads then starve each other (a 17 s file took 450 s).
+torch.set_num_threads(1)
 
 
 def cornell_pair():
@@ -43,6 +49,25 @@ def to_port_scene(jscene):
                             arrays(jscene.lights),
                             num_faces=jscene.num_faces,
                             num_lights=jscene.num_lights)
+
+
+def j_town_scene(faces, two_key, out_dir):
+    """The reference's untextured town (bench.py `_town_scene`, :307-337)
+    written to `out_dir`: (scene, camera)."""
+    import dataclasses
+
+    from rendertoy3c_tpu.io.genassets import generate_town
+    from rendertoy3c_tpu.io.obj import load_obj
+    from rendertoy3c_tpu.scene.camera import Camera
+
+    paths, camkw = generate_town(str(out_dir), faces_target=faces,
+                                 two_key=two_key)
+    meshes, _ = load_obj(paths if two_key else paths[:1])
+    for m in meshes:
+        m.material = dataclasses.replace(
+            m.material, diffuse_texture_id=-1, emissive_texture_id=-1,
+            roughness_texture_id=-1, normal_texture_id=-1)
+    return j_build_scene(meshes), Camera(**camkw)
 
 
 def random_rays(n, seed=0, lo=(-0.9, 0.05, -0.9), hi=(0.9, 1.9, 0.9)):
