@@ -31,22 +31,29 @@ prints a JSON summary. Phases:
      2-key 16054-face town, against their plain versions and the brute
      tracer on 131072 rays (camera rays and one cosine bounce, uniform
      random times): prims and occlusion exact, t/u/v within 1e-6, the
-     count skip on 128-ray tiles for K3; timed at 32768 rays;
+     count skip on 128-ray tiles for K3; then against their plain versions
+     again, timed and bounded, on the main path's own inputs: those of
+     pool iterations 32, 128, 224 and 320 of one subframe of each town;
   8. K6 (external_shade) teacher-forced against its plain version at 32768
-     lanes for 8 iterations on both towns: every output bit for bit; timed
-     per launch;
+     lanes for 8 iterations on both towns: every output bit for bit; then
+     bit for bit again on the main paths' inputs of phase 7, and its
+     device time per launch there from the profiler;
   9. the gate of phase 4 on the external path, the 4294-face town, static
      and 2-key;
  10. both 16054-face towns at the main path's config: 1 warm-up and 4
      timed subframes with the kernels, 1 with the plain versions; Mray/s,
      launches per subframe, image means within 1%, the first subframes
      through the gate, every pixel finite, and the device idle share of
-     one profiled subframe.
+     one profiled subframe (a phase fails if its profile shows no device
+     time or misses one of its kernels).
 
 Each kernel's bound is the larger of the bytes it must move over 3.35 TB/s
-and the operations these inputs need (the MT tests left after the cull,
-replayed with the plain per-tile results, and the shading body) over the
-67 TFLOP/s fp32 peak outside the tensor cores (H100 SXM data sheet).
+and the operations its inputs need over the 67 TFLOP/s fp32 peak outside
+the tensor cores (H100 SXM data sheet): for the MT sweeps, each ray's own
+box tests and the triangle tests of the tiles whose boxes it hits itself
+(closest rays bounded by their best hit so far, any-hit rays stopping at
+their first hit), replayed with the plain per-tile results; for the
+shading, its body per lane.
 
 Any failed phase exits non-zero. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -56,6 +63,7 @@ from __future__ import annotations
 import functools
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -77,9 +85,11 @@ MEM_BPS = 3.35e12  # H100 SXM HBM3 bytes/s
 FP32_OPS = 67e12  # H100 SXM fp32 operations/s outside the tensor cores
 # operations counted from the CUDA sources, one per arithmetic operation,
 # compare, select or intrinsic: one Moller-Trumbore test (mt_test_tri),
-# the per-triangle lerp of a motion test, shade_lane, and K4's epilogue
+# the per-triangle lerp of a motion test, one slab test (box_hit),
+# shade_lane, and K4's epilogue
 MT_TEST_OPS = 54
 LERP_OPS = 27
+BOX_OPS = 29
 SHADE_OPS = 300
 REFILL_OPS = 170
 
@@ -126,11 +136,16 @@ def bound(n_bytes: float, ops: float):
 
 
 def mt_work(rays, count, table, any_hit: bool, time=None, want=None):
-    """(ray-triangle tests, table bytes read) of one K1/K2/K3 sweep over
-    these rays: the kernel's block votes replayed in tile order with the
-    plain per-tile results. A closest ray's bound shrinks with its best hit
-    so far; an any-hit ray stops at its first hit; rays outside `want`
-    vote but test nothing (K4's lanes without a shadow ray)."""
+    """(operations, table bytes read) that one K1/K2/K3 sweep over these
+    rays needs, counted ray by ray in tile order: a ray tests the boxes of
+    the super-tiles, and of the tiles of each super-tile whose box it hits
+    itself, and the triangles of each tile whose box it hits itself (the
+    kernel's block vote lets a ray into every tile that any ray of its
+    block hits, which this count does not charge). A closest ray's bound
+    shrinks with its best hit so far; an any-hit ray stops at its first
+    hit; rays past the live count, outside `want` (K4's lanes without a
+    shadow ray) or with tmax <= tmin need nothing. A tile's bytes count
+    once if any ray tests it."""
     import torch
 
     from rendertoy3c_tpu_torch.trace import mt
@@ -140,64 +155,78 @@ def mt_work(rays, count, table, any_hit: bool, time=None, want=None):
     n_tiles, _, ct = tris.shape
     tile_r = mt.MOTION_RAY_TILE if motion else mt.RAY_TILE
     r = rays.shape[0]
-    live = mt.live_rows(r, count, tile_r)
-    want = live if want is None else want & live
+    need = mt.live_rows(r, count, tile_r) & (rays[:, 7] > rays[:, 6])
+    if want is not None:
+        need &= want
     cols = tuple(rays[:, c:c + 1] for c in range(8))
     o, d, tmin = rays[:, 0:3], rays[:, 3:6], rays[:, 6]
     inv = torch.where(d.abs() > 1e-20, 1.0 / d, torch.full_like(d, 1e30))
     best = rays[:, 7].clone()
     done = torch.zeros(r, dtype=torch.bool, device=rays.device)
     tests = torch.zeros(r, dtype=torch.int64, device=rays.device)
+    boxes = torch.zeros(r, dtype=torch.int64, device=rays.device)
     staged = 0
 
-    def vote(box):
+    def own(box, among):
+        """Rays of `among` (not yet done) whose own slab test passes."""
+        among = among & ~done
+        boxes.add_(among.to(torch.int64))
         t0, t1 = (box[0:3] - o) * inv, (box[3:6] - o) * inv
         tn = torch.minimum(t0, t1).amax(dim=1)
         tf = torch.maximum(t0, t1).amin(dim=1)
         tcur = rays[:, 7] if any_hit else best
-        hit = (box[0] <= box[3]) & (tn <= tf) & (tf >= tmin) & (tn <= tcur)
-        return hit.view(-1, tile_r).any(dim=1).repeat_interleave(tile_r) & live
+        return among & ((box[0] <= box[3]) & (tn <= tf) & (tf >= tmin)
+                        & (tn <= tcur))
 
     def visit(k, m):
-        nonlocal best, done, tests, staged
-        staged += int(m.view(-1, tile_r)[:, 0].any())
-        extra = (table.tris1[k], time[:, None]) if motion else ()
-        t, _, _, hit, _ = mt.mt_test(cols, tris[k], k * ct, *extra)
+        nonlocal staged
+        idx = (m & ~done).nonzero()[:, 0]
+        if idx.numel() == 0:
+            return
+        staged += 1
+        sub = tuple(c[idx] for c in cols)
+        extra = (table.tris1[k], time[idx, None]) if motion else ()
+        t, _, _, hit, _ = mt.mt_test(sub, tris[k], k * ct, *extra)
         if any_hit:
-            m = m & want & ~done
-            first = torch.where(hit.any(dim=1), hit.int().argmax(dim=1) + 1,
-                                ct)
-            tests += torch.where(m, first, 0)
-            done |= m & hit.any(dim=1)
+            anyh = hit.any(dim=1)
+            tests[idx] += torch.where(anyh, hit.int().argmax(dim=1) + 1, ct)
+            done[idx] = anyh
         else:
-            tests += torch.where(m, ct, 0)
+            tests[idx] += ct
             tc = torch.where(hit, t, torch.full_like(t, 1e30)).amin(dim=1)
-            best = torch.where(m & (tc < best), tc, best)
+            best[idx] = torch.minimum(best[idx], tc)
 
     if n_tiles == 1:
-        visit(0, live)
+        visit(0, need)
     elif n_tiles <= 2 * mt.SUPER_TILE:
         for k in range(n_tiles):
-            visit(k, vote(table.aabb[k]))
+            visit(k, own(table.aabb[k], need))
     else:
         for ks in range(-(-n_tiles // mt.SUPER_TILE)):
-            ms = vote(table.super_aabb[ks])
+            ms = own(table.super_aabb[ks], need)
             for j in range(mt.SUPER_TILE):
                 k = ks * mt.SUPER_TILE + j
                 if k < n_tiles:
-                    visit(k, ms & vote(table.aabb[k]))
+                    visit(k, own(table.aabb[k], ms))
+    ops = (int(tests.sum()) * (MT_TEST_OPS + (LERP_OPS if motion else 0))
+           + int(boxes.sum()) * BOX_OPS)
     table_bytes = (staged * 9 * ct * 4 * (2 if motion else 1)
                    + 4 * (table.aabb.numel() + table.super_aabb.numel()))
-    return int(tests.sum()), table_bytes
+    return ops, table_bytes
 
 
-def mt_bound(rays, count, table, any_hit: bool, time=None):
-    """bound() of one K1/K2/K3 launch on these rays."""
-    tests, table_bytes = mt_work(rays, count, table, any_hit, time)
+def mt_cost(rays, count, table, any_hit: bool, time=None):
+    """(bytes, operations) of one K1/K2/K3 launch on these rays."""
+    ops, table_bytes = mt_work(rays, count, table, any_hit, time)
     r = rays.shape[0]
     n_bytes = r * (32 + 16) + 4 + table_bytes + (0 if time is None else 4 * r)
-    ops = tests * (MT_TEST_OPS + (0 if time is None else LERP_OPS))
-    return bound(n_bytes, ops)
+    return n_bytes, ops
+
+
+def mean_bound(costs):
+    """bound() of the mean launch of a list of (bytes, operations)."""
+    return bound(sum(c[0] for c in costs) / len(costs),
+                 sum(c[1] for c in costs) / len(costs))
 
 
 def camera_and_bounce_rays(scene, camera, n_cam, n_total, dev, rng,
@@ -383,7 +412,7 @@ def k4_bound(state, stats_in, tables, rc):
     rays, misc, _ = state
     count = stats_in[1:2]
     pool = rays.shape[0]
-    closest_tests, table_bytes = mt_work(rays, count, tables.soup, False)
+    closest_ops, table_bytes = mt_work(rays, count, tables.soup, False)
     hit4 = mt.closest_ref(rays, count, tables.soup)
     a = tables.attr_t[:, torch.clamp(hit4[:, 1], min=0.0).to(torch.int64)]
     shadow = {}
@@ -394,13 +423,12 @@ def k4_bound(state, stats_in, tables, rc):
 
     out = shade._shade_lanes(rays, hit4, misc, a, tables.lights_t, rc,
                              occluded)
-    shadow_tests, _ = mt_work(shadow["rays"], count, tables.soup, True,
-                              want=out["want_shadow"])
+    shadow_ops, _ = mt_work(shadow["rays"], count, tables.soup, True,
+                            want=out["want_shadow"])
     n_bytes = (pool * 2 * (32 + 64 + 64) + 2 * 16 + table_bytes
                + 4 * (tables.attr_t.numel() + tables.lights_t.numel()
                       + tables.jump_u32.numel()))
-    ops = ((closest_tests + shadow_tests) * MT_TEST_OPS
-           + pool * (SHADE_OPS + REFILL_OPS))
+    ops = closest_ops + shadow_ops + pool * (SHADE_OPS + REFILL_OPS)
     return bound(n_bytes, ops)
 
 
@@ -547,21 +575,25 @@ def gate(scene, camera, dev, what: str, phase: int):
           f"{mean_d:.3g}, outliers {outl}, max|d| {max_d:.3g}")
 
 
-def profile_subframe(step, film, camera, untraced_s: float, phase: int):
-    """Device time by kernel over one subframe (torch.profiler, CUDA
-    activity only). The idle share is taken against the median untraced
-    subframe, since tracing slows the host. Returns the idle share."""
+def kernel_symbol(key: str):
+    """The port's kernel name in a profiler key ('void
+    rt3c::mt_kernel<false>(...)' -> 'mt_kernel'), else None."""
+    m = re.search(r"rt3c::(\w+)", key)
+    return m.group(1) if m else None
+
+
+def device_rows(run):
+    """[(device us, kernel name, launches)] of the CUDA kernels that
+    run() launches, from torch.profiler (CUDA activity only), largest
+    first."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    cam = camera.params()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        step(cam, film)
+        run()
         torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     rows = []
     for evt in prof.key_averages():
         if evt.device_type != DeviceType.CUDA:
@@ -570,22 +602,56 @@ def profile_subframe(step, film, camera, untraced_s: float, phase: int):
         if dt is None:
             dt = evt.self_cuda_time_total
         rows.append((dt, evt.key, evt.count))
-    rows.sort(reverse=True)
+    return sorted(rows, reverse=True)
+
+
+def device_ms(calls, kernel: str) -> float:
+    """Mean device time per launch in ms of the CUDA kernel named `kernel`
+    over the launches of the calls (after one untimed call) that the
+    profiler records: for a kernel shorter than its wrapper's host time,
+    CUDA events around back-to-back calls would time the host. The
+    profiler may miss the first launches of its window."""
+    calls[0]()
+    rows = [r for r in device_rows(lambda: [c() for c in calls])
+            if kernel_symbol(r[1]) == kernel]
+    n = sum(r[2] for r in rows)
+    check(2 * n >= len(calls), f"the profiler saw {n} launches of {kernel} "
+          f"in {len(calls)} calls")
+    return sum(r[0] for r in rows) / n / 1e3
+
+
+def profile_subframe(step, film, camera, untraced_s: float, phase: int,
+                     kernels):
+    """Device time by kernel over one subframe. The idle share is taken
+    against the median untraced subframe, since tracing slows the host.
+    Fails unless the profiler saw each of `kernels` (CUDA symbol names)
+    launched. Returns the idle share."""
+    cam = camera.params()
+    t0 = time.perf_counter()
+    rows = device_rows(lambda: step(cam, film))
+    wall = time.perf_counter() - t0
     busy = sum(r[0] for r in rows) / 1e6
+    check(busy > 0, f"phase {phase} profile: no device time recorded")
     idle = max(0.0, 1 - busy / untraced_s)
     print(f"phase {phase} profile of one subframe: device busy {busy:.4f} "
           f"s; traced wall {wall:.4f} s; untraced median {untraced_s:.4f} "
           f"s; idle share {idle:.3f} of untraced")
     for dt, key, cnt in rows[:10]:
         print(f"  {dt / 1e3:10.3f} ms  x{cnt:<6d} {key[:70]}")
+    for name in kernels:
+        mine = [r for r in rows if kernel_symbol(r[1]) == name]
+        check(bool(mine), f"phase {phase} profile: no launch of {name}")
+        for dt, key, cnt in mine:
+            print(f"  in path: {key[:50]} {dt / 1e3 / cnt:.4f} ms per launch "
+                  f"x{cnt}")
     return idle
 
 
-def full_size(name, scene, camera, dev, smi, phase: int, counters):
+def full_size(name, scene, camera, dev, smi, phase: int, counters, symbols):
     """One main path at full size: kernels (1 warm-up, 4 timed) with the
     launch counters zeroed just before and read just after, then the plain
-    versions, means compared, a profile. Returns (kernel film, launches
-    by kernel)."""
+    versions, means compared, a profile that must see each CUDA kernel of
+    `symbols`. Returns (kernel film, launches by kernel)."""
     for fn in counters.values():
         fn.launches = 0
     film_k, rates_k, it_k, secs_k, step_k, first_k = render(
@@ -621,20 +687,90 @@ def full_size(name, scene, camera, dev, smi, phase: int, counters):
           f"subframes; "
           f"first subframe kernels vs plain: mean|d| {mean_d:.3g}, max|d| "
           f"{max_d:.3g}; launches {launches}")
-    try:  # informational: the render phases above decide the result
-        profile_subframe(step_k, film_k, camera, float(np.median(secs_k)),
-                         phase)
-    except Exception as e:  # noqa: BLE001
-        print(f"phase {phase} profile: not measured ({type(e).__name__}: "
-              f"{e})")
+    profile_subframe(step_k, film_k, camera, float(np.median(secs_k)),
+                     phase, symbols)
     return film_k, launches
 
 
 # ---------------------------------------------------------------- phase 7
-def phase_town_mt(dev, towns):
+SNAPSHOTS = (32, 128, 224, 320)  # pool iterations of a town subframe
+
+
+def main_path_states(scene, camera, dev):
+    """The inputs of the closest tracer, K6 and the any-hit tracer at the
+    pool iterations SNAPSHOTS of one kernel subframe of a town's main path
+    (through make_render_fn with choose_tracer's pipeline, its calls
+    recorded): {"closest": [(o, d, tmin, tmax, time, count)], "shade":
+    [(rays, hit4, misc)], "any": [...as closest]}."""
+    import torch
+
+    from rendertoy3c_tpu_torch.film.film import film_create
+    from rendertoy3c_tpu_torch.integrate.config import RenderConfig
+    from rendertoy3c_tpu_torch.integrate.path import make_render_fn
+    from rendertoy3c_tpu_torch.trace.auto import choose_tracer
+
+    cfg = RenderConfig(**MAIN)
+    scene, pipe = choose_tracer(scene, cfg, dev)
+    states = {"closest": [], "shade": [], "any": []}
+    seen = dict.fromkeys(states, 0)
+
+    def record(kind, fn, n_args):
+        def call(*args):
+            if seen[kind] in SNAPSHOTS:
+                states[kind].append(tuple(
+                    a.clone() if isinstance(a, torch.Tensor) else a
+                    for a in args[:n_args]))
+            seen[kind] += 1
+            return fn(*args)
+        return call
+
+    pipe._closest = record("closest", pipe._closest, 6)
+    pipe._any = record("any", pipe._any, 6)
+    pipe.shade_fn = record("shade", pipe.shade_fn, 3)
+    step = make_render_fn(scene, cfg, tracer=pipe, device=dev)
+    step(camera.params(), film_create(cfg.height, cfg.width, device=dev))
+    torch.cuda.synchronize()
+    check(all(len(v) == len(SNAPSHOTS) for v in states.values()),
+          f"main path: {seen} iterations, too few for the snapshots")
+    return states
+
+
+def time_on_states(kern, ref, table, inputs, any_hit, motion):
+    """An MT kernel on the main path's inputs [(o, d, tmin, tmax, time,
+    count)], packed as the tracer packs them: checked against its plain
+    version (prim/occlusion exact, t/u/v within 1e-6), then (ms, plain ms,
+    bound ms, bound by) of the mean launch and the largest difference."""
+    import torch
+
+    from rendertoy3c_tpu_torch.trace import mt
+
+    tile = mt.MOTION_RAY_TILE if motion else mt.RAY_TILE
+    launches, err = [], 0.0
+    for o, d, tmin, tmax, tm, count in inputs:
+        rays, r = mt.pack_rays(o, d, tmin, tmax, tile)
+        check(r == rays.shape[0], "a pool of whole ray tiles")
+        a = (rays, *((tm.contiguous(),) if motion else ()), count.reshape(1),
+             table)
+        got, want = kern(*a), ref(*a)
+        col = 0 if any_hit else 1
+        diff = (got - want).abs()
+        check(torch.equal(got[:, col], want[:, col])
+              and bool((diff <= 1e-6 + 1e-6 * want.abs()).all()),
+              f"{kern.__name__} differs from its plain version on the main "
+              "path's inputs")
+        err = max(err, diff.max().item())
+        launches.append(a)
+    ms = cuda_ms([functools.partial(kern, *a) for a in launches] * 12)
+    plain_ms = cuda_ms([functools.partial(ref, *a) for a in launches])
+    costs = [mt_cost(a[0], a[-2], table, any_hit, a[1] if motion else None)
+             for a in launches]
+    return (ms, plain_ms, *mean_bound(costs), err)
+
+
+def phase_town_mt(dev, towns, states):
     """K1/K2 on the static town (in its Morton face order) and K3 on the
-    2-key town: plain versions and brute on 131072 rays, timed and bounded
-    at 32768."""
+    2-key town: plain versions and brute on 131072 rays; timed and bounded
+    on the main path's own inputs (`states`, main_path_states)."""
     import torch
 
     from rendertoy3c_tpu_torch.trace import mt
@@ -714,23 +850,20 @@ def phase_town_mt(dev, towns):
                     check(bool(((x - y).abs() <= 1e-6 + 1e-6 * y.abs())
                                .all()), f"{name}: t/u/v differ from brute")
                 frac = float((h.prim >= 0).float().mean())
-            # timed and bounded on a pool-wide random subset
-            sel = torch.as_tensor(rng.permutation(n_total)[:pool],
-                                  device=dev)
-            rp = rays[sel].contiguous()
-            ap = tuple(a[sel].contiguous() for a in args)
-            cp = torch.tensor([pool], dtype=torch.int32, device=dev)
-            ms = cuda_ms([lambda: kern(rp, *ap, cp, table)] * 50)
-            plain_ms = cuda_ms([lambda: ref(rp, *ap, cp, table)] * 5)
-            bound_ms, bound_by = mt_bound(rp, cp, table, any_hit,
-                                          ap[0] if motion else None)
+            ms, plain_ms, bound_ms, bound_by, e = time_on_states(
+                kern, ref, table, states[motion]["any" if any_hit
+                                                 else "closest"],
+                any_hit, motion)
+            err = max(err, e)
             results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                  bound_ms=bound_ms, bound_by=bound_by)
             print(f"phase 7 {name} ({'2-key' if motion else 'static'} "
                   f"town, {scene.num_faces} faces): exact vs plain and brute "
-                  f"on {n_total} rays (hit/occluded share {frac:.3f}); "
-                  f"max|d| {err:.3g}; {ms:.4f} ms vs plain {plain_ms:.4f} ms "
-                  f"at {pool} rays; bound {bound_ms:.4f} ms by {bound_by}")
+                  f"on {n_total} rays (hit/occluded share {frac:.3f}) and vs "
+                  f"plain on the main path's inputs at iterations "
+                  f"{SNAPSHOTS}; max|d| {err:.3g}; there {ms:.4f} ms vs plain "
+                  f"{plain_ms:.4f} ms per {pool}-ray launch; bound "
+                  f"{bound_ms:.4f} ms by {bound_by}")
     return results
 
 
@@ -759,9 +892,10 @@ def _fresh_lanes(camera, n, rng, dev):
             torch.as_tensor(misc, device=dev))
 
 
-def phase_k6(dev, towns):
+def phase_k6(dev, towns, states):
     """K6 teacher-forced against external_shade_ref for 8 iterations on
-    both towns; timed and bounded on the static town's 5th state."""
+    both towns; then on the main paths' own inputs (`states`,
+    main_path_states), bit-equal, its device time and bound."""
     import torch
 
     from rendertoy3c_tpu_torch.integrate.config import RenderConfig
@@ -771,6 +905,7 @@ def phase_k6(dev, towns):
     cfg = RenderConfig(**MAIN)
     pool = cfg.ray_block
     res = dict(max_abs_err=0.0)
+    launches, costs = [], []
     for motion in (False, True):
         scene, camera = towns[motion]
         _, pipe = choose_tracer(scene, cfg, dev)
@@ -795,17 +930,6 @@ def phase_k6(dev, towns):
                             .any(dim=1).sum())
                 check(n_bad == 0, f"K6 iteration {it} ({what}): {n_bad} "
                       "lanes differ from the plain version")
-            if it == 4 and not motion:
-                args = (rays, hit4, misc, pipe.tables, pipe.config)
-                res["ms"] = cuda_ms([lambda: shade.external_shade(*args)]
-                                    * 50)
-                res["plain_ms"] = cuda_ms(
-                    [lambda: shade.external_shade_ref(*args)] * 10)
-                uniq = torch.unique(hit4[:, 1].clamp(min=0)).numel()
-                n_bytes = (pool * (32 + 16 + 64 + 32 + 96 + 32) + uniq * 64
-                           + 4 * pipe.tables.lights_t.numel())
-                res["bound_ms"], res["bound_by"] = bound(n_bytes,
-                                                         pool * SHADE_OPS)
             # the next state: the plain output, NEE added on unoccluded
             # lanes, dead lanes restarted as fresh camera paths
             r2, m2, sh = want
@@ -823,9 +947,29 @@ def phase_k6(dev, towns):
         print(f"phase 8 K6 ({'2-key' if motion else 'static'} town): "
               f"{pool} lanes x 8 iterations bit-equal to the plain version "
               f"(paths up to depth {deep})")
-    print(f"phase 8 K6 time per launch at {pool} lanes: {res['ms']:.4f} ms "
-          f"vs plain {res['plain_ms']:.4f} ms; bound {res['bound_ms']:.4f} "
-          f"ms by {res['bound_by']}")
+        # the main path's own inputs: bit-equal again, then timed
+        for rays, hit4, misc in states[motion]["shade"]:
+            a = (rays, hit4, misc, pipe.tables, pipe.config)
+            got, want = shade.external_shade(*a), shade.external_shade_ref(*a)
+            check(all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+                      for g, w in zip(got, want)),
+                  "K6 differs from its plain version on the main path's "
+                  "inputs")
+            launches.append(a)
+            uniq = torch.unique(hit4[:, 1].clamp(min=0)).numel()
+            costs.append((pool * (32 + 16 + 64 + 32 + 96 + 4 * got[2].shape[1])
+                          + uniq * 64 + 4 * pipe.tables.lights_t.numel(),
+                          pool * SHADE_OPS))
+    res["ms"] = device_ms([functools.partial(shade.external_shade, *a)
+                           for a in launches] * 6, "external_shade_kernel")
+    res["plain_ms"] = cuda_ms([functools.partial(shade.external_shade_ref, *a)
+                               for a in launches])
+    res["bound_ms"], res["bound_by"] = mean_bound(costs)
+    print(f"phase 8 K6 on the main paths' inputs (iterations {SNAPSHOTS} of "
+          f"both towns, bit-equal to the plain version): device time "
+          f"{res['ms']:.4f} ms per {pool}-lane launch (profiler) vs plain "
+          f"{res['plain_ms']:.4f} ms; bound {res['bound_ms']:.4f} ms by "
+          f"{res['bound_by']}")
     return res
 
 
@@ -885,7 +1029,8 @@ def main() -> int:
         # ---- phase 5: the Cornell main path
         film_k, launches_c = full_size(
             "cornell", scene, camera, dev, smi, 5,
-            {"trace_shade_refill": shade.trace_shade_refill})
+            {"trace_shade_refill": shade.trace_shade_refill},
+            ("refill_kernel",))
 
         # ---- phase 6: PNG
         out_dir = tempfile.mkdtemp(prefix="rt3c_smoke_")
@@ -903,12 +1048,17 @@ def main() -> int:
         print(f"phase 7 towns generated and loaded in "
               f"{time.perf_counter() - t0:.2f} s: {towns[False][0].num_faces}"
               f" faces, {towns[False][0].num_lights} lights")
+        t0 = time.perf_counter()
+        states = {k: main_path_states(*towns[k], dev) for k in towns}
+        print(f"phase 7 main-path inputs at iterations {SNAPSHOTS} of one "
+              f"subframe of each town recorded in "
+              f"{time.perf_counter() - t0:.2f} s")
         mt_res = phase_town_mt(dev, {
             False: (mt_scene_order(towns[False][0], dev), towns[False][1]),
-            True: towns[True]})
+            True: towns[True]}, states)
 
         # ---- phase 8: K6
-        k6 = phase_k6(dev, towns)
+        k6 = phase_k6(dev, towns, states)
 
         # ---- phase 9: the gate on the 4294-face town
         for k in (False, True):
@@ -920,12 +1070,14 @@ def main() -> int:
         launches_s = full_size(
             "static town", *towns[False], dev, smi, 10,
             {"mt_closest": mt.mt_closest, "mt_any": mt.mt_any,
-             "external_shade": shade.external_shade})[1]
+             "external_shade": shade.external_shade},
+            ("mt_kernel", "external_shade_kernel"))[1]
         launches_m = full_size(
             "2-key town", *towns[True], dev, smi, 10,
             {"mt_closest_motion": mt.mt_closest_motion,
              "mt_any_motion": mt.mt_any_motion,
-             "external_shade": shade.external_shade})[1]
+             "external_shade": shade.external_shade},
+            ("mt_motion_kernel", "external_shade_kernel"))[1]
         print(f"phase 10 done; {time.perf_counter() - t_start:.1f} s since "
               "the start")
     except PhaseFailed as e:

@@ -146,18 +146,22 @@ def test_external_shade_ref_matches_reference_kernel(towns, two_key):
     assert (misc[:, 8] >= 3).any()  # some paths went several bounces deep
 
 
+@pytest.mark.parametrize("pool_stash", [-1, 1])
 @pytest.mark.parametrize("two_key", [False, True])
-def test_render_matches_reference_external_pipeline(towns, two_key):
+def test_render_matches_reference_external_pipeline(towns, two_key,
+                                                    pool_stash):
     """tests/test_external.py `_match`, strict: >98% of pixels at rtol =
-    atol = 3e-5, means within 5e-3, ray counts within 2% + 16."""
+    atol = 3e-5, means within 5e-3, ray counts within 2% + 16. pool_stash
+    -1 (auto: off for the external pipeline) and 1 (the stash branch)."""
     js, ts, cam = towns[two_key]
-    jcfg = JConfig(**KW)
+    jcfg = JConfig(**KW, pool_stash=pool_stash)
     j_scene, j_pipe = j_choose_tracer(js, jcfg, on_tpu=True)
     assert type(j_pipe).__name__ == "ExternalPipeline"
     f_ref, s_ref = j_render_frame(j_scene, cam.params(), jcfg, subframes=1,
                                   tracer=j_pipe)
-    f, s = render_frame(ts, cam.params(), RenderConfig(**KW), subframes=1,
-                        device="cpu")
+    f, s = render_frame(ts, cam.params(),
+                        RenderConfig(**KW, pool_stash=pool_stash),
+                        subframes=1, device="cpu")
     a, b = f.accum.numpy(), np.asarray(f_ref.accum)
     assert np.isclose(a, b, rtol=3e-5, atol=3e-5).mean() > 0.98
     np.testing.assert_allclose(a.mean(), b.mean(), rtol=5e-3)
