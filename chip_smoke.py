@@ -6,9 +6,10 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from kernels/csrc, checks each against
-its plain PyTorch version on the card, renders the Cornell main path and
-the two .obj town paths at full size through the user entry points, and
-prints a JSON summary. Phases:
+its plain PyTorch version on the card, renders the Cornell main path, the
+two .obj town paths and the fused pipeline's motion, sorted and
+sample-major paths at full size through the user entry points, and prints
+a JSON summary. Phases:
 
   1. card, power limit, torch/CUDA versions, kernel build time;
   2. K1/K2 (mt_closest, mt_any) against their plain versions and the brute
@@ -45,7 +46,23 @@ prints a JSON summary. Phases:
      launches per subframe, image means within 1%, the first subframes
      through the gate, every pixel finite, and the device idle share of
      one profiled subframe (a phase fails if its profile shows no device
-     time or misses one of its kernels).
+     time or misses one of its kernels);
+ 11. K4's motion variant against its plain version on the 2-key Cornell
+     box (the last block given a second key at +0.1 in x), as phase 3:
+     stats and the time buffer exact over 8 launches of one block, then
+     one launch at the pool width; timed and bounded per launch;
+ 12. K5 (trace_shade, the merged megakernel without the refill), static
+     and motion, against its plain version on the inputs of pool
+     iterations 32, 128, 224 and 320 of one subframe of its own main path
+     (phase 14's sorted Cornell and 2-key sample-major Cornell); device
+     time per launch from the profiler (its wrapper's host time exceeds
+     it), and bound;
+ 13. the gate of phase 4 on the 2-key Cornell box (pixel-major), Cornell
+     sorted and sample-major, and the 4294-face town sorted and
+     sample-major (external pipeline);
+ 14. three more main paths as phase 5, 1 plain subframe each: the 2-key
+     Cornell box on the pixel-major pool (K4 motion), Cornell with
+     sort_rays (K5) and the 2-key Cornell box sample-major (K5 motion).
 
 Each kernel's bound is the larger of the bytes it must move over 3.35 TB/s
 and the operations its inputs need over the 67 TFLOP/s fp32 peak outside
@@ -55,6 +72,8 @@ box tests and the triangle tests of the tiles whose boxes it hits itself
 their first hit), replayed with the plain per-tile results; for the
 shading, its body per lane.
 
+Phases 11-14, on the Cornell box, run after phase 6 and before the towns:
+run after them, phase 12's profile once recorded none of K5's launches.
 Any failed phase exits non-zero. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -85,8 +104,8 @@ MEM_BPS = 3.35e12  # H100 SXM HBM3 bytes/s
 FP32_OPS = 67e12  # H100 SXM fp32 operations/s outside the tensor cores
 # operations counted from the CUDA sources, one per arithmetic operation,
 # compare, select or intrinsic: one Moller-Trumbore test (mt_test_tri),
-# the per-triangle lerp of a motion test, one slab test (box_hit),
-# shade_lane, and K4's epilogue
+# the per-triangle lerp of a motion test (a lerped test is 81), one slab
+# test (box_hit), shade_lane, and K4's epilogue
 MT_TEST_OPS = 54
 LERP_OPS = 27
 BOX_OPS = 29
@@ -135,7 +154,8 @@ def bound(n_bytes: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def mt_work(rays, count, table, any_hit: bool, time=None, want=None):
+def mt_work(rays, count, table, any_hit: bool, time=None, want=None,
+            tile=None):
     """(operations, table bytes read) that one K1/K2/K3 sweep over these
     rays needs, counted ray by ray in tile order: a ray tests the boxes of
     the super-tiles, and of the tiles of each super-tile whose box it hits
@@ -143,9 +163,10 @@ def mt_work(rays, count, table, any_hit: bool, time=None, want=None):
     kernel's block vote lets a ray into every tile that any ray of its
     block hits, which this count does not charge). A closest ray's bound
     shrinks with its best hit so far; an any-hit ray stops at its first
-    hit; rays past the live count, outside `want` (K4's lanes without a
-    shadow ray) or with tmax <= tmin need nothing. A tile's bytes count
-    once if any ray tests it."""
+    hit; rays past the live count (in ray tiles of `tile`, by default the
+    MT kernel's), outside `want` (a megakernel's lanes without a shadow
+    ray) or with tmax <= tmin need nothing. A tile's bytes count once if
+    any ray tests it."""
     import torch
 
     from rendertoy3c_tpu_torch.trace import mt
@@ -153,7 +174,7 @@ def mt_work(rays, count, table, any_hit: bool, time=None, want=None):
     motion = time is not None
     tris = table.tris0 if motion else table.tris
     n_tiles, _, ct = tris.shape
-    tile_r = mt.MOTION_RAY_TILE if motion else mt.RAY_TILE
+    tile_r = tile or (mt.MOTION_RAY_TILE if motion else mt.RAY_TILE)
     r = rays.shape[0]
     need = mt.live_rows(r, count, tile_r) & (rays[:, 7] > rays[:, 6])
     if want is not None:
@@ -357,7 +378,9 @@ def phase_mt(dev, scene, camera):
 
 
 # ---------------------------------------------------------------- phase 3
-def _lane_state(pool, dev):
+def _lane_state(pool, dev, motion=False):
+    """A pool before its first launch: [rays, misc, stash] and, for a
+    motion pipeline, the time buffer (zero, as the render starts it)."""
     import torch
 
     rays = torch.zeros((pool, 8), dtype=torch.float32, device=dev)
@@ -365,24 +388,27 @@ def _lane_state(pool, dev):
     misc[:, 13] = -1.0
     stash = torch.zeros((pool, 16), dtype=torch.float32, device=dev)
     stash[:, 0] = -1.0
-    return [rays, misc, stash]
+    time_ = [torch.zeros(pool, dtype=torch.float32, device=dev)] if motion \
+        else []
+    return [rays, misc, stash, *time_]
 
 
 def _compare_lanes(got, want, claimed_as_set: bool):
     """(max float error, lanes that differ) between two launch outputs
-    [rays, misc, stash]; seeds (misc col 0) compared by bits. With
+    [rays, misc, stash (, time)]; seeds (misc col 0) compared by bits. With
     claimed_as_set, the rows of lanes whose pixel ids differ are paired by
     pixel, since which lane claims which pixel depends on block order."""
     import torch
 
-    rk, mk, sk = got
-    rr, mr, sr = want
+    rk, mk, sk = got[:3]
+    rr, mr, sr = want[:3]
     # want_shadow (misc 15) and the stash belong to the lane's finished
-    # path, the rest of a claiming lane's row to its new pixel
+    # path, the rest of a claiming lane's row (and its next time) to its
+    # new pixel
     lane_k = torch.cat([sk, mk[:, 15:16]], dim=1)
     lane_r = torch.cat([sr, mr[:, 15:16]], dim=1)
-    rows_k = torch.cat([rk, mk[:, :15]], dim=1)
-    rows_r = torch.cat([rr, mr[:, :15]], dim=1)
+    rows_k = torch.cat([rk, mk[:, :15], *(t[:, None] for t in got[3:])], 1)
+    rows_r = torch.cat([rr, mr[:, :15], *(t[:, None] for t in want[3:])], 1)
     moved = mk[:, 13] != mr[:, 13]
     if claimed_as_set and bool(moved.any()):
         a = rows_k[moved][torch.argsort(mk[moved, 13])]
@@ -401,38 +427,53 @@ def _compare_lanes(got, want, claimed_as_set: bool):
     return err, int(bad.sum().item()) + int(lane_bad.sum().item())
 
 
-def k4_bound(state, stats_in, tables, rc):
-    """bound() of one K4 launch from this state: the closest and shadow
-    sweeps' tests (the shadow rays from the plain shading body) and the
-    shading and refill operations of every lane."""
+def megakernel_work(rays, misc, count, time, tables, sc):
+    """(operations, table bytes) of one megakernel launch (K4 or K5) on
+    these lanes: the closest and the shadow sweep, counted by mt_work on
+    256-ray tiles (the shadow rays, their wants and their times from the
+    plain shading body), and the shading body of every lane."""
     import torch
 
     from rendertoy3c_tpu_torch.trace import mt, shade
 
-    rays, misc, _ = state
-    count = stats_in[1:2]
-    pool = rays.shape[0]
-    closest_ops, table_bytes = mt_work(rays, count, tables.soup, False)
-    hit4 = mt.closest_ref(rays, count, tables.soup)
+    table = tables.soup if tables.msoup is None else tables.msoup
+    closest, occluded = shade._plain_sweeps(tables, count, time)
+    closest_ops, closest_bytes = mt_work(rays, count, table, False, time,
+                                         tile=mt.RAY_TILE)
+    hit4 = closest(rays)
     a = tables.attr_t[:, torch.clamp(hit4[:, 1], min=0.0).to(torch.int64)]
-    shadow = {}
-
-    def occluded(sh):
-        shadow["rays"] = sh
-        return mt.any_ref(sh, count, tables.soup)[:, 0]
-
-    out = shade._shade_lanes(rays, hit4, misc, a, tables.lights_t, rc,
+    out = shade._shade_lanes(rays, hit4, misc, a, tables.lights_t, sc,
                              occluded)
-    shadow_ops, _ = mt_work(shadow["rays"], count, tables.soup, True,
-                            want=out["want_shadow"])
-    n_bytes = (pool * 2 * (32 + 64 + 64) + 2 * 16 + table_bytes
-               + 4 * (tables.attr_t.numel() + tables.lights_t.numel()
-                      + tables.jump_u32.numel()))
-    ops = closest_ops + shadow_ops + pool * (SHADE_OPS + REFILL_OPS)
-    return bound(n_bytes, ops)
+    shadow_ops, shadow_bytes = mt_work(
+        out["shadow"], count, table, True,
+        None if time is None else out["occl_time"],
+        want=out["want_shadow"], tile=mt.RAY_TILE)
+    # each table tile is read from memory once
+    table_bytes = max(closest_bytes, shadow_bytes) + 4 * (
+        tables.attr_t.numel() + tables.lights_t.numel())
+    return (closest_ops + shadow_ops + rays.shape[0] * SHADE_OPS,
+            table_bytes)
 
 
-def phase_k4(dev, scene, camera):
+def k4_bound(state, stats_in, tables, rc):
+    """bound() of one K4 launch from this state [rays, misc, stash (,
+    time)]: megakernel_work and the refill operations of every lane; the
+    lane state is read and written once, the time buffer too."""
+    rays, misc = state[:2]
+    time = state[3] if len(state) > 3 else None
+    pool = rays.shape[0]
+    ops, table_bytes = megakernel_work(rays, misc, stats_in[1:2], time,
+                                       tables, rc)
+    n_bytes = (pool * 2 * (32 + 64 + 64 + (4 if time is not None else 0))
+               + 2 * 16 + table_bytes + 4 * tables.jump_u32.numel())
+    return bound(n_bytes, ops + pool * REFILL_OPS)
+
+
+def phase_k4(dev, scene, camera, phase=3, label="K4"):
+    """The refill megakernel (the motion variant for a 2-key scene)
+    against its plain version: one block teacher-forced for 8 launches,
+    then one launch at the pool width from a mid-render state; timed and
+    bounded per launch."""
     import torch
 
     from rendertoy3c_tpu_torch.integrate.config import RenderConfig
@@ -443,20 +484,22 @@ def phase_k4(dev, scene, camera):
     p = camera.params()
     scf = tuple(float(x) for x in np.concatenate(
         [p.eye, p.u, p.v, p.w]).astype(np.float32))
-    kern = shade.FusedPipeline(scene, cfg, dev).refill_shader(n_pix, True)
+    pipe = shade.FusedPipeline(scene, cfg, dev)
+    motion = pipe.motion
+    kern = pipe.refill_shader(n_pix)
     ref = shade.FusedPipeline(scene, cfg, dev,
                               refill_fn=shade.trace_shade_refill_ref
-                              ).refill_shader(n_pix, True)
+                              ).refill_shader(n_pix)
     sub = 3
 
     def launch(fn, state, stats_in):
         out = [x.clone() for x in state]
         stats_out = torch.zeros(4, dtype=torch.int32, device=dev)
-        fn(*out, stats_in, stats_out, 0, sub, scf)
+        fn(*out[:3], stats_in, stats_out, 0, sub, scf, *out[3:])
         return out, stats_out
 
     # (a) one block, teacher-forced for 8 launches
-    state = _lane_state(256, dev)
+    state = _lane_state(256, dev, motion)
     stats = torch.zeros(4, dtype=torch.int32, device=dev)
     err_a, bad_a = 0.0, 0
     for step in range(8):
@@ -464,18 +507,23 @@ def phase_k4(dev, scene, camera):
         want, st_r = launch(ref, state, stats)
         torch.cuda.synchronize()
         check(torch.equal(st_k, st_r),
-              f"K4 block step {step}: stats {st_k.tolist()} != "
+              f"{label} block step {step}: stats {st_k.tolist()} != "
               f"{st_r.tolist()}")
+        if motion:
+            check(torch.equal(got[3].view(torch.int32),
+                              want[3].view(torch.int32)),
+                  f"{label} block step {step}: the time buffer differs")
         e, b = _compare_lanes(got, want, claimed_as_set=False)
         err_a, bad_a = max(err_a, e), bad_a + b
         state, stats = want, st_r
-    check(bad_a <= 0.01 * 8 * 256, f"K4 block: {bad_a} lanes differ")
-    print(f"phase 3 K4 one block x 8 launches: stats exact, {bad_a} lanes "
+    check(bad_a <= 0.01 * 8 * 256, f"{label} block: {bad_a} lanes differ")
+    print(f"phase {phase} {label} one block x 8 launches: stats "
+          f"{'and time buffer ' if motion else ''}exact, {bad_a} lanes "
           f"differ, max|d| {err_a:.3g}")
 
     # (b) full pool width from a mid-render state of the plain version
     pool = cfg.ray_block
-    state = _lane_state(pool, dev)
+    state = _lane_state(pool, dev, motion)
     stats = torch.zeros(4, dtype=torch.int32, device=dev)
     for _ in range(12):
         state, stats = launch(ref, state, stats)
@@ -483,25 +531,27 @@ def phase_k4(dev, scene, camera):
     want, st_r = launch(ref, state, stats)
     torch.cuda.synchronize()
     check(torch.equal(st_k, st_r),
-          f"K4 pool: stats {st_k.tolist()} != {st_r.tolist()}")
+          f"{label} pool: stats {st_k.tolist()} != {st_r.tolist()}")
     err_b, bad_b = _compare_lanes(got, want, claimed_as_set=True)
-    check(bad_b <= 0.001 * pool, f"K4 pool: {bad_b} lanes differ")
-    print(f"phase 3 K4 {pool} lanes from launch 12: stats exact "
+    check(bad_b <= 0.001 * pool, f"{label} pool: {bad_b} lanes differ")
+    print(f"phase {phase} {label} {pool} lanes from launch 12: stats exact "
           f"{st_k.tolist()}, {bad_b} lanes differ, max|d| {err_b:.3g}")
 
     # each timed launch gets its own copy of the same input state
     stats_out = torch.zeros(4, dtype=torch.int32, device=dev)
 
     def calls(fn, n):
-        return [functools.partial(fn, *[x.clone() for x in state], stats,
-                                  stats_out, 0, sub, scf) for _ in range(n)]
+        copies = [[x.clone() for x in state] for _ in range(n)]
+        return [functools.partial(fn, *c[:3], stats, stats_out, 0, sub, scf,
+                                  *c[3:]) for c in copies]
 
     ms = cuda_ms(calls(kern, 41))
     plain_ms = cuda_ms(calls(ref, 6))
     bound_ms, bound_by = k4_bound(state, stats, kern.keywords["tables"],
                                   kern.keywords["rc"])
-    print(f"phase 3 K4 time per launch at {pool} lanes: {ms:.4f} ms vs "
-          f"plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by}")
+    print(f"phase {phase} {label} time per launch at {pool} lanes: "
+          f"{ms:.4f} ms vs plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms "
+          f"by {bound_by}")
     return dict(max_abs_err=max(err_a, err_b), ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
 
@@ -516,7 +566,8 @@ def plain_tracer(scene, cfg, dev):
     scene, pipe = choose_tracer(scene, cfg, dev)
     if isinstance(pipe, shade.FusedPipeline):
         return scene, shade.FusedPipeline(
-            scene, cfg, dev, refill_fn=shade.trace_shade_refill_ref)
+            scene, cfg, dev, refill_fn=shade.trace_shade_refill_ref,
+            shade_fn=shade.trace_shade_ref)
     return scene, shade.ExternalPipeline(
         scene, cfg, mt.make_mt_tracer(scene, dev, plain=True), dev,
         shade_fn=shade.external_shade_ref)
@@ -563,9 +614,12 @@ def gate_diff(a, b):
     return diff.mean(), int((diff.max(axis=-1) > 0.35).sum()), diff.max()
 
 
-def gate(scene, camera, dev, what: str, phase: int):
-    f_k = render(scene, camera, GATE, dev, False, 0, 1)[0]
-    f_p = render(scene, camera, GATE, dev, True, 0, 1)[0]
+def gate(scene, camera, dev, what: str, phase: int, **change):
+    """The gate (bench.py:115-116) of kernels against plain versions on
+    the GATE config with `change` applied."""
+    cfg_kw = dict(GATE, **change)
+    f_k = render(scene, camera, cfg_kw, dev, False, 0, 1)[0]
+    f_p = render(scene, camera, cfg_kw, dev, True, 0, 1)[0]
     mean_d, outl, max_d = gate_diff(f_k.accum.cpu().numpy(),
                                     f_p.accum.cpu().numpy())
     check(mean_d <= 2e-3 and outl <= 8 and max_d <= 8.0,
@@ -612,11 +666,12 @@ def device_ms(calls, kernel: str) -> float:
     CUDA events around back-to-back calls would time the host. The
     profiler may miss the first launches of its window."""
     calls[0]()
-    rows = [r for r in device_rows(lambda: [c() for c in calls])
-            if kernel_symbol(r[1]) == kernel]
+    all_rows = device_rows(lambda: [c() for c in calls])
+    rows = [r for r in all_rows if kernel_symbol(r[1]) == kernel]
     n = sum(r[2] for r in rows)
     check(2 * n >= len(calls), f"the profiler saw {n} launches of {kernel} "
-          f"in {len(calls)} calls")
+          f"in {len(calls)} calls; it saw "
+          f"{[(r[1][:60], r[2]) for r in all_rows[:8]]}")
     return sum(r[0] for r in rows) / n / 1e3
 
 
@@ -647,22 +702,24 @@ def profile_subframe(step, film, camera, untraced_s: float, phase: int,
     return idle
 
 
-def full_size(name, scene, camera, dev, smi, phase: int, counters, symbols):
-    """One main path at full size: kernels (1 warm-up, 4 timed) with the
-    launch counters zeroed just before and read just after, then the plain
-    versions, means compared, a profile that must see each CUDA kernel of
-    `symbols`. Returns (kernel film, launches by kernel)."""
+def full_size(name, scene, camera, dev, smi, phase: int, counters, symbols,
+              change=None, n_plain=1):
+    """One main path at full size (MAIN with `change` applied): kernels (1
+    warm-up, 4 timed) with the launch counters zeroed just before and read
+    just after, then the plain versions (n_plain subframes, the last 4 of
+    them timed), means compared, a profile that must see each CUDA kernel
+    of `symbols`. Returns (kernel film, launches by kernel)."""
+    cfg_kw = dict(MAIN, **(change or {}))
     for fn in counters.values():
         fn.launches = 0
     film_k, rates_k, it_k, secs_k, step_k, first_k = render(
-        scene, camera, MAIN, dev, False, 1, 4)
+        scene, camera, cfg_kw, dev, False, 1, 4)
     launches = {n: fn.launches for n, fn in counters.items()}
     for n, cnt in launches.items():
         check(cnt > 0, f"{name}: the main path launched {n} no time")
-    plain_timed = 4 if name == "cornell" else 1
-    n_plain = 5 if name == "cornell" else 1
+    plain_timed = min(n_plain, 4)
     film_p, rates_p, _, secs_p, _, first_p = render(
-        scene, camera, MAIN, dev, True, n_plain - plain_timed, plain_timed)
+        scene, camera, cfg_kw, dev, True, n_plain - plain_timed, plain_timed)
     img_k = film_k.accum.cpu().numpy()
     img_p = film_p.accum.cpu().numpy()
     check(bool(np.isfinite(img_k).all()), f"{name}: kernel image not finite")
@@ -676,7 +733,8 @@ def full_size(name, scene, camera, dev, smi, phase: int, counters, symbols):
     check(mean_d <= 2e-3 and outl <= 8 and max_d <= 8.0,
           f"{name}: first subframe fails the gate: mean|d| {mean_d:.3g}, "
           f"{outl} outliers, max|d| {max_d:.3g}")
-    print(f"phase {phase} {name} 768^2 8spp depth 16 pool 32768 on {smi}:")
+    print(f"phase {phase} {name} 768^2 8spp depth 16 pool 32768 "
+          f"{change or ''} on {smi}:")
     print(f"  kernels: Mray/s per subframe {rates_k}, median "
           f"{float(np.median(rates_k)):.6g}; s {secs_k}; "
           f"{it_k / 4:.1f} launches/subframe")
@@ -973,6 +1031,113 @@ def phase_k6(dev, towns, states):
     return res
 
 
+# ---------------------------------------------------------------- phase 11+
+SORTED = dict(sort_rays=True)
+SAMPLE_MAJOR = dict(pool_pixel_major=False)
+
+
+def moving_cornell():
+    """(scene, camera) of the 2-key Cornell box: the last block given a
+    second key at +0.1 in x (36 faces)."""
+    import dataclasses
+
+    from rendertoy3c_tpu_torch.scene.builtin import cornell_box
+    from rendertoy3c_tpu_torch.scene.scene import build_scene
+
+    meshes, camera = cornell_box()
+    v = meshes[-1].vertices
+    meshes[-1] = dataclasses.replace(
+        meshes[-1], vertices=np.concatenate([v, v + np.float32([0.1, 0, 0])]))
+    return build_scene(meshes), camera
+
+
+def k5_states(scene, camera, dev, change):
+    """(pipeline, [(rays, misc, count, time)]): the inputs of K5 at the
+    pool iterations SNAPSHOTS of one kernel subframe of the main path with
+    `change` (through make_render_fn with choose_tracer's pipeline)."""
+    import torch
+
+    from rendertoy3c_tpu_torch.film.film import film_create
+    from rendertoy3c_tpu_torch.integrate.config import RenderConfig
+    from rendertoy3c_tpu_torch.integrate.path import make_render_fn
+    from rendertoy3c_tpu_torch.trace import shade
+    from rendertoy3c_tpu_torch.trace.auto import choose_tracer
+
+    cfg = RenderConfig(**dict(MAIN, **change))
+    scene, pipe = choose_tracer(scene, cfg, dev)
+    check(isinstance(pipe, shade.FusedPipeline), "K5 path: not fused")
+    states, seen = [], [0]
+    fn = pipe.shade_fn
+
+    def call(rays, misc, count, tables, sc, time=None):
+        if seen[0] in SNAPSHOTS:
+            states.append((rays.clone(), misc.clone(), count.clone(),
+                           None if time is None else time.clone()))
+        seen[0] += 1
+        return fn(rays, misc, count, tables, sc, time)
+
+    pipe.shade_fn = call
+    step = make_render_fn(scene, cfg, tracer=pipe, device=dev)
+    step(camera.params(), film_create(cfg.height, cfg.width, device=dev))
+    torch.cuda.synchronize()
+    pipe.shade_fn = fn
+    check(len(states) == len(SNAPSHOTS),
+          f"K5 path: {seen[0]} iterations, too few for the snapshots")
+    return pipe, states
+
+
+def phase_k5(dev, runs):
+    """K5 against trace_shade_ref on the recorded main-path inputs of each
+    run ({label: (pipeline, states)}): lanes compared bit for bit (and
+    within 1e-5 where not), device time per launch from the profiler, the
+    plain version's time and the bound."""
+    import torch
+
+    from rendertoy3c_tpu_torch.trace import shade
+
+    results = {}
+    for label, (pipe, states) in runs.items():
+        launches, costs, err, n_diff, n_bad = [], [], 0.0, 0, 0
+        for rays, misc, count, tm in states:
+            a = (rays, misc, count, pipe.tables, pipe.config, tm)
+            got = shade.trace_shade(*a)
+            want = shade.trace_shade_ref(*a)
+            torch.cuda.synchronize()
+            gk, gr = torch.cat(got, 1), torch.cat(want, 1)
+            n_diff += int((gk.view(torch.int32) != gr.view(torch.int32))
+                          .any(dim=1).sum())
+            seed_ok = torch.equal(got[1][:, 0].view(torch.int32),
+                                  want[1][:, 0].view(torch.int32))
+            d = (gk - gr).abs()
+            n_bad += int((d > 1e-5 + 1e-5 * gr.abs()).any(dim=1).sum()) + (
+                0 if seed_ok else int((got[1][:, 0].view(torch.int32)
+                                       != want[1][:, 0].view(torch.int32))
+                                      .sum()))
+            err = max(err, d.max().item())
+            launches.append(a)
+            ops, table_bytes = megakernel_work(rays, misc, count, tm,
+                                               pipe.tables, pipe.config)
+            pool = rays.shape[0]
+            costs.append((pool * 2 * (32 + 64) + 4 + table_bytes
+                          + (4 * pool if tm is not None else 0), ops))
+        pool = states[0][0].shape[0]
+        check(n_bad <= 0.001 * pool * len(states),
+              f"{label}: {n_bad} lanes differ from the plain version")
+        ms = device_ms([functools.partial(shade.trace_shade, *a)
+                        for a in launches] * 6, "trace_shade_kernel")
+        plain_ms = cuda_ms([functools.partial(shade.trace_shade_ref, *a)
+                            for a in launches])
+        bound_ms, bound_by = mean_bound(costs)
+        results[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                              bound_ms=bound_ms, bound_by=bound_by)
+        print(f"phase 12 {label} on its main path's inputs (iterations "
+              f"{SNAPSHOTS}, {pool} lanes): {n_diff} lanes not bit-equal, "
+              f"{n_bad} beyond 1e-5 or seed, max|d| {err:.3g}; device time "
+              f"{ms:.4f} ms per launch (profiler) vs plain {plain_ms:.4f} "
+              f"ms; bound {bound_ms:.4f} ms by {bound_by}")
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -1030,7 +1195,7 @@ def main() -> int:
         film_k, launches_c = full_size(
             "cornell", scene, camera, dev, smi, 5,
             {"trace_shade_refill": shade.trace_shade_refill},
-            ("refill_kernel",))
+            ("refill_kernel",), n_plain=5)
 
         # ---- phase 6: PNG
         out_dir = tempfile.mkdtemp(prefix="rt3c_smoke_")
@@ -1038,6 +1203,45 @@ def main() -> int:
         write_png(png, np.ascontiguousarray(
             make_color(film_k.accum, alpha=False).cpu().numpy()[::-1]))
         print(f"phase 6 wrote {png}")
+
+        # ---- phase 11: K4's motion variant
+        m_scene, m_camera = moving_cornell()
+        check(m_scene.num_keys == 2 and m_scene.num_faces == 36,
+              f"2-key Cornell: {m_scene.num_faces} faces, "
+              f"{m_scene.num_keys} keys")
+        k4m = phase_k4(dev, m_scene, m_camera, 11, "K4 motion")
+
+        # ---- phase 12: K5 static and motion on their paths' inputs
+        k5 = phase_k5(dev, {
+            "K5 (Cornell sorted)": k5_states(scene, camera, dev, SORTED),
+            "K5 motion (2-key Cornell sample-major)": k5_states(
+                m_scene, m_camera, dev, SAMPLE_MAJOR)})
+        k5s, k5m = k5.values()
+
+        # ---- phase 13: the gates of the new schedules
+        gate(m_scene, m_camera, dev, "2-key Cornell", 13)
+        gate(scene, camera, dev, "Cornell sorted", 13, **SORTED)
+        gate(scene, camera, dev, "Cornell sample-major", 13, **SAMPLE_MAJOR)
+        s, c = town_scene(GATE_TOWN_FACES, False)
+        gate(s, c, dev, f"town ({s.num_faces} faces) sorted", 13, **SORTED)
+        gate(s, c, dev, f"town ({s.num_faces} faces) sample-major", 13,
+             **SAMPLE_MAJOR)
+
+        # ---- phase 14: the new paths at full size
+        launches_km = full_size(
+            "2-key cornell", m_scene, m_camera, dev, smi, 14,
+            {"trace_shade_refill": shade.trace_shade_refill},
+            ("refill_kernel",))[1]
+        launches_k5 = full_size(
+            "cornell sorted", scene, camera, dev, smi, 14,
+            {"trace_shade": shade.trace_shade}, ("trace_shade_kernel",),
+            SORTED)[1]
+        launches_k5m = full_size(
+            "2-key cornell sample-major", m_scene, m_camera, dev, smi, 14,
+            {"trace_shade": shade.trace_shade}, ("trace_shade_kernel",),
+            SAMPLE_MAJOR)[1]
+        print(f"phase 14 done; {time.perf_counter() - t_start:.1f} s since "
+              "the start")
 
         # ---- phase 7: K1/K2 and K3 on the 16054-face towns
         t0 = time.perf_counter()
@@ -1080,15 +1284,24 @@ def main() -> int:
             ("mt_motion_kernel", "external_shade_kernel"))[1]
         print(f"phase 10 done; {time.perf_counter() - t_start:.1f} s since "
               "the start")
+
     except PhaseFailed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
 
     mt_replaces = "rendertoy3c_tpu/trace/pallas_mt.py:"
-    kernels = [dict(name="trace_shade_refill", route="cuda", source=K4_SRC,
-                    replaces="rendertoy3c_tpu/trace/pallas_shade.py:1329",
-                    launches=launches_c["trace_shade_refill"], **k4,
-                    library_ms=None)]
+    shade_replaces = "rendertoy3c_tpu/trace/pallas_shade.py:"
+    kernels = [dict(name=n, route="cuda", source=K4_SRC,
+                    replaces=f"{shade_replaces}{line}", launches=count,
+                    **res, library_ms=None)
+               for n, line, count, res in (
+                   ("trace_shade_refill", 1329,
+                    launches_c["trace_shade_refill"], k4),
+                   ("trace_shade_refill_motion", 1329,
+                    launches_km["trace_shade_refill"], k4m),
+                   ("trace_shade", 1230, launches_k5["trace_shade"], k5s),
+                   ("trace_shade_motion", 1230, launches_k5m["trace_shade"],
+                    k5m))]
     for n, line in (("mt_closest", 353), ("mt_any", 353),
                     ("mt_closest_motion", 643), ("mt_any_motion", 643)):
         path_launches = launches_m if "motion" in n else launches_s

@@ -11,8 +11,9 @@ Port of the path-render subset of rendertoy3c_tpu/app/cli.py:
 motion keyframes (the reference loader's rule). The .obj camera defaults to
 the reference app's framing, eye (5,5,5) toward (0,1,0) at fov 45
 (rendertoy3c_tpu/app/cli.py:192-197); `--eye --lookat --fov` override it.
-It renders with the main path's pool settings (pixel-major pool,
-max_depth 16, ray_block 32768) and writes a PNG.
+It renders on the pixel-major pool with the reference CLI's names and
+defaults for --max-depth (32), --seed (0), --ray-block (65536) and
+--flush-every (0 = auto), and writes a PNG.
 """
 from __future__ import annotations
 
@@ -57,6 +58,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lookat", type=_vec3, default=None)
     p.add_argument("--fov", type=float, default=None,
                    help="vertical fov, degrees")
+    p.add_argument("--max-depth", type=int, default=32)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--ray-block", type=int, default=1 << 16)
+    p.add_argument("--flush-every", type=int, default=0,
+                   help="pool framebuffer flush cadence, 0 = auto by "
+                   "frame and pool size")
     return p
 
 
@@ -87,8 +94,9 @@ def main(argv=None) -> int:
         return 2
     device = torch.device(args.device)
     cfg = RenderConfig(width=w, height=h, samples_per_launch=args.spp,
-                       max_depth=16, ray_block=32768, integrator="pool",
-                       pool_pixel_major=True)
+                       max_depth=args.max_depth, seed=args.seed,
+                       ray_block=args.ray_block, integrator="pool",
+                       pool_pixel_major=True, flush_every=args.flush_every)
     meshes, camera = load_scene(args.scene)
     if args.eye:
         camera.eye = args.eye

@@ -2,17 +2,22 @@
 points.
 
 Port of the pool paths of rendertoy3c_tpu/integrate/path.py:
-`_lcg_advance_table` (:463), `RenderStats`, the
-stash and flush-cadence choice of `_render_pool_fused` (:1016-1048),
-`_render_pool_fused_krefill` (:832-989) over the refill megakernel (K4),
-the XLA-refill pixel-major loop of `_render_pool_fused` (:1060-1393) over
-the external pipeline (K6 between MT tracers), and `render_pixels`,
-`render_subframe`, `make_render_fn`, `render_frame` (:1396-1549).
+`_lcg_advance_table` (:463), `RenderStats`, the stash and flush-cadence
+rule of `_render_pool_fused` (:1016-1048), `_render_pool_fused_krefill`
+(:832-989) over the refill megakernel (K4), the XLA-refill loop of
+`_render_pool_fused` (:1060-1393) over either pipeline's `trace_shade`
+(K5, or K6 between MT tracers) with its pixel-major and sample-major
+schedules and the ray sort, and `render_pixels`, `render_subframe`,
+`make_render_fn`, `render_frame` (:1396-1549).
 
-Both loops mirror the reference's while_loop: the loop condition is read
-once per window (one host synchronisation), and each window runs one
-flush and then `flush_every` iterations that stay on the device
-(`next_work`, `count` and the ray counters are device tensors).
+The loops mirror the reference's while_loops. The loop condition is read
+once per window (one host synchronisation), and each window runs
+`flush_every` iterations that stay on the device (`next_work`, `count`
+and the ray counters are device tensors): the pixel-major windows start
+with the flush, as the reference's do. The sample-major reference checks
+its condition before every iteration; here an iteration run after the
+condition turned false finds every lane dead and no work left, changes
+nothing, and is not counted.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..accel.morton import morton3d
 from ..film.film import Film, film_accumulate, film_create
 from ..math import rng
 from ..scene.camera import camera_ray_dir
@@ -63,7 +69,8 @@ def _flush(image, misc, stash, spp: int, pixel_base: int, sink: int) -> None:
     dropped at the end."""
     pixel = misc[:, 13]
     completed = (misc[:, 9] <= 0) & (pixel >= 0) & (misc[:, 14] >= spp)
-    target = torch.where(completed, pixel.to(torch.int64) - pixel_base, sink)
+    target = torch.where(completed, pixel.to(torch.int64) - pixel_base,
+                         sink)
     if stash is not None:
         sp = stash[:, 0]
         starget = torch.where(sp >= 0, sp.to(torch.int64) - pixel_base, sink)
@@ -87,13 +94,15 @@ def _pool_busy(misc, next_work, n_pix: int, spp: int) -> bool:
 def _render_pool_fused_krefill(cfg, cam, pixel_idx, subframe_index: int,
                                fused: FusedPipeline, pool: int,
                                flush_every: int):
-    """Megakernel pool with in-kernel refill. Returns (rgb [N, 3], None,
-    n_rad, n_shad, launches)."""
+    """Megakernel pool with in-kernel refill; a motion pipeline carries the
+    lanes' ray times [P] through every launch, zero at the start
+    (path.py:863-864). Returns (rgb [N, 3], None, n_rad, n_shad,
+    launches)."""
     dev = fused.device
     n_pix = int(pixel_idx.shape[0])
     spp = cfg.samples_per_launch
     pixel_base = int(pixel_idx[0])
-    shader = fused.refill_shader(n_pix, use_stash=True)
+    shader = fused.refill_shader(n_pix)
     f32 = dict(dtype=torch.float32, device=dev)
 
     rays = torch.zeros((pool, 8), **f32)
@@ -101,6 +110,7 @@ def _render_pool_fused_krefill(cfg, cam, pixel_idx, subframe_index: int,
     misc[:, 13] = -1.0
     stash = torch.zeros((pool, 16), **f32)
     stash[:, 0] = -1.0
+    time = torch.zeros(pool, **f32) if fused.motion else None
     # row n_pix is the sink of lanes with nothing to flush
     image = torch.zeros((n_pix + 1, 3), **f32)
     # (next_work, count, n_live, 0) of the last launch; two buffers, since a
@@ -117,7 +127,7 @@ def _render_pool_fused_krefill(cfg, cam, pixel_idx, subframe_index: int,
         _flush(image, misc, stash, spp, pixel_base, n_pix)
         for _ in range(flush_every):
             shader(rays, misc, stash, stats[cur], stats[1 - cur], pixel_base,
-                   subframe_index, scf)
+                   subframe_index, scf, time)
             cur = 1 - cur
             n_rad += stats[cur][2]
             n_shad += (misc[:, 15] > 0).sum()
@@ -131,19 +141,51 @@ def _finish(image, n_pix: int, spp: int):
     return image[:n_pix] * inv_spp.to(image.device)
 
 
-def _render_pool_xla_refill(cfg, cam, pixel_idx, subframe_index: int,
-                            pipe: ExternalPipeline, pool: int,
-                            use_stash: bool, flush_every: int):
-    """The pixel-major XLA-refill pool (path.py:1060-1393) over a pipeline
-    with `trace_shade`: each iteration retires completed lanes into the
-    stash (when on), claims pixels for idle lanes by a cumulative sum in
-    lane order, seeds each new sample (tea, per-sample LCG jump, two jitter
-    draws), builds its camera ray, draws every live lane's ray time, and
-    runs one trace_shade. Returns (rgb [N, 3], None, n_rad, n_shad,
+def sort_key(rays, alive, lo, inv):
+    """The ray sort's key (path.py:1250-1257): the direction octant above
+    the Morton code of the origin in the scene box, [P] int64 holding the
+    reference's uint32; dead lanes take 0xFFFFFFFF. lo, inv: [3] float32,
+    the box corner and 1 / its extent."""
+    d = rays[:, 3:6] >= 0
+    octant = (d[:, 0].to(torch.int64) + 2 * d[:, 1].to(torch.int64)
+              + 4 * d[:, 2].to(torch.int64))
+    key = (octant << 27) | (morton3d((rays[:, 0:3] - lo) * inv) >> 3)
+    return torch.where(alive, key, torch.full_like(key, 0xFFFFFFFF))
+
+
+def sort_box(scene):
+    """(lo, inv) of the ray sort: the box of key 0's v0 over the real faces
+    and 1 / max(extent, 1e-6) in float32 (path.py:1067-1071)."""
+    v0s = np.asarray(scene.geom.v0[0])[:scene.num_faces]
+    lo = v0s.min(axis=0)
+    inv = np.float32(1.0) / np.maximum(v0s.max(axis=0) - lo, np.float32(1e-6))
+    return lo.astype(np.float32), inv.astype(np.float32)
+
+
+def _render_pool_xla_refill(scene, cfg, cam, pixel_idx, subframe_index: int,
+                            pipe, pool: int, use_stash: bool,
+                            flush_every: int):
+    """The XLA-refill pool (path.py:1060-1393) over a pipeline with
+    `trace_shade` (FusedPipeline's K5 or ExternalPipeline). Each iteration
+    takes new work for dead lanes, seeds each new sample (tea, per-sample
+    LCG jump, two jitter draws), builds its camera ray, draws every live
+    lane's ray time, optionally sorts the lanes, and runs one trace_shade.
+
+    Pixel-major (cfg.pool_pixel_major): a lane renders all samples of its
+    pixel; completed lanes retire into the stash (when on), idle lanes
+    claim pixels by a cumulative sum in lane order, and the image takes
+    the completed lanes at each window's flush. Sample-major: work item w
+    is sample w // n_pix of pixel w % n_pix; every dying path is flushed
+    into the image in the iteration after it dies, and dead lanes take the
+    next work items in lane order. cfg.sort_rays orders the lanes by
+    sort_key (a stable sort, as jnp.argsort) and the live count is then
+    the number of live lanes. Returns (rgb [N, 3], None, n_rad, n_shad,
     iterations)."""
     dev = pipe.device
     n_pix = int(pixel_idx.shape[0])
     spp = cfg.samples_per_launch
+    total_work = n_pix * spp
+    pixel_major = cfg.pool_pixel_major
     pixel_base = int(pixel_idx[0])
     f32 = dict(dtype=torch.float32, device=dev)
     i64 = dict(dtype=torch.int64, device=dev)
@@ -152,6 +194,8 @@ def _render_pool_xla_refill(cfg, cam, pixel_idx, subframe_index: int,
     scf = tuple(float(x) for x in np.concatenate(
         [cam.eye, cam.u, cam.v, cam.w]).astype(np.float32))
     eye = torch.tensor(scf[0:3], **f32)
+    if cfg.sort_rays:
+        lo, inv = (torch.as_tensor(x, device=dev) for x in sort_box(scene))
 
     rays = torch.zeros((pool, 8), **f32)
     misc = torch.zeros((pool, 16), **f32)
@@ -165,15 +209,12 @@ def _render_pool_xla_refill(cfg, cam, pixel_idx, subframe_index: int,
     next_work = torch.zeros((), **i64)
     n_rad = torch.zeros((), **i64)
     n_shad = torch.zeros((), **i64)
+    iters = torch.zeros((), **i64)
     lane = torch.arange(pool, **i64)
     tmin = torch.full((pool, 1), cfg.primary_tmin, **f32)
     tmax = torch.full((pool, 1), cfg.primary_tmax, **f32)
 
-    def body(rays, misc, next_work):
-        alive = misc[:, 9] > 0
-        dead = ~alive
-        pixel, samp = misc[:, 13], misc[:, 14]
-        acc = misc[:, 10:13]
+    def take_pixel_major(dead, pixel, samp, acc, next_work):
         if use_stash:
             completed = dead & (pixel >= 0) & (samp >= spp)
             can_stash = completed & (stash[:, 0] < 0)
@@ -199,6 +240,33 @@ def _render_pool_xla_refill(cfg, cam, pixel_idx, subframe_index: int,
         samp_i = samp.to(torch.int64)  # this sample's index: its LCG jump
         samp = torch.where(take, samp + 1.0, samp)
         new_pixel = torch.clamp(pixel, min=0.0).to(torch.int64)
+        return take, pixel, samp, samp_i, new_pixel, acc, next_work
+
+    def take_sample_major(dead, pixel, samp, acc, next_work):
+        # flush every dying path; refill dead lanes with the next samples
+        flush = dead & (pixel >= 0)
+        target = torch.where(flush, pixel.to(torch.int64) - pixel_base,
+                             n_pix)
+        image.index_add_(0, target, acc)
+        w = next_work + torch.cumsum(dead.to(torch.int64), 0) - 1
+        take = dead & (w < total_work)
+        w_c = torch.clamp(w, 0, total_work - 1)
+        samp_i = w_c // n_pix
+        new_pixel = pixel_base + w_c % n_pix
+        pixel = torch.where(take, new_pixel.to(torch.float32),
+                            torch.where(flush, -1.0, pixel))
+        acc = torch.where((take | flush)[:, None], 0.0, acc)
+        samp = torch.where(take, samp_i.to(torch.float32), samp)
+        next_work = next_work + take.sum()
+        return take, pixel, samp, samp_i, new_pixel, acc, next_work
+
+    take_work = take_pixel_major if pixel_major else take_sample_major
+
+    def body(rays, misc, next_work):
+        alive = misc[:, 9] > 0
+        dead = ~alive
+        take, pixel, samp, samp_i, new_pixel, acc, next_work = take_work(
+            dead, misc[:, 13], misc[:, 14], misc[:, 10:13], next_work)
         st, jx, jy = rng.sample_start(new_pixel, subframe_index,
                                       int(cfg.seed or 0), samp_i, jump)
         new_dir = torch.stack(camera_ray_dir(scf, new_pixel, cfg.width,
@@ -220,46 +288,79 @@ def _render_pool_xla_refill(cfg, cam, pixel_idx, subframe_index: int,
             alive2.to(torch.float32)[:, None], acc, pixel[:, None],
             samp[:, None], torch.zeros_like(pixel)[:, None]], dim=1)
         n_live = alive2.sum()
-        count_hint = torch.where(alive2, lane, -1).max() + 1
+        if cfg.sort_rays:
+            order = torch.argsort(sort_key(rays, alive2, lo, inv),
+                                  stable=True)
+            rays, misc, time = rays[order], misc[order], time[order]
+            count_hint = n_live  # sorted: the live lanes are a prefix
+        else:
+            count_hint = torch.where(alive2, lane, -1).max() + 1
         rays, misc = pipe.trace_shade(
             rays, misc, count_hint.to(torch.int32).reshape(1),
             time if pipe.motion else None)
         return rays, misc, next_work, n_live, (misc[:, 15] > 0).sum()
 
-    iters = 0
-    while _pool_busy(misc, next_work, n_pix, spp):
-        _flush(image, misc, stash, spp, pixel_base, n_pix)
+    def busy():
+        if pixel_major:
+            return _pool_busy(misc, next_work, n_pix, spp)
+        return bool((next_work < total_work) | (misc[:, 9] > 0).any())
+
+    while busy():
+        if pixel_major:
+            _flush(image, misc, stash, spp, pixel_base, n_pix)
         for _ in range(flush_every):
+            if not pixel_major:  # the reference's per-iteration condition
+                iters += (next_work < total_work) | (misc[:, 9] > 0).any()
             rays, misc, next_work, live, shad = body(rays, misc, next_work)
             n_rad += live
             n_shad += shad
-            iters += 1
-    _flush(image, misc, stash, spp, pixel_base, n_pix)
-    return _finish(image, n_pix, spp), None, n_rad, n_shad, iters
+            if pixel_major:
+                iters += 1
+    if pixel_major:
+        _flush(image, misc, stash, spp, pixel_base, n_pix)
+    else:  # every lane is dead: flush what each still holds
+        pixel = misc[:, 13]
+        image.index_add_(0, torch.where(
+            pixel >= 0, pixel.to(torch.int64) - pixel_base, n_pix),
+            misc[:, 10:13])
+    return _finish(image, n_pix, spp), None, n_rad, n_shad, int(iters)
 
 
-def _render_pool_fused(cfg, cam, pixel_idx, subframe_index: int, fused):
-    """The stash and flush-cadence choice of the reference (path.py:
-    1016-1048). The refill megakernel (FusedPipeline) always stashes; the
-    external pipeline takes cfg.pool_stash, and auto (-1) is off for it.
-    The cadence is 32 iterations with the stash and 16 without, halved
-    when the frame is more than 32 pools."""
+def _render_pool_fused(scene, cfg, cam, pixel_idx, subframe_index: int,
+                       pipe):
+    """The stash and flush-cadence rule of the reference (path.py:
+    1016-1048). The in-kernel refill (K4) runs for a pixel-major, unsorted
+    FusedPipeline and always stashes; every other case takes the XLA-refill
+    loop, where cfg.pool_stash -1 (auto) is off when the frame is more than
+    32 pools or the pipeline is ExternalPipeline and on otherwise, 0 off
+    and 1 on, and only a pixel-major pool ever stashes. The cadence is 32
+    iterations with the stash or sample-major and 16 without, halved when
+    the frame is more than 32 pools."""
     n_pix = int(pixel_idx.shape[0])
     pool = min(cfg.ray_block, _next_pow2(n_pix * cfg.samples_per_launch))
-    kernel_refill = isinstance(fused, FusedPipeline)
-    use_stash = kernel_refill or cfg.pool_stash > 0
+    kernel_refill = (cfg.pool_pixel_major and not cfg.sort_rays
+                     and isinstance(pipe, FusedPipeline))
+    wide = n_pix > 32 * pool
+    if kernel_refill:
+        use_stash = True
+    elif cfg.pool_stash == -1:
+        use_stash = (cfg.pool_pixel_major
+                     and not (wide or isinstance(pipe, ExternalPipeline)))
+    else:
+        use_stash = cfg.pool_pixel_major and cfg.pool_stash != 0
     if cfg.flush_every:
         flush_every = cfg.flush_every
-    elif use_stash:
-        flush_every = 16 if n_pix > 32 * pool else 32
+    elif use_stash or not cfg.pool_pixel_major:
+        flush_every = 16 if wide else 32
     else:
-        flush_every = 8 if n_pix > 32 * pool else 16
+        flush_every = 8 if wide else 16
     if kernel_refill:
         return _render_pool_fused_krefill(cfg, cam, pixel_idx,
-                                          subframe_index, fused, pool,
+                                          subframe_index, pipe, pool,
                                           flush_every)
-    return _render_pool_xla_refill(cfg, cam, pixel_idx, subframe_index,
-                                   fused, pool, use_stash, flush_every)
+    return _render_pool_xla_refill(scene, cfg, cam, pixel_idx,
+                                   subframe_index, pipe, pool, use_stash,
+                                   flush_every)
 
 
 def render_pixels(scene, cfg, cam, tracer, pixel_idx, subframe_index: int):
@@ -270,15 +371,12 @@ def render_pixels(scene, cfg, cam, tracer, pixel_idx, subframe_index: int):
             "only the fused and external pipelines are ported yet; the "
             "brute and walk tracers under the general pool are ROADMAP "
             "A7/A17")
-    if not cfg.pool_pixel_major or cfg.sort_rays:
-        raise NotImplementedError(
-            "sample-major or sorted pools need the non-refill shade kernel "
-            "K5 (ROADMAP A8)")
     pool = min(cfg.ray_block,
                _next_pow2(pixel_idx.shape[0] * cfg.samples_per_launch))
     if pool % 256:
         raise ValueError("fused pipeline needs a pool multiple of 256")
-    return _render_pool_fused(cfg, cam, pixel_idx, subframe_index, tracer)
+    return _render_pool_fused(scene, cfg, cam, pixel_idx, subframe_index,
+                              tracer)
 
 
 def render_subframe(scene, cam, film: Film, cfg, tracer=None):

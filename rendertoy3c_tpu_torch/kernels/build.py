@@ -44,7 +44,7 @@ class RefillParams(ctypes.Structure):
         ("num_lights", ctypes.c_int), ("pixel_base", ctypes.c_int),
         ("subframe_index", ctypes.c_int), ("attr_stride", ctypes.c_int),
         ("light_stride", ctypes.c_int), ("n_tiles", ctypes.c_int),
-        ("ct", ctypes.c_int), ("pad_i", ctypes.c_int),
+        ("ct", ctypes.c_int), ("motion", ctypes.c_int),
         ("seed_rot", ctypes.c_uint32),
         ("width_f", ctypes.c_float), ("height_f", ctypes.c_float),
         ("tmin", ctypes.c_float), ("tmax", ctypes.c_float),
@@ -52,6 +52,20 @@ class RefillParams(ctypes.Structure):
         ("pick_pdf", ctypes.c_float),
         ("bg", ctypes.c_float * 3),
         ("cam", ctypes.c_float * 12),
+    ]
+
+
+class TraceShadeParams(ctypes.Structure):
+    """Mirror of `TraceShadeParams` in csrc/megakernel.cu, field for field."""
+
+    _fields_ = [
+        ("max_depth", ctypes.c_int), ("num_lights", ctypes.c_int),
+        ("attr_stride", ctypes.c_int), ("light_stride", ctypes.c_int),
+        ("n_tiles", ctypes.c_int), ("ct", ctypes.c_int),
+        ("motion", ctypes.c_int), ("pad_i", ctypes.c_int),
+        ("shadow_tmin", ctypes.c_float), ("shadow_eps", ctypes.c_float),
+        ("pick_pdf", ctypes.c_float),
+        ("bg", ctypes.c_float * 3),
     ]
 
 
@@ -137,9 +151,13 @@ def library() -> ctypes.CDLL:
                                   vp, vp]
     lib.rt3c_mt_trace.restype = ci
     lib.rt3c_trace_shade_refill.argtypes = [
-        ci, ctypes.POINTER(RefillParams), vp, vp, vp, ci, vp, vp, vp, vp, vp,
-        vp, vp, vp, vp]
+        ci, ctypes.POINTER(RefillParams), vp, vp, vp, vp, ci, vp, vp, vp, vp,
+        vp, vp, vp, vp, vp, vp]
     lib.rt3c_trace_shade_refill.restype = ci
+    lib.rt3c_trace_shade.argtypes = [
+        ci, ctypes.POINTER(TraceShadeParams), vp, vp, vp, ci, vp, vp, vp, vp,
+        vp, vp, vp, vp, vp, vp]
+    lib.rt3c_trace_shade.restype = ci
     lib.rt3c_mt_trace_motion.argtypes = [ci, ci, vp, vp, ci, vp, vp, vp, vp,
                                          vp, ci, ci, vp, vp]
     lib.rt3c_mt_trace_motion.restype = ci

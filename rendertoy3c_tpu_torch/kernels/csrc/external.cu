@@ -70,7 +70,9 @@ __global__ void __launch_bounds__(EXT_BLOCK)
                        {p.bg[0], p.bg[1], p.bg[2]}};
   const Shaded o = shade_lane<true>(sc, r, h, m, attr + 16 * (size_t)prim, 1,
                                     lights_t,
-                                    [](const Ray&, bool) { return false; });
+                                    [](const Ray&, bool, float) {
+                                      return false;
+                                    });
 
   float4* rp = reinterpret_cast<float4*>(rays_out + 8 * (size_t)i);
   rp[0] = make_float4(o.survive ? o.px : r.ox, o.survive ? o.py : r.oy,

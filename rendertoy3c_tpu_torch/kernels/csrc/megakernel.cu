@@ -1,14 +1,28 @@
-// K4: the in-kernel-refill megakernel of the pool integrator, for the
-// static, untextured, all-diffuse, uniform-light, stash-on configuration.
+// K4: the in-kernel-refill megakernel of the pool integrator, and K5, the
+// same megakernel without the refill, for the untextured, all-diffuse,
+// uniform-light configuration; each static or 2-key motion.
 //
 // Replaces rendertoy3c_tpu/trace/pallas_shade.py _make_shade_kernel (:271)
-// as built by make_fused_shader(merged=True, refill=...) and launched by
-// trace_shade_refill (:1281-1367). One launch is one pool iteration:
-// closest sweep, attribute fetch by prim, emission, miss ambient,
-// Lambertian draw, uniform NEE light pick + area sample, shadow sweep,
-// Russian roulette, the next path state, then the refill epilogue (retire
-// into the stash, pixel claim, tea seed, per-sample LCG jump, jittered
-// camera ray) and the launch stats (next_work, count_hint, n_live, 0).
+// as built by make_fused_shader(merged=True): K4 with refill=... and the
+// stash on, launched by trace_shade_refill (:1281-1367); K5 launched by
+// `shade` (:1224-1275) behind the merged `trace_shade` (:1371-1375). One
+// launch is one pool iteration: closest sweep, attribute fetch by prim,
+// emission, miss ambient, Lambertian draw, uniform NEE light pick + area
+// sample, shadow sweep, Russian roulette and the next path state. K4 then
+// runs the refill epilogue (retire into the stash, pixel claim, tea seed,
+// per-sample LCG jump, jittered camera ray, the per-ray time draw) and the
+// launch stats (next_work, count_hint, n_live, 0); K5 writes the next state
+// to new buffers and leaves the refill to the caller (integrate/path.py).
+//
+// Motion (kMotion): both keys' tiles are staged and each triangle is lerped
+// to the lane's time, r0 + (r1 - r0) * t, under the union of both keys'
+// cull boxes (pallas_shade.py :359-370). The closest sweep runs at the
+// lane's time, read from a time buffer [P]; the shadow sweep at the
+// post-NEE peek (:756-793). K4 writes each lane's next time draw back into
+// the buffer (:1044-1053); K5 takes the time from the caller's loop. The
+// motion sweeps vote per 256-ray block, the TPU megakernel's RAY_TILE, not
+// per 128-ray block as K3 does. The two keys' tiles take 36 KB of static
+// shared memory, shared by the closest and the shadow sweep.
 //
 // Bound: latency. A pool of 32768 lanes is 128 blocks of 256 threads, less
 // than one block per SM, and each lane does two sweeps of dependent loads
@@ -37,13 +51,62 @@ namespace rt3c {
 struct RefillParams {
   int n_pix, spp, width, max_depth;
   int num_lights, pixel_base, subframe_index, attr_stride;
-  int light_stride, n_tiles, ct, pad_i;
+  int light_stride, n_tiles, ct, motion;
   unsigned int seed_rot;
   float width_f, height_f, tmin, tmax;
   float shadow_tmin, shadow_eps, pick_pdf;
   float bg[3];
   float cam[12];  // eye, u, v, w
 };
+
+// K5's launch parameters; mirrored field for field by kernels/build.py.
+struct TraceShadeParams {
+  int max_depth, num_lights, attr_stride, light_stride;
+  int n_tiles, ct, motion, pad_i;
+  float shadow_tmin, shadow_eps, pick_pdf;
+  float bg[3];
+};
+
+// The sweeps of one lane over the launch's tables: the static soup, or for
+// motion the key-0 tiles in soup.tris (with the union cull boxes) and the
+// key-1 tiles in tris1. smem holds one staged tile per key.
+template <bool kMotion>
+__device__ __forceinline__ ClosestHit sweep_closest_at(const Soup& s,
+                                                       const float* tris1,
+                                                       float* smem,
+                                                       const Ray& r,
+                                                       float time, bool live) {
+  if constexpr (kMotion) {
+    const MotionSoup ms{s.tris, tris1, s.aabb, s.super_aabb, s.n_tiles, s.ct};
+    return sweep_closest_motion(ms, smem, smem + 9 * MAX_CT, r, time, live);
+  } else {
+    return sweep_closest(s, smem, r, live);
+  }
+}
+
+template <bool kMotion>
+__device__ __forceinline__ bool sweep_any_at(const Soup& s, const float* tris1,
+                                             float* smem, const Ray& r,
+                                             float time, bool live,
+                                             bool want) {
+  if constexpr (kMotion) {
+    const MotionSoup ms{s.tris, tris1, s.aabb, s.super_aabb, s.n_tiles, s.ct};
+    return sweep_any_motion(ms, smem, smem + 9 * MAX_CT, r, time, live, want);
+  } else {
+    return sweep_any(s, smem, r, live, want);
+  }
+}
+
+__device__ __forceinline__ void load16(const float* base, int lane, float* m) {
+  const float4* mp = reinterpret_cast<const float4*>(base + 16 * (size_t)lane);
+  for (int q = 0; q < 4; ++q) {
+    const float4 x = mp[q];
+    m[4 * q + 0] = x.x;
+    m[4 * q + 1] = x.y;
+    m[4 * q + 2] = x.z;
+    m[4 * q + 3] = x.w;
+  }
+}
 
 __device__ __forceinline__ uint32_t tea4(uint32_t v0, uint32_t v1) {
   uint32_t s0 = 0;
@@ -63,14 +126,17 @@ __global__ void seed_stats(const int* __restrict__ stats_in,
   stats_out[3] = 0;
 }
 
+template <bool kMotion>
 __global__ void __launch_bounds__(RAY_TILE)
     refill_kernel(const RefillParams p, float* __restrict__ rays,
                   float* __restrict__ misc, float* __restrict__ stash,
-                  const int* __restrict__ stats_in, int* __restrict__ stats_out,
-                  const Soup soup, const float* __restrict__ attr_t,
+                  float* __restrict__ time, const int* __restrict__ stats_in,
+                  int* __restrict__ stats_out, const Soup soup,
+                  const float* __restrict__ tris1,
+                  const float* __restrict__ attr_t,
                   const float* __restrict__ lights_t,
                   const uint32_t* __restrict__ jump) {
-  __shared__ float tile[9 * MAX_CT];
+  __shared__ float tiles[(kMotion ? 2 : 1) * 9 * MAX_CT];
   __shared__ int warp_base[RAY_TILE / 32];
   __shared__ int s_base, s_max_lane, s_live;
 
@@ -83,19 +149,13 @@ __global__ void __launch_bounds__(RAY_TILE)
   const bool live = (int)blockIdx.x * RAY_TILE < stats_in[1];
   const Ray r = load_ray(rays, lane);
   float m[16];
-  {
-    const float4* mp = reinterpret_cast<const float4*>(misc + 16 * (size_t)lane);
-    for (int q = 0; q < 4; ++q) {
-      const float4 x = mp[q];
-      m[4 * q + 0] = x.x;
-      m[4 * q + 1] = x.y;
-      m[4 * q + 2] = x.z;
-      m[4 * q + 3] = x.w;
-    }
-  }
+  load16(misc, lane, m);
+  float tm = 0.0f;
+  if constexpr (kMotion) tm = time[lane];
 
   // --- closest sweep (the _closest_kernel body) ---
-  const ClosestHit h = sweep_closest(soup, tile, r, live);
+  const ClosestHit h = sweep_closest_at<kMotion>(soup, tris1, tiles, r, tm,
+                                                 live);
 
   // --- shading, with the shadow sweep (the _any_kernel body) in place ---
   const ShadeConsts sc{p.max_depth, p.num_lights, p.light_stride,
@@ -103,8 +163,8 @@ __global__ void __launch_bounds__(RAY_TILE)
                        {p.bg[0], p.bg[1], p.bg[2]}};
   const Shaded o = shade_lane<false>(
       sc, r, h, m, attr_t + (int)fmaxf(h.prim, 0.0f), p.attr_stride,
-      lights_t, [&](const Ray& sr, bool want) {
-        return sweep_any(soup, tile, sr, live, want);
+      lights_t, [&](const Ray& sr, bool want, float st) {
+        return sweep_any_at<kMotion>(soup, tris1, tiles, sr, st, live, want);
       });
   const uint32_t seed = o.seed;
   const float px = o.px, py = o.py, pz = o.pz;
@@ -198,8 +258,11 @@ __global__ void __launch_bounds__(RAY_TILE)
 
   uint32_t seed_u = take ? s_new : seed;
   const bool alive2 = alive_b || take;
-  // the per-ray time draw of the motion path: advances every live lane
-  if (alive2) seed_u = lcg_next(seed_u);
+  // the per-ray time draw: advances every live lane; the motion variant
+  // keeps the drawn time (on every lane) for the next launch's sweeps
+  const uint32_t s_adv = lcg_next(seed_u);
+  if constexpr (kMotion) time[lane] = lcg_unit(s_adv);
+  if (alive2) seed_u = s_adv;
 
   // --- write the lane back in place ---
   {
@@ -241,24 +304,113 @@ __global__ void __launch_bounds__(RAY_TILE)
   }
 }
 
+// K5: one pool iteration without the refill. Reads rays [P, 8], misc
+// [P, 16] (and time [P] for motion), writes the next rays (the bounce ray
+// on surviving lanes, tmin/tmax passed on) and the next misc: the state of
+// pallas_shade.py :893-932 with pixel and sample passed on.
+template <bool kMotion>
+__global__ void __launch_bounds__(RAY_TILE)
+    trace_shade_kernel(const TraceShadeParams p,
+                       const float* __restrict__ rays,
+                       const float* __restrict__ misc,
+                       const float* __restrict__ time,
+                       const int* __restrict__ count, const Soup soup,
+                       const float* __restrict__ tris1,
+                       const float* __restrict__ attr_t,
+                       const float* __restrict__ lights_t,
+                       float* __restrict__ rays_out,
+                       float* __restrict__ misc_out) {
+  __shared__ float tiles[(kMotion ? 2 : 1) * 9 * MAX_CT];
+  const int lane = blockIdx.x * RAY_TILE + threadIdx.x;
+  const bool live = (int)blockIdx.x * RAY_TILE < *count;
+  const Ray r = load_ray(rays, lane);
+  float m[16];
+  load16(misc, lane, m);
+  float tm = 0.0f;
+  if constexpr (kMotion) tm = time[lane];
+
+  const ClosestHit h = sweep_closest_at<kMotion>(soup, tris1, tiles, r, tm,
+                                                 live);
+  const ShadeConsts sc{p.max_depth, p.num_lights, p.light_stride,
+                       p.shadow_tmin, p.shadow_eps, p.pick_pdf,
+                       {p.bg[0], p.bg[1], p.bg[2]}};
+  const Shaded o = shade_lane<false>(
+      sc, r, h, m, attr_t + (int)fmaxf(h.prim, 0.0f), p.attr_stride,
+      lights_t, [&](const Ray& sr, bool want, float st) {
+        return sweep_any_at<kMotion>(soup, tris1, tiles, sr, st, live, want);
+      });
+
+  float4* rp = reinterpret_cast<float4*>(rays_out + 8 * (size_t)lane);
+  rp[0] = make_float4(o.survive ? o.px : r.ox, o.survive ? o.py : r.oy,
+                      o.survive ? o.pz : r.oz, o.survive ? o.ndx : r.dx);
+  rp[1] = make_float4(o.survive ? o.ndy : r.dy, o.survive ? o.ndz : r.dz,
+                      r.tmin, r.tmax);
+  float4* mo = reinterpret_cast<float4*>(misc_out + 16 * (size_t)lane);
+  mo[0] = make_float4(__uint_as_float(o.seed), o.new_at[0], o.new_at[1],
+                      o.new_at[2]);
+  mo[1] = make_float4(o.new_last[0], o.new_last[1], o.new_last[2],
+                      o.pdelta_new);
+  mo[2] = make_float4(o.depth_new, o.alive_b ? 1.0f : 0.0f, o.accs[0],
+                      o.accs[1]);
+  mo[3] = make_float4(o.accs[2], m[13], m[14], o.want_shadow ? 1.0f : 0.0f);
+}
+
 }  // namespace rt3c
 
+// tris, aabb, super_aabb: the key-0 tiles and the cull boxes (the union of
+// both keys' for motion); tris1 and time: the key-1 tiles and the per-lane
+// time [P], null for a static scene.
 extern "C" int rt3c_trace_shade_refill(
     int device, const rt3c::RefillParams* p, float* rays, float* misc,
-    float* stash, int n_lanes, const int* stats_in, int* stats_out,
-    const float* tris, const float* aabb, const float* super_aabb,
-    const float* attr_t, const float* lights_t, const unsigned int* jump,
-    void* stream) {
+    float* stash, float* time, int n_lanes, const int* stats_in,
+    int* stats_out, const float* tris, const float* tris1, const float* aabb,
+    const float* super_aabb, const float* attr_t, const float* lights_t,
+    const unsigned int* jump, void* stream) {
   if (n_lanes <= 0 || n_lanes % rt3c::RAY_TILE != 0 || p->ct > rt3c::MAX_CT ||
-      p->n_tiles < 1 || p->num_lights < 1 || p->spp < 1 || p->width < 1)
+      p->n_tiles < 1 || p->num_lights < 1 || p->spp < 1 || p->width < 1 ||
+      (p->motion && (tris1 == nullptr || time == nullptr)))
     return (int)cudaErrorInvalidValue;
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   rt3c::seed_stats<<<1, 1, 0, s>>>(stats_in, stats_out);
   const rt3c::Soup soup{tris, aabb, super_aabb, p->n_tiles, p->ct};
-  rt3c::refill_kernel<<<n_lanes / rt3c::RAY_TILE, rt3c::RAY_TILE, 0, s>>>(
-      *p, rays, misc, stash, stats_in, stats_out, soup, attr_t, lights_t,
-      jump);
+  const int grid = n_lanes / rt3c::RAY_TILE;
+  if (p->motion)
+    rt3c::refill_kernel<true><<<grid, rt3c::RAY_TILE, 0, s>>>(
+        *p, rays, misc, stash, time, stats_in, stats_out, soup, tris1, attr_t,
+        lights_t, jump);
+  else
+    rt3c::refill_kernel<false><<<grid, rt3c::RAY_TILE, 0, s>>>(
+        *p, rays, misc, stash, time, stats_in, stats_out, soup, tris1, attr_t,
+        lights_t, jump);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int rt3c_trace_shade(int device, const rt3c::TraceShadeParams* p,
+                                const float* rays, const float* misc,
+                                const float* time, int n_lanes,
+                                const int* count, const float* tris,
+                                const float* tris1, const float* aabb,
+                                const float* super_aabb, const float* attr_t,
+                                const float* lights_t, float* rays_out,
+                                float* misc_out, void* stream) {
+  if (n_lanes <= 0 || n_lanes % rt3c::RAY_TILE != 0 || p->ct > rt3c::MAX_CT ||
+      p->n_tiles < 1 || p->num_lights < 1 ||
+      (p->motion && (tris1 == nullptr || time == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t dev_err = cudaSetDevice(device);
+  if (dev_err != cudaSuccess) return (int)dev_err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const rt3c::Soup soup{tris, aabb, super_aabb, p->n_tiles, p->ct};
+  const int grid = n_lanes / rt3c::RAY_TILE;
+  if (p->motion)
+    rt3c::trace_shade_kernel<true><<<grid, rt3c::RAY_TILE, 0, s>>>(
+        *p, rays, misc, time, count, soup, tris1, attr_t, lights_t, rays_out,
+        misc_out);
+  else
+    rt3c::trace_shade_kernel<false><<<grid, rt3c::RAY_TILE, 0, s>>>(
+        *p, rays, misc, time, count, soup, tris1, attr_t, lights_t, rays_out,
+        misc_out);
   return (int)cudaGetLastError();
 }

@@ -6,10 +6,11 @@
 // _make_shade_kernel (:436-880) for the Lambertian, uniform-light branch:
 // emission at depth 0, the miss ambient, the cosine-hemisphere draw, the
 // NEE light pick and area sample, the shadow ray, Russian roulette and the
-// next state. K4 sweeps the shadow ray in place (`occluded`); K6 (kExternal)
-// hands it out, with NEE provisional on want_shadow (pallas_shade.py
-// :751-773, :844-850) and the shadow ray's time a peek of the post-NEE
-// stream that does not advance the seed (:756-760).
+// next state. K4 and K5 sweep the shadow ray in place (`occluded`); K6
+// (kExternal) hands it out, with NEE provisional on want_shadow
+// (pallas_shade.py :751-773, :844-850). The shadow ray's time is a peek of
+// the post-NEE stream that does not advance the seed (:756-760): K6 hands it
+// out, the motion variants of K4 and K5 sweep at it.
 #pragma once
 
 #include "mt.cuh"
@@ -60,13 +61,13 @@ struct Shaded {
   float pdelta_new, depth_new;
   bool survive, alive_b, want_shadow;
   Ray sr;                      // the shadow ray (tmax 0 without one)
-  float occl_time;             // kExternal: the shadow ray's time
+  float occl_time;             // the shadow ray's time (a peek)
 };
 
 // r: the lane's ray; h: its closest hit; m: misc columns 0-15; a: the
 // lane's attribute row (n0 n1 n2 emission diffuse) read at a[field * as];
-// lights_t [24, light_stride]. occluded(shadow_ray, want) runs the shadow
-// sweep and must be reached by every thread of the block (K4).
+// lights_t [24, light_stride]. occluded(shadow_ray, want, time) runs the
+// shadow sweep and must be reached by every thread of the block (K4, K5).
 template <bool kExternal, class Occluded>
 __device__ __forceinline__ Shaded shade_lane(const ShadeConsts& p,
                                              const Ray& r, const ClosestHit& h,
@@ -166,16 +167,15 @@ __device__ __forceinline__ Shaded shade_lane(const ShadeConsts& p,
   // --- the shadow ray: swept here (K4) or handed out (K6) ---
   o.sr = Ray{o.px, o.py, o.pz, ldx, ldy, ldz, p.shadow_tmin,
              o.want_shadow ? ldist - p.shadow_eps : 0.0f};
+  o.occl_time = lcg_unit(lcg_next(seed));  // a peek: seed stays
   bool lit;
   if (kExternal) {
     lit = o.want_shadow;
-    o.occl_time = lcg_unit(lcg_next(seed));  // a peek: seed stays
   } else {
     // called on every thread, outside any short circuit: the sweep's cull
     // votes are block barriers
-    const bool occ = occluded(o.sr, o.want_shadow);
+    const bool occ = occluded(o.sr, o.want_shadow, o.occl_time);
     lit = o.want_shadow && !occ;
-    o.occl_time = 0.0f;
   }
 
   // weight = albedo/pi * powerHeuristic(pdf_light, |n.l|/pi)

@@ -5,12 +5,12 @@ to the ported rungs of its ladder and never routing a scene elsewhere
 than the reference would:
 
   static scene of more than 512 faces -> Morton face order first (:183-188)
-  up to 2048 faces, static            -> FusedPipeline (refill megakernel)
+  up to 2048 faces, static or 2-key   -> FusedPipeline (the megakernels)
   2049-16384 faces, static or 2-key   -> make_mt_tracer + ExternalPipeline
 
-Everything else raises NotImplementedError naming the ROADMAP item that
-adds it: more than 16384 faces (the hierwalk band), more than 2 keys, and
-2-key scenes of up to 2048 faces (the megakernel's motion variant).
+2-key scenes keep their face order, as in the reference. Everything else
+raises NotImplementedError naming the ROADMAP item that adds it: more
+than 16384 faces (the hierwalk band) and more than 2 keys.
 Returns (scene, tracer): always render the returned scene, whose face
 order matches the tracer's tables.
 """

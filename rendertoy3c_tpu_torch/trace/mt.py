@@ -253,19 +253,21 @@ def _motion_test(time: torch.Tensor, msoup: MotionSoup):
 
 
 def closest_motion_ref(rays: torch.Tensor, time: torch.Tensor,
-                       count: torch.Tensor, msoup: MotionSoup) -> torch.Tensor:
+                       count: torch.Tensor, msoup: MotionSoup,
+                       tile: int = MOTION_RAY_TILE) -> torch.Tensor:
     """Plain version of K3 closest: rays [R, 8] at per-ray times [R] ->
-    [R, 4] as closest_ref; ray tiles of 128 past `count` miss."""
+    [R, 4] as closest_ref; ray tiles of `tile` past `count` miss (128 for
+    K3, 256 for the motion sweeps inside the megakernels)."""
     out = _closest_dense(rays, msoup.tris0.shape[0], _motion_test(time, msoup))
-    return _closest_out(rays, out,
-                        live_rows(rays.shape[0], count, MOTION_RAY_TILE))
+    return _closest_out(rays, out, live_rows(rays.shape[0], count, tile))
 
 
 def any_motion_ref(rays: torch.Tensor, time: torch.Tensor,
-                   count: torch.Tensor, msoup: MotionSoup) -> torch.Tensor:
+                   count: torch.Tensor, msoup: MotionSoup,
+                   tile: int = MOTION_RAY_TILE) -> torch.Tensor:
     """Plain version of K3 any-hit: [R, 4], column 0 = occluded."""
     occ = _any_dense(rays, msoup.tris0.shape[0], _motion_test(time, msoup))
-    return _any_out(occ, live_rows(rays.shape[0], count, MOTION_RAY_TILE))
+    return _any_out(occ, live_rows(rays.shape[0], count, tile))
 
 
 def _launch_mt(any_hit: bool, rays, count, soup: TriSoup) -> torch.Tensor:

@@ -1,26 +1,35 @@
-"""The pool pipelines: shade tables, the slice gates, the in-kernel-refill
-megakernel (K4) and the external shade kernel (K6).
+"""The pool pipelines: shade tables, the slice gates, the megakernel with
+in-kernel refill (K4) and without it (K5), and the external shade kernel
+(K6).
 
 Port of rendertoy3c_tpu/trace/pallas_shade.py for the port's
 configurations: untextured, all-diffuse (the Lambertian branch, :557-563
 and :816-863), uniform light sampler, no AOV, misc width 16. It holds
 `build_shade_tables` (:72, untextured and without dispatch);
 `fused_unsupported` (the narrowing of `fused_shade_eligible`, :1116),
-`FusedPipeline` (:1379) with `refill_shader` (:1437) and the wrapper of
-K4, for static scenes of up to 2048 faces with the retire stash on; and
-`external_unsupported` (the narrowing of `external_shade_eligible`,
+`FusedPipeline` (:1379) with `trace_shade` (K5, the merged megakernel of
+`make_fused_shader`, :1224-1275, :1371-1375) and `refill_shader` (:1437)
+over the wrapper of K4, for static or 2-key scenes of up to 2048 faces;
+and `external_unsupported` (the narrowing of `external_shade_eligible`,
 :1459), `ExternalPipeline` (:1820) and the wrapper of K6
 (`make_external_shader`, :1678), for static or 2-key scenes of up to
 16384 faces, with the closest and shadow any-hit traced outside the shade
 kernel by an MT tracer (trace/mt.py `make_mt_tracer`).
 
-Per-lane state layout (pallas_shade.py:32-36), updated in place:
+Per-lane state layout (pallas_shade.py:32-36):
   rays  [P, 8]  f32: org.xyz dir.xyz tmin tmax
   misc  [P, 16] f32: 0 seed(bits) | 1-3 atten | 4-6 last_atten
         | 7 prev_delta | 8 depth | 9 alive | 10-12 acc | 13 pixel
         | 14 samp | 15 want_shadow
   stash [P, 16] f32: 0 pixel (-1 = free) | 1-3 acc | 4-15 zero
+  time  [P]     f32: the ray time of a 2-key scene (the reference's
+                     time8 [P, 8] holds it in each of its 8 columns)
   stats [4] int32  : next_work, count_hint, n_live, 0
+
+K4 updates rays, misc, stash (and time) in place. K5 reads rays, misc (and
+time) and returns new rays and misc. Both sweep their rays in 256-ray
+tiles, static or motion, and skip the sweeps of tiles at or past the live
+count.
 
 K6 reads rays, the closest hit hit4 [R, 4] (t, prim_f, u, v) and misc,
 and writes new arrays: rays_out [R, 8], misc_out [R, 24] (columns 0-15 as
@@ -44,7 +53,9 @@ from ..math.sampling import sample_cosine_hemisphere, sample_uniform_triangle
 from ..math.vec import normalize3
 from ..scene.camera import camera_ray_dir
 from ..scene.light import pick_light_uniform
-from .mt import RAY_TILE, TriSoup, any_ref, build_tri_soup, closest_ref
+from .mt import (RAY_TILE, MotionSoup, TriSoup, any_motion_ref, any_ref,
+                 build_tri_soup, closest_motion_ref, closest_ref,
+                 motion_union_aabbs)
 
 _INV_PI = 1.0 / math.pi
 MAX_FACES = 2048  # the fused path's face limit (pallas_shade.py:59)
@@ -87,44 +98,11 @@ def build_shade_tables(scene, f_limit: int | None = None):
     return (np.ascontiguousarray(attr.T), np.ascontiguousarray(lights.T))
 
 
-def fused_unsupported(scene, cfg) -> str | None:
-    """Why (scene, cfg) is outside the ported slice, naming the ROADMAP
-    item that adds it; None when the fused pipeline renders it."""
-    checks = (
+def _slice_checks(scene, cfg):
+    """(failed, reason) pairs shared by both pipelines' gates."""
+    return (
         (cfg.integrator != "pool",
          "the wave integrator is not ported yet (ROADMAP A6)"),
-        (not cfg.pool_pixel_major or cfg.sort_rays,
-         "sample-major or sorted pools need the non-refill shade kernel "
-         "K5 (ROADMAP A8)"),
-        (cfg.pool_stash == 0, "the stashless pool is not ported yet "
-         "(ROADMAP A8)"),
-        (scene.num_keys != 1, "motion on scenes of up to 2048 faces needs "
-         "the megakernel's motion variant (ROADMAP A11)"),
-        (scene.textured, "textures are not ported yet (ROADMAP A12)"),
-        (not scene.all_diffuse, "material dispatch (non-diffuse "
-         "materials) is not ported yet (ROADMAP A12)"),
-        (cfg.light_sampler != "uniform",
-         "the power light sampler is not ported yet (ROADMAP A12)"),
-        (cfg.aov, "AOV buffers are not ported yet (ROADMAP A13)"),
-        (cfg.throughput_model != "reference",
-         "the physical throughput model is not ported yet (ROADMAP A22)"),
-        (scene.num_lights < 1, "scenes without lights take the general "
-         "pool, not ported yet (ROADMAP A7)"),
-        (scene.num_faces > MAX_FACES,
-         f"scenes of more than {MAX_FACES} faces take the external "
-         "pipeline (ExternalPipeline)"),
-    )
-    return _first_failed(checks)
-
-
-def external_unsupported(scene, cfg) -> str | None:
-    """Why (scene, cfg) is outside the external pipeline's slice, naming
-    the ROADMAP item that adds it; None when ExternalPipeline renders it."""
-    checks = (
-        (cfg.integrator != "pool",
-         "the wave integrator is not ported yet (ROADMAP A6)"),
-        (not cfg.pool_pixel_major or cfg.sort_rays,
-         "sample-major or sorted pools are not ported yet (ROADMAP A8)"),
         (scene.num_keys > 2, "more than 2 motion keys need the N-key "
          "brute tracer (ROADMAP A5)"),
         (scene.textured, "textures are not ported yet (ROADMAP A12)"),
@@ -137,11 +115,25 @@ def external_unsupported(scene, cfg) -> str | None:
          "the physical throughput model is not ported yet (ROADMAP A22)"),
         (scene.num_lights < 1, "scenes without lights take the general "
          "pool, not ported yet (ROADMAP A7)"),
+    )
+
+
+def fused_unsupported(scene, cfg) -> str | None:
+    """Why (scene, cfg) is outside the ported slice, naming the ROADMAP
+    item that adds it; None when the fused pipeline renders it."""
+    return _first_failed(_slice_checks(scene, cfg) + (
+        (scene.num_faces > MAX_FACES,
+         f"scenes of more than {MAX_FACES} faces take the external "
+         "pipeline (ExternalPipeline)"),))
+
+
+def external_unsupported(scene, cfg) -> str | None:
+    """Why (scene, cfg) is outside the external pipeline's slice, naming
+    the ROADMAP item that adds it; None when ExternalPipeline renders it."""
+    return _first_failed(_slice_checks(scene, cfg) + (
         (scene.num_faces > EXTERNAL_MAX_FACES,
          f"scenes of more than {EXTERNAL_MAX_FACES} faces take the "
-         "hierwalk band and its walk pool (ROADMAP A17/A18)"),
-    )
-    return _first_failed(checks)
+         "hierwalk band and its walk pool (ROADMAP A17/A18)"),))
 
 
 def _first_failed(checks) -> str | None:
@@ -170,28 +162,66 @@ class RefillConfig:
 
 
 @dataclass(frozen=True)
-class ShadeTables:
-    """Device tables the megakernel reads."""
+class ShadeConfig:
+    """Static parameters of the shading body (K5, K6)."""
 
-    soup: TriSoup
+    max_depth: int
+    num_lights: int
+    shadow_tmin: float
+    shadow_eps: float
+    bg: tuple
+    motion: bool
+
+
+@dataclass(frozen=True)
+class ShadeTables:
+    """Device tables the megakernels (K4, K5) read."""
+
+    soup: TriSoup  # key 0, with its own cull boxes
     attr_t: torch.Tensor  # [16, F'] f32
     lights_t: torch.Tensor  # [24, Lp] f32
     jump: torch.Tensor  # [spp, 2] int64 (uint32 values): per-sample (a, c)
     jump_u32: torch.Tensor  # the same table as uint32 bits (int32), for K4
+    # a 2-key scene: both keys' tiles and the union cull boxes the sweeps use
+    msoup: MotionSoup | None = None
+
+    def sweep_tables(self):
+        """(tris, tris1, aabb, super_aabb) the kernels sweep: tris1 is None
+        for a static scene."""
+        if self.msoup is None:
+            s = self.soup
+            return s.tris, None, s.aabb, s.super_aabb
+        m = self.msoup
+        return m.tris0, m.tris1, m.aabb, m.super_aabb
+
+
+def _plain_sweeps(tables: ShadeTables, count, time):
+    """The plain closest and shadow sweeps of K4/K5 at 256-ray tiles:
+    (closest(rays) -> hit4 [R, 4], occluded(shadow_rays, shadow_time) ->
+    occ [R]). A motion scene sweeps the closest rays at `time` [R] and the
+    shadow rays at their own time."""
+    if tables.msoup is None:
+        return (lambda rays: closest_ref(rays, count, tables.soup),
+                lambda sh, _t: any_ref(sh, count, tables.soup)[:, 0])
+    m = tables.msoup
+    return (lambda rays: closest_motion_ref(rays, time, count, m, RAY_TILE),
+            lambda sh, t: any_motion_ref(sh, t, count, m, RAY_TILE)[:, 0])
 
 
 def _shade_lanes(rays, hit4, misc, a, lights_t, sc, shadow_occluded=None):
-    """The shading body shared by K4 and K6 (pallas_shade.py :436-880, the
-    Lambertian, uniform-light branch): emission at depth 0, miss ambient,
-    Lambertian draw, NEE light pick and area sample, RR, the next state.
+    """The shading body shared by K4, K5 and K6 (pallas_shade.py :436-880,
+    the Lambertian, uniform-light branch): emission at depth 0, miss
+    ambient, Lambertian draw, NEE light pick and area sample, RR, the next
+    state.
 
     hit4 [R, 4] (t, prim_f, u, v); a: attribute rows [>=15, R] gathered by
-    prim. `shadow_occluded(shadow_rays [R, 8]) -> occ [R]` runs the
-    in-kernel shadow sweep (K4); None is the external variant (K6): NEE is
+    prim. `shadow_occluded(shadow_rays [R, 8], time [R]) -> occ [R]` runs
+    the in-kernel shadow sweep (K4, K5) at the shadow rays' time, a peek of
+    the post-NEE stream; None is the external variant (K6): NEE is
     provisional on want_shadow and leaves as `nee`, for the caller to add
-    on unoccluded lanes, and the shadow rays leave with the post-NEE time
-    peek. sc carries max_depth, num_lights, shadow_tmin, shadow_eps, bg.
-    Returns a dict of the per-lane results."""
+    on unoccluded lanes, and the shadow rays leave with that time. sc
+    carries max_depth, num_lights, shadow_tmin, shadow_eps, bg. Returns a
+    dict of the per-lane results."""
     t_hit, prim_f, bu, bv = hit4.unbind(1)
     ox, oy, oz, dx, dy, dz = rays[:, :6].unbind(1)
 
@@ -260,13 +290,13 @@ def _shade_lanes(rays, hit4, misc, a, lights_t, sc, shadow_occluded=None):
     tmax_s = torch.where(want_shadow, ldist - sc.shadow_eps, zero)
     shadow = torch.stack([px, py, pz, ldx, ldy, ldz,
                           torch.full_like(px, sc.shadow_tmin), tmax_s], dim=1)
+    # the shadow ray's time: a peek of the post-NEE stream
+    occl_time = rng.rnd(seed)[1]
     external = shadow_occluded is None
     if external:
         lit = want_shadow
-        # the shadow ray's time: a peek of the post-NEE stream
-        occl_time = rng.rnd(seed)[1]
     else:
-        lit = want_shadow & (shadow_occluded(shadow) < 0.5)
+        lit = want_shadow & (shadow_occluded(shadow, occl_time) < 0.5)
 
     pdf_sc = torch.abs(n_dl) * _INV_PI
     ph = (pdf_light * pdf_light) / torch.clamp(
@@ -295,31 +325,110 @@ def _shade_lanes(rays, hit4, misc, a, lights_t, sc, shadow_occluded=None):
     depth_new = depth + alive.to(torch.float32)
     alive_b = survive & (depth_new < float(sc.max_depth))
     pdelta_new = torch.where(alive, zero, prev_delta)
-    out = dict(seed=seed, survive=survive, alive=alive, alive_b=alive_b,
-               want_shadow=want_shadow, new_at=new_at, new_last=new_last,
-               accs=accs, depth_new=depth_new, pdelta_new=pdelta_new,
-               p=(px, py, pz), nd=(ndx, ndy, ndz), o=(ox, oy, oz),
-               d=(dx, dy, dz), one=one, zero=zero, nee=nee, shadow=shadow)
-    if external:
-        out["occl_time"] = occl_time
-    return out
+    return dict(seed=seed, survive=survive, alive=alive, alive_b=alive_b,
+                want_shadow=want_shadow, new_at=new_at, new_last=new_last,
+                accs=accs, depth_new=depth_new, pdelta_new=pdelta_new,
+                p=(px, py, pz), nd=(ndx, ndy, ndz), o=(ox, oy, oz),
+                d=(dx, dy, dz), one=one, zero=zero, nee=nee, shadow=shadow,
+                occl_time=occl_time)
+
+
+def _next_state(rays, misc, r):
+    """(rays_out [R, 8], misc columns 0-15 as a list of [R]) of a lane
+    shaded without the refill (pallas_shade.py :893-916): the bounce ray on
+    surviving lanes, tmin/tmax, pixel and sample passed on."""
+    rays_out = torch.stack(
+        [torch.where(r["survive"], p, o)
+         for p, o in zip(r["p"] + r["nd"], r["o"] + r["d"])]
+        + [rays[:, 6], rays[:, 7]], dim=1)
+    cols = ([rng.state_to_bits(r["seed"])] + r["new_at"] + r["new_last"]
+            + [r["pdelta_new"], r["depth_new"],
+               r["alive_b"].to(torch.float32)]
+            + r["accs"] + [misc[:, 13], misc[:, 14],
+                           r["want_shadow"].to(torch.float32)])
+    return rays_out, cols
+
+
+def _shade_in_place_sweeps(rays, misc, count, tables: ShadeTables, sc,
+                           time):
+    """The closest sweep, the attribute fetch and the shading body with
+    the shadow sweep in place: the front of K4 and all of K5."""
+    closest, occluded = _plain_sweeps(tables, count, time)
+    hit4 = closest(rays)
+    a = tables.attr_t[:, torch.clamp(hit4[:, 1], min=0.0).to(torch.int64)]
+    return _shade_lanes(rays, hit4, misc, a, tables.lights_t, sc, occluded)
+
+
+def trace_shade_ref(rays, misc, count, tables: ShadeTables, sc: ShadeConfig,
+                    time=None):
+    """Plain version of K5: one pool iteration without the refill. rays
+    [P, 8], misc [P, 16], count int32 [1] (256-ray tiles at or past it skip
+    the sweeps), time [P] of a 2-key scene. Returns (rays_out, misc_out)."""
+    r = _shade_in_place_sweeps(rays, misc, count, tables, sc, time)
+    rays_out, cols = _next_state(rays, misc, r)
+    return rays_out, torch.stack(cols, dim=1)
+
+
+def trace_shade(rays, misc, count, tables: ShadeTables, sc: ShadeConfig,
+                time=None):
+    """K5 wrapper: the CUDA kernel for CUDA tensors
+    (kernels/csrc/megakernel.cu `trace_shade_kernel`), `trace_shade_ref` on
+    the CPU."""
+    if rays.device.type == "cpu":
+        return trace_shade_ref(rays, misc, count, tables, sc, time)
+    tris, tris1, aabb, super_aabb = tables.sweep_tables()
+    motion = tris1 is not None
+    kbuild.require_cuda("trace_shade", rays, misc, tris, aabb, super_aabb,
+                        tables.attr_t, tables.lights_t,
+                        *((tris1, time) if motion else ()))
+    kbuild.require_cuda("trace_shade", count, dtype=torch.int32)
+    pool = rays.shape[0]
+    if (rays.shape != (pool, 8) or misc.shape != (pool, 16)
+            or pool % RAY_TILE or (motion and time.shape != (pool,))):
+        raise ValueError("trace_shade: rays [P, 8], misc [P, 16] (and time "
+                         "[P] for motion) with P a multiple of 256")
+    f32 = dict(dtype=torch.float32, device=rays.device)
+    rays_out = torch.empty((pool, 8), **f32)
+    misc_out = torch.empty((pool, 16), **f32)
+    p = kbuild.TraceShadeParams(
+        max_depth=sc.max_depth, num_lights=sc.num_lights,
+        attr_stride=tables.attr_t.shape[1],
+        light_stride=tables.lights_t.shape[1], n_tiles=tris.shape[0],
+        ct=tris.shape[2], motion=int(motion), pad_i=0,
+        shadow_tmin=sc.shadow_tmin, shadow_eps=sc.shadow_eps,
+        pick_pdf=1.0 / float(sc.num_lights),
+        bg=(sc.bg[0], sc.bg[1], sc.bg[2]))
+    index, stream = kbuild.launch_target(rays.device)
+    err = kbuild.library().rt3c_trace_shade(
+        index, p, rays.data_ptr(), misc.data_ptr(),
+        time.data_ptr() if motion else None, pool, count.data_ptr(),
+        tris.data_ptr(), tris1.data_ptr() if motion else None,
+        aabb.data_ptr(), super_aabb.data_ptr(), tables.attr_t.data_ptr(),
+        tables.lights_t.data_ptr(), rays_out.data_ptr(), misc_out.data_ptr(),
+        stream)
+    kbuild.check(err, "trace_shade")
+    trace_shade.launches += 1
+    return rays_out, misc_out
+
+
+trace_shade.launches = 0
 
 
 def trace_shade_refill_ref(rays, misc, stash, stats_in, stats_out,
                            pixel_base: int, subframe_index: int, scf,
-                           tables: ShadeTables, rc: RefillConfig) -> None:
+                           time=None, *, tables: ShadeTables,
+                           rc: RefillConfig) -> None:
     """Plain version of K4: one pool launch over all lanes, in place.
 
     Pixels are claimed by a cumulative sum over idle lanes in lane order,
     which is the TPU kernel's sequential claim order, so on the CPU this
     matches the reference kernel lane for lane. stats_in = (next_work,
-    count, ...) of the previous launch; stats_out receives this launch's."""
+    count, ...) of the previous launch; stats_out receives this launch's.
+    time [P] (a 2-key scene): the lanes' ray times, replaced by the times
+    drawn for the next launch."""
     dev = rays.device
     count = stats_in[1:2]
-    hit4 = closest_ref(rays, count, tables.soup)
-    a = tables.attr_t[:, torch.clamp(hit4[:, 1], min=0.0).to(torch.int64)]
-    r = _shade_lanes(rays, hit4, misc, a, tables.lights_t, rc,
-                     lambda sh: any_ref(sh, count, tables.soup)[:, 0])
+    r = _shade_in_place_sweeps(rays, misc, count, tables, rc, time)
     seed, survive, alive_b = r["seed"], r["survive"], r["alive_b"]
     one, zero = r["one"], r["zero"]
     new_at, new_last, accs = r["new_at"], r["new_last"], r["accs"]
@@ -362,8 +471,11 @@ def trace_shade_refill_ref(rays, misc, stash, stats_in, stats_out,
 
     seed_u = torch.where(take, s_new, seed)
     alive2 = alive_b | take
-    s_adv, _ = rng.rnd(seed_u)  # the motion path's per-ray time draw
+    # the per-ray time draw, kept by a motion scene on every lane
+    s_adv, t_draw = rng.rnd(seed_u)
     seed_u = torch.where(alive2, s_adv, seed_u)
+    if time is not None:
+        time.copy_(t_draw)
 
     def sel(take_v, surv_v, keep_v):
         return torch.where(take, take_v, torch.where(survive, surv_v, keep_v))
@@ -390,26 +502,31 @@ def trace_shade_refill_ref(rays, misc, stash, stats_in, stats_out,
 
 
 def trace_shade_refill(rays, misc, stash, stats_in, stats_out,
-                       pixel_base: int, subframe_index: int, scf,
-                       tables: ShadeTables, rc: RefillConfig) -> None:
-    """K4 wrapper: one pool launch, in place on rays/misc/stash; fills
-    stats_out from stats_in. The CUDA kernel for CUDA tensors
-    (kernels/csrc/megakernel.cu), `trace_shade_refill_ref` on the CPU."""
+                       pixel_base: int, subframe_index: int, scf, time=None,
+                       *, tables: ShadeTables, rc: RefillConfig) -> None:
+    """K4 wrapper: one pool launch, in place on rays/misc/stash (and the
+    time [P] of a 2-key scene); fills stats_out from stats_in. The CUDA
+    kernel for CUDA tensors (kernels/csrc/megakernel.cu `refill_kernel`),
+    `trace_shade_refill_ref` on the CPU."""
     if rays.device.type == "cpu":
         trace_shade_refill_ref(rays, misc, stash, stats_in, stats_out,
-                               pixel_base, subframe_index, scf, tables, rc)
+                               pixel_base, subframe_index, scf, time,
+                               tables=tables, rc=rc)
         return
-    soup = tables.soup
-    kbuild.require_cuda("trace_shade_refill", rays, misc, stash, soup.tris,
-                        soup.aabb, soup.super_aabb, tables.attr_t,
-                        tables.lights_t)
+    tris, tris1, aabb, super_aabb = tables.sweep_tables()
+    motion = tris1 is not None
+    kbuild.require_cuda("trace_shade_refill", rays, misc, stash, tris, aabb,
+                        super_aabb, tables.attr_t, tables.lights_t,
+                        *((tris1, time) if motion else ()))
     kbuild.require_cuda("trace_shade_refill", stats_in, stats_out,
                         tables.jump_u32, dtype=torch.int32)
     pool = rays.shape[0]
     if (rays.shape != (pool, 8) or misc.shape != (pool, 16)
-            or stash.shape != (pool, 16) or pool % RAY_TILE):
+            or stash.shape != (pool, 16) or pool % RAY_TILE
+            or (motion and time.shape != (pool,))):
         raise ValueError("trace_shade_refill: rays [P, 8], misc [P, 16], "
-                         "stash [P, 16] with P a multiple of 256")
+                         "stash [P, 16] (and time [P] for motion) with P a "
+                         "multiple of 256")
     if stats_in.data_ptr() == stats_out.data_ptr():
         raise ValueError("trace_shade_refill: stats_in and stats_out must "
                          "be different buffers")
@@ -417,8 +534,8 @@ def trace_shade_refill(rays, misc, stash, stats_in, stats_out,
         n_pix=rc.n_pix, spp=rc.spp, width=rc.width, max_depth=rc.max_depth,
         num_lights=rc.num_lights, pixel_base=pixel_base,
         subframe_index=subframe_index, attr_stride=tables.attr_t.shape[1],
-        light_stride=tables.lights_t.shape[1], n_tiles=soup.tris.shape[0],
-        ct=soup.tris.shape[2], pad_i=0, seed_rot=rc.seed_rot & rng.M32,
+        light_stride=tables.lights_t.shape[1], n_tiles=tris.shape[0],
+        ct=tris.shape[2], motion=int(motion), seed_rot=rc.seed_rot & rng.M32,
         width_f=float(rc.width), height_f=float(rc.height),
         tmin=rc.primary_tmin, tmax=rc.primary_tmax,
         shadow_tmin=rc.shadow_tmin, shadow_eps=rc.shadow_eps,
@@ -427,11 +544,12 @@ def trace_shade_refill(rays, misc, stash, stats_in, stats_out,
         cam=tuple(scf))
     index, stream = kbuild.launch_target(rays.device)
     err = kbuild.library().rt3c_trace_shade_refill(
-        index, p, rays.data_ptr(), misc.data_ptr(), stash.data_ptr(), pool,
-        stats_in.data_ptr(), stats_out.data_ptr(), soup.tris.data_ptr(),
-        soup.aabb.data_ptr(), soup.super_aabb.data_ptr(),
-        tables.attr_t.data_ptr(), tables.lights_t.data_ptr(),
-        tables.jump_u32.data_ptr(), stream)
+        index, p, rays.data_ptr(), misc.data_ptr(), stash.data_ptr(),
+        time.data_ptr() if motion else None, pool, stats_in.data_ptr(),
+        stats_out.data_ptr(), tris.data_ptr(),
+        tris1.data_ptr() if motion else None, aabb.data_ptr(),
+        super_aabb.data_ptr(), tables.attr_t.data_ptr(),
+        tables.lights_t.data_ptr(), tables.jump_u32.data_ptr(), stream)
     kbuild.check(err, "trace_shade_refill")
     trace_shade_refill.launches += 1
 
@@ -440,13 +558,19 @@ trace_shade_refill.launches = 0
 
 
 class FusedPipeline:
-    """The megakernel pipeline of the pool integrator, on one device.
+    """The megakernel pipeline of the pool integrator, on one device, for
+    static and 2-key scenes (`motion`).
 
-    refill_fn is the launch function; the default picks the kernel or its
-    plain version by the tensors' device. Passing trace_shade_refill_ref
-    runs the plain version on any device (the reference on the card)."""
+    `trace_shade` runs K5 (the merged megakernel, no refill) for the
+    XLA-refill loop of sorted and sample-major pools; `refill_shader`
+    builds K4 (in-kernel refill) for the pixel-major unsorted pool.
+    refill_fn and shade_fn are the launch functions; the defaults pick the
+    kernel or its plain version by the tensors' device. Passing
+    trace_shade_refill_ref and trace_shade_ref runs the plain versions on
+    any device (the reference on the card)."""
 
-    def __init__(self, scene, cfg, device, refill_fn=trace_shade_refill):
+    def __init__(self, scene, cfg, device, refill_fn=trace_shade_refill,
+                 shade_fn=trace_shade):
         # deferred: integrate.path imports this module
         from ..integrate.path import _lcg_advance_table
 
@@ -456,8 +580,19 @@ class FusedPipeline:
         self.device = torch.device(device)
         self.scene = scene
         self.cfg = cfg
+        self.motion = scene.num_keys == 2
+        self.merged = True  # the closest sweep runs inside the megakernel
         self.soup = build_tri_soup(scene.geom, self.device,
                                    num_faces=scene.num_faces)
+        msoup = None
+        if self.motion:
+            soup1 = build_tri_soup(scene.geom, self.device, key=1,
+                                   num_faces=scene.num_faces)
+            aabb, super_aabb = motion_union_aabbs(self.soup, soup1)
+            msoup = MotionSoup(tris0=self.soup.tris, tris1=soup1.tris,
+                               num_faces=scene.num_faces,
+                               aabb=aabb.contiguous(),
+                               super_aabb=super_aabb.contiguous())
         f_limit = self.soup.tris.shape[0] * self.soup.tris.shape[2]
         attr_t, lights_t = build_shade_tables(scene, f_limit=f_limit)
         jump = _lcg_advance_table(cfg.samples_per_launch).astype(np.int64)
@@ -467,16 +602,30 @@ class FusedPipeline:
             lights_t=torch.as_tensor(lights_t, device=self.device),
             jump=torch.as_tensor(jump, device=self.device),
             jump_u32=torch.as_tensor(jump.astype(np.uint32).view(np.int32),
-                                     device=self.device))
+                                     device=self.device),
+            msoup=msoup)
+        self.config = ShadeConfig(
+            max_depth=cfg.max_depth, num_lights=scene.num_lights,
+            shadow_tmin=cfg.shadow_tmin, shadow_eps=cfg.shadow_tmax_eps,
+            bg=tuple(float(b) for b in cfg.bg_radiance), motion=self.motion)
         self.refill_fn = refill_fn
+        self.shade_fn = shade_fn
 
-    def refill_shader(self, n_pix: int, use_stash: bool):
+    def trace_shade(self, rays, misc, count, time=None):
+        """One pool iteration through K5: closest sweep, shading, shadow
+        sweep, RR and the next state. count: int32 [1] live-lane hint;
+        time: per-lane ray time [P] of a motion scene. Returns (rays [P, 8],
+        misc [P, 16])."""
+        return self.shade_fn(rays, misc, count, self.tables, self.config,
+                             time if self.motion else None)
+
+    def refill_shader(self, n_pix: int):
         """The refill megakernel for a pool over n_pix pixels:
         shade(rays, misc, stash, stats_in, stats_out, pixel_base,
-        subframe_index, scf)."""
-        if not use_stash:
-            raise NotImplementedError(
-                "the stashless refill kernel is not ported yet (ROADMAP A8)")
+        subframe_index, scf, time=None), time [P] for a motion scene. The
+        in-kernel refill always stashes (integrate/path.py:1024-1030); the
+        reference's stashless variant is reached only through its A/B
+        environment switch, which the port leaves out."""
         cfg = self.cfg
         rc = RefillConfig(
             n_pix=int(n_pix), spp=cfg.samples_per_launch, width=cfg.width,
@@ -491,18 +640,6 @@ class FusedPipeline:
 
 # ---------------------------------------------------------------- K6
 @dataclass(frozen=True)
-class ExternalConfig:
-    """Static parameters of the external shade kernel."""
-
-    max_depth: int
-    num_lights: int
-    shadow_tmin: float
-    shadow_eps: float
-    bg: tuple
-    motion: bool
-
-
-@dataclass(frozen=True)
 class ExternalTables:
     """Device tables K6 reads."""
 
@@ -511,22 +648,14 @@ class ExternalTables:
 
 
 def external_shade_ref(rays, hit4, misc, tables: ExternalTables,
-                       ec: ExternalConfig):
+                       ec: ShadeConfig):
     """Plain version of K6: (rays_out [R, 8], misc_out [R, 24], shadow
     [R, 8|16]) from rays [R, 8], hit4 [R, 4] and misc [R, 16]."""
     a = tables.attr[torch.clamp(hit4[:, 1], min=0.0).to(torch.int64)].T
     r = _shade_lanes(rays, hit4, misc, a, tables.lights_t, ec)
-    survive, zero = r["survive"], r["zero"]
-    rays_out = torch.stack(
-        [torch.where(survive, p, o) for p, o in zip(r["p"] + r["nd"],
-                                                    r["o"] + r["d"])]
-        + [rays[:, 6], rays[:, 7]], dim=1)
+    rays_out, cols = _next_state(rays, misc, r)
     misc_out = torch.stack(
-        [rng.state_to_bits(r["seed"])] + r["new_at"] + r["new_last"]
-        + [r["pdelta_new"], r["depth_new"], r["alive_b"].to(torch.float32)]
-        + r["accs"] + [misc[:, 13], misc[:, 14],
-                       r["want_shadow"].to(torch.float32)]
-        + r["nee"] + [zero] * (MISC_OUT_W - 19), dim=1)
+        cols + r["nee"] + [r["zero"]] * (MISC_OUT_W - 19), dim=1)
     shadow = r["shadow"]
     if ec.motion:
         shadow = torch.cat([shadow, r["occl_time"][:, None],
@@ -535,7 +664,7 @@ def external_shade_ref(rays, hit4, misc, tables: ExternalTables,
 
 
 def external_shade(rays, hit4, misc, tables: ExternalTables,
-                   ec: ExternalConfig):
+                   ec: ShadeConfig):
     """K6 wrapper: the CUDA kernel for CUDA tensors
     (kernels/csrc/external.cu), `external_shade_ref` on the CPU."""
     if rays.device.type == "cpu":
@@ -592,7 +721,7 @@ class ExternalPipeline:
             attr=torch.as_tensor(np.ascontiguousarray(attr_t.T),
                                  device=self.device),
             lights_t=torch.as_tensor(lights_t, device=self.device))
-        self.config = ExternalConfig(
+        self.config = ShadeConfig(
             max_depth=cfg.max_depth, num_lights=scene.num_lights,
             shadow_tmin=cfg.shadow_tmin, shadow_eps=cfg.shadow_tmax_eps,
             bg=tuple(float(b) for b in cfg.bg_radiance), motion=self.motion)

@@ -86,10 +86,9 @@ def test_refill_kernel_matches_plain_version_on_one_block(dev):
     p = cornell_box()[1].params()
     scf = tuple(float(x) for x in np.concatenate(
         [p.eye, p.u, p.v, p.w]).astype(np.float32))
-    kern = shade.FusedPipeline(scene, cfg, dev).refill_shader(4096, True)
+    kern = shade.FusedPipeline(scene, cfg, dev).refill_shader(4096)
     ref = shade.FusedPipeline(scene, cfg, dev, refill_fn=shade
-                              .trace_shade_refill_ref).refill_shader(4096,
-                                                                     True)
+                              .trace_shade_refill_ref).refill_shader(4096)
     state = [torch.zeros((256, w), dtype=torch.float32, device=dev)
              for w in (8, 16, 16)]
     state[1][:, 13] = -1.0
@@ -250,3 +249,163 @@ def test_external_pipeline_passes_gate(dev, towns, motion):
     diff = np.abs(images[0] - images[1])
     assert diff.mean() <= 2e-3
     assert int((diff.max(axis=-1) > 0.35).sum()) <= 8 and diff.max() <= 8.0
+
+
+def _moving_cornell():
+    """The 2-key Cornell box: the last block given a second key at +0.1 in
+    x (36 faces)."""
+    import dataclasses
+
+    meshes, cam = cornell_box()
+    v = meshes[-1].vertices
+    meshes[-1] = dataclasses.replace(
+        meshes[-1], vertices=np.concatenate([v, v + np.float32([0.1, 0, 0])]))
+    return build_scene(meshes), cam
+
+
+def _scf(cam):
+    p = cam.params()
+    return tuple(float(x) for x in np.concatenate(
+        [p.eye, p.u, p.v, p.w]).astype(np.float32))
+
+
+def test_motion_refill_kernel_matches_plain_version_on_one_block(dev):
+    """K4's motion variant teacher-forced for 8 launches on one block of
+    the 2-key Cornell box: stats and the time buffer exact, seeds exact,
+    lanes within 1e-5 on at least 99%."""
+    scene, cam = _moving_cornell()
+    cfg = RenderConfig(width=64, height=64, samples_per_launch=4,
+                       max_depth=8, ray_block=256, integrator="pool",
+                       pool_pixel_major=True)
+    kern = shade.FusedPipeline(scene, cfg, dev).refill_shader(4096)
+    ref = shade.FusedPipeline(scene, cfg, dev, refill_fn=shade
+                              .trace_shade_refill_ref).refill_shader(4096)
+    state = [torch.zeros((256, w), dtype=torch.float32, device=dev)
+             for w in (8, 16, 16)]
+    state[1][:, 13] = -1.0
+    state[2][:, 0] = -1.0
+    time = torch.zeros(256, dtype=torch.float32, device=dev)
+    stats = torch.zeros(4, dtype=torch.int32, device=dev)
+    for _ in range(8):
+        outs = []
+        for fn in (kern, ref):
+            out = [x.clone() for x in state]
+            tm = time.clone()
+            st = torch.zeros(4, dtype=torch.int32, device=dev)
+            fn(*out, stats, st, 0, 2, _scf(cam), tm)
+            outs.append((out, st, tm))
+        (got, st_k, tm_k), (want, st_r, tm_r) = outs
+        assert torch.equal(st_k, st_r)
+        assert torch.equal(tm_k.view(torch.int32), tm_r.view(torch.int32))
+        for g, w in zip(got, want):
+            g, w = g.cpu().numpy(), w.cpu().numpy()
+            same = np.isclose(g, w, rtol=1e-5, atol=1e-5).all(axis=1)
+            assert same.mean() >= 0.99
+        assert torch.equal(got[1][:, 0].view(torch.int32),
+                           want[1][:, 0].view(torch.int32))
+        state, stats, time = want, st_r, tm_r
+    assert (time > 0).any()
+
+
+@pytest.mark.parametrize("motion", [False, True], ids=["static", "motion"])
+def test_trace_shade_kernel_matches_plain_version(dev, motion):
+    """K5 teacher-forced for 8 iterations from the plain version's states,
+    the live count alternating between the pool and a count inside a
+    block: every output bit for bit."""
+    scene, cam = (_moving_cornell() if motion
+                  else (build_scene(cornell_box()[0]), cornell_box()[1]))
+    cfg = RenderConfig(width=64, height=64, samples_per_launch=2,
+                       max_depth=8, ray_block=4096, integrator="pool",
+                       pool_pixel_major=False)
+    pipe = shade.FusedPipeline(scene, cfg, dev)
+    assert pipe.motion == motion
+    rays, misc = _lane_state(scene, cam, 4096, 9 + int(motion), dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for it in range(8):
+        count = torch.tensor([4096 if it % 2 == 0 else 3000],
+                             dtype=torch.int32, device=dev)
+        time = torch.rand(4096, device=dev, generator=gen) if motion else None
+        got = shade.trace_shade(rays, misc, count, pipe.tables, pipe.config,
+                                time)
+        want = shade.trace_shade_ref(rays, misc, count, pipe.tables,
+                                     pipe.config, time)
+        for g, w in zip(got, want):
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+        rays, misc = want
+        fr, fm = _lane_state(scene, cam, 4096, 20 + it, dev)
+        dead = misc[:, 9] <= 0
+        rays = torch.where(dead[:, None], fr, rays)
+        misc = torch.where(dead[:, None], fm, misc)
+    assert (misc[:, 8] > 2).any()
+
+
+@pytest.mark.parametrize("case", ["motion_pixel_major", "sorted",
+                                  "sample_major", "motion_sample_major"])
+def test_fused_schedules_pass_gate(dev, case):
+    """bench.py:115-116 at 96^2, kernels against plain versions, through
+    K4's motion variant or K5; the run must launch the kernel."""
+    motion = case.startswith("motion")
+    scene, cam = (_moving_cornell() if motion
+                  else (build_scene(cornell_box()[0]), cornell_box()[1]))
+    cfg = RenderConfig(width=96, height=96, samples_per_launch=2,
+                       max_depth=6, ray_block=4096, integrator="pool",
+                       pool_pixel_major=not case.endswith("sample_major"),
+                       sort_rays=case == "sorted")
+    kernel = (shade.trace_shade_refill if case == "motion_pixel_major"
+              else shade.trace_shade)
+    images = []
+    for plain in (False, True):
+        pipe = shade.FusedPipeline(
+            scene, cfg, dev,
+            **(dict(refill_fn=shade.trace_shade_refill_ref,
+                    shade_fn=shade.trace_shade_ref) if plain else {}))
+        kernel.launches = 0
+        f, _ = render_frame(scene, cam.params(), cfg, tracer=pipe,
+                            device=dev)
+        assert (kernel.launches > 0) != plain
+        images.append(f.accum.cpu().numpy())
+    diff = np.abs(images[0] - images[1])
+    assert diff.mean() <= 2e-3
+    assert int((diff.max(axis=-1) > 0.35).sum()) <= 8 and diff.max() <= 8.0
+
+
+def _write_cornell_keys(out_dir, shifts):
+    """The Cornell box as .obj keyframes with one .mtl: key k moves the
+    last block by shifts[k] in x. Returns the .obj paths."""
+    meshes, _ = cornell_box()
+    mtl = out_dir / "cornell.mtl"
+    mtl.write_text("".join(
+        f"newmtl m{i}\nKd {' '.join(map(str, m.material.diffuse))}\n"
+        f"Ke {' '.join(map(str, m.material.emissive))}\n"
+        for i, m in enumerate(meshes)))
+    paths = []
+    for k, dx in enumerate(shifts):
+        lines, base = ["mtllib cornell.mtl\n"], 1
+        for i, m in enumerate(meshes):
+            v = m.vertices[0] + (np.float32([dx, 0, 0])
+                                 if i == len(meshes) - 1 else 0)
+            lines += [f"v {x} {y} {z}\n" for x, y, z in v]
+            lines.append(f"usemtl m{i}\n")
+            lines += [f"f {a + base} {b + base} {c + base}\n"
+                      for a, b, c in m.indices]
+            base += len(v)
+        p = out_dir / f"key{k}.obj"
+        p.write_text("".join(lines))
+        paths.append(str(p))
+    return paths
+
+
+def test_cli_renders_obj_keyframes_through_motion_refill(dev, tmp_path):
+    """Two small untextured keyframe .obj files render through the refill
+    megakernel's motion variant."""
+    from rendertoy3c_tpu_torch.app import cli
+
+    paths = _write_cornell_keys(tmp_path, (0.0, 0.1))
+    out = tmp_path / "k.png"
+    shade.trace_shade_refill.launches = 0
+    assert cli.main(["--scene", *paths, "--size", "64x64", "--spp", "2",
+                     "--subframes", "2", "--eye", "0,1,3.4", "--lookat",
+                     "0,1,0", "--fov", "45", "--device", "cuda", "-o",
+                     str(out)]) == 0
+    assert shade.trace_shade_refill.launches > 0
+    assert out.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"

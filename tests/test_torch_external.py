@@ -229,6 +229,9 @@ def _moving_cornell():
 ])
 def test_out_of_slice_raises_naming_roadmap_item(towns, tmp_path, case,
                                                  item):
+    """Cases of a ported ROADMAP item now render: the 2-key Cornell box
+    through the fused pipeline's motion variant (A11), the town's sorted and
+    sample-major pools through the external pipeline (A8)."""
     scene, cfg = towns[False][1], RenderConfig(**KW)
     if case == "17k_faces":
         scene = build_scene(_lit_box_grid(38))
@@ -251,6 +254,12 @@ def test_out_of_slice_raises_naming_roadmap_item(towns, tmp_path, case,
                   "aov": dict(aov=True), "sorted": dict(sort_rays=True),
                   "sample_major": dict(pool_pixel_major=False)}[case]
         cfg = dataclasses.replace(cfg, **change)
+    if item in ("A8", "A11"):
+        _, pipe = choose_tracer(scene, cfg, "cpu")
+        want = shade.FusedPipeline if item == "A11" else shade.ExternalPipeline
+        assert isinstance(pipe, want)
+        assert pipe.motion == (item == "A11")
+        return
     with pytest.raises(NotImplementedError, match=item):
         choose_tracer(scene, cfg, "cpu")
 

@@ -134,6 +134,9 @@ def _big_scene():
                        + [light])
 
 
+PORTED = ("A8", "A11")  # sorted and sample-major pools, fused motion
+
+
 @pytest.mark.parametrize("case, item", [
     ("textured", "A12"), ("mirror", "A12"), ("motion", "A11"),
     # scenes past 2048 faces: the external pipeline (A16) renders up to
@@ -143,6 +146,8 @@ def _big_scene():
     ("sample_major", "A8"),
 ])
 def test_outside_the_slice_raises_naming_the_roadmap_item(case, item):
+    """Cases of a ported ROADMAP item (PORTED) now take the fused pipeline:
+    the 2-key Cornell box its motion variant, the sample-major pool K5."""
     scene = build_scene(cornell_box()[0])
     cfg = RenderConfig(**_cfg())
     if case in ("textured", "mirror", "motion", "big"):
@@ -153,6 +158,11 @@ def test_outside_the_slice_raises_naming_the_roadmap_item(case, item):
                   "wave": dict(integrator="wave"),
                   "sample_major": dict(pool_pixel_major=False)}[case]
         cfg = dataclasses.replace(cfg, **change)
+    if item in PORTED:
+        _, pipe = choose_tracer(scene, cfg, "cpu")
+        assert isinstance(pipe, shade.FusedPipeline)
+        assert pipe.motion == (case == "motion")
+        return
     with pytest.raises(NotImplementedError, match=item):
         choose_tracer(scene, cfg, "cpu")
     assert shade.fused_unsupported(build_scene(cornell_box()[0]),
@@ -167,3 +177,34 @@ def test_cli_writes_png(tmp_path):
                      "--subframes", "1", "-o", str(out), "--device",
                      "cpu"]) == 0
     assert out.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+
+
+@pytest.mark.parametrize("extra", [
+    [], ["--max-depth", "7", "--seed", "11", "--ray-block", "4096",
+         "--flush-every", "24"]], ids=["defaults", "given"])
+def test_cli_config_matches_reference_cli(monkeypatch, tmp_path, extra):
+    """The RenderConfig fields the reference CLI takes from its arguments
+    (rendertoy3c_tpu/app/cli.py:244-251) have its names and defaults."""
+    from rendertoy3c_tpu.app.cli import build_parser as j_build_parser
+    from rendertoy3c_tpu_torch.app import cli
+
+    seen = []
+
+    class Stop(Exception):
+        pass
+
+    def fake_render_fn(scene, cfg, device):
+        seen.append(cfg)
+        raise Stop
+
+    monkeypatch.setattr(cli, "make_render_fn", fake_render_fn)
+    argv = ["--scene", "cornell", "--size", "16x16", "--device", "cpu",
+            "-o", str(tmp_path / "x.png"), *extra]
+    with pytest.raises(Stop):
+        cli.main(argv)
+    want = j_build_parser().parse_args(
+        [a for a in argv if a not in ("--device", "cpu")])
+    cfg = seen[0]
+    assert (cfg.max_depth, cfg.seed, cfg.ray_block, cfg.flush_every) == (
+        want.max_depth, want.seed, want.ray_block, want.flush_every)
+    assert cfg.pool_pixel_major and cfg.integrator == "pool"

@@ -23,6 +23,25 @@ def cornell_pair():
     return j_build_scene(jm), build_scene(tm), jcam, tcam
 
 
+def moving_meshes(meshes):
+    """The meshes with the last one (the tall block) given a second key at
+    +0.1 in x: a 2-key scene of 36 faces."""
+    import dataclasses
+
+    v = meshes[-1].vertices
+    meshes[-1] = dataclasses.replace(
+        meshes[-1], vertices=np.concatenate([v, v + np.float32([0.1, 0, 0])]))
+    return meshes
+
+
+def moving_cornell_pair():
+    """cornell_pair() of the 2-key Cornell box (moving_meshes)."""
+    jm, jcam = j_cornell_box()
+    tm, tcam = cornell_box()
+    return (j_build_scene(moving_meshes(jm)), build_scene(moving_meshes(tm)),
+            jcam, tcam)
+
+
 def box_grid_meshes(material_cls, mesh_cls, box_mesh_fn, n=8, seed=7):
     """One mesh of n*n boxes (12 faces each): >512 faces, several tiles."""
     rng = np.random.default_rng(seed)
