@@ -18,7 +18,8 @@ a JSON summary. Phases:
   3. K4 (trace_shade_refill) against its plain version: teacher-forced for
      8 launches on one 256-lane block (deterministic claims), then one
      launch at the main path's pool width from a mid-render state (claims
-     compared as a set keyed by pixel); timed per launch;
+     compared as a set keyed by pixel); its device time per launch there
+     (device_ms, as phase 8's);
   4. the gate (bench.py:115-116) of kernels against plain versions at 96^2,
      2 spp, max_depth 6, ray_block 4096;
   5. the Cornell main path: 768^2, 8 spp, max_depth 16, ray_block 32768,
@@ -38,7 +39,8 @@ a JSON summary. Phases:
   8. K6 (external_shade) teacher-forced against its plain version at 32768
      lanes for 8 iterations on both towns: every output bit for bit; then
      bit for bit again on the main paths' inputs of phase 7, and its
-     device time per launch there from the profiler;
+     device time per launch there (device_ms: CUDA events around the
+     launches queued behind a spin kernel);
   9. the gate of phase 4 on the external path, the 4294-face town, static
      and 2-key;
  10. both 16054-face towns at the main path's config: 1 warm-up and 4
@@ -55,14 +57,32 @@ a JSON summary. Phases:
      and motion, against its plain version on the inputs of pool
      iterations 32, 128, 224 and 320 of one subframe of its own main path
      (phase 14's sorted Cornell and 2-key sample-major Cornell); device
-     time per launch from the profiler (its wrapper's host time exceeds
-     it), and bound;
+     time per launch as phase 8's (its wrapper's host time exceeds it),
+     and bound;
  13. the gate of phase 4 on the 2-key Cornell box (pixel-major), Cornell
      sorted and sample-major, and the 4294-face town sorted and
      sample-major (external pipeline);
  14. three more main paths as phase 5, 1 plain subframe each: the 2-key
      Cornell box on the pixel-major pool (K4 motion), Cornell with
-     sort_rays (K5) and the 2-key Cornell box sample-major (K5 motion).
+     sort_rays (K5) and the 2-key Cornell box sample-major (K5 motion);
+ 15. the textured kernels against their plain versions: textured K4 and
+     K4 motion as phase 3 on the textured quad (builtin
+     textured_quad_scene) and its 2-key variant (the floor given a second
+     key at +0.1 in x); textured K5 and K5 motion as phase 12 on the
+     inputs of their own main paths (phase 17) at pool iterations 16, 80,
+     144 and 208 (the quad's paths end sooner); textured K6 as phase 8 on
+     the textured static and 2-key towns and on their main paths' inputs;
+     each timed and bounded with the texel reads and the fetch's
+     operations added;
+ 16. the gate of phase 4 on the textured quad (repeat; CLAMP/MIRROR with
+     uvs stretched to 2.5 uv - 0.75; a uv transform; a normal map) and on
+     the textured 4294-face towns, static and 2-key;
+ 17. the textured main paths as phase 5, 1 plain subframe each: the
+     textured quad pixel-major (textured K4) and sorted (textured K5), the
+     2-key textured quad pixel-major (K4 motion) and sample-major (K5
+     motion), and the textured 16054-face towns, static (K1/K2 + textured
+     K6) and 2-key (K3 + textured K6), whose atlas must hold the town's
+     two textures.
 
 Each kernel's bound is the larger of the bytes it must move over 3.35 TB/s
 and the operations its inputs need over the 67 TFLOP/s fp32 peak outside
@@ -72,8 +92,9 @@ box tests and the triangle tests of the tiles whose boxes it hits itself
 their first hit), replayed with the plain per-tile results; for the
 shading, its body per lane.
 
-Phases 11-14, on the Cornell box, run after phase 6 and before the towns:
-run after them, phase 12's profile once recorded none of K5's launches.
+Phases 11-14, on the Cornell box, and the textured quad's parts of phases
+15-17 run after phase 6 and before the towns, the textured towns' phase
+15 right after phase 8, and their phases 16-17 last.
 Any failed phase exits non-zero. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -111,6 +132,14 @@ LERP_OPS = 27
 BOX_OPS = 29
 SHADE_OPS = 300
 REFILL_OPS = 170
+# the texture work of shade_lane (shade.cuh), counted as above: the uv
+# interpolation, the uv transform, one tex_fetch (two wrap_axis, the
+# addresses, four texels decoded and the bilinear combine) and the normal
+# map around its fetch (Gram-Schmidt, two normalizations, the select)
+UV_OPS = 13
+UV_XFORM_OPS = 8
+TEX_FETCH_OPS = 136
+NMAP_OPS = 67
 
 
 class PhaseFailed(Exception):
@@ -427,11 +456,39 @@ def _compare_lanes(got, want, claimed_as_set: bool):
     return err, int(bad.sum().item()) + int(lane_bad.sum().item())
 
 
+def texture_work(a, r, tex):
+    """(operations, bytes) of the texture work of shade_lane on these lanes
+    (a: their attribute rows, r: the plain shading body's results, tex: the
+    pipeline's TexState, or None): every lane interpolates its uvs (and
+    transforms them); a lane fetches where its texture id is >= 0, the
+    normal map with its own work. The bytes: the distinct texels these
+    fetches read, 4 bytes each, and the meta rows."""
+    import torch
+
+    from rendertoy3c_tpu_torch.scene.texture import bilinear_footprint
+
+    if tex is None:
+        return 0, 0
+    tu, tv = r["tex_uv"]
+    n = tu.shape[0]
+    ops = n * (UV_OPS + (UV_XFORM_OPS if tex.uv_xform else 0))
+    ids = [a[22]] + ([a[tex.nmap_base + 3]] if tex.normal_maps else [])
+    texels = []
+    for k, tid in enumerate(ids):
+        on = tid >= 0
+        ops += int(on.sum()) * (TEX_FETCH_OPS + (NMAP_OPS if k else 0))
+        flats, _, _ = bilinear_footprint(tex.atlas, tid[on], tu[on], tv[on])
+        texels += list(flats)
+    uniq = torch.unique(torch.cat(texels)).numel() if texels else 0
+    return ops, 4 * uniq + 4 * tex.atlas.meta.numel()
+
+
 def megakernel_work(rays, misc, count, time, tables, sc):
     """(operations, table bytes) of one megakernel launch (K4 or K5) on
     these lanes: the closest and the shadow sweep, counted by mt_work on
     256-ray tiles (the shadow rays, their wants and their times from the
-    plain shading body), and the shading body of every lane."""
+    plain shading body), the shading body of every lane and its texture
+    work (texture_work)."""
     import torch
 
     from rendertoy3c_tpu_torch.trace import mt, shade
@@ -443,15 +500,16 @@ def megakernel_work(rays, misc, count, time, tables, sc):
     hit4 = closest(rays)
     a = tables.attr_t[:, torch.clamp(hit4[:, 1], min=0.0).to(torch.int64)]
     out = shade._shade_lanes(rays, hit4, misc, a, tables.lights_t, sc,
-                             occluded)
+                             occluded, tables.tex)
+    tex_ops, tex_bytes = texture_work(a, out, tables.tex)
     shadow_ops, shadow_bytes = mt_work(
         out["shadow"], count, table, True,
         None if time is None else out["occl_time"],
         want=out["want_shadow"], tile=mt.RAY_TILE)
     # each table tile is read from memory once
     table_bytes = max(closest_bytes, shadow_bytes) + 4 * (
-        tables.attr_t.numel() + tables.lights_t.numel())
-    return (closest_ops + shadow_ops + rays.shape[0] * SHADE_OPS,
+        tables.attr_t.numel() + tables.lights_t.numel()) + tex_bytes
+    return (closest_ops + shadow_ops + rays.shape[0] * SHADE_OPS + tex_ops,
             table_bytes)
 
 
@@ -545,7 +603,7 @@ def phase_k4(dev, scene, camera, phase=3, label="K4"):
         return [functools.partial(fn, *c[:3], stats, stats_out, 0, sub, scf,
                                   *c[3:]) for c in copies]
 
-    ms = cuda_ms(calls(kern, 41))
+    ms = device_ms(calls(kern, 41))
     plain_ms = cuda_ms(calls(ref, 6))
     bound_ms, bound_by = k4_bound(state, stats, kern.keywords["tables"],
                                   kern.keywords["rc"])
@@ -659,20 +717,37 @@ def device_rows(run):
     return sorted(rows, reverse=True)
 
 
-def device_ms(calls, kernel: str) -> float:
-    """Mean device time per launch in ms of the CUDA kernel named `kernel`
-    over the launches of the calls (after one untimed call) that the
-    profiler records: for a kernel shorter than its wrapper's host time,
-    CUDA events around back-to-back calls would time the host. The
-    profiler may miss the first launches of its window."""
+def device_ms(calls) -> float:
+    """Mean device time per call in ms of calls whose kernels are shorter
+    than their wrappers' host work (K4 on a short scene, K5, K6), where
+    CUDA events around back-to-back calls would time the host. After one
+    untimed call, a spin kernel (torch.cuda._sleep, 50 ms at first) holds
+    the stream while the host queues the calls between two events, so the
+    events time the kernels back to back, with the ~1 us between queued
+    launches; the first event still pending once all calls are queued
+    shows the spin outlasted the queueing (else it is lengthened and the
+    calls timed again). torch.profiler recorded only some of these
+    launches in some runs, so it is not used here."""
+    import torch
+
     calls[0]()
-    all_rows = device_rows(lambda: [c() for c in calls])
-    rows = [r for r in all_rows if kernel_symbol(r[1]) == kernel]
-    n = sum(r[2] for r in rows)
-    check(2 * n >= len(calls), f"the profiler saw {n} launches of {kernel} "
-          f"in {len(calls)} calls; it saw "
-          f"{[(r[1][:60], r[2]) for r in all_rows[:8]]}")
-    return sum(r[0] for r in rows) / n / 1e3
+    cycles = int(0.05 * 2e9)  # the spin counts SM clock cycles, ~2 GHz
+    for _ in range(4):
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        a.record()
+        for call in calls:
+            call()
+        held = not a.query()
+        b.record()
+        b.synchronize()
+        if held:
+            return a.elapsed_time(b) / len(calls)
+        cycles *= 4
+    raise PhaseFailed("device_ms: the spin kernel never outlasted the "
+                      "queueing of the calls")
 
 
 def profile_subframe(step, film, camera, untraced_s: float, phase: int,
@@ -752,6 +827,9 @@ def full_size(name, scene, camera, dev, smi, phase: int, counters, symbols,
 
 # ---------------------------------------------------------------- phase 7
 SNAPSHOTS = (32, 128, 224, 320)  # pool iterations of a town subframe
+# of a textured quad subframe, whose open scene ends paths sooner (320
+# iterations per sorted subframe on the card)
+QUAD_SNAPSHOTS = (16, 80, 144, 208)
 
 
 def main_path_states(scene, camera, dev):
@@ -950,10 +1028,11 @@ def _fresh_lanes(camera, n, rng, dev):
             torch.as_tensor(misc, device=dev))
 
 
-def phase_k6(dev, towns, states):
+def phase_k6(dev, towns, states, phase=8, label="K6"):
     """K6 teacher-forced against external_shade_ref for 8 iterations on
     both towns; then on the main paths' own inputs (`states`,
-    main_path_states), bit-equal, its device time and bound."""
+    main_path_states), bit-equal, its device time and bound (with the
+    texture work of a textured town, texture_work)."""
     import torch
 
     from rendertoy3c_tpu_torch.integrate.config import RenderConfig
@@ -986,7 +1065,7 @@ def phase_k6(dev, towns, states):
             for g, w, what in zip(got, want, ("rays", "misc", "shadow")):
                 n_bad = int((g.view(torch.int32) != w.view(torch.int32))
                             .any(dim=1).sum())
-                check(n_bad == 0, f"K6 iteration {it} ({what}): {n_bad} "
+                check(n_bad == 0, f"{label} iteration {it} ({what}): {n_bad} "
                       "lanes differ from the plain version")
             # the next state: the plain output, NEE added on unoccluded
             # lanes, dead lanes restarted as fresh camera paths
@@ -1002,7 +1081,8 @@ def phase_k6(dev, towns, states):
             fr, fm = _fresh_lanes(camera, pool, rng, dev)
             rays = torch.where(dead[:, None], fr, rays)
             misc = torch.where(dead[:, None], fm, misc)
-        print(f"phase 8 K6 ({'2-key' if motion else 'static'} town): "
+        print(f"phase {phase} {label} ({'2-key' if motion else 'static'} "
+              "town): "
               f"{pool} lanes x 8 iterations bit-equal to the plain version "
               f"(paths up to depth {deep})")
         # the main path's own inputs: bit-equal again, then timed
@@ -1011,21 +1091,28 @@ def phase_k6(dev, towns, states):
             got, want = shade.external_shade(*a), shade.external_shade_ref(*a)
             check(all(torch.equal(g.view(torch.int32), w.view(torch.int32))
                       for g, w in zip(got, want)),
-                  "K6 differs from its plain version on the main path's "
-                  "inputs")
+                  f"{label} differs from its plain version on the main "
+                  "path's inputs")
             launches.append(a)
-            uniq = torch.unique(hit4[:, 1].clamp(min=0)).numel()
+            prim = hit4[:, 1].clamp(min=0).to(torch.int64)
+            uniq = torch.unique(prim).numel()
+            attr = pipe.tables.attr[prim].T
+            tex_ops, tex_bytes = texture_work(attr, shade._shade_lanes(
+                rays, hit4, misc, attr, pipe.tables.lights_t, pipe.config,
+                tex=pipe.tables.tex), pipe.tables.tex)
             costs.append((pool * (32 + 16 + 64 + 32 + 96 + 4 * got[2].shape[1])
-                          + uniq * 64 + 4 * pipe.tables.lights_t.numel(),
-                          pool * SHADE_OPS))
+                          + uniq * 4 * attr.shape[0] + tex_bytes
+                          + 4 * pipe.tables.lights_t.numel(),
+                          pool * SHADE_OPS + tex_ops))
     res["ms"] = device_ms([functools.partial(shade.external_shade, *a)
-                           for a in launches] * 6, "external_shade_kernel")
+                           for a in launches] * 6)
     res["plain_ms"] = cuda_ms([functools.partial(shade.external_shade_ref, *a)
                                for a in launches])
     res["bound_ms"], res["bound_by"] = mean_bound(costs)
-    print(f"phase 8 K6 on the main paths' inputs (iterations {SNAPSHOTS} of "
-          f"both towns, bit-equal to the plain version): device time "
-          f"{res['ms']:.4f} ms per {pool}-lane launch (profiler) vs plain "
+    print(f"phase {phase} {label} on the main paths' inputs (iterations "
+          f"{SNAPSHOTS} of both towns, bit-equal to the plain version): "
+          f"device time "
+          f"{res['ms']:.4f} ms per {pool}-lane launch vs plain "
           f"{res['plain_ms']:.4f} ms; bound {res['bound_ms']:.4f} ms by "
           f"{res['bound_by']}")
     return res
@@ -1051,10 +1138,23 @@ def moving_cornell():
     return build_scene(meshes), camera
 
 
-def k5_states(scene, camera, dev, change):
+def textured_quad(variant="repeat", motion=False):
+    """(scene, camera) of the builtin textured quad's `variant` (scene/
+    builtin.py textured_quad_variant: "repeat", "clamp_mirror",
+    "uv_transform", "normal_map"); motion: the floor given a second key
+    at +0.1 in x (6 faces, 2 keys)."""
+    from rendertoy3c_tpu_torch.scene.builtin import textured_quad_variant
+    from rendertoy3c_tpu_torch.scene.scene import build_scene
+
+    meshes, textures, camera = textured_quad_variant(variant, motion)
+    return build_scene(meshes, textures=textures), camera
+
+
+def k5_states(scene, camera, dev, change, snapshots=SNAPSHOTS):
     """(pipeline, [(rays, misc, count, time)]): the inputs of K5 at the
-    pool iterations SNAPSHOTS of one kernel subframe of the main path with
-    `change` (through make_render_fn with choose_tracer's pipeline)."""
+    pool iterations `snapshots` of one kernel subframe of the main path
+    with `change` (through make_render_fn with choose_tracer's
+    pipeline)."""
     import torch
 
     from rendertoy3c_tpu_torch.film.film import film_create
@@ -1070,7 +1170,7 @@ def k5_states(scene, camera, dev, change):
     fn = pipe.shade_fn
 
     def call(rays, misc, count, tables, sc, time=None):
-        if seen[0] in SNAPSHOTS:
+        if seen[0] in snapshots:
             states.append((rays.clone(), misc.clone(), count.clone(),
                            None if time is None else time.clone()))
         seen[0] += 1
@@ -1081,22 +1181,22 @@ def k5_states(scene, camera, dev, change):
     step(camera.params(), film_create(cfg.height, cfg.width, device=dev))
     torch.cuda.synchronize()
     pipe.shade_fn = fn
-    check(len(states) == len(SNAPSHOTS),
+    check(len(states) == len(snapshots),
           f"K5 path: {seen[0]} iterations, too few for the snapshots")
-    return pipe, states
+    return pipe, states, snapshots
 
 
-def phase_k5(dev, runs):
+def phase_k5(dev, runs, phase=12):
     """K5 against trace_shade_ref on the recorded main-path inputs of each
     run ({label: (pipeline, states)}): lanes compared bit for bit (and
-    within 1e-5 where not), device time per launch from the profiler, the
+    within 1e-5 where not), device time per launch (device_ms), the
     plain version's time and the bound."""
     import torch
 
     from rendertoy3c_tpu_torch.trace import shade
 
     results = {}
-    for label, (pipe, states) in runs.items():
+    for label, (pipe, states, snapshots) in runs.items():
         launches, costs, err, n_diff, n_bad = [], [], 0.0, 0, 0
         for rays, misc, count, tm in states:
             a = (rays, misc, count, pipe.tables, pipe.config, tm)
@@ -1124,16 +1224,16 @@ def phase_k5(dev, runs):
         check(n_bad <= 0.001 * pool * len(states),
               f"{label}: {n_bad} lanes differ from the plain version")
         ms = device_ms([functools.partial(shade.trace_shade, *a)
-                        for a in launches] * 6, "trace_shade_kernel")
+                        for a in launches] * 6)
         plain_ms = cuda_ms([functools.partial(shade.trace_shade_ref, *a)
                             for a in launches])
         bound_ms, bound_by = mean_bound(costs)
         results[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                               bound_ms=bound_ms, bound_by=bound_by)
-        print(f"phase 12 {label} on its main path's inputs (iterations "
-              f"{SNAPSHOTS}, {pool} lanes): {n_diff} lanes not bit-equal, "
+        print(f"phase {phase} {label} on its main path's inputs (iterations "
+              f"{snapshots}, {pool} lanes): {n_diff} lanes not bit-equal, "
               f"{n_bad} beyond 1e-5 or seed, max|d| {err:.3g}; device time "
-              f"{ms:.4f} ms per launch (profiler) vs plain {plain_ms:.4f} "
+              f"{ms:.4f} ms per launch vs plain {plain_ms:.4f} "
               f"ms; bound {bound_ms:.4f} ms by {bound_by}")
     return results
 
@@ -1243,6 +1343,41 @@ def main() -> int:
         print(f"phase 14 done; {time.perf_counter() - t_start:.1f} s since "
               "the start")
 
+        # ---- phases 15-17 on the textured quad, static and 2-key
+        tq, tq_cam = textured_quad()
+        tqm, tqm_cam = textured_quad(motion=True)
+        check(shade.texture_state(tq) == "diffuse" and tqm.num_keys == 2,
+              "textured quad: not textured or not 2-key")
+        k4t = phase_k4(dev, tq, tq_cam, 15, "K4 textured")
+        k4mt = phase_k4(dev, tqm, tqm_cam, 15, "K4 motion textured")
+        k5t, k5mt = phase_k5(dev, {
+            "K5 textured (textured quad sorted)": k5_states(
+                tq, tq_cam, dev, SORTED, QUAD_SNAPSHOTS),
+            "K5 motion textured (2-key textured quad sample-major)":
+                k5_states(tqm, tqm_cam, dev, SAMPLE_MAJOR, QUAD_SNAPSHOTS)},
+            15).values()
+        for variant in ("repeat", "clamp_mirror", "uv_transform",
+                        "normal_map"):
+            gate(*textured_quad(variant), dev, f"textured quad {variant}", 16)
+        launches_k4t = full_size(
+            "textured quad", tq, tq_cam, dev, smi, 17,
+            {"trace_shade_refill": shade.trace_shade_refill},
+            ("refill_kernel",))[1]
+        launches_k4mt = full_size(
+            "2-key textured quad", tqm, tqm_cam, dev, smi, 17,
+            {"trace_shade_refill": shade.trace_shade_refill},
+            ("refill_kernel",))[1]
+        launches_k5t = full_size(
+            "textured quad sorted", tq, tq_cam, dev, smi, 17,
+            {"trace_shade": shade.trace_shade}, ("trace_shade_kernel",),
+            SORTED)[1]
+        launches_k5mt = full_size(
+            "2-key textured quad sample-major", tqm, tqm_cam, dev, smi, 17,
+            {"trace_shade": shade.trace_shade}, ("trace_shade_kernel",),
+            SAMPLE_MAJOR)[1]
+        print(f"phase 17 (textured quad) done; "
+              f"{time.perf_counter() - t_start:.1f} s since the start")
+
         # ---- phase 7: K1/K2 and K3 on the 16054-face towns
         t0 = time.perf_counter()
         towns = {k: town_scene(TOWN_FACES, k) for k in (False, True)}
@@ -1264,6 +1399,26 @@ def main() -> int:
         # ---- phase 8: K6
         k6 = phase_k6(dev, towns, states)
 
+        # ---- phase 15 on the textured towns: textured K6
+        t0 = time.perf_counter()
+        tex_towns = {k: town_scene(TOWN_FACES, k, textured=True)
+                     for k in (False, True)}
+        for k, (s, _) in tex_towns.items():
+            check(s.num_faces == 16054 and s.num_keys == (2 if k else 1),
+                  f"textured town: {s.num_faces} faces, {s.num_keys} keys")
+            tids = sorted({int(t) for t in s.materials.diffuse_tex})
+            check(shade.texture_state(s) == "diffuse"
+                  and s.atlas.meta.shape[0] == 2 and tids == [-1, 0, 1],
+                  f"textured town: atlas of {s.atlas.meta.shape[0]} "
+                  f"textures, diffuse texture ids {tids}")
+        tex_states = {k: main_path_states(*tex_towns[k], dev)
+                      for k in tex_towns}
+        print(f"phase 15 textured towns loaded (atlas "
+              f"{tex_towns[False][0].atlas.data.shape[:2]}, 2 textures) and "
+              f"their main-path inputs recorded in "
+              f"{time.perf_counter() - t0:.2f} s")
+        k6t = phase_k6(dev, tex_towns, tex_states, 15, "K6 textured")
+
         # ---- phase 9: the gate on the 4294-face town
         for k in (False, True):
             s, c = town_scene(GATE_TOWN_FACES, k)
@@ -1283,6 +1438,25 @@ def main() -> int:
              "external_shade": shade.external_shade},
             ("mt_motion_kernel", "external_shade_kernel"))[1]
         print(f"phase 10 done; {time.perf_counter() - t_start:.1f} s since "
+              "the start")
+
+        # ---- phases 16-17 on the textured towns
+        for k in (False, True):
+            s, c = town_scene(GATE_TOWN_FACES, k, textured=True)
+            gate(s, c, dev, f"textured {'2-key' if k else 'static'} town "
+                 f"({s.num_faces} faces)", 16)
+        launches_st = full_size(
+            "textured static town", *tex_towns[False], dev, smi, 17,
+            {"mt_closest": mt.mt_closest, "mt_any": mt.mt_any,
+             "external_shade": shade.external_shade},
+            ("mt_kernel", "external_shade_kernel"))[1]
+        launches_mt = full_size(
+            "textured 2-key town", *tex_towns[True], dev, smi, 17,
+            {"mt_closest_motion": mt.mt_closest_motion,
+             "mt_any_motion": mt.mt_any_motion,
+             "external_shade": shade.external_shade},
+            ("mt_motion_kernel", "external_shade_kernel"))[1]
+        print(f"phase 17 done; {time.perf_counter() - t_start:.1f} s since "
               "the start")
 
     except PhaseFailed as e:
@@ -1314,6 +1488,22 @@ def main() -> int:
         replaces="rendertoy3c_tpu/trace/pallas_shade.py:1778",
         launches=launches_s["external_shade"] + launches_m["external_shade"],
         **k6, library_ms=None))
+    # the textured variants (textured=True of the same pallas_calls)
+    kernels += [dict(name=n, route="cuda", source=src,
+                     replaces=f"{shade_replaces}{line}", launches=count,
+                     **res, library_ms=None)
+                for n, src, line, count, res in (
+                    ("trace_shade_refill_textured", K4_SRC, 1329,
+                     launches_k4t["trace_shade_refill"], k4t),
+                    ("trace_shade_refill_motion_textured", K4_SRC, 1329,
+                     launches_k4mt["trace_shade_refill"], k4mt),
+                    ("trace_shade_textured", K4_SRC, 1230,
+                     launches_k5t["trace_shade"], k5t),
+                    ("trace_shade_motion_textured", K4_SRC, 1230,
+                     launches_k5mt["trace_shade"], k5mt),
+                    ("external_shade_textured", K6_SRC, 1778,
+                     launches_st["external_shade"]
+                     + launches_mt["external_shade"], k6t))]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

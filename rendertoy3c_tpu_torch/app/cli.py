@@ -7,10 +7,12 @@ Port of the path-render subset of rendertoy3c_tpu/app/cli.py:
   python -m rendertoy3c_tpu_torch.app.cli --scene a.obj b.obj \\
       --eye 38,26,46 --lookat 0,1.5,0 --fov 42 -o out.png --device cuda
 
-`--scene` takes the builtin Cornell box or .obj files, where N files are N
-motion keyframes (the reference loader's rule). The .obj camera defaults to
-the reference app's framing, eye (5,5,5) toward (0,1,0) at fov 45
-(rendertoy3c_tpu/app/cli.py:192-197); `--eye --lookat --fov` override it.
+`--scene` takes the builtin Cornell box, the builtin textured quad
+(`textured`), or .obj files, where N files are N motion keyframes (the
+reference loader's rule), with the textures their .mtl files name. The
+.obj camera defaults to the reference app's framing, eye (5,5,5) toward
+(0,1,0) at fov 45 (rendertoy3c_tpu/app/cli.py:192-197); `--eye --lookat
+--fov` override it.
 It renders on the pixel-major pool with the reference CLI's names and
 defaults for --max-depth (32), --seed (0), --ray-block (65536) and
 --flush-every (0 = auto), and writes a PNG.
@@ -29,7 +31,7 @@ from ..film.image import write_png
 from ..film.tonemap import make_color
 from ..integrate.config import RenderConfig
 from ..integrate.path import make_render_fn
-from ..scene.builtin import cornell_box
+from ..scene.builtin import cornell_box, textured_quad_scene
 from ..scene.camera import Camera
 from ..scene.scene import build_scene
 
@@ -46,8 +48,8 @@ def build_parser() -> argparse.ArgumentParser:
                                 description="Progressive Monte-Carlo path "
                                 "tracer (PyTorch + CUDA port)")
     p.add_argument("--scene", nargs="+", required=True,
-                   help="cornell, or .obj path(s): N files = N motion "
-                   "keyframes")
+                   help="cornell, textured, or .obj path(s): N files = N "
+                   "motion keyframes")
     p.add_argument("--size", default="768x768", help="WxH")
     p.add_argument("--spp", type=int, default=8, help="samples per launch")
     p.add_argument("--subframes", type=int, default=16,
@@ -68,18 +70,21 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def load_scene(names):
-    """(meshes, camera) of the builtin Cornell box or of .obj keyframes.
-    Textured scenes load here and are refused by the tracer choice."""
+    """(meshes, textures, camera) of a builtin scene or of .obj keyframes
+    (rendertoy3c_tpu/app/cli.py:157-198)."""
     if names == ["cornell"]:
-        return cornell_box()
+        meshes, camera = cornell_box()
+        return meshes, [], camera
+    if names == ["textured"]:
+        return textured_quad_scene()
     if not all(n.endswith(".obj") for n in names):
-        raise SystemExit(f"--scene: expected cornell or .obj files, got "
-                         f"{names}")
+        raise SystemExit(f"--scene: expected cornell, textured or .obj "
+                         f"files, got {names}")
     from ..io.obj import load_obj
 
-    meshes, _ = load_obj(names)
-    return meshes, Camera(eye=(5.0, 5.0, 5.0), lookat=(0.0, 1.0, 0.0),
-                          fov_y=45.0)
+    meshes, textures = load_obj(names)
+    return meshes, textures, Camera(eye=(5.0, 5.0, 5.0),
+                                    lookat=(0.0, 1.0, 0.0), fov_y=45.0)
 
 
 def main(argv=None) -> int:
@@ -97,7 +102,7 @@ def main(argv=None) -> int:
                        max_depth=args.max_depth, seed=args.seed,
                        ray_block=args.ray_block, integrator="pool",
                        pool_pixel_major=True, flush_every=args.flush_every)
-    meshes, camera = load_scene(args.scene)
+    meshes, textures, camera = load_scene(args.scene)
     if args.eye:
         camera.eye = args.eye
     if args.lookat:
@@ -105,7 +110,8 @@ def main(argv=None) -> int:
     if args.fov:
         camera.fov_y = args.fov
     camera.aspect_ratio = w / h
-    step = make_render_fn(build_scene(meshes), cfg, device=device)
+    step = make_render_fn(build_scene(meshes, textures=textures or None),
+                          cfg, device=device)
     cam = camera.params()
     film = film_create(h, w, device=device)
     rays = 0

@@ -78,6 +78,18 @@ class ExternalParams(ctypes.Structure):
         ("shadow_tmin", ctypes.c_float), ("shadow_eps", ctypes.c_float),
         ("pick_pdf", ctypes.c_float),
         ("bg", ctypes.c_float * 3),
+        ("attr_w", ctypes.c_int),
+    ]
+
+
+class TexParams(ctypes.Structure):
+    """Mirror of `TexParams` in csrc/shade.cuh, field for field: the RGBA8
+    atlas and meta table of a textured launch."""
+
+    _fields_ = [
+        ("texels", ctypes.c_void_p), ("meta", ctypes.c_void_p),
+        ("aw", ctypes.c_int), ("uv_xform", ctypes.c_int),
+        ("normal_maps", ctypes.c_int), ("nmap_base", ctypes.c_int),
     ]
 
 
@@ -150,20 +162,21 @@ def library() -> ctypes.CDLL:
     lib.rt3c_mt_trace.argtypes = [ci, ci, vp, ci, vp, vp, vp, vp, ci, ci,
                                   vp, vp]
     lib.rt3c_mt_trace.restype = ci
+    tex = ctypes.POINTER(TexParams)
     lib.rt3c_trace_shade_refill.argtypes = [
         ci, ctypes.POINTER(RefillParams), vp, vp, vp, vp, ci, vp, vp, vp, vp,
-        vp, vp, vp, vp, vp, vp]
+        vp, vp, vp, vp, vp, tex, vp]
     lib.rt3c_trace_shade_refill.restype = ci
     lib.rt3c_trace_shade.argtypes = [
         ci, ctypes.POINTER(TraceShadeParams), vp, vp, vp, ci, vp, vp, vp, vp,
-        vp, vp, vp, vp, vp, vp]
+        vp, vp, vp, vp, vp, tex, vp]
     lib.rt3c_trace_shade.restype = ci
     lib.rt3c_mt_trace_motion.argtypes = [ci, ci, vp, vp, ci, vp, vp, vp, vp,
                                          vp, ci, ci, vp, vp]
     lib.rt3c_mt_trace_motion.restype = ci
     lib.rt3c_external_shade.argtypes = [
         ci, ctypes.POINTER(ExternalParams), vp, vp, vp, vp, ci, vp, ci, vp,
-        vp, vp, vp]
+        vp, vp, tex, vp]
     lib.rt3c_external_shade.restype = ci
     return lib
 

@@ -3,11 +3,12 @@
 // Replaces rendertoy3c_tpu/trace/pallas_shade.py make_external_shader.shade
 // (:1678-1817, pallas_call at :1778), which is _make_shade_kernel(
 // external=True) (:271), in its non-transposed, non-instanced,
-// untextured, all-diffuse, uniform-light, no-AOV configuration, with and
-// without motion.
+// all-diffuse, uniform-light, no-AOV configuration, with and without
+// motion, untextured or textured.
 //
 // In: rays [R, 8], the closest hit hit4 [R, 4] (t, prim, u, v, traced
-// outside by K1 or K3), misc [R, 16], the attribute table attr [F, 16] and
+// outside by K1 or K3), misc [R, 16], the attribute table attr [F, W] (W =
+// 16, or 24-40 rows of build_shade_tables for a textured scene) and
 // lights_t [24, Lp]. Out: rays_out [R, 8] (the bounce ray on surviving
 // lanes, tmin/tmax passed on), misc_out [R, 24] (the next state in columns
 // 0-15, the pending NEE term in 16-18, zeros after), and the shadow rays
@@ -16,14 +17,19 @@
 // the NEE term on unoccluded lanes.
 //
 // One thread per lane, 128-thread blocks. The attribute row is read by
-// max(prim, 0) straight from the [F, 16] table: the TPU kernel receives
+// max(prim, 0) straight from the [F, W] table: the TPU kernel receives
 // it gathered and transposed outside (take_packed, a 128-lane packing
-// workaround). The TPU kernel's live count gates only its in-kernel sweep,
+// workaround). A textured launch (kTex) fetches its texels itself from the
+// uvs of that row (shade.cuh tex_fetch), which folds in the reference's
+// make_tex_presampler (:1615-1675): that XLA pass exists only because the
+// TPU kernel's own fetch was a one-hot matmul over the whole atlas; its
+// arithmetic (_wrap_axis_xla, :1601-1612) is tex_fetch's. The TPU kernel's live count gates only its in-kernel sweep,
 // which this variant lacks, so every lane is shaded and no count is read.
 //
 // Bound: memory and latency. Per lane the kernel reads 32 + 16 + 64 B of
-// state and a 64 B attribute row and writes 32 + 96 + 32|64 B; the math is
-// a few hundred scalar operations with three transcendentals.
+// state and a 4W-byte attribute row (and 16 B of texels per fetch) and
+// writes 32 + 96 + 32|64 B; the math is a few hundred scalar operations
+// with three transcendentals.
 #include "shade.cuh"
 
 namespace rt3c {
@@ -35,8 +41,10 @@ struct ExternalParams {
   int max_depth, num_lights, light_stride, motion;
   float shadow_tmin, shadow_eps, pick_pdf;
   float bg[3];
+  int attr_w;  // the attribute row's width: 16, or 24-40 textured
 };
 
+template <bool kTex>
 __global__ void __launch_bounds__(EXT_BLOCK)
     external_shade_kernel(const ExternalParams p,
                           const float* __restrict__ rays,
@@ -46,7 +54,8 @@ __global__ void __launch_bounds__(EXT_BLOCK)
                           const float* __restrict__ lights_t, int n,
                           float* __restrict__ rays_out,
                           float* __restrict__ misc_out,
-                          float* __restrict__ shadow_out) {
+                          float* __restrict__ shadow_out,
+                          const TexParams tex) {
   const int i = blockIdx.x * EXT_BLOCK + threadIdx.x;
   if (i >= n) return;
   const Ray r = load_ray(rays, i);
@@ -68,11 +77,9 @@ __global__ void __launch_bounds__(EXT_BLOCK)
   const ShadeConsts sc{p.max_depth, p.num_lights, p.light_stride,
                        p.shadow_tmin, p.shadow_eps, p.pick_pdf,
                        {p.bg[0], p.bg[1], p.bg[2]}};
-  const Shaded o = shade_lane<true>(sc, r, h, m, attr + 16 * (size_t)prim, 1,
-                                    lights_t,
-                                    [](const Ray&, bool, float) {
-                                      return false;
-                                    });
+  const Shaded o = shade_lane<true, kTex>(
+      sc, r, h, m, attr + p.attr_w * (size_t)prim, 1, lights_t, tex,
+      [](const Ray&, bool, float) { return false; });
 
   float4* rp = reinterpret_cast<float4*>(rays_out + 8 * (size_t)i);
   rp[0] = make_float4(o.survive ? o.px : r.ox, o.survive ? o.py : r.oy,
@@ -101,21 +108,29 @@ __global__ void __launch_bounds__(EXT_BLOCK)
 
 }  // namespace rt3c
 
+// tex: the atlas of a textured scene, null for an untextured one.
 extern "C" int rt3c_external_shade(int device, const rt3c::ExternalParams* p,
                                    const float* rays, const float* hit4,
                                    const float* misc, const float* attr,
                                    int n_faces, const float* lights_t, int n,
                                    float* rays_out, float* misc_out,
-                                   float* shadow_out, void* stream) {
-  if (n < 0 || n_faces < 1 || p->num_lights < 1)
+                                   float* shadow_out,
+                                   const rt3c::TexParams* tex, void* stream) {
+  if (n < 0 || n_faces < 1 || p->num_lights < 1 || p->attr_w < 16 ||
+      (tex && (tex->texels == nullptr || tex->meta == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int grid = (n + rt3c::EXT_BLOCK - 1) / rt3c::EXT_BLOCK;
-  rt3c::external_shade_kernel<<<grid, rt3c::EXT_BLOCK, 0, s>>>(
-      *p, rays, hit4, misc, attr, n_faces, lights_t, n, rays_out, misc_out,
-      shadow_out);
+  if (tex)
+    rt3c::external_shade_kernel<true><<<grid, rt3c::EXT_BLOCK, 0, s>>>(
+        *p, rays, hit4, misc, attr, n_faces, lights_t, n, rays_out, misc_out,
+        shadow_out, *tex);
+  else
+    rt3c::external_shade_kernel<false><<<grid, rt3c::EXT_BLOCK, 0, s>>>(
+        *p, rays, hit4, misc, attr, n_faces, lights_t, n, rays_out, misc_out,
+        shadow_out, rt3c::TexParams{nullptr, nullptr, 0, 0, 0, 0});
   return (int)cudaGetLastError();
 }

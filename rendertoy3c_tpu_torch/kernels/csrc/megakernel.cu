@@ -1,6 +1,6 @@
 // K4: the in-kernel-refill megakernel of the pool integrator, and K5, the
-// same megakernel without the refill, for the untextured, all-diffuse,
-// uniform-light configuration; each static or 2-key motion.
+// same megakernel without the refill, for the all-diffuse, uniform-light
+// configuration; each static or 2-key motion, untextured or textured.
 //
 // Replaces rendertoy3c_tpu/trace/pallas_shade.py _make_shade_kernel (:271)
 // as built by make_fused_shader(merged=True): K4 with refill=... and the
@@ -43,6 +43,15 @@
 //
 // The shading body (attribute fetch to next state) is shade_lane in
 // shade.cuh, shared with the external shade kernel K6.
+//
+// Textured (kTex, make_fused_shader with textured=True): the attribute
+// table grows to 24-40 rows (uvs, texture ids, uv transform, tangents) and
+// shade_lane fetches the diffuse texture and the normal map from the RGBA8
+// atlas with four 4-byte loads each (TexParams); the TPU kernel's atlas
+// one-hot matmuls (_tex_fetch) have no counterpart. A lane that hits an
+// untextured face reads no texel.
+#include <type_traits>
+
 #include "shade.cuh"
 
 namespace rt3c {
@@ -126,7 +135,7 @@ __global__ void seed_stats(const int* __restrict__ stats_in,
   stats_out[3] = 0;
 }
 
-template <bool kMotion>
+template <bool kMotion, bool kTex>
 __global__ void __launch_bounds__(RAY_TILE)
     refill_kernel(const RefillParams p, float* __restrict__ rays,
                   float* __restrict__ misc, float* __restrict__ stash,
@@ -135,7 +144,7 @@ __global__ void __launch_bounds__(RAY_TILE)
                   const float* __restrict__ tris1,
                   const float* __restrict__ attr_t,
                   const float* __restrict__ lights_t,
-                  const uint32_t* __restrict__ jump) {
+                  const uint32_t* __restrict__ jump, const TexParams tex) {
   __shared__ float tiles[(kMotion ? 2 : 1) * 9 * MAX_CT];
   __shared__ int warp_base[RAY_TILE / 32];
   __shared__ int s_base, s_max_lane, s_live;
@@ -161,9 +170,9 @@ __global__ void __launch_bounds__(RAY_TILE)
   const ShadeConsts sc{p.max_depth, p.num_lights, p.light_stride,
                        p.shadow_tmin, p.shadow_eps, p.pick_pdf,
                        {p.bg[0], p.bg[1], p.bg[2]}};
-  const Shaded o = shade_lane<false>(
+  const Shaded o = shade_lane<false, kTex>(
       sc, r, h, m, attr_t + (int)fmaxf(h.prim, 0.0f), p.attr_stride,
-      lights_t, [&](const Ray& sr, bool want, float st) {
+      lights_t, tex, [&](const Ray& sr, bool want, float st) {
         return sweep_any_at<kMotion>(soup, tris1, tiles, sr, st, live, want);
       });
   const uint32_t seed = o.seed;
@@ -308,7 +317,7 @@ __global__ void __launch_bounds__(RAY_TILE)
 // [P, 16] (and time [P] for motion), writes the next rays (the bounce ray
 // on surviving lanes, tmin/tmax passed on) and the next misc: the state of
 // pallas_shade.py :893-932 with pixel and sample passed on.
-template <bool kMotion>
+template <bool kMotion, bool kTex>
 __global__ void __launch_bounds__(RAY_TILE)
     trace_shade_kernel(const TraceShadeParams p,
                        const float* __restrict__ rays,
@@ -319,7 +328,7 @@ __global__ void __launch_bounds__(RAY_TILE)
                        const float* __restrict__ attr_t,
                        const float* __restrict__ lights_t,
                        float* __restrict__ rays_out,
-                       float* __restrict__ misc_out) {
+                       float* __restrict__ misc_out, const TexParams tex) {
   __shared__ float tiles[(kMotion ? 2 : 1) * 9 * MAX_CT];
   const int lane = blockIdx.x * RAY_TILE + threadIdx.x;
   const bool live = (int)blockIdx.x * RAY_TILE < *count;
@@ -334,9 +343,9 @@ __global__ void __launch_bounds__(RAY_TILE)
   const ShadeConsts sc{p.max_depth, p.num_lights, p.light_stride,
                        p.shadow_tmin, p.shadow_eps, p.pick_pdf,
                        {p.bg[0], p.bg[1], p.bg[2]}};
-  const Shaded o = shade_lane<false>(
+  const Shaded o = shade_lane<false, kTex>(
       sc, r, h, m, attr_t + (int)fmaxf(h.prim, 0.0f), p.attr_stride,
-      lights_t, [&](const Ray& sr, bool want, float st) {
+      lights_t, tex, [&](const Ray& sr, bool want, float st) {
         return sweep_any_at<kMotion>(soup, tris1, tiles, sr, st, live, want);
       });
 
@@ -359,16 +368,32 @@ __global__ void __launch_bounds__(RAY_TILE)
 
 // tris, aabb, super_aabb: the key-0 tiles and the cull boxes (the union of
 // both keys' for motion); tris1 and time: the key-1 tiles and the per-lane
-// time [P], null for a static scene.
+// time [P], null for a static scene; tex: the atlas of a textured scene,
+// null for an untextured one.
+namespace {
+
+template <class Launch>
+int launch_variant(bool motion, const rt3c::TexParams* tex, Launch launch) {
+  const rt3c::TexParams none{nullptr, nullptr, 0, 0, 0, 0};
+  if (motion && tex) launch(std::true_type{}, std::true_type{}, *tex);
+  else if (motion) launch(std::true_type{}, std::false_type{}, none);
+  else if (tex) launch(std::false_type{}, std::true_type{}, *tex);
+  else launch(std::false_type{}, std::false_type{}, none);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 extern "C" int rt3c_trace_shade_refill(
     int device, const rt3c::RefillParams* p, float* rays, float* misc,
     float* stash, float* time, int n_lanes, const int* stats_in,
     int* stats_out, const float* tris, const float* tris1, const float* aabb,
     const float* super_aabb, const float* attr_t, const float* lights_t,
-    const unsigned int* jump, void* stream) {
+    const unsigned int* jump, const rt3c::TexParams* tex, void* stream) {
   if (n_lanes <= 0 || n_lanes % rt3c::RAY_TILE != 0 || p->ct > rt3c::MAX_CT ||
       p->n_tiles < 1 || p->num_lights < 1 || p->spp < 1 || p->width < 1 ||
-      (p->motion && (tris1 == nullptr || time == nullptr)))
+      (p->motion && (tris1 == nullptr || time == nullptr)) ||
+      (tex && (tex->texels == nullptr || tex->meta == nullptr)))
     return (int)cudaErrorInvalidValue;
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
@@ -376,15 +401,13 @@ extern "C" int rt3c_trace_shade_refill(
   rt3c::seed_stats<<<1, 1, 0, s>>>(stats_in, stats_out);
   const rt3c::Soup soup{tris, aabb, super_aabb, p->n_tiles, p->ct};
   const int grid = n_lanes / rt3c::RAY_TILE;
-  if (p->motion)
-    rt3c::refill_kernel<true><<<grid, rt3c::RAY_TILE, 0, s>>>(
-        *p, rays, misc, stash, time, stats_in, stats_out, soup, tris1, attr_t,
-        lights_t, jump);
-  else
-    rt3c::refill_kernel<false><<<grid, rt3c::RAY_TILE, 0, s>>>(
-        *p, rays, misc, stash, time, stats_in, stats_out, soup, tris1, attr_t,
-        lights_t, jump);
-  return (int)cudaGetLastError();
+  return launch_variant(p->motion, tex, [&](auto kMotion, auto kTex,
+                                            const rt3c::TexParams& t) {
+    rt3c::refill_kernel<decltype(kMotion)::value, decltype(kTex)::value>
+        <<<grid, rt3c::RAY_TILE, 0, s>>>(*p, rays, misc, stash, time,
+                                         stats_in, stats_out, soup, tris1,
+                                         attr_t, lights_t, jump, t);
+  });
 }
 
 extern "C" int rt3c_trace_shade(int device, const rt3c::TraceShadeParams* p,
@@ -394,23 +417,23 @@ extern "C" int rt3c_trace_shade(int device, const rt3c::TraceShadeParams* p,
                                 const float* tris1, const float* aabb,
                                 const float* super_aabb, const float* attr_t,
                                 const float* lights_t, float* rays_out,
-                                float* misc_out, void* stream) {
+                                float* misc_out, const rt3c::TexParams* tex,
+                                void* stream) {
   if (n_lanes <= 0 || n_lanes % rt3c::RAY_TILE != 0 || p->ct > rt3c::MAX_CT ||
       p->n_tiles < 1 || p->num_lights < 1 ||
-      (p->motion && (tris1 == nullptr || time == nullptr)))
+      (p->motion && (tris1 == nullptr || time == nullptr)) ||
+      (tex && (tex->texels == nullptr || tex->meta == nullptr)))
     return (int)cudaErrorInvalidValue;
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const rt3c::Soup soup{tris, aabb, super_aabb, p->n_tiles, p->ct};
   const int grid = n_lanes / rt3c::RAY_TILE;
-  if (p->motion)
-    rt3c::trace_shade_kernel<true><<<grid, rt3c::RAY_TILE, 0, s>>>(
-        *p, rays, misc, time, count, soup, tris1, attr_t, lights_t, rays_out,
-        misc_out);
-  else
-    rt3c::trace_shade_kernel<false><<<grid, rt3c::RAY_TILE, 0, s>>>(
-        *p, rays, misc, time, count, soup, tris1, attr_t, lights_t, rays_out,
-        misc_out);
-  return (int)cudaGetLastError();
+  return launch_variant(p->motion, tex, [&](auto kMotion, auto kTex,
+                                            const rt3c::TexParams& t) {
+    rt3c::trace_shade_kernel<decltype(kMotion)::value, decltype(kTex)::value>
+        <<<grid, rt3c::RAY_TILE, 0, s>>>(*p, rays, misc, time, count, soup,
+                                         tris1, attr_t, lights_t, rays_out,
+                                         misc_out, t);
+  });
 }

@@ -11,6 +11,14 @@
 // (pallas_shade.py :751-773, :844-850). The shadow ray's time is a peek of
 // the post-NEE stream that does not advance the seed (:756-760): K6 hands it
 // out, the motion variants of K4 and K5 sweep at it.
+//
+// kTextured adds the texture work of the same body (:459-535): the uv
+// interpolation, the per-material uv transform, a tangent-space normal map
+// and the diffuse texture, each fetched by `tex_fetch` (the TPU's _tex_fetch,
+// :225-268, a one-hot matmul over the whole atlas, becomes four indexed
+// 4-byte loads of the RGBA8 atlas). The uv transform and the normal map are
+// launch-uniform switches of the textured variant; untextured scenes keep
+// the body without any of it.
 #pragma once
 
 #include "mt.cuh"
@@ -37,11 +45,82 @@ __device__ __forceinline__ float rnd_masked(uint32_t& s, bool adv) {
   return lcg_unit(n);
 }
 
-__device__ __forceinline__ void normalize3(float& x, float& y, float& z) {
-  const float inv = 1.0f / sqrtf(fmaxf(x * x + y * y + z * z, 1e-20f));
+__device__ __forceinline__ void normalize3(float& x, float& y, float& z,
+                                           float eps = 1e-20f) {
+  const float inv = 1.0f / sqrtf(fmaxf(x * x + y * y + z * z, eps));
   x = x * inv;
   y = y * inv;
   z = z * inv;
+}
+
+// The texture atlas of a textured launch; mirrored field for field by
+// kernels/build.py. texels: the RGBA8 atlas [AH * AW], byte 0 red; meta
+// [T, 6] int: y0 x0 height width wrap_s wrap_t (scene/texture.py).
+struct TexParams {
+  const uint32_t* texels;
+  const int* meta;
+  int aw, uv_xform, normal_maps, nmap_base;
+};
+
+// jnp.mod on floats: the C remainder moved into y's sign (exact).
+__device__ __forceinline__ float fmod_floored(float x, float y) {
+  float r = fmodf(x, y);
+  if (r != 0.0f && ((r < 0.0f) != (y < 0.0f))) r += y;
+  return r;
+}
+
+// One axis of the bilinear footprint (pallas_shade.py _wrap_axis, :211-222,
+// the float arithmetic of scene/texture.py _wrap_footprint): the base texel
+// i0, its +1 neighbour i1 under the address mode (0 repeat, 1 clamp, 2
+// mirror; the quad table's rule) and the fraction.
+__device__ __forceinline__ void wrap_axis(float c, int size, int mode,
+                                          int& i0, int& i1, float& frac) {
+  const float size_f = (float)size;
+  const float cm =
+      mode == 2 ? 1.0f - fabsf(fmod_floored(c, 2.0f) - 1.0f) : c;
+  const bool repeat = mode == 0;
+  const float cc = repeat ? cm - floorf(cm) : cm;
+  float sc = cc * size_f - 0.5f;
+  if (!repeat) sc = fminf(fmaxf(sc, 0.0f), size_f - 1.0f);
+  const float i0f = floorf(sc);
+  frac = sc - i0f;
+  i0 = (int)i0f;
+  if (repeat) {
+    i0 %= size;  // i0 >= -1 here
+    if (i0 < 0) i0 += size;
+    i1 = i0 + 1 == size ? 0 : i0 + 1;
+  } else {
+    i0 = min(max(i0, 0), size - 1);  // in range already for finite c
+    i1 = min(i0 + 1, size - 1);
+  }
+}
+
+__device__ __forceinline__ float texel(uint32_t rgba, int c) {
+  return (float)((rgba >> (8 * c)) & 0xFFu) * (1.0f / 255.0f);
+}
+
+// The wrap-mode bilinear fetch of texture `tid` at (u, v): rgb in out[3],
+// black where tid < 0 (scene/texture.py sample_texture_bilinear; combine
+// order q00 (1-fu)(1-fv) + q01 fu (1-fv) + q10 (1-fu) fv + q11 fu fv).
+__device__ __forceinline__ void tex_fetch(const TexParams& tex, float tid,
+                                          float u, float v, float* out) {
+  if (!(tid >= 0.0f)) {
+    out[0] = out[1] = out[2] = 0.0f;
+    return;
+  }
+  const int* mt = tex.meta + 6 * (int)tid;
+  int iu0, iu1, iv0, iv1;
+  float fu, fv;
+  wrap_axis(u, mt[3], mt[4], iu0, iu1, fu);
+  wrap_axis(v, mt[2], mt[5], iv0, iv1, fv);
+  const uint32_t* row0 = tex.texels + (size_t)(mt[0] + iv0) * tex.aw + mt[1];
+  const uint32_t* row1 = tex.texels + (size_t)(mt[0] + iv1) * tex.aw + mt[1];
+  const uint32_t q00 = row0[iu0], q01 = row0[iu1];
+  const uint32_t q10 = row1[iu0], q11 = row1[iu1];
+  const float ifu = 1.0f - fu, ifv = 1.0f - fv;
+  for (int c = 0; c < 3; ++c)
+    out[c] = texel(q00, c) * ifu * ifv + texel(q01, c) * fu * ifv +
+             texel(q10, c) * ifu * fv + texel(q11, c) * fu * fv;
 }
 
 // Launch constants of the shading body.
@@ -65,14 +144,18 @@ struct Shaded {
 };
 
 // r: the lane's ray; h: its closest hit; m: misc columns 0-15; a: the
-// lane's attribute row (n0 n1 n2 emission diffuse) read at a[field * as];
-// lights_t [24, light_stride]. occluded(shadow_ray, want, time) runs the
-// shadow sweep and must be reached by every thread of the block (K4, K5).
-template <bool kExternal, class Occluded>
+// lane's attribute row (n0 n1 n2 emission diffuse, and for kTextured uv0
+// uv1 uv2 in fields 16-21, the diffuse texture id in 22, the uv transform in
+// 23-28 and the raw tangent and normal texture id at tex.nmap_base) read at
+// a[field * as]; lights_t [24, light_stride]. occluded(shadow_ray, want,
+// time) runs the shadow sweep and must be reached by every thread of the
+// block (K4, K5).
+template <bool kExternal, bool kTextured, class Occluded>
 __device__ __forceinline__ Shaded shade_lane(const ShadeConsts& p,
                                              const Ray& r, const ClosestHit& h,
                                              const float* m, const float* a,
                                              int as, const float* lights_t,
+                                             const TexParams& tex,
                                              Occluded occluded) {
   Shaded o;
   // --- unpack the lane state (misc layout, pallas_shade.py:32-36) ---
@@ -93,6 +176,51 @@ __device__ __forceinline__ Shaded shade_lane(const ShadeConsts& p,
   float ngy = w0 * a[1 * as] + bu * a[4 * as] + bv * a[7 * as];
   float ngz = w0 * a[2 * as] + bu * a[5 * as] + bv * a[8 * as];
   normalize3(ngx, ngy, ngz);
+  float tex_rgb[3] = {0.0f, 0.0f, 0.0f};
+  float tid = -1.0f;
+  if constexpr (kTextured) {
+    tid = a[22 * as];
+    float tu = w0 * a[16 * as] + bu * a[18 * as] + bv * a[20 * as];
+    float tv = w0 * a[17 * as] + bu * a[19 * as] + bv * a[21 * as];
+    if (tex.uv_xform) {
+      // uv' = M uv + o in the reference's operation order (:464-469)
+      const float tu2 = a[23 * as] * tu + a[24 * as] * tv + a[27 * as];
+      const float tv2 = a[25 * as] * tu + a[26 * as] * tv + a[28 * as];
+      tu = tu2;
+      tv = tv2;
+    }
+    if (tex.normal_maps) {
+      // tangent-space normal map on the interpolated normal, before the
+      // faceforward (:470-518): Gram-Schmidt of the baked raw tangent
+      // against ng, n = T t + B b + N n_ts
+      const float* nm = a + tex.nmap_base * as;
+      const float ntex = nm[3 * as];
+      float n_rgb[3];
+      tex_fetch(tex, ntex, tu, tv, n_rgb);
+      const float ntsx = n_rgb[0] * 2.0f - 1.0f;
+      const float ntsy = n_rgb[1] * 2.0f - 1.0f;
+      const float ntsz = n_rgb[2] * 2.0f - 1.0f;
+      float tgx = nm[0], tgy = nm[as], tgz = nm[2 * as];
+      const float d_tn = tgx * ngx + tgy * ngy + tgz * ngz;
+      tgx = tgx - ngx * d_tn;
+      tgy = tgy - ngy * d_tn;
+      tgz = tgz - ngz * d_tn;
+      normalize3(tgx, tgy, tgz, 1e-12f);
+      const float btx = ngy * tgz - ngz * tgy;
+      const float bty = ngz * tgx - ngx * tgz;
+      const float btz = ngx * tgy - ngy * tgx;
+      float mgx = ntsx * tgx + ntsy * btx + ntsz * ngx;
+      float mgy = ntsx * tgy + ntsy * bty + ntsz * ngy;
+      float mgz = ntsx * tgz + ntsy * btz + ntsz * ngz;
+      normalize3(mgx, mgy, mgz, 1e-12f);
+      if (ntex >= 0.0f) {
+        ngx = mgx;
+        ngy = mgy;
+        ngz = mgz;
+      }
+    }
+    tex_fetch(tex, tid, tu, tv, tex_rgb);
+  }
   const float side =
       (-(r.dx * ngx + r.dy * ngy + r.dz * ngz) >= 0.0f) ? 1.0f : -1.0f;
   const float nsx = ngx * side, nsy = ngy * side, nsz = ngz * side;
@@ -103,7 +231,7 @@ __device__ __forceinline__ Shaded shade_lane(const ShadeConsts& p,
   float emitted[3], albedo[3];
   for (int c = 0; c < 3; ++c) {
     emitted[c] = a[(9 + c) * as] * emit_gate * hit_f;
-    albedo[c] = a[(12 + c) * as];
+    albedo[c] = (kTextured && tid >= 0.0f) ? tex_rgb[c] : a[(12 + c) * as];
   }
 
   // --- BSDF sample: cosine hemisphere, reference draw order ---

@@ -1,12 +1,17 @@
-"""Built-in Cornell box (port of rendertoy3c_tpu/scene/builtin.py
-`cornell_box`, with its `quad` and `box_mesh` helpers)."""
+"""Built-in scenes: the Cornell box and the textured quad (port of
+rendertoy3c_tpu/scene/builtin.py `cornell_box` and `textured_quad_scene`,
+with the `quad` and `box_mesh` helpers), and the textured quad's variants
+that the tests and chip_smoke.py render (`textured_quad_variant`)."""
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
 from .camera import Camera
 from .material import Material
 from .mesh import Mesh
+from .texture import WRAP_CLAMP, WRAP_MIRROR, TextureImage
 
 
 def quad(p0, p1, p2, p3) -> tuple[np.ndarray, np.ndarray]:
@@ -73,3 +78,70 @@ def cornell_box(light_emission=(15.0, 15.0, 15.0), with_blocks: bool = True):
     camera = Camera(eye=(0.0, 1.0, 3.4), lookat=(0.0, 1.0, 0.0),
                     up=(0.0, 1.0, 0.0), fov_y=45.0, aspect_ratio=1.0)
     return meshes, camera
+
+
+def textured_quad_scene(checker_size: int = 64):
+    """A checker-textured floor quad under an area light (BASELINE.md
+    config 2). Returns (meshes, textures, camera)."""
+    tex = np.zeros((checker_size, checker_size, 4), np.uint8)
+    yy, xx = np.mgrid[0:checker_size, 0:checker_size]
+    checker = ((xx // 8 + yy // 8) % 2).astype(np.uint8)
+    tex[..., 0] = 255 * checker
+    tex[..., 1] = 128
+    tex[..., 2] = 255 * (1 - checker)
+    tex[..., 3] = 255
+
+    textured = Material(diffuse=(1, 1, 1), diffuse_texture_id=0)
+    light = Material(emissive=(10.0, 10.0, 10.0))
+
+    v, f = quad([-1, 0, -1], [1, 0, -1], [1, 0, 1], [-1, 0, 1])
+    uvs = np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32)
+    floor = Mesh(vertices=v[None], indices=f, texcoords=uvs,
+                 material=textured)
+
+    lv, lf = quad([-0.3, 1.5, -0.3], [-0.3, 1.5, 0.3], [0.3, 1.5, 0.3],
+                  [0.3, 1.5, -0.3])
+    lamp = Mesh(vertices=lv[None], indices=lf, material=light)
+
+    camera = Camera(eye=(0.0, 1.2, 2.2), lookat=(0.0, 0.2, 0.0), fov_y=45.0,
+                    aspect_ratio=1.0)
+    return [floor, lamp], [tex], camera
+
+
+def bumpy_normal_map() -> np.ndarray:
+    """An 8x8 RGBA8 normal map tilting along x (tests/test_fused.py:194-198
+    of the reference package)."""
+    bumpy = np.zeros((8, 8, 4), np.uint8)
+    bumpy[..., 0] = np.tile(np.linspace(40, 215, 8, dtype=np.uint8), (8, 1))
+    bumpy[..., 1], bumpy[..., 2], bumpy[..., 3] = 128, 220, 255
+    return bumpy
+
+
+def textured_quad_variant(variant: str = "repeat", motion: bool = False,
+                          base=None, texture_image=TextureImage):
+    """(meshes, textures, camera) of a variant of `base`, the output of a
+    `textured_quad_scene` (this module's by default): "repeat" as built;
+    "clamp_mirror" with uvs stretched to 2.5 uv - 0.75 under CLAMP/MIRROR;
+    "uv_transform" with an offset, rotation and scale; "normal_map" with
+    bumpy_normal_map on the DIFFUSE floor; "features" with all three.
+    motion: the floor given a second key at +0.1 in x. texture_image: the
+    class that carries the wrap modes (another package's TextureImage
+    builds the same variant from that package's `textured_quad_scene`)."""
+    meshes, textures, camera = base or textured_quad_scene()
+    floor = meshes[0]
+    change = {}
+    if variant in ("clamp_mirror", "features"):
+        floor.texcoords = floor.texcoords * 2.5 - 0.75
+        textures = [texture_image(textures[0], WRAP_CLAMP, WRAP_MIRROR)]
+    if variant in ("uv_transform", "features"):
+        change.update(tex_offset=(0.15, -0.1), tex_rotation=0.35,
+                      tex_scale=(1.5, 0.8))
+    if variant in ("normal_map", "features"):
+        textures = textures + [bumpy_normal_map()]
+        change.update(normal_texture_id=1)
+    floor.material = dataclasses.replace(floor.material, **change)
+    if motion:
+        v = floor.vertices
+        meshes[0] = dataclasses.replace(
+            floor, vertices=np.concatenate([v, v + np.float32([0.1, 0, 0])]))
+    return meshes, textures, camera

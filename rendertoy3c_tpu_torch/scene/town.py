@@ -1,9 +1,10 @@
 """The generated town scene, loaded through the .obj asset path.
 
-Counterpart of bench.py `_town_scene` (:307-337) with `untextured=True`:
-`generate_town` writes the .obj/.mtl/.png files, `load_obj` reads them
-back (two files are two motion keyframes), the textures are stripped, and
-the scene is built with the generator's own camera.
+Counterpart of bench.py `_town_scene` (:307-337): `generate_town` writes the
+.obj/.mtl/.png files, `load_obj` reads them back (two files are two motion
+keyframes) with the ground's checker and the buildings' brick textures,
+and the scene is built with the generator's own camera. `textured=False`
+strips the textures (the `untextured=True` form).
 """
 from __future__ import annotations
 
@@ -16,18 +17,21 @@ from .camera import Camera
 from .scene import build_scene
 
 
-def town_scene(faces: int, two_key: bool = False, out_dir: str | None = None):
-    """(scene, camera) of the untextured town of about `faces` faces, with
-    2 motion keys if `two_key`. The files go to `out_dir`, or to a
-    temporary directory that is removed after loading."""
+def town_scene(faces: int, two_key: bool = False, out_dir: str | None = None,
+               textured: bool = False):
+    """(scene, camera) of the town of about `faces` faces, with 2 motion
+    keys if `two_key` and its textures if `textured`. The files go to
+    `out_dir`, or to a temporary directory that is removed after loading."""
     if out_dir is None:
         with tempfile.TemporaryDirectory(prefix="rt3c_town_") as tmp:
-            return town_scene(faces, two_key, tmp)
+            return town_scene(faces, two_key, tmp, textured)
     paths, camkw = generate_town(out_dir, faces_target=faces,
                                  two_key=two_key)
-    meshes, _ = load_obj(paths if two_key else paths[:1])
-    for m in meshes:
-        m.material = dataclasses.replace(
-            m.material, diffuse_texture_id=-1, emissive_texture_id=-1,
-            roughness_texture_id=-1, normal_texture_id=-1)
-    return build_scene(meshes), Camera(**camkw)
+    meshes, textures = load_obj(paths if two_key else paths[:1])
+    if not textured:
+        for m in meshes:
+            m.material = dataclasses.replace(
+                m.material, diffuse_texture_id=-1, emissive_texture_id=-1,
+                roughness_texture_id=-1, normal_texture_id=-1)
+        textures = []
+    return build_scene(meshes, textures=textures or None), Camera(**camkw)

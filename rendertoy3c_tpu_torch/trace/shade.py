@@ -3,9 +3,11 @@ in-kernel refill (K4) and without it (K5), and the external shade kernel
 (K6).
 
 Port of rendertoy3c_tpu/trace/pallas_shade.py for the port's
-configurations: untextured, all-diffuse (the Lambertian branch, :557-563
-and :816-863), uniform light sampler, no AOV, misc width 16. It holds
-`build_shade_tables` (:72, untextured and without dispatch);
+configurations: all-diffuse (the Lambertian branch, :557-563 and
+:816-863), untextured or with diffuse textures, uv transforms and normal
+maps (:459-535), uniform light sampler, no AOV, misc width 16. It holds
+`build_shade_tables` (:72, without dispatch); `texture_state` (the
+reference's `_fused_texture_state`, :1101, without its TPU atlas limits);
 `fused_unsupported` (the narrowing of `fused_shade_eligible`, :1116),
 `FusedPipeline` (:1379) with `trace_shade` (K5, the merged megakernel of
 `make_fused_shader`, :1224-1275, :1371-1375) and `refill_shader` (:1437)
@@ -36,6 +38,12 @@ and writes new arrays: rays_out [R, 8], misc_out [R, 24] (columns 0-15 as
 misc, 16-18 the pending NEE term, 19-23 zero) and the shadow rays
 [R, 8] (org, dir, tmin, tmax), [R, 16] for motion with the ray time in
 column 8.
+
+A textured scene (texture_state 'diffuse') widens the attribute rows to
+24-40 and carries a TexState: the atlas's RGBA8 texels and meta rows on
+the device, which the kernels' textured variants read (shade.cuh
+`tex_fetch`) and the plain versions sample through
+`sample_texture_bilinear`.
 """
 from __future__ import annotations
 
@@ -53,6 +61,7 @@ from ..math.sampling import sample_cosine_hemisphere, sample_uniform_triangle
 from ..math.vec import normalize3
 from ..scene.camera import camera_ray_dir
 from ..scene.light import pick_light_uniform
+from ..scene.texture import TextureAtlas, atlas_to, sample_texture_bilinear
 from .mt import (RAY_TILE, MotionSoup, TriSoup, any_motion_ref, any_ref,
                  build_tri_soup, closest_motion_ref, closest_ref,
                  motion_union_aabbs)
@@ -63,11 +72,18 @@ EXTERNAL_MAX_FACES = 16384  # the MT band's limit (auto.py:28)
 MISC_OUT_W = 24  # K6's misc output: 16 state columns + 3 NEE, 8-aligned
 
 
-def build_shade_tables(scene, f_limit: int | None = None):
-    """(attr_t [16, F], lights_t [24, Lp]) numpy tables, laid out as the
-    reference's.
+def build_shade_tables(scene, textured: bool = False,
+                       uv_xform: bool = False, normal_maps: bool = False,
+                       f_limit: int | None = None):
+    """(attr_t [H, F], lights_t [24, Lp]) numpy tables, laid out as the
+    reference's (pallas_shade.py:72-152).
 
-    Attr rows: n0 n1 n2 emission diffuse pad. Light rows: v0 v1 v2
+    Attr rows 0-15: n0 n1 n2 emission diffuse pad (H = 16). A textured
+    scene appends rows 16-21 uv0.xy uv1.xy uv2.xy and 22 the diffuse
+    texture id; with `uv_xform` rows 23-28 the material's uv transform
+    (m00 m01 m10 m11 ox oy); with `normal_maps`, from `nmap_base` (23 or
+    29) the raw per-face tangent e1 * duv2.y - e2 * duv1.y and the normal
+    texture id. H is padded to a multiple of 8. Light rows: v0 v1 v2
     emission normal area, row 16 = per-light power-pick probability.
     f_limit truncates the face axis to the traced soup's padded width."""
     g = scene.geom
@@ -75,12 +91,29 @@ def build_shade_tables(scene, f_limit: int | None = None):
     if f_limit is not None:
         f = min(f, f_limit)
     mat_id = np.asarray(g.mat_id)[:f]
-    attr = np.zeros((f, 16), np.float32)
+    nmap_base = nmap_row(uv_xform)
+    height = (nmap_base + (4 if normal_maps else 0)) if textured else 16
+    attr = np.zeros((f, -(-height // 8) * 8), np.float32)
     attr[:, 0:3] = np.asarray(g.n0[0])[:f]
     attr[:, 3:6] = np.asarray(g.n1[0])[:f]
     attr[:, 6:9] = np.asarray(g.n2[0])[:f]
     attr[:, 9:12] = np.asarray(scene.materials.emission)[mat_id]
     attr[:, 12:15] = np.asarray(scene.materials.diffuse)[mat_id]
+    if textured:
+        attr[:, 16:18] = np.asarray(g.uv0)[:f]
+        attr[:, 18:20] = np.asarray(g.uv1)[:f]
+        attr[:, 20:22] = np.asarray(g.uv2)[:f]
+        attr[:, 22] = np.asarray(scene.materials.diffuse_tex)[mat_id]
+        if uv_xform:
+            attr[:, 23:29] = np.asarray(scene.materials.uv_xform)[mat_id]
+        if normal_maps:
+            duv1 = (np.asarray(g.uv1) - np.asarray(g.uv0))[:f]
+            duv2 = (np.asarray(g.uv2) - np.asarray(g.uv0))[:f]
+            tang = (np.asarray(g.e1[0])[:f] * duv2[:, 1:2]
+                    - np.asarray(g.e2[0])[:f] * duv1[:, 1:2])
+            attr[:, nmap_base:nmap_base + 3] = tang
+            attr[:, nmap_base + 3] = np.asarray(
+                scene.materials.normal_tex)[mat_id]
 
     lt = scene.lights
     n_l = max(scene.num_lights, 1)
@@ -98,6 +131,71 @@ def build_shade_tables(scene, f_limit: int | None = None):
     return (np.ascontiguousarray(attr.T), np.ascontiguousarray(lights.T))
 
 
+def nmap_row(uv_xform: bool) -> int:
+    """First normal-map row of a textured attribute table."""
+    return 29 if uv_xform else 23
+
+
+def texture_state(scene) -> str:
+    """'none' (no texture images), 'diffuse' (diffuse textures and normal
+    maps, which the kernels fetch) or 'unsupported' (emissive or roughness
+    textures): the reference's `_fused_texture_state` (:1101-1113) without
+    its atlas limits, MAX_ATLAS_TEXELS and the quad table's 1 << 20 texels,
+    which are VMEM and gather limits of the TPU (ROADMAP A9)."""
+    if not scene.textured:
+        return "none"
+    m = scene.materials
+    if (np.asarray(m.roughness_tex) >= 0).any() or (
+            np.asarray(m.emissive_tex) >= 0).any():
+        return "unsupported"
+    return "diffuse"
+
+
+@dataclass(frozen=True)
+class TexState:
+    """The texture side of a textured pipeline: the atlas on the device
+    (RGBA8 data and meta, no quad table) and the attribute-row switches."""
+
+    atlas: TextureAtlas
+    uv_xform: bool
+    normal_maps: bool
+
+    @property
+    def nmap_base(self) -> int:
+        return nmap_row(self.uv_xform)
+
+    def params(self):
+        """The kernels' kbuild.TexParams (keeps no reference to the
+        tensors: the TexState must outlive the launch)."""
+        return kbuild.TexParams(
+            texels=self.atlas.data.data_ptr(), meta=self.atlas.meta.data_ptr(),
+            aw=self.atlas.data.shape[1], uv_xform=int(self.uv_xform),
+            normal_maps=int(self.normal_maps), nmap_base=self.nmap_base)
+
+
+def shade_tables_for(scene, device, f_limit: int | None = None):
+    """(attr_t [H, F], lights_t [24, Lp], TexState or None) of a scene the
+    gates accept: textured tables where texture_state is 'diffuse'."""
+    textured = texture_state(scene) == "diffuse"
+    uv_xform = textured and scene.any_uv_transform
+    normal_maps = textured and scene.any_normal_map
+    attr_t, lights_t = build_shade_tables(scene, textured, uv_xform,
+                                          normal_maps, f_limit)
+    tex = None
+    if textured:
+        # the kernels read meta rows by these ids unchecked
+        n_tex = scene.atlas.meta.shape[0]
+        for kind, ids in (("diffuse", scene.materials.diffuse_tex),
+                          ("normal", scene.materials.normal_tex)):
+            if (np.asarray(ids) >= n_tex).any():
+                raise ValueError(f"a material's {kind} texture id "
+                                 f"{int(np.max(ids))} names none of the "
+                                 f"scene's {n_tex} textures")
+        tex = TexState(atlas=atlas_to(scene.atlas, device),
+                       uv_xform=uv_xform, normal_maps=normal_maps)
+    return attr_t, lights_t, tex
+
+
 def _slice_checks(scene, cfg):
     """(failed, reason) pairs shared by both pipelines' gates."""
     return (
@@ -105,7 +203,11 @@ def _slice_checks(scene, cfg):
          "the wave integrator is not ported yet (ROADMAP A6)"),
         (scene.num_keys > 2, "more than 2 motion keys need the N-key "
          "brute tracer (ROADMAP A5)"),
-        (scene.textured, "textures are not ported yet (ROADMAP A12)"),
+        (texture_state(scene) == "unsupported", "emissive and roughness "
+         "textures take the general pool, not ported yet (ROADMAP A22)"),
+        (scene.any_normal_map and texture_state(scene) != "diffuse",
+         "normal maps without texture images take the general pool, not "
+         "ported yet (ROADMAP A22)"),
         (not scene.all_diffuse, "material dispatch (non-diffuse "
          "materials) is not ported yet (ROADMAP A12)"),
         (cfg.light_sampler != "uniform",
@@ -178,12 +280,13 @@ class ShadeTables:
     """Device tables the megakernels (K4, K5) read."""
 
     soup: TriSoup  # key 0, with its own cull boxes
-    attr_t: torch.Tensor  # [16, F'] f32
+    attr_t: torch.Tensor  # [H, F'] f32 (H = 16, or 24-40 textured)
     lights_t: torch.Tensor  # [24, Lp] f32
     jump: torch.Tensor  # [spp, 2] int64 (uint32 values): per-sample (a, c)
     jump_u32: torch.Tensor  # the same table as uint32 bits (int32), for K4
     # a 2-key scene: both keys' tiles and the union cull boxes the sweeps use
     msoup: MotionSoup | None = None
+    tex: TexState | None = None  # a textured scene's atlas and switches
 
     def sweep_tables(self):
         """(tris, tris1, aabb, super_aabb) the kernels sweep: tris1 is None
@@ -208,14 +311,48 @@ def _plain_sweeps(tables: ShadeTables, count, time):
             lambda sh, t: any_motion_ref(sh, t, count, m, RAY_TILE)[:, 0])
 
 
-def _shade_lanes(rays, hit4, misc, a, lights_t, sc, shadow_occluded=None):
+def _textured_normal_and_albedo(a, w0, bu, bv, ng, tex: TexState):
+    """The texture work of the shading body (pallas_shade.py :459-535):
+    uvs interpolated at (w0, bu, bv), the material's uv transform,
+    the normal map applied to the interpolated normal `ng` before the
+    faceforward, and the diffuse texture. Returns (ng, texture rgb [R, 3],
+    diffuse texture id [R], (u, v)); fetches by sample_texture_bilinear."""
+    tid = a[22]
+    tu = w0 * a[16] + bu * a[18] + bv * a[20]
+    tv = w0 * a[17] + bu * a[19] + bv * a[21]
+    if tex.uv_xform:
+        tu, tv = (a[23] * tu + a[24] * tv + a[27],
+                  a[25] * tu + a[26] * tv + a[28])
+    if tex.normal_maps:
+        nb = tex.nmap_base
+        ntex = a[nb + 3]
+        ntsx, ntsy, ntsz = (c * 2.0 - 1.0 for c in sample_texture_bilinear(
+            tex.atlas, ntex, tu, tv).unbind(1))
+        ngx, ngy, ngz = ng
+        tgx, tgy, tgz = a[nb], a[nb + 1], a[nb + 2]
+        d_tn = tgx * ngx + tgy * ngy + tgz * ngz
+        tgx, tgy, tgz, _ = normalize3(tgx - ngx * d_tn, tgy - ngy * d_tn,
+                                      tgz - ngz * d_tn, eps=1e-12)
+        btx = ngy * tgz - ngz * tgy
+        bty = ngz * tgx - ngx * tgz
+        btz = ngx * tgy - ngy * tgx
+        mg = normalize3(ntsx * tgx + ntsy * btx + ntsz * ngx,
+                        ntsx * tgy + ntsy * bty + ntsz * ngy,
+                        ntsx * tgz + ntsy * btz + ntsz * ngz, eps=1e-12)[:3]
+        ng = tuple(torch.where(ntex >= 0.0, m, n) for m, n in zip(mg, ng))
+    return ng, sample_texture_bilinear(tex.atlas, tid, tu, tv), tid, (tu, tv)
+
+
+def _shade_lanes(rays, hit4, misc, a, lights_t, sc, shadow_occluded=None,
+                 tex: TexState | None = None):
     """The shading body shared by K4, K5 and K6 (pallas_shade.py :436-880,
     the Lambertian, uniform-light branch): emission at depth 0, miss
-    ambient, Lambertian draw, NEE light pick and area sample, RR, the next
-    state.
+    ambient, textures (`tex`), Lambertian draw, NEE light pick and area
+    sample, RR, the next state.
 
     hit4 [R, 4] (t, prim_f, u, v); a: attribute rows [>=15, R] gathered by
-    prim. `shadow_occluded(shadow_rays [R, 8], time [R]) -> occ [R]` runs
+    prim (the textured rows too for `tex`).
+    `shadow_occluded(shadow_rays [R, 8], time [R]) -> occ [R]` runs
     the in-kernel shadow sweep (K4, K5) at the shadow rays' time, a peek of
     the post-NEE stream; None is the external variant (K6): NEE is
     provisional on want_shadow and leaves as `nee`, for the caller to add
@@ -241,12 +378,18 @@ def _shade_lanes(rays, hit4, misc, a, lights_t, sc, shadow_occluded=None):
     ngy = w0 * a[1] + bu * a[4] + bv * a[7]
     ngz = w0 * a[2] + bu * a[5] + bv * a[8]
     ngx, ngy, ngz, _ = normalize3(ngx, ngy, ngz)
+    if tex is not None:
+        (ngx, ngy, ngz), tex_rgb, tid, tex_uv = _textured_normal_and_albedo(
+            a, w0, bu, bv, (ngx, ngy, ngz), tex)
     side = torch.where(-(dx * ngx + dy * ngy + dz * ngz) >= 0.0, one, -one)
     nsx, nsy, nsz = ngx * side, ngy * side, ngz * side
     px, py, pz = ox + t_hit * dx, oy + t_hit * dy, oz + t_hit * dz
     hit_f = is_hit.to(torch.float32)
     emitted = [a[9 + c] * emit_gate * hit_f for c in range(3)]
     albedo = [a[12 + c] for c in range(3)]
+    if tex is not None:
+        albedo = [torch.where(tid >= 0.0, tex_rgb[:, c], albedo[c])
+                  for c in range(3)]
 
     # --- BSDF sample (cosine hemisphere; reference draw order) ---
     adv = is_hit & alive
@@ -330,7 +473,8 @@ def _shade_lanes(rays, hit4, misc, a, lights_t, sc, shadow_occluded=None):
                 accs=accs, depth_new=depth_new, pdelta_new=pdelta_new,
                 p=(px, py, pz), nd=(ndx, ndy, ndz), o=(ox, oy, oz),
                 d=(dx, dy, dz), one=one, zero=zero, nee=nee, shadow=shadow,
-                occl_time=occl_time)
+                occl_time=occl_time,
+                tex_uv=None if tex is None else tex_uv)
 
 
 def _next_state(rays, misc, r):
@@ -356,7 +500,17 @@ def _shade_in_place_sweeps(rays, misc, count, tables: ShadeTables, sc,
     closest, occluded = _plain_sweeps(tables, count, time)
     hit4 = closest(rays)
     a = tables.attr_t[:, torch.clamp(hit4[:, 1], min=0.0).to(torch.int64)]
-    return _shade_lanes(rays, hit4, misc, a, tables.lights_t, sc, occluded)
+    return _shade_lanes(rays, hit4, misc, a, tables.lights_t, sc, occluded,
+                        tables.tex)
+
+
+def _tex_params(name: str, tex: TexState | None):
+    """The kernels' TexParams of a textured launch (validated), or None."""
+    if tex is None:
+        return None
+    kbuild.require_cuda(name, tex.atlas.data, dtype=torch.uint8)
+    kbuild.require_cuda(name, tex.atlas.meta, dtype=torch.int32)
+    return tex.params()
 
 
 def trace_shade_ref(rays, misc, count, tables: ShadeTables, sc: ShadeConfig,
@@ -382,6 +536,7 @@ def trace_shade(rays, misc, count, tables: ShadeTables, sc: ShadeConfig,
                         tables.attr_t, tables.lights_t,
                         *((tris1, time) if motion else ()))
     kbuild.require_cuda("trace_shade", count, dtype=torch.int32)
+    tex = _tex_params("trace_shade", tables.tex)
     pool = rays.shape[0]
     if (rays.shape != (pool, 8) or misc.shape != (pool, 16)
             or pool % RAY_TILE or (motion and time.shape != (pool,))):
@@ -405,7 +560,7 @@ def trace_shade(rays, misc, count, tables: ShadeTables, sc: ShadeConfig,
         tris.data_ptr(), tris1.data_ptr() if motion else None,
         aabb.data_ptr(), super_aabb.data_ptr(), tables.attr_t.data_ptr(),
         tables.lights_t.data_ptr(), rays_out.data_ptr(), misc_out.data_ptr(),
-        stream)
+        tex, stream)
     kbuild.check(err, "trace_shade")
     trace_shade.launches += 1
     return rays_out, misc_out
@@ -520,6 +675,7 @@ def trace_shade_refill(rays, misc, stash, stats_in, stats_out,
                         *((tris1, time) if motion else ()))
     kbuild.require_cuda("trace_shade_refill", stats_in, stats_out,
                         tables.jump_u32, dtype=torch.int32)
+    tex = _tex_params("trace_shade_refill", tables.tex)
     pool = rays.shape[0]
     if (rays.shape != (pool, 8) or misc.shape != (pool, 16)
             or stash.shape != (pool, 16) or pool % RAY_TILE
@@ -549,7 +705,7 @@ def trace_shade_refill(rays, misc, stash, stats_in, stats_out,
         stats_out.data_ptr(), tris.data_ptr(),
         tris1.data_ptr() if motion else None, aabb.data_ptr(),
         super_aabb.data_ptr(), tables.attr_t.data_ptr(),
-        tables.lights_t.data_ptr(), tables.jump_u32.data_ptr(), stream)
+        tables.lights_t.data_ptr(), tables.jump_u32.data_ptr(), tex, stream)
     kbuild.check(err, "trace_shade_refill")
     trace_shade_refill.launches += 1
 
@@ -594,7 +750,7 @@ class FusedPipeline:
                                aabb=aabb.contiguous(),
                                super_aabb=super_aabb.contiguous())
         f_limit = self.soup.tris.shape[0] * self.soup.tris.shape[2]
-        attr_t, lights_t = build_shade_tables(scene, f_limit=f_limit)
+        attr_t, lights_t, tex = shade_tables_for(scene, self.device, f_limit)
         jump = _lcg_advance_table(cfg.samples_per_launch).astype(np.int64)
         self.tables = ShadeTables(
             soup=self.soup,
@@ -603,7 +759,7 @@ class FusedPipeline:
             jump=torch.as_tensor(jump, device=self.device),
             jump_u32=torch.as_tensor(jump.astype(np.uint32).view(np.int32),
                                      device=self.device),
-            msoup=msoup)
+            msoup=msoup, tex=tex)
         self.config = ShadeConfig(
             max_depth=cfg.max_depth, num_lights=scene.num_lights,
             shadow_tmin=cfg.shadow_tmin, shadow_eps=cfg.shadow_tmax_eps,
@@ -643,8 +799,9 @@ class FusedPipeline:
 class ExternalTables:
     """Device tables K6 reads."""
 
-    attr: torch.Tensor  # [F, 16] f32 attribute rows, read by prim
+    attr: torch.Tensor  # [F, H] f32 attribute rows, read by prim
     lights_t: torch.Tensor  # [24, Lp] f32
+    tex: TexState | None = None  # a textured scene's atlas and switches
 
 
 def external_shade_ref(rays, hit4, misc, tables: ExternalTables,
@@ -652,7 +809,7 @@ def external_shade_ref(rays, hit4, misc, tables: ExternalTables,
     """Plain version of K6: (rays_out [R, 8], misc_out [R, 24], shadow
     [R, 8|16]) from rays [R, 8], hit4 [R, 4] and misc [R, 16]."""
     a = tables.attr[torch.clamp(hit4[:, 1], min=0.0).to(torch.int64)].T
-    r = _shade_lanes(rays, hit4, misc, a, tables.lights_t, ec)
+    r = _shade_lanes(rays, hit4, misc, a, tables.lights_t, ec, tex=tables.tex)
     rays_out, cols = _next_state(rays, misc, r)
     misc_out = torch.stack(
         cols + r["nee"] + [r["zero"]] * (MISC_OUT_W - 19), dim=1)
@@ -671,11 +828,13 @@ def external_shade(rays, hit4, misc, tables: ExternalTables,
         return external_shade_ref(rays, hit4, misc, tables, ec)
     kbuild.require_cuda("external_shade", rays, hit4, misc, tables.attr,
                         tables.lights_t)
+    tex = _tex_params("external_shade", tables.tex)
     n = rays.shape[0]
+    attr_w = tables.attr.shape[1]
     if (rays.shape != (n, 8) or hit4.shape != (n, 4)
-            or misc.shape != (n, 16) or tables.attr.shape[1] != 16):
+            or misc.shape != (n, 16) or attr_w % 8 or attr_w < 16):
         raise ValueError("external_shade: rays [R, 8], hit4 [R, 4], misc "
-                         "[R, 16], attr [F, 16]")
+                         "[R, 16], attr [F, 16 + 8k]")
     f32 = dict(dtype=torch.float32, device=rays.device)
     rays_out = torch.empty((n, 8), **f32)
     misc_out = torch.empty((n, MISC_OUT_W), **f32)
@@ -685,13 +844,13 @@ def external_shade(rays, hit4, misc, tables: ExternalTables,
         light_stride=tables.lights_t.shape[1], motion=int(ec.motion),
         shadow_tmin=ec.shadow_tmin, shadow_eps=ec.shadow_eps,
         pick_pdf=1.0 / float(ec.num_lights),
-        bg=(ec.bg[0], ec.bg[1], ec.bg[2]))
+        bg=(ec.bg[0], ec.bg[1], ec.bg[2]), attr_w=attr_w)
     index, stream = kbuild.launch_target(rays.device)
     err = kbuild.library().rt3c_external_shade(
         index, p, rays.data_ptr(), hit4.data_ptr(), misc.data_ptr(),
         tables.attr.data_ptr(), tables.attr.shape[0],
         tables.lights_t.data_ptr(), n, rays_out.data_ptr(),
-        misc_out.data_ptr(), shadow.data_ptr(), stream)
+        misc_out.data_ptr(), shadow.data_ptr(), tex, stream)
     kbuild.check(err, "external_shade")
     external_shade.launches += 1
     return rays_out, misc_out, shadow
@@ -716,11 +875,11 @@ class ExternalPipeline:
         self.device = torch.device(device)
         self.motion = scene.num_keys == 2
         self._closest, self._any = tracer
-        attr_t, lights_t = build_shade_tables(scene)
+        attr_t, lights_t, tex = shade_tables_for(scene, self.device)
         self.tables = ExternalTables(
             attr=torch.as_tensor(np.ascontiguousarray(attr_t.T),
                                  device=self.device),
-            lights_t=torch.as_tensor(lights_t, device=self.device))
+            lights_t=torch.as_tensor(lights_t, device=self.device), tex=tex)
         self.config = ShadeConfig(
             max_depth=cfg.max_depth, num_lights=scene.num_lights,
             shadow_tmin=cfg.shadow_tmin, shadow_eps=cfg.shadow_tmax_eps,

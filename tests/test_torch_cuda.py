@@ -409,3 +409,171 @@ def test_cli_renders_obj_keyframes_through_motion_refill(dev, tmp_path):
                      str(out)]) == 0
     assert shade.trace_shade_refill.launches > 0
     assert out.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+
+
+def _textured_quad(variant="repeat", motion=False):
+    """(scene, camera) of the textured quad's `variant` (scene/builtin.py
+    textured_quad_variant)."""
+    from rendertoy3c_tpu_torch.scene.builtin import textured_quad_variant
+
+    meshes, textures, cam = textured_quad_variant(variant, motion)
+    return build_scene(meshes, textures=textures), cam
+
+
+@pytest.mark.parametrize("variant, motion", [
+    ("repeat", False), ("clamp_mirror", False), ("uv_transform", False),
+    ("normal_map", False), ("repeat", True)])
+def test_textured_refill_kernel_matches_plain_version_on_one_block(
+        dev, variant, motion):
+    """Textured K4 (static and motion) teacher-forced for 8 launches on one
+    block of the textured quad: stats exact, seeds exact, lanes within 1e-5
+    on at least 99%, and the time buffer exact for motion."""
+    scene, cam = _textured_quad(variant, motion)
+    cfg = RenderConfig(width=64, height=64, samples_per_launch=4,
+                       max_depth=8, ray_block=256, integrator="pool",
+                       pool_pixel_major=True)
+    kern = shade.FusedPipeline(scene, cfg, dev)
+    assert kern.tables.tex is not None and kern.motion == motion
+    kern = kern.refill_shader(4096)
+    ref = shade.FusedPipeline(scene, cfg, dev, refill_fn=shade
+                              .trace_shade_refill_ref).refill_shader(4096)
+    state = [torch.zeros((256, w), dtype=torch.float32, device=dev)
+             for w in (8, 16, 16)]
+    state[1][:, 13] = -1.0
+    state[2][:, 0] = -1.0
+    time = [torch.zeros(256, dtype=torch.float32, device=dev)] if motion \
+        else []
+    stats = torch.zeros(4, dtype=torch.int32, device=dev)
+    for _ in range(8):
+        outs = []
+        for fn in (kern, ref):
+            out = [x.clone() for x in state + time]
+            st = torch.zeros(4, dtype=torch.int32, device=dev)
+            fn(*out[:3], stats, st, 0, 2, _scf(cam), *out[3:])
+            outs.append((out, st))
+        (got, st_k), (want, st_r) = outs
+        assert torch.equal(st_k, st_r)
+        for g, w in zip(got[:3], want[:3]):
+            g, w = g.cpu().numpy(), w.cpu().numpy()
+            same = np.isclose(g, w, rtol=1e-5, atol=1e-5).all(axis=1)
+            assert same.mean() >= 0.99
+        assert torch.equal(got[1][:, 0].view(torch.int32),
+                           want[1][:, 0].view(torch.int32))
+        if motion:
+            assert torch.equal(got[3].view(torch.int32),
+                               want[3].view(torch.int32))
+        state, time, stats = want[:3], want[3:], st_r
+
+
+@pytest.mark.parametrize("variant, motion", [
+    ("repeat", False), ("normal_map", False), ("uv_transform", True)])
+def test_textured_trace_shade_kernel_matches_plain_version(dev, variant,
+                                                           motion):
+    """Textured K5 teacher-forced for 8 iterations from the plain version's
+    states: every output bit for bit."""
+    scene, cam = _textured_quad(variant, motion)
+    cfg = RenderConfig(width=64, height=64, samples_per_launch=2,
+                       max_depth=8, ray_block=4096, integrator="pool",
+                       pool_pixel_major=False)
+    pipe = shade.FusedPipeline(scene, cfg, dev)
+    rays, misc = _lane_state(scene, cam, 4096, 13, dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for it in range(8):
+        count = torch.tensor([4096 if it % 2 == 0 else 3000],
+                             dtype=torch.int32, device=dev)
+        time = torch.rand(4096, device=dev, generator=gen) if motion else None
+        got = shade.trace_shade(rays, misc, count, pipe.tables, pipe.config,
+                                time)
+        want = shade.trace_shade_ref(rays, misc, count, pipe.tables,
+                                     pipe.config, time)
+        for g, w in zip(got, want):
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+        rays, misc = want
+        fr, fm = _lane_state(scene, cam, 4096, 30 + it, dev)
+        dead = misc[:, 9] <= 0
+        rays = torch.where(dead[:, None], fr, rays)
+        misc = torch.where(dead[:, None], fm, misc)
+
+
+@pytest.fixture(scope="module")
+def textured_towns():
+    """(static, 2-key) textured town scenes of 4294 faces."""
+    from rendertoy3c_tpu_torch.scene.town import town_scene
+
+    return (town_scene(4000, False, textured=True),
+            town_scene(4000, True, textured=True))
+
+
+@pytest.mark.parametrize("motion", [False, True])
+def test_textured_external_shade_matches_plain_version(dev, textured_towns,
+                                                       motion):
+    """Textured K6 on the textured town, teacher-forced for 8 iterations
+    from the plain pipeline's states: every output bit for bit."""
+    scene, cam = textured_towns[int(motion)]
+    assert shade.texture_state(scene) == "diffuse"
+    cfg = RenderConfig(width=64, height=64, samples_per_launch=2,
+                       max_depth=8, ray_block=4096, integrator="pool",
+                       pool_pixel_major=True)
+    from rendertoy3c_tpu_torch.trace.auto import choose_tracer
+
+    scene, _ = choose_tracer(scene, cfg, dev)
+    pipe = shade.ExternalPipeline(scene, cfg,
+                                  mt.make_mt_tracer(scene, dev, plain=True),
+                                  dev, shade_fn=shade.external_shade_ref)
+    assert pipe.tables.tex is not None
+    rays, misc = _lane_state(scene, cam, 4096, 7 + int(motion), dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    count = torch.tensor([4096], dtype=torch.int32, device=dev)
+    for _ in range(8):
+        time = torch.rand(4096, device=dev, generator=gen) if motion else None
+        hit = pipe._closest(rays[:, 0:3], rays[:, 3:6], rays[:, 6],
+                            rays[:, 7], time, count)
+        hit4 = torch.stack([hit.t, hit.prim.float(), hit.u, hit.v], dim=1)
+        got = shade.external_shade(rays, hit4, misc, pipe.tables,
+                                   pipe.config)
+        want = shade.external_shade_ref(rays, hit4, misc, pipe.tables,
+                                        pipe.config)
+        for g, w in zip(got, want):
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+        rays, misc = pipe.trace_shade(rays, misc, count, time)
+    assert (misc[:, 8] > 2).any()
+
+
+@pytest.mark.parametrize("variant", ["repeat", "normal_map"])
+def test_textured_fused_pipeline_passes_gate(dev, variant):
+    """bench.py:115-116 at 96^2 on the textured quad through textured K4;
+    the run must launch the kernel."""
+    scene, cam = _textured_quad(variant)
+    cfg = RenderConfig(width=96, height=96, samples_per_launch=2,
+                       max_depth=6, ray_block=4096, integrator="pool",
+                       pool_pixel_major=True)
+    images = []
+    for plain in (False, True):
+        pipe = shade.FusedPipeline(
+            scene, cfg, dev, **(dict(refill_fn=shade.trace_shade_refill_ref)
+                                if plain else {}))
+        shade.trace_shade_refill.launches = 0
+        f, _ = render_frame(scene, cam.params(), cfg, tracer=pipe,
+                            device=dev)
+        assert (shade.trace_shade_refill.launches > 0) != plain
+        images.append(f.accum.cpu().numpy())
+    diff = np.abs(images[0] - images[1])
+    assert diff.mean() <= 2e-3
+    assert int((diff.max(axis=-1) > 0.35).sum()) <= 8 and diff.max() <= 8.0
+
+
+def test_cli_renders_textured_town(dev, tmp_path):
+    """A textured .obj (the town's checker and brick maps) renders through
+    the external pipeline's textured K6."""
+    from rendertoy3c_tpu_torch.app import cli
+    from rendertoy3c_tpu_torch.io.genassets import generate_town
+
+    paths, _ = generate_town(str(tmp_path), faces_target=4000)
+    out = tmp_path / "town.png"
+    shade.external_shade.launches = 0
+    assert cli.main(["--scene", paths[0], "--size", "64x64", "--spp", "2",
+                     "--subframes", "1", "--eye", "38,26,46", "--lookat",
+                     "0,1.5,0", "--fov", "42", "--device", "cuda", "-o",
+                     str(out)]) == 0
+    assert shade.external_shade.launches > 0
+    assert out.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"

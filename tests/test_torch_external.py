@@ -8,7 +8,10 @@ that died restart as fresh camera paths. Integer columns (seed bits,
 depth, alive, pixel, sample, want_shadow) exact and float columns within
 rtol = atol = 3e-5, each on at least 98% of the lanes that were alive
 (last-ulp differences of sqrt/cos between XLA and torch may flip one
-lane's Russian roulette). The whole slice renders against the
+lane's Russian roulette); and textured K6 the same way on the textured
+town, the reference fed the pre-sampled texel block as its
+ExternalPipeline.trace_shade builds it (pallas_shade.py:1877-1882). The
+whole slice renders against the
 reference's render_frame over its own choose_tracer(on_tpu=True) pipeline
 by the strict rule of tests/test_external.py:35-55, and out-of-slice
 scenes and configs raise NotImplementedError naming their ROADMAP item."""
@@ -89,17 +92,39 @@ def _lanes_agree(got, want, cols, exact):
     return ok.all(axis=1)
 
 
+@pytest.fixture(scope="module")
+def textured_towns(tmp_path_factory):
+    """As `towns`, with the town's checker and brick textures."""
+    out = {}
+    for two_key in (False, True):
+        js, _ = j_town_scene(FACES, two_key, tmp_path_factory.mktemp(
+            f"tex{int(two_key)}"), textured=True)
+        ts, cam = town_scene(FACES, two_key, textured=True)
+        out[two_key] = (js, ts, cam)
+    return out
+
+
 @pytest.mark.parametrize("two_key", [False, True])
 def test_external_shade_ref_matches_reference_kernel(towns, two_key):
-    js, ts, cam = towns[two_key]
+    _teacher_force(towns[two_key], two_key)
+
+
+@pytest.mark.parametrize("two_key", [False, True])
+def test_textured_external_shade_ref_matches_reference_kernel(
+        textured_towns, two_key):
+    _teacher_force(textured_towns[two_key], two_key)
+
+
+def _teacher_force(scenes, two_key):
+    js, ts, cam = scenes
     ts, pipe = choose_tracer(ts, RenderConfig(**KW), "cpu")
     if not two_key:
         js = j_morton_order(js)
     assert isinstance(pipe, shade.ExternalPipeline)
     assert pipe.motion == two_key
-    j_shade, attr_rows, _ = make_external_shader(js, JConfig(**KW),
-                                                 motion=two_key,
-                                                 interpret=True)
+    j_shade, attr_rows, presample = make_external_shader(
+        js, JConfig(**KW), motion=two_key, interpret=True)
+    assert (presample is None) == (pipe.tables.tex is None)
     attr_rows = np.asarray(attr_rows)
     np.testing.assert_array_equal(pipe.tables.attr.numpy(), attr_rows)
     rng = np.random.default_rng(17 + int(two_key))
@@ -115,7 +140,12 @@ def test_external_shade_ref_matches_reference_kernel(towns, two_key):
         hit4 = torch.stack([hit.t, hit.prim.float(), hit.u, hit.v], dim=1)
         hit8 = np.concatenate([hit4.numpy(), np.zeros((POOL, 4), np.float32)],
                               axis=1)
-        attr_t = attr_rows[np.maximum(hit.prim.numpy(), 0)].T
+        attr_t = attr_rows[np.maximum(hit.prim.numpy(), 0)]
+        if presample is not None:  # the texel rows ride the gathered block
+            attr_t = np.concatenate([attr_t, np.asarray(presample(
+                jnp.asarray(attr_t), jnp.asarray(hit.u.numpy()),
+                jnp.asarray(hit.v.numpy())))], axis=1)
+        attr_t = attr_t.T
         want = [np.array(x) for x in j_shade(
             jnp.asarray(rays), jnp.asarray(hit8), jnp.asarray(misc),
             jnp.asarray(attr_t), POOL)]
@@ -204,8 +234,8 @@ def _three_key_town(tmp_path):
 
 def _textured_town(tmp_path):
     paths, _ = generate_town(str(tmp_path), faces_target=FACES)
-    meshes, _ = load_obj(paths)
-    return build_scene(meshes)
+    meshes, textures = load_obj(paths)
+    return build_scene(meshes, textures=textures)
 
 
 def _moving_cornell():
@@ -231,7 +261,8 @@ def test_out_of_slice_raises_naming_roadmap_item(towns, tmp_path, case,
                                                  item):
     """Cases of a ported ROADMAP item now render: the 2-key Cornell box
     through the fused pipeline's motion variant (A11), the town's sorted and
-    sample-major pools through the external pipeline (A8)."""
+    sample-major pools through the external pipeline (A8), and the textured
+    town through the external pipeline's textured K6 (A12's textures)."""
     scene, cfg = towns[False][1], RenderConfig(**KW)
     if case == "17k_faces":
         scene = build_scene(_lit_box_grid(38))
@@ -254,11 +285,12 @@ def test_out_of_slice_raises_naming_roadmap_item(towns, tmp_path, case,
                   "aov": dict(aov=True), "sorted": dict(sort_rays=True),
                   "sample_major": dict(pool_pixel_major=False)}[case]
         cfg = dataclasses.replace(cfg, **change)
-    if item in ("A8", "A11"):
+    if item in ("A8", "A11") or case == "textured_obj":
         _, pipe = choose_tracer(scene, cfg, "cpu")
         want = shade.FusedPipeline if item == "A11" else shade.ExternalPipeline
         assert isinstance(pipe, want)
         assert pipe.motion == (item == "A11")
+        assert (pipe.tables.tex is not None) == (case == "textured_obj")
         return
     with pytest.raises(NotImplementedError, match=item):
         choose_tracer(scene, cfg, "cpu")
@@ -266,7 +298,7 @@ def test_out_of_slice_raises_naming_roadmap_item(towns, tmp_path, case,
 
 def test_cli_renders_obj_keyframes(tmp_path):
     """--scene a.obj b.obj: two files are two motion keys. The generated
-    town is textured, which raises; without its map_Kd lines it renders."""
+    town renders with its textures, and without its map_Kd lines."""
     from rendertoy3c_tpu_torch.app import cli
 
     paths, _ = generate_town(str(tmp_path / "tex"), faces_target=FACES,
@@ -274,8 +306,8 @@ def test_cli_renders_obj_keyframes(tmp_path):
     args = ["--size", "16x16", "--spp", "1", "--subframes", "1", "--eye",
             "38,26,46", "--lookat", "0,1.5,0", "--fov", "42", "--device",
             "cpu", "-o"]
-    with pytest.raises(NotImplementedError, match="A12"):
-        cli.main(["--scene", *paths, *args, str(tmp_path / "t.png")])
+    assert cli.main(["--scene", *paths, *args, str(tmp_path / "t.png")]) == 0
+    assert (tmp_path / "t.png").read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
     plain = tmp_path / "plain"
     shutil.copytree(tmp_path / "tex", plain)
     mtl = plain / f"town{FACES // 1000}k.mtl"

@@ -11,13 +11,16 @@ MODULES = [
     "rendertoy3c_tpu_torch", "rendertoy3c_tpu_torch.accel",
     "rendertoy3c_tpu_torch.accel.lbvh", "rendertoy3c_tpu_torch.accel.morton",
     "rendertoy3c_tpu_torch.app.cli",
-    "rendertoy3c_tpu_torch.film", "rendertoy3c_tpu_torch.integrate",
+    "rendertoy3c_tpu_torch.film", "rendertoy3c_tpu_torch.film.image",
+    "rendertoy3c_tpu_torch.integrate",
     "rendertoy3c_tpu_torch.io", "rendertoy3c_tpu_torch.io.genassets",
     "rendertoy3c_tpu_torch.io.obj",
     "rendertoy3c_tpu_torch.kernels.build", "rendertoy3c_tpu_torch.math",
     "rendertoy3c_tpu_torch.math.onb", "rendertoy3c_tpu_torch.math.sampling",
     "rendertoy3c_tpu_torch.math.vec", "rendertoy3c_tpu_torch.scene",
     "rendertoy3c_tpu_torch.scene.builtin", "rendertoy3c_tpu_torch.scene.town",
+    "rendertoy3c_tpu_torch.scene.material", "rendertoy3c_tpu_torch.scene.scene",
+    "rendertoy3c_tpu_torch.scene.texture",
     "rendertoy3c_tpu_torch.trace", "rendertoy3c_tpu_torch.trace.auto",
     "rendertoy3c_tpu_torch.trace.intersect", "rendertoy3c_tpu_torch.trace.mt",
     "rendertoy3c_tpu_torch.trace.shade",

@@ -3,7 +3,9 @@ megakernel in interpret mode, teacher-forced: both get the same state at
 every launch (the reference's output of the launch before).
 
 Cornell 16x16, 2 spp, depth 4, pool 512, 8 launches, static and (the
-motion variant) the 2-key Cornell box. Stats exact, and for motion the
+motion variant) the 2-key Cornell box; and the textured variant on the
+textured quad with CLAMP/MIRROR, a uv transform and a normal map, and on
+the 2-key textured quad. Stats exact, and for motion the
 time buffer exact: the time drawn for every lane at the end of a launch,
 which advances the seed of live lanes only, while the shadow sweep's time
 is a peek that leaves it. The integer-valued columns exact and the float
@@ -20,7 +22,8 @@ from rendertoy3c_tpu.trace.pallas_shade import make_fused_shader
 from rendertoy3c_tpu.trace.pallas_mt import build_tri_soup as j_soup
 from rendertoy3c_tpu_torch.integrate.config import RenderConfig
 from rendertoy3c_tpu_torch.trace import shade
-from torch_port_util import cornell_pair, moving_cornell_pair
+from torch_port_util import (cornell_pair, moving_cornell_pair,
+                             textured_quad_pair)
 
 CFG = dict(width=16, height=16, samples_per_launch=2, max_depth=4,
            ray_block=512, integrator="pool", pool_pixel_major=True)
@@ -51,11 +54,13 @@ def _lane_match(got, want, cols, exact):
     return ok.all(axis=1).mean()
 
 
-def _launches(motion):
+def _launches(motion, scenes=None):
     """8 teacher-forcing steps of the reference: (port scene, port camera,
     [(inputs, outputs)]); a motion step's time8 [P, 8] enters and leaves
-    as its column 0."""
-    js, ts, jcam, tcam = moving_cornell_pair() if motion else cornell_pair()
+    as its column 0. scenes: a (reference, port) scene and camera pair,
+    by default the (2-key) Cornell box."""
+    js, ts, jcam, tcam = scenes or (moving_cornell_pair() if motion
+                                    else cornell_pair())
     soup = j_soup(js.geom, num_faces=js.num_faces)._replace(
         num_faces=js.num_faces)
     soup1 = (j_soup(js.geom, key=1, num_faces=js.num_faces)._replace(
@@ -169,3 +174,22 @@ def test_motion_time_draw_advances_live_lanes_only(motion_launches):
         np.testing.assert_array_equal(out[3][~alive.numpy()],
                                       drawn_from_seed[~alive.numpy()])
     assert any((out[3] > 0).any() for _, out in steps)
+
+
+@pytest.mark.parametrize("variant, motion", [("features", False),
+                                             ("repeat", True)])
+def test_textured_refill_ref_matches_reference_kernel(variant, motion):
+    """Textured K4 (make_fused_shader's textured=True megakernel): the 8
+    launches as above, stats (and the time buffer) exact."""
+    ts, tcam, steps = _launches(motion, textured_quad_pair(variant, motion))
+    for inputs, want in steps:
+        got = _run_port(ts, tcam, inputs, "cpu", shade.trace_shade_refill)
+        np.testing.assert_array_equal(got[3], want[4])  # stats
+        if motion:
+            np.testing.assert_array_equal(got[4].view(np.uint32),
+                                          want[3].view(np.uint32))
+        assert _lane_match(got[1], want[1], INT_COLS, exact=True) >= 0.98
+        assert _lane_match(got[1], want[1], FLOAT_COLS, exact=False) >= 0.98
+        assert _lane_match(got[0], want[0], list(range(8)), False) >= 0.98
+        assert _lane_match(got[2], want[2], list(range(16)), False) >= 0.98
+    assert any((out[2][:, 0] >= 0).any() for _, out in steps)

@@ -108,7 +108,9 @@ def test_make_color_and_png_bytes_match_reference(tmp_path):
 def _textured_scene():
     meshes, _ = cornell_box()
     meshes[0].material = Material(diffuse_texture_id=0)
-    return build_scene(meshes)
+    checker = np.full((8, 8, 4), 255, np.uint8)
+    checker[::2, ::2, :3] = 40
+    return build_scene(meshes, textures=[checker])
 
 
 def _mirror_scene():
@@ -147,7 +149,8 @@ PORTED = ("A8", "A11")  # sorted and sample-major pools, fused motion
 ])
 def test_outside_the_slice_raises_naming_the_roadmap_item(case, item):
     """Cases of a ported ROADMAP item (PORTED) now take the fused pipeline:
-    the 2-key Cornell box its motion variant, the sample-major pool K5."""
+    the 2-key Cornell box its motion variant, the sample-major pool K5, and
+    a diffuse texture (A12's textures) the textured megakernel."""
     scene = build_scene(cornell_box()[0])
     cfg = RenderConfig(**_cfg())
     if case in ("textured", "mirror", "motion", "big"):
@@ -158,10 +161,11 @@ def test_outside_the_slice_raises_naming_the_roadmap_item(case, item):
                   "wave": dict(integrator="wave"),
                   "sample_major": dict(pool_pixel_major=False)}[case]
         cfg = dataclasses.replace(cfg, **change)
-    if item in PORTED:
+    if item in PORTED or case == "textured":
         _, pipe = choose_tracer(scene, cfg, "cpu")
         assert isinstance(pipe, shade.FusedPipeline)
         assert pipe.motion == (case == "motion")
+        assert (pipe.tables.tex is not None) == (case == "textured")
         return
     with pytest.raises(NotImplementedError, match=item):
         choose_tracer(scene, cfg, "cpu")

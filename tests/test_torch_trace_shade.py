@@ -3,7 +3,9 @@ and the ray sort against the reference.
 
 K5 is teacher-forced against the reference's merged megakernel
 (make_fused_shader(merged=True) `trace_shade`, Pallas interpret mode) for 8
-iterations at pool 512 on the static and the 2-key Cornell box: both get
+iterations at pool 512 on the static and the 2-key Cornell box (and its
+textured variant on the textured quad with CLAMP/MIRROR, a uv transform
+and a normal map, and on the 2-key quad with a normal map): both get
 the same lanes at every step (the reference's output of the step before,
 dead lanes restarted as fresh camera paths, random times for motion), with
 the live count alternating between the whole pool and 300 lanes (the
@@ -31,7 +33,8 @@ from rendertoy3c_tpu_torch.accel.morton import morton3d
 from rendertoy3c_tpu_torch.integrate import path
 from rendertoy3c_tpu_torch.integrate.config import RenderConfig
 from rendertoy3c_tpu_torch.trace import shade
-from torch_port_util import cornell_pair, moving_cornell_pair
+from torch_port_util import (cornell_pair, moving_cornell_pair,
+                             textured_quad_pair)
 
 CFG = dict(width=16, height=16, samples_per_launch=2, max_depth=4,
            ray_block=512, integrator="pool", pool_pixel_major=True)
@@ -71,7 +74,19 @@ def _lanes_agree(got, want, cols, exact):
 
 @pytest.mark.parametrize("motion", [False, True])
 def test_trace_shade_ref_matches_reference_kernel(motion):
-    js, ts, jcam, tcam = moving_cornell_pair() if motion else cornell_pair()
+    _teacher_force(motion, moving_cornell_pair() if motion
+                   else cornell_pair())
+
+
+@pytest.mark.parametrize("variant, motion", [("features", False),
+                                             ("normal_map", True)])
+def test_textured_trace_shade_ref_matches_reference_kernel(variant, motion):
+    """Textured K5 on the textured quad, as the Cornell test above."""
+    _teacher_force(motion, textured_quad_pair(variant, motion))
+
+
+def _teacher_force(motion, scenes):
+    js, ts, jcam, tcam = scenes
     j_pipe = make_fused_pipeline(js, JConfig(**CFG), interpret=True)
     j_shade = make_fused_shader(js, JConfig(**CFG), j_pipe.soup,
                                 j_pipe.soup1 if motion else None,

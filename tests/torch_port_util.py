@@ -67,12 +67,15 @@ def to_port_scene(jscene):
     return scene_from_numpy(arrays(jscene.geom), arrays(jscene.materials),
                             arrays(jscene.lights),
                             num_faces=jscene.num_faces,
-                            num_lights=jscene.num_lights)
+                            num_lights=jscene.num_lights,
+                            atlas=arrays(jscene.atlas),
+                            any_uv_transform=jscene.any_uv_transform,
+                            any_normal_map=jscene.any_normal_map)
 
 
-def j_town_scene(faces, two_key, out_dir):
-    """The reference's untextured town (bench.py `_town_scene`, :307-337)
-    written to `out_dir`: (scene, camera)."""
+def j_town_scene(faces, two_key, out_dir, textured=False):
+    """The reference's town (bench.py `_town_scene`, :307-337), untextured
+    unless `textured`, written to `out_dir`: (scene, camera)."""
     import dataclasses
 
     from rendertoy3c_tpu.io.genassets import generate_town
@@ -81,12 +84,14 @@ def j_town_scene(faces, two_key, out_dir):
 
     paths, camkw = generate_town(str(out_dir), faces_target=faces,
                                  two_key=two_key)
-    meshes, _ = load_obj(paths if two_key else paths[:1])
-    for m in meshes:
-        m.material = dataclasses.replace(
-            m.material, diffuse_texture_id=-1, emissive_texture_id=-1,
-            roughness_texture_id=-1, normal_texture_id=-1)
-    return j_build_scene(meshes), Camera(**camkw)
+    meshes, textures = load_obj(paths if two_key else paths[:1])
+    if not textured:
+        for m in meshes:
+            m.material = dataclasses.replace(
+                m.material, diffuse_texture_id=-1, emissive_texture_id=-1,
+                roughness_texture_id=-1, normal_texture_id=-1)
+        textures = []
+    return j_build_scene(meshes, textures=textures or None), Camera(**camkw)
 
 
 def random_rays(n, seed=0, lo=(-0.9, 0.05, -0.9), hi=(0.9, 1.9, 0.9)):
@@ -95,3 +100,28 @@ def random_rays(n, seed=0, lo=(-0.9, 0.05, -0.9), hi=(0.9, 1.9, 0.9)):
     d = rng.normal(size=(n, 3))
     d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
     return o, d
+
+
+def textured_quad_meshes(pkg, variant="repeat", motion=False):
+    """(meshes, textures, camera) of a package's `textured_quad_scene`
+    (pkg: "jax" or "torch") as the port's `textured_quad_variant` changes
+    it: "repeat", "clamp_mirror" (tests/test_fused.py:130-151),
+    "uv_transform" (:183-203), "normal_map" or "features"; motion: the
+    floor given a second key."""
+    from rendertoy3c_tpu_torch.scene.builtin import textured_quad_variant
+
+    if pkg == "torch":
+        return textured_quad_variant(variant, motion)
+    from rendertoy3c_tpu.scene.builtin import textured_quad_scene
+    from rendertoy3c_tpu.scene.texture import TextureImage
+
+    return textured_quad_variant(variant, motion, textured_quad_scene(),
+                                 TextureImage)
+
+
+def textured_quad_pair(variant="repeat", motion=False):
+    """cornell_pair() of the textured quad (textured_quad_meshes)."""
+    jm, jt, jcam = textured_quad_meshes("jax", variant, motion)
+    tm, tt, tcam = textured_quad_meshes("torch", variant, motion)
+    return (j_build_scene(jm, textures=jt), build_scene(tm, textures=tt),
+            jcam, tcam)
