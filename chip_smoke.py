@@ -82,7 +82,31 @@ a JSON summary. Phases:
      2-key textured quad pixel-major (K4 motion) and sample-major (K5
      motion), and the textured 16054-face towns, static (K1/K2 + textured
      K6) and 2-key (K3 + textured K6), whose atlas must hold the town's
-     two textures.
+     two textures;
+ 18. the dispatch kernels (the four-type material dispatch; the power
+     light pick) against their plain versions: K4 dispatch and K4 motion
+     dispatch as phase 3 on the Cornell box with all four material types
+     (scene/builtin.py material_cornell_box) and its 2-key variant, textured
+     K4 dispatch on the principled, normal-mapped quad; K5 dispatch with
+     the power pick as phase 12 on its main path's inputs (the material
+     Cornell box sorted, power); K6 dispatch with the power pick, untextured
+     and textured, as phase 8 on the principled 16054-face towns (BASELINE
+     config 5's scene) and on their main paths' inputs (at pool iterations
+     32, 112, 192 and 272: a principled town's sorted subframe runs 320);
+     each on states
+     whose live lanes hit every material type of the scene, timed and
+     bounded with the dispatch's and the pick's operations added;
+ 19. the gate of phase 4 on the material Cornell box (uniform and power),
+     its 2-key variant sample-major, the principled quad, and the
+     principled 4294-face town (textured: power, pixel-major and sorted;
+     untextured: power, sorted);
+ 20. the dispatch main paths as phase 5, 1 plain subframe each: the
+     material Cornell box pixel-major (K4 dispatch) and sorted with the
+     power pick (K5 dispatch), the 2-key material Cornell box (K4 motion
+     dispatch), the principled quad (textured K4 dispatch), and the
+     principled towns, power, sorted: textured, BASELINE config 5 at the MT
+     band's top (K1/K2 + textured K6 dispatch), and untextured (K1/K2 + K6
+     dispatch).
 
 Each kernel's bound is the larger of the bytes it must move over 3.35 TB/s
 and the operations its inputs need over the 67 TFLOP/s fp32 peak outside
@@ -90,11 +114,14 @@ the tensor cores (H100 SXM data sheet): for the MT sweeps, each ray's own
 box tests and the triangle tests of the tiles whose boxes it hits itself
 (closest rays bounded by their best hit so far, any-hit rays stopping at
 their first hit), replayed with the plain per-tile results; for the
-shading, its body per lane.
+shading, its body per lane, with the texture work, the material dispatch
+and the power pick where the variant runs them.
 
-Phases 11-14, on the Cornell box, and the textured quad's parts of phases
-15-17 run after phase 6 and before the towns, the textured towns' phase
-15 right after phase 8, and their phases 16-17 last.
+Phases 11-14, on the Cornell box, and the textured quad's, the material
+Cornell box's and the principled quad's parts of phases 15-20 run after
+phase 6 and before the towns, the textured towns' phase 15 right after
+phase 8, their phases 16-17 after phase 10, and the principled towns'
+phases 18-20 last.
 Any failed phase exits non-zero. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -140,6 +167,16 @@ UV_OPS = 13
 UV_XFORM_OPS = 8
 TEX_FETCH_OPS = 136
 NMAP_OPS = 67
+# the material dispatch of shade_lane (kDispatch), counted as above: the
+# parameters and lobe flags, the local frame of wo, F0 and p_spec (~60),
+# the dielectric (~46), the GGX half-vector draw (~36), two prin_eval (116
+# each: the sampled and the NEE direction), the weights and selects (~40),
+# the NEE term (~35), less the Lambertian weight and MIS it replaces (~17);
+# every lane runs all of it. The power pick: one step of the upper-bound
+# search over the CDF row (index, load, compare, two selects), ceil(log2(n
+# + 1)) steps for n lights.
+DISPATCH_OPS = 430
+POWER_STEP_OPS = 5
 
 
 class PhaseFailed(Exception):
@@ -483,6 +520,26 @@ def texture_work(a, r, tex):
     return ops, 4 * uniq + 4 * tex.atlas.meta.numel()
 
 
+def material_ops(n, params_base: int, power: bool, num_lights: int) -> int:
+    """The operations of n lanes' material dispatch (params_base > 0) and
+    power pick."""
+    return n * ((DISPATCH_OPS if params_base else 0)
+                + (POWER_STEP_OPS * num_lights.bit_length() if power else 0))
+
+
+def check_material_types(scene, prims, live, what: str) -> list:
+    """Fail unless the live lanes' hits (prims [R] into `scene`'s faces)
+    include every material type of the scene; returns the types."""
+    prims = prims.to("cpu").numpy().astype(np.int64)
+    on = live.to("cpu").numpy() & (prims >= 0)
+    mats = np.asarray(scene.geom.mat_id)[prims[on]]
+    seen = sorted(set(np.asarray(scene.materials.mtype)[mats].tolist()))
+    want = sorted(set(np.asarray(scene.materials.mtype).tolist()))
+    check(seen == want, f"{what}: live lanes hit material types {seen}, "
+          f"the scene has {want}")
+    return seen
+
+
 def megakernel_work(rays, misc, count, time, tables, sc):
     """(operations, table bytes) of one megakernel launch (K4 or K5) on
     these lanes: the closest and the shadow sweep, counted by mt_work on
@@ -502,6 +559,8 @@ def megakernel_work(rays, misc, count, time, tables, sc):
     out = shade._shade_lanes(rays, hit4, misc, a, tables.lights_t, sc,
                              occluded, tables.tex)
     tex_ops, tex_bytes = texture_work(a, out, tables.tex)
+    tex_ops += material_ops(rays.shape[0], tables.params_base, sc.power,
+                            sc.num_lights)
     shadow_ops, shadow_bytes = mt_work(
         out["shadow"], count, table, True,
         None if time is None else out["occl_time"],
@@ -531,7 +590,9 @@ def phase_k4(dev, scene, camera, phase=3, label="K4"):
     """The refill megakernel (the motion variant for a 2-key scene)
     against its plain version: one block teacher-forced for 8 launches,
     then one launch at the pool width from a mid-render state; timed and
-    bounded per launch."""
+    bounded per launch. A scene with a non-diffuse material (the dispatch
+    variant) must have every material type among the live lanes' hits of
+    that state."""
     import torch
 
     from rendertoy3c_tpu_torch.integrate.config import RenderConfig
@@ -585,6 +646,14 @@ def phase_k4(dev, scene, camera, phase=3, label="K4"):
     stats = torch.zeros(4, dtype=torch.int32, device=dev)
     for _ in range(12):
         state, stats = launch(ref, state, stats)
+    tables = kern.keywords["tables"]
+    types = ""
+    if tables.params_base:
+        closest = shade._plain_sweeps(tables, stats[1:2],
+                                      state[3] if motion else None)[0]
+        seen = check_material_types(scene, closest(state[0])[:, 1],
+                                    state[1][:, 9] > 0, label)
+        types = f", live lanes hit material types {seen}"
     got, st_k = launch(kern, state, stats)
     want, st_r = launch(ref, state, stats)
     torch.cuda.synchronize()
@@ -593,7 +662,8 @@ def phase_k4(dev, scene, camera, phase=3, label="K4"):
     err_b, bad_b = _compare_lanes(got, want, claimed_as_set=True)
     check(bad_b <= 0.001 * pool, f"{label} pool: {bad_b} lanes differ")
     print(f"phase {phase} {label} {pool} lanes from launch 12: stats exact "
-          f"{st_k.tolist()}, {bad_b} lanes differ, max|d| {err_b:.3g}")
+          f"{st_k.tolist()}, {bad_b} lanes differ, max|d| {err_b:.3g}"
+          f"{types}")
 
     # each timed launch gets its own copy of the same input state
     stats_out = torch.zeros(4, dtype=torch.int32, device=dev)
@@ -830,14 +900,18 @@ SNAPSHOTS = (32, 128, 224, 320)  # pool iterations of a town subframe
 # of a textured quad subframe, whose open scene ends paths sooner (320
 # iterations per sorted subframe on the card)
 QUAD_SNAPSHOTS = (16, 80, 144, 208)
+# of a principled town's sorted subframe (power pick), 320 iterations on
+# the card
+P_SNAPSHOTS = (32, 112, 192, 272)
 
 
-def main_path_states(scene, camera, dev):
+def main_path_states(scene, camera, dev, change=None, snapshots=SNAPSHOTS):
     """The inputs of the closest tracer, K6 and the any-hit tracer at the
-    pool iterations SNAPSHOTS of one kernel subframe of a town's main path
-    (through make_render_fn with choose_tracer's pipeline, its calls
-    recorded): {"closest": [(o, d, tmin, tmax, time, count)], "shade":
-    [(rays, hit4, misc)], "any": [...as closest]}."""
+    pool iterations `snapshots` of one kernel subframe of a town's main
+    path (MAIN with `change` applied; through make_render_fn with
+    choose_tracer's pipeline, its calls recorded): {"closest": [(o, d,
+    tmin, tmax, time, count)], "shade": [(rays, hit4, misc)], "any": [...as
+    closest]}."""
     import torch
 
     from rendertoy3c_tpu_torch.film.film import film_create
@@ -845,14 +919,14 @@ def main_path_states(scene, camera, dev):
     from rendertoy3c_tpu_torch.integrate.path import make_render_fn
     from rendertoy3c_tpu_torch.trace.auto import choose_tracer
 
-    cfg = RenderConfig(**MAIN)
+    cfg = RenderConfig(**dict(MAIN, **(change or {})))
     scene, pipe = choose_tracer(scene, cfg, dev)
     states = {"closest": [], "shade": [], "any": []}
     seen = dict.fromkeys(states, 0)
 
     def record(kind, fn, n_args):
         def call(*args):
-            if seen[kind] in SNAPSHOTS:
+            if seen[kind] in snapshots:
                 states[kind].append(tuple(
                     a.clone() if isinstance(a, torch.Tensor) else a
                     for a in args[:n_args]))
@@ -866,7 +940,7 @@ def main_path_states(scene, camera, dev):
     step = make_render_fn(scene, cfg, tracer=pipe, device=dev)
     step(camera.params(), film_create(cfg.height, cfg.width, device=dev))
     torch.cuda.synchronize()
-    check(all(len(v) == len(SNAPSHOTS) for v in states.values()),
+    check(all(len(v) == len(snapshots) for v in states.values()),
           f"main path: {seen} iterations, too few for the snapshots")
     return states
 
@@ -1028,25 +1102,32 @@ def _fresh_lanes(camera, n, rng, dev):
             torch.as_tensor(misc, device=dev))
 
 
-def phase_k6(dev, towns, states, phase=8, label="K6"):
+def phase_k6(dev, towns, states, phase=8, label="K6", change=None,
+             snapshots=SNAPSHOTS):
     """K6 teacher-forced against external_shade_ref for 8 iterations on
-    both towns; then on the main paths' own inputs (`states`,
-    main_path_states), bit-equal, its device time and bound (with the
-    texture work of a textured town, texture_work)."""
+    each town of `towns` ({key: (scene, camera)}); then on the main paths'
+    own inputs (`states`, {key: main_path_states at `snapshots`}),
+    bit-equal, its device
+    time and bound (with the texture work of a textured town,
+    texture_work, and the material dispatch and power pick, material_ops).
+    MAIN with `change` applied. With the dispatch variant, the live lanes'
+    hits must include every material type of the scene."""
     import torch
 
     from rendertoy3c_tpu_torch.integrate.config import RenderConfig
     from rendertoy3c_tpu_torch.trace import shade
     from rendertoy3c_tpu_torch.trace.auto import choose_tracer
 
-    cfg = RenderConfig(**MAIN)
+    cfg = RenderConfig(**dict(MAIN, **(change or {})))
     pool = cfg.ray_block
     res = dict(max_abs_err=0.0)
     launches, costs = [], []
-    for motion in (False, True):
-        scene, camera = towns[motion]
-        _, pipe = choose_tracer(scene, cfg, dev)
-        rng = np.random.default_rng(SEED + 8 + int(motion))
+    for i, (key, (scene, camera)) in enumerate(towns.items()):
+        motion = scene.num_keys == 2
+        scene, pipe = choose_tracer(scene, cfg, dev)
+        dispatch = pipe.tables.params_base > 0
+        prims, lives = [], []
+        rng = np.random.default_rng(SEED + 8 + i)
         rays, misc = _fresh_lanes(camera, pool, rng, dev)
         count = torch.tensor([pool], dtype=torch.int32, device=dev)
         deep = 0
@@ -1062,6 +1143,8 @@ def phase_k6(dev, towns, states, phase=8, label="K6"):
             want = shade.external_shade_ref(rays, hit4, misc, pipe.tables,
                                             pipe.config)
             torch.cuda.synchronize()
+            prims.append(hit4[:, 1])
+            lives.append(misc[:, 9] > 0)
             for g, w, what in zip(got, want, ("rays", "misc", "shadow")):
                 n_bad = int((g.view(torch.int32) != w.view(torch.int32))
                             .any(dim=1).sum())
@@ -1081,12 +1164,11 @@ def phase_k6(dev, towns, states, phase=8, label="K6"):
             fr, fm = _fresh_lanes(camera, pool, rng, dev)
             rays = torch.where(dead[:, None], fr, rays)
             misc = torch.where(dead[:, None], fm, misc)
-        print(f"phase {phase} {label} ({'2-key' if motion else 'static'} "
-              "town): "
+        print(f"phase {phase} {label} ({town_label(key)}): "
               f"{pool} lanes x 8 iterations bit-equal to the plain version "
               f"(paths up to depth {deep})")
         # the main path's own inputs: bit-equal again, then timed
-        for rays, hit4, misc in states[motion]["shade"]:
+        for rays, hit4, misc in states[key]["shade"]:
             a = (rays, hit4, misc, pipe.tables, pipe.config)
             got, want = shade.external_shade(*a), shade.external_shade_ref(*a)
             check(all(torch.equal(g.view(torch.int32), w.view(torch.int32))
@@ -1094,23 +1176,34 @@ def phase_k6(dev, towns, states, phase=8, label="K6"):
                   f"{label} differs from its plain version on the main "
                   "path's inputs")
             launches.append(a)
+            prims.append(hit4[:, 1])
+            lives.append(misc[:, 9] > 0)
             prim = hit4[:, 1].clamp(min=0).to(torch.int64)
             uniq = torch.unique(prim).numel()
             attr = pipe.tables.attr[prim].T
             tex_ops, tex_bytes = texture_work(attr, shade._shade_lanes(
                 rays, hit4, misc, attr, pipe.tables.lights_t, pipe.config,
-                tex=pipe.tables.tex), pipe.tables.tex)
+                tex=pipe.tables.tex, params_base=pipe.tables.params_base),
+                pipe.tables.tex)
+            tex_ops += material_ops(pool, pipe.tables.params_base,
+                                    pipe.config.power, pipe.config.num_lights)
             costs.append((pool * (32 + 16 + 64 + 32 + 96 + 4 * got[2].shape[1])
                           + uniq * 4 * attr.shape[0] + tex_bytes
                           + 4 * pipe.tables.lights_t.numel(),
                           pool * SHADE_OPS + tex_ops))
+        if dispatch:
+            seen = check_material_types(scene, torch.cat(prims),
+                                        torch.cat(lives), label)
+            print(f"phase {phase} {label} ({town_label(key)}): live lanes "
+                  f"hit material types {seen}")
     res["ms"] = device_ms([functools.partial(shade.external_shade, *a)
                            for a in launches] * 6)
     res["plain_ms"] = cuda_ms([functools.partial(shade.external_shade_ref, *a)
                                for a in launches])
     res["bound_ms"], res["bound_by"] = mean_bound(costs)
     print(f"phase {phase} {label} on the main paths' inputs (iterations "
-          f"{SNAPSHOTS} of both towns, bit-equal to the plain version): "
+          f"{snapshots} of {', '.join(map(town_label, towns))}, bit-equal "
+          "to the plain version): "
           f"device time "
           f"{res['ms']:.4f} ms per {pool}-lane launch vs plain "
           f"{res['plain_ms']:.4f} ms; bound {res['bound_ms']:.4f} ms by "
@@ -1118,9 +1211,18 @@ def phase_k6(dev, towns, states, phase=8, label="K6"):
     return res
 
 
+def town_label(key) -> str:
+    """A town's name in a phase line: its key, or for the keys False/True
+    the static and the 2-key town."""
+    return {False: "static town", True: "2-key town"}.get(key, key)
+
+
 # ---------------------------------------------------------------- phase 11+
 SORTED = dict(sort_rays=True)
 SAMPLE_MAJOR = dict(pool_pixel_major=False)
+POWER = dict(light_sampler="power")
+SORTED_POWER = dict(sort_rays=True, light_sampler="power")
+PT, TEX_PT = "principled town", "textured principled town"
 
 
 def moving_cornell():
@@ -1138,11 +1240,23 @@ def moving_cornell():
     return build_scene(meshes), camera
 
 
+def material_cornell(motion=False):
+    """(scene, camera) of the Cornell box with all four material types
+    (scene/builtin.py material_cornell_box): a PRINCIPLED floor, a SPECULAR
+    wall, a FRESNEL_TRANSMISSIVE tall block; motion: the short block given
+    a second key at +0.1 in x."""
+    from rendertoy3c_tpu_torch.scene.builtin import material_cornell_box
+    from rendertoy3c_tpu_torch.scene.scene import build_scene
+
+    meshes, camera = material_cornell_box(motion)
+    return build_scene(meshes), camera
+
+
 def textured_quad(variant="repeat", motion=False):
     """(scene, camera) of the builtin textured quad's `variant` (scene/
     builtin.py textured_quad_variant: "repeat", "clamp_mirror",
-    "uv_transform", "normal_map"); motion: the floor given a second key
-    at +0.1 in x (6 faces, 2 keys)."""
+    "uv_transform", "normal_map", "principled"); motion: the floor given a
+    second key at +0.1 in x (6 faces, 2 keys)."""
     from rendertoy3c_tpu_torch.scene.builtin import textured_quad_variant
     from rendertoy3c_tpu_torch.scene.scene import build_scene
 
@@ -1198,7 +1312,12 @@ def phase_k5(dev, runs, phase=12):
     results = {}
     for label, (pipe, states, snapshots) in runs.items():
         launches, costs, err, n_diff, n_bad = [], [], 0.0, 0, 0
+        prims, lives = [], []
         for rays, misc, count, tm in states:
+            if pipe.tables.params_base:
+                prims.append(shade._plain_sweeps(pipe.tables, count, tm)[0](
+                    rays)[:, 1])
+                lives.append(misc[:, 9] > 0)
             a = (rays, misc, count, pipe.tables, pipe.config, tm)
             got = shade.trace_shade(*a)
             want = shade.trace_shade_ref(*a)
@@ -1223,6 +1342,11 @@ def phase_k5(dev, runs, phase=12):
         pool = states[0][0].shape[0]
         check(n_bad <= 0.001 * pool * len(states),
               f"{label}: {n_bad} lanes differ from the plain version")
+        types = ""
+        if prims:
+            seen = check_material_types(pipe.scene, torch.cat(prims),
+                                        torch.cat(lives), label)
+            types = f"; live lanes hit material types {seen}"
         ms = device_ms([functools.partial(shade.trace_shade, *a)
                         for a in launches] * 6)
         plain_ms = cuda_ms([functools.partial(shade.trace_shade_ref, *a)
@@ -1234,7 +1358,7 @@ def phase_k5(dev, runs, phase=12):
               f"{snapshots}, {pool} lanes): {n_diff} lanes not bit-equal, "
               f"{n_bad} beyond 1e-5 or seed, max|d| {err:.3g}; device time "
               f"{ms:.4f} ms per launch vs plain {plain_ms:.4f} "
-              f"ms; bound {bound_ms:.4f} ms by {bound_by}")
+              f"ms; bound {bound_ms:.4f} ms by {bound_by}{types}")
     return results
 
 
@@ -1378,6 +1502,45 @@ def main() -> int:
         print(f"phase 17 (textured quad) done; "
               f"{time.perf_counter() - t_start:.1f} s since the start")
 
+        # ---- phases 18-20 on the material Cornell box and the principled
+        # quad: the dispatch variants of K4 and K5
+        mc, mc_cam = material_cornell()
+        mcm, mcm_cam = material_cornell(motion=True)
+        pq, pq_cam = textured_quad("principled")
+        check(sorted(set(mc.materials.mtype.tolist())) == [0, 1, 2, 3]
+              and mcm.num_keys == 2 and not pq.all_diffuse
+              and shade.texture_state(pq) == "diffuse" and pq.any_normal_map,
+              "material Cornell box or principled quad malformed")
+        k4d = phase_k4(dev, mc, mc_cam, 18, "K4 dispatch")
+        k4md = phase_k4(dev, mcm, mcm_cam, 18, "K4 motion dispatch")
+        k4td = phase_k4(dev, pq, pq_cam, 18, "K4 textured dispatch")
+        k5d, = phase_k5(dev, {
+            "K5 dispatch, power (material Cornell sorted, power)": k5_states(
+                mc, mc_cam, dev, SORTED_POWER)}, 18).values()
+        gate(mc, mc_cam, dev, "material Cornell", 19)
+        gate(mc, mc_cam, dev, "material Cornell, power", 19, **POWER)
+        gate(mcm, mcm_cam, dev, "2-key material Cornell sample-major", 19,
+             **SAMPLE_MAJOR)
+        gate(pq, pq_cam, dev, "principled quad", 19)
+        launches_k4d = full_size(
+            "material cornell", mc, mc_cam, dev, smi, 20,
+            {"trace_shade_refill": shade.trace_shade_refill},
+            ("refill_kernel",))[1]
+        launches_k5d = full_size(
+            "material cornell sorted power", mc, mc_cam, dev, smi, 20,
+            {"trace_shade": shade.trace_shade}, ("trace_shade_kernel",),
+            SORTED_POWER)[1]
+        launches_k4md = full_size(
+            "2-key material cornell", mcm, mcm_cam, dev, smi, 20,
+            {"trace_shade_refill": shade.trace_shade_refill},
+            ("refill_kernel",))[1]
+        launches_k4td = full_size(
+            "principled quad", pq, pq_cam, dev, smi, 20,
+            {"trace_shade_refill": shade.trace_shade_refill},
+            ("refill_kernel",))[1]
+        print(f"phase 20 (material Cornell, principled quad) done; "
+              f"{time.perf_counter() - t_start:.1f} s since the start")
+
         # ---- phase 7: K1/K2 and K3 on the 16054-face towns
         t0 = time.perf_counter()
         towns = {k: town_scene(TOWN_FACES, k) for k in (False, True)}
@@ -1459,6 +1622,48 @@ def main() -> int:
         print(f"phase 17 done; {time.perf_counter() - t_start:.1f} s since "
               "the start")
 
+        # ---- phases 18-20 on the principled towns (BASELINE config 5,
+        # bench.py:517-520): K6's dispatch variants with the power pick
+        t0 = time.perf_counter()
+        p_towns = {k: town_scene(TOWN_FACES, textured=k == TEX_PT,
+                                 principled=True) for k in (PT, TEX_PT)}
+        for k, (s, _) in p_towns.items():
+            mats = s.materials
+            emissive = mats.emission.max(axis=1) > 0
+            check(s.num_faces == 16054 and s.num_lights == 6
+                  and (mats.mtype[~emissive] == 3).all()
+                  and (shade.texture_state(s) == "diffuse") == (k == TEX_PT),
+                  f"{k}: {s.num_faces} faces, {s.num_lights} lights, "
+                  f"material types {mats.mtype.tolist()}")
+        p_states = {k: main_path_states(*p_towns[k], dev, SORTED_POWER,
+                                        P_SNAPSHOTS) for k in p_towns}
+        print(f"phase 18 principled towns loaded (6 lights, every "
+              f"non-emissive material PRINCIPLED) and their main-path inputs "
+              f"recorded in {time.perf_counter() - t0:.2f} s")
+        k6d, k6td = (phase_k6(dev, {k: p_towns[k]}, {k: p_states[k]}, 18,
+                              label, POWER, P_SNAPSHOTS)
+                     for k, label in ((PT, "K6 dispatch"),
+                                      (TEX_PT, "K6 textured dispatch")))
+        for textured in (True, False):
+            s, c = town_scene(GATE_TOWN_FACES, textured=textured,
+                              principled=True)
+            what = f"{'textured ' if textured else ''}principled town " \
+                f"({s.num_faces} faces), power"
+            if textured:
+                gate(s, c, dev, what, 19, **POWER)
+            gate(s, c, dev, what + ", sorted", 19, **SORTED_POWER)
+        town_kernels = {"mt_closest": mt.mt_closest, "mt_any": mt.mt_any,
+                        "external_shade": shade.external_shade}
+        launches_ptt = full_size(
+            "principled town", *p_towns[TEX_PT], dev, smi, 20, town_kernels,
+            ("mt_kernel", "external_shade_kernel"), SORTED_POWER)[1]
+        launches_pt = full_size(
+            "untextured principled town", *p_towns[PT], dev, smi, 20,
+            town_kernels, ("mt_kernel", "external_shade_kernel"),
+            SORTED_POWER)[1]
+        print(f"phase 20 done; {time.perf_counter() - t_start:.1f} s since "
+              "the start")
+
     except PhaseFailed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -1504,6 +1709,24 @@ def main() -> int:
                     ("external_shade_textured", K6_SRC, 1778,
                      launches_st["external_shade"]
                      + launches_mt["external_shade"], k6t))]
+    # the dispatch variants (dispatch=True, power_cdf= of the same
+    # pallas_calls)
+    kernels += [dict(name=n, route="cuda", source=src,
+                     replaces=f"{shade_replaces}{line}", launches=count,
+                     **res, library_ms=None)
+                for n, src, line, count, res in (
+                    ("trace_shade_refill_dispatch", K4_SRC, 1329,
+                     launches_k4d["trace_shade_refill"], k4d),
+                    ("trace_shade_refill_motion_dispatch", K4_SRC, 1329,
+                     launches_k4md["trace_shade_refill"], k4md),
+                    ("trace_shade_refill_textured_dispatch", K4_SRC, 1329,
+                     launches_k4td["trace_shade_refill"], k4td),
+                    ("trace_shade_dispatch_power", K4_SRC, 1230,
+                     launches_k5d["trace_shade"], k5d),
+                    ("external_shade_dispatch_power", K6_SRC, 1778,
+                     launches_pt["external_shade"], k6d),
+                    ("external_shade_textured_dispatch_power", K6_SRC, 1778,
+                     launches_ptt["external_shade"], k6td))]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

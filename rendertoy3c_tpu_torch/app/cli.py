@@ -14,8 +14,9 @@ reference loader's rule), with the textures their .mtl files name. The
 (0,1,0) at fov 45 (rendertoy3c_tpu/app/cli.py:192-197); `--eye --lookat
 --fov` override it.
 It renders on the pixel-major pool with the reference CLI's names and
-defaults for --max-depth (32), --seed (0), --ray-block (65536) and
---flush-every (0 = auto), and writes a PNG.
+defaults for --max-depth (32), --seed (0), --ray-block (65536),
+--flush-every (0 = auto) and --light-sampler (uniform or power), and
+writes a PNG.
 """
 from __future__ import annotations
 
@@ -66,6 +67,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--flush-every", type=int, default=0,
                    help="pool framebuffer flush cadence, 0 = auto by "
                    "frame and pool size")
+    p.add_argument("--light-sampler", choices=["uniform", "power"],
+                   default="uniform")
     return p
 
 
@@ -101,7 +104,8 @@ def main(argv=None) -> int:
     cfg = RenderConfig(width=w, height=h, samples_per_launch=args.spp,
                        max_depth=args.max_depth, seed=args.seed,
                        ray_block=args.ray_block, integrator="pool",
-                       pool_pixel_major=True, flush_every=args.flush_every)
+                       pool_pixel_major=True, flush_every=args.flush_every,
+                       light_sampler=args.light_sampler)
     meshes, textures, camera = load_scene(args.scene)
     if args.eye:
         camera.eye = args.eye

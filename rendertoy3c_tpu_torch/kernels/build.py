@@ -45,6 +45,7 @@ class RefillParams(ctypes.Structure):
         ("subframe_index", ctypes.c_int), ("attr_stride", ctypes.c_int),
         ("light_stride", ctypes.c_int), ("n_tiles", ctypes.c_int),
         ("ct", ctypes.c_int), ("motion", ctypes.c_int),
+        ("power", ctypes.c_int), ("params_base", ctypes.c_int),
         ("seed_rot", ctypes.c_uint32),
         ("width_f", ctypes.c_float), ("height_f", ctypes.c_float),
         ("tmin", ctypes.c_float), ("tmax", ctypes.c_float),
@@ -62,7 +63,8 @@ class TraceShadeParams(ctypes.Structure):
         ("max_depth", ctypes.c_int), ("num_lights", ctypes.c_int),
         ("attr_stride", ctypes.c_int), ("light_stride", ctypes.c_int),
         ("n_tiles", ctypes.c_int), ("ct", ctypes.c_int),
-        ("motion", ctypes.c_int), ("pad_i", ctypes.c_int),
+        ("motion", ctypes.c_int), ("power", ctypes.c_int),
+        ("params_base", ctypes.c_int),
         ("shadow_tmin", ctypes.c_float), ("shadow_eps", ctypes.c_float),
         ("pick_pdf", ctypes.c_float),
         ("bg", ctypes.c_float * 3),
@@ -78,7 +80,8 @@ class ExternalParams(ctypes.Structure):
         ("shadow_tmin", ctypes.c_float), ("shadow_eps", ctypes.c_float),
         ("pick_pdf", ctypes.c_float),
         ("bg", ctypes.c_float * 3),
-        ("attr_w", ctypes.c_int),
+        ("attr_w", ctypes.c_int), ("power", ctypes.c_int),
+        ("params_base", ctypes.c_int),
     ]
 
 

@@ -2,9 +2,10 @@
 //
 // Replaces rendertoy3c_tpu/trace/pallas_shade.py make_external_shader.shade
 // (:1678-1817, pallas_call at :1778), which is _make_shade_kernel(
-// external=True) (:271), in its non-transposed, non-instanced,
-// all-diffuse, uniform-light, no-AOV configuration, with and without
-// motion, untextured or textured.
+// external=True) (:271), in its non-transposed, non-instanced, no-AOV
+// configuration, with and without motion, untextured or textured,
+// all-diffuse or with the material dispatch (kDispatch: 6 more attribute
+// rows at params_base), with the uniform or the power light pick.
 //
 // In: rays [R, 8], the closest hit hit4 [R, 4] (t, prim, u, v, traced
 // outside by K1 or K3), misc [R, 16], the attribute table attr [F, W] (W =
@@ -30,6 +31,8 @@
 // state and a 4W-byte attribute row (and 16 B of texels per fetch) and
 // writes 32 + 96 + 32|64 B; the math is a few hundred scalar operations
 // with three transcendentals.
+#include <type_traits>
+
 #include "shade.cuh"
 
 namespace rt3c {
@@ -42,9 +45,10 @@ struct ExternalParams {
   float shadow_tmin, shadow_eps, pick_pdf;
   float bg[3];
   int attr_w;  // the attribute row's width: 16, or 24-40 textured
+  int power, params_base;
 };
 
-template <bool kTex>
+template <bool kTex, bool kDispatch>
 __global__ void __launch_bounds__(EXT_BLOCK)
     external_shade_kernel(const ExternalParams p,
                           const float* __restrict__ rays,
@@ -75,9 +79,9 @@ __global__ void __launch_bounds__(EXT_BLOCK)
   // hits lie on real faces; the clamp only keeps a bad input in bounds
   const int prim = min((int)fmaxf(h.prim, 0.0f), n_faces - 1);
   const ShadeConsts sc{p.max_depth, p.num_lights, p.light_stride,
-                       p.shadow_tmin, p.shadow_eps, p.pick_pdf,
-                       {p.bg[0], p.bg[1], p.bg[2]}};
-  const Shaded o = shade_lane<true, kTex>(
+                       p.power, p.params_base, p.shadow_tmin, p.shadow_eps,
+                       p.pick_pdf, {p.bg[0], p.bg[1], p.bg[2]}};
+  const Shaded o = shade_lane<true, kTex, kDispatch>(
       sc, r, h, m, attr + p.attr_w * (size_t)prim, 1, lights_t, tex,
       [](const Ray&, bool, float) { return false; });
 
@@ -108,7 +112,8 @@ __global__ void __launch_bounds__(EXT_BLOCK)
 
 }  // namespace rt3c
 
-// tex: the atlas of a textured scene, null for an untextured one.
+// tex: the atlas of a textured scene, null for an untextured one;
+// p->params_base > 0 takes the dispatch variant.
 extern "C" int rt3c_external_shade(int device, const rt3c::ExternalParams* p,
                                    const float* rays, const float* hit4,
                                    const float* misc, const float* attr,
@@ -117,6 +122,7 @@ extern "C" int rt3c_external_shade(int device, const rt3c::ExternalParams* p,
                                    float* shadow_out,
                                    const rt3c::TexParams* tex, void* stream) {
   if (n < 0 || n_faces < 1 || p->num_lights < 1 || p->attr_w < 16 ||
+      p->params_base < 0 || p->params_base + 6 > p->attr_w ||
       (tex && (tex->texels == nullptr || tex->meta == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
@@ -124,13 +130,18 @@ extern "C" int rt3c_external_shade(int device, const rt3c::ExternalParams* p,
   if (dev_err != cudaSuccess) return (int)dev_err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int grid = (n + rt3c::EXT_BLOCK - 1) / rt3c::EXT_BLOCK;
-  if (tex)
-    rt3c::external_shade_kernel<true><<<grid, rt3c::EXT_BLOCK, 0, s>>>(
-        *p, rays, hit4, misc, attr, n_faces, lights_t, n, rays_out, misc_out,
-        shadow_out, *tex);
-  else
-    rt3c::external_shade_kernel<false><<<grid, rt3c::EXT_BLOCK, 0, s>>>(
-        *p, rays, hit4, misc, attr, n_faces, lights_t, n, rays_out, misc_out,
-        shadow_out, rt3c::TexParams{nullptr, nullptr, 0, 0, 0, 0});
+  const rt3c::TexParams none{nullptr, nullptr, 0, 0, 0, 0};
+  const auto run = [&](auto kTex, auto kDispatch, const rt3c::TexParams& t) {
+    rt3c::external_shade_kernel<decltype(kTex)::value,
+                                decltype(kDispatch)::value>
+        <<<grid, rt3c::EXT_BLOCK, 0, s>>>(*p, rays, hit4, misc, attr, n_faces,
+                                          lights_t, n, rays_out, misc_out,
+                                          shadow_out, t);
+  };
+  const bool dispatch = p->params_base > 0;
+  if (tex && dispatch) run(std::true_type{}, std::true_type{}, *tex);
+  else if (tex) run(std::true_type{}, std::false_type{}, *tex);
+  else if (dispatch) run(std::false_type{}, std::true_type{}, none);
+  else run(std::false_type{}, std::false_type{}, none);
   return (int)cudaGetLastError();
 }

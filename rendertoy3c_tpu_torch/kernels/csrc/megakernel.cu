@@ -1,14 +1,16 @@
 // K4: the in-kernel-refill megakernel of the pool integrator, and K5, the
-// same megakernel without the refill, for the all-diffuse, uniform-light
-// configuration; each static or 2-key motion, untextured or textured.
+// same megakernel without the refill; each static or 2-key motion,
+// untextured or textured, all-diffuse or with the material dispatch, with
+// the uniform or the power light pick.
 //
 // Replaces rendertoy3c_tpu/trace/pallas_shade.py _make_shade_kernel (:271)
 // as built by make_fused_shader(merged=True): K4 with refill=... and the
 // stash on, launched by trace_shade_refill (:1281-1367); K5 launched by
 // `shade` (:1224-1275) behind the merged `trace_shade` (:1371-1375). One
 // launch is one pool iteration: closest sweep, attribute fetch by prim,
-// emission, miss ambient, Lambertian draw, uniform NEE light pick + area
-// sample, shadow sweep, Russian roulette and the next path state. K4 then
+// emission, miss ambient, the Lambertian draw or the four-type material
+// dispatch, NEE light pick + area sample, shadow sweep, Russian roulette
+// and the next path state. K4 then
 // runs the refill epilogue (retire into the stash, pixel claim, tea seed,
 // per-sample LCG jump, jittered camera ray, the per-ray time draw) and the
 // launch stats (next_work, count_hint, n_live, 0); K5 writes the next state
@@ -50,6 +52,13 @@
 // atlas with four 4-byte loads each (TexParams); the TPU kernel's atlas
 // one-hot matmuls (_tex_fetch) have no counterpart. A lane that hits an
 // untextured face reads no texel.
+//
+// Dispatch (kDispatch, make_fused_shader with dispatch=True, for a scene
+// with a non-DIFFUSE material): shade_lane's dispatch body over the 6
+// material-parameter rows at params_base; all-diffuse scenes keep the
+// Lambertian body. The power light pick is a launch-uniform flag. Every
+// combination of motion, texture and dispatch is instantiated (8 of each
+// kernel).
 #include <type_traits>
 
 #include "shade.cuh"
@@ -61,6 +70,7 @@ struct RefillParams {
   int n_pix, spp, width, max_depth;
   int num_lights, pixel_base, subframe_index, attr_stride;
   int light_stride, n_tiles, ct, motion;
+  int power, params_base;
   unsigned int seed_rot;
   float width_f, height_f, tmin, tmax;
   float shadow_tmin, shadow_eps, pick_pdf;
@@ -71,7 +81,8 @@ struct RefillParams {
 // K5's launch parameters; mirrored field for field by kernels/build.py.
 struct TraceShadeParams {
   int max_depth, num_lights, attr_stride, light_stride;
-  int n_tiles, ct, motion, pad_i;
+  int n_tiles, ct, motion, power;
+  int params_base;
   float shadow_tmin, shadow_eps, pick_pdf;
   float bg[3];
 };
@@ -135,7 +146,7 @@ __global__ void seed_stats(const int* __restrict__ stats_in,
   stats_out[3] = 0;
 }
 
-template <bool kMotion, bool kTex>
+template <bool kMotion, bool kTex, bool kDispatch>
 __global__ void __launch_bounds__(RAY_TILE)
     refill_kernel(const RefillParams p, float* __restrict__ rays,
                   float* __restrict__ misc, float* __restrict__ stash,
@@ -168,9 +179,9 @@ __global__ void __launch_bounds__(RAY_TILE)
 
   // --- shading, with the shadow sweep (the _any_kernel body) in place ---
   const ShadeConsts sc{p.max_depth, p.num_lights, p.light_stride,
-                       p.shadow_tmin, p.shadow_eps, p.pick_pdf,
-                       {p.bg[0], p.bg[1], p.bg[2]}};
-  const Shaded o = shade_lane<false, kTex>(
+                       p.power, p.params_base, p.shadow_tmin, p.shadow_eps,
+                       p.pick_pdf, {p.bg[0], p.bg[1], p.bg[2]}};
+  const Shaded o = shade_lane<false, kTex, kDispatch>(
       sc, r, h, m, attr_t + (int)fmaxf(h.prim, 0.0f), p.attr_stride,
       lights_t, tex, [&](const Ray& sr, bool want, float st) {
         return sweep_any_at<kMotion>(soup, tris1, tiles, sr, st, live, want);
@@ -317,7 +328,7 @@ __global__ void __launch_bounds__(RAY_TILE)
 // [P, 16] (and time [P] for motion), writes the next rays (the bounce ray
 // on surviving lanes, tmin/tmax passed on) and the next misc: the state of
 // pallas_shade.py :893-932 with pixel and sample passed on.
-template <bool kMotion, bool kTex>
+template <bool kMotion, bool kTex, bool kDispatch>
 __global__ void __launch_bounds__(RAY_TILE)
     trace_shade_kernel(const TraceShadeParams p,
                        const float* __restrict__ rays,
@@ -341,9 +352,9 @@ __global__ void __launch_bounds__(RAY_TILE)
   const ClosestHit h = sweep_closest_at<kMotion>(soup, tris1, tiles, r, tm,
                                                  live);
   const ShadeConsts sc{p.max_depth, p.num_lights, p.light_stride,
-                       p.shadow_tmin, p.shadow_eps, p.pick_pdf,
-                       {p.bg[0], p.bg[1], p.bg[2]}};
-  const Shaded o = shade_lane<false, kTex>(
+                       p.power, p.params_base, p.shadow_tmin, p.shadow_eps,
+                       p.pick_pdf, {p.bg[0], p.bg[1], p.bg[2]}};
+  const Shaded o = shade_lane<false, kTex, kDispatch>(
       sc, r, h, m, attr_t + (int)fmaxf(h.prim, 0.0f), p.attr_stride,
       lights_t, tex, [&](const Ray& sr, bool want, float st) {
         return sweep_any_at<kMotion>(soup, tris1, tiles, sr, st, live, want);
@@ -369,16 +380,27 @@ __global__ void __launch_bounds__(RAY_TILE)
 // tris, aabb, super_aabb: the key-0 tiles and the cull boxes (the union of
 // both keys' for motion); tris1 and time: the key-1 tiles and the per-lane
 // time [P], null for a static scene; tex: the atlas of a textured scene,
-// null for an untextured one.
+// null for an untextured one; p->params_base > 0 takes the dispatch
+// variant.
 namespace {
 
+// Calls launch(kMotion, kTex, kDispatch, tex params) with the variant's
+// compile-time switches.
 template <class Launch>
-int launch_variant(bool motion, const rt3c::TexParams* tex, Launch launch) {
+int launch_variant(bool motion, const rt3c::TexParams* tex, bool dispatch,
+                   Launch launch) {
   const rt3c::TexParams none{nullptr, nullptr, 0, 0, 0, 0};
-  if (motion && tex) launch(std::true_type{}, std::true_type{}, *tex);
-  else if (motion) launch(std::true_type{}, std::false_type{}, none);
-  else if (tex) launch(std::false_type{}, std::true_type{}, *tex);
-  else launch(std::false_type{}, std::false_type{}, none);
+  const auto with_dispatch = [&](auto kMotion, auto kTex,
+                                 const rt3c::TexParams& t) {
+    if (dispatch) launch(kMotion, kTex, std::true_type{}, t);
+    else launch(kMotion, kTex, std::false_type{}, t);
+  };
+  const auto with_tex = [&](auto kMotion) {
+    if (tex) with_dispatch(kMotion, std::true_type{}, *tex);
+    else with_dispatch(kMotion, std::false_type{}, none);
+  };
+  if (motion) with_tex(std::true_type{});
+  else with_tex(std::false_type{});
   return (int)cudaGetLastError();
 }
 
@@ -392,6 +414,7 @@ extern "C" int rt3c_trace_shade_refill(
     const unsigned int* jump, const rt3c::TexParams* tex, void* stream) {
   if (n_lanes <= 0 || n_lanes % rt3c::RAY_TILE != 0 || p->ct > rt3c::MAX_CT ||
       p->n_tiles < 1 || p->num_lights < 1 || p->spp < 1 || p->width < 1 ||
+      p->params_base < 0 ||
       (p->motion && (tris1 == nullptr || time == nullptr)) ||
       (tex && (tex->texels == nullptr || tex->meta == nullptr)))
     return (int)cudaErrorInvalidValue;
@@ -401,9 +424,11 @@ extern "C" int rt3c_trace_shade_refill(
   rt3c::seed_stats<<<1, 1, 0, s>>>(stats_in, stats_out);
   const rt3c::Soup soup{tris, aabb, super_aabb, p->n_tiles, p->ct};
   const int grid = n_lanes / rt3c::RAY_TILE;
-  return launch_variant(p->motion, tex, [&](auto kMotion, auto kTex,
-                                            const rt3c::TexParams& t) {
-    rt3c::refill_kernel<decltype(kMotion)::value, decltype(kTex)::value>
+  return launch_variant(p->motion, tex, p->params_base > 0,
+                        [&](auto kMotion, auto kTex, auto kDispatch,
+                            const rt3c::TexParams& t) {
+    rt3c::refill_kernel<decltype(kMotion)::value, decltype(kTex)::value,
+                        decltype(kDispatch)::value>
         <<<grid, rt3c::RAY_TILE, 0, s>>>(*p, rays, misc, stash, time,
                                          stats_in, stats_out, soup, tris1,
                                          attr_t, lights_t, jump, t);
@@ -420,7 +445,7 @@ extern "C" int rt3c_trace_shade(int device, const rt3c::TraceShadeParams* p,
                                 float* misc_out, const rt3c::TexParams* tex,
                                 void* stream) {
   if (n_lanes <= 0 || n_lanes % rt3c::RAY_TILE != 0 || p->ct > rt3c::MAX_CT ||
-      p->n_tiles < 1 || p->num_lights < 1 ||
+      p->n_tiles < 1 || p->num_lights < 1 || p->params_base < 0 ||
       (p->motion && (tris1 == nullptr || time == nullptr)) ||
       (tex && (tex->texels == nullptr || tex->meta == nullptr)))
     return (int)cudaErrorInvalidValue;
@@ -429,9 +454,11 @@ extern "C" int rt3c_trace_shade(int device, const rt3c::TraceShadeParams* p,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const rt3c::Soup soup{tris, aabb, super_aabb, p->n_tiles, p->ct};
   const int grid = n_lanes / rt3c::RAY_TILE;
-  return launch_variant(p->motion, tex, [&](auto kMotion, auto kTex,
-                                            const rt3c::TexParams& t) {
-    rt3c::trace_shade_kernel<decltype(kMotion)::value, decltype(kTex)::value>
+  return launch_variant(p->motion, tex, p->params_base > 0,
+                        [&](auto kMotion, auto kTex, auto kDispatch,
+                            const rt3c::TexParams& t) {
+    rt3c::trace_shade_kernel<decltype(kMotion)::value, decltype(kTex)::value,
+                             decltype(kDispatch)::value>
         <<<grid, rt3c::RAY_TILE, 0, s>>>(*p, rays, misc, time, count, soup,
                                          tris1, attr_t, lights_t, rays_out,
                                          misc_out, t);

@@ -3,10 +3,10 @@
 // fetch to the next path state.
 //
 // Replaces the body of rendertoy3c_tpu/trace/pallas_shade.py
-// _make_shade_kernel (:436-880) for the Lambertian, uniform-light branch:
-// emission at depth 0, the miss ambient, the cosine-hemisphere draw, the
-// NEE light pick and area sample, the shadow ray, Russian roulette and the
-// next state. K4 and K5 sweep the shadow ray in place (`occluded`); K6
+// _make_shade_kernel (:436-880): emission at depth 0 and after delta lobes,
+// the miss ambient, the cosine-hemisphere draw (or the material dispatch),
+// the NEE light pick and area sample, the shadow ray, Russian roulette and
+// the next state. K4 and K5 sweep the shadow ray in place (`occluded`); K6
 // (kExternal) hands it out, with NEE provisional on want_shadow
 // (pallas_shade.py :751-773, :844-850). The shadow ray's time is a peek of
 // the post-NEE stream that does not advance the seed (:756-760): K6 hands it
@@ -19,6 +19,19 @@
 // 4-byte loads of the RGBA8 atlas). The uv transform and the normal map are
 // launch-uniform switches of the textured variant; untextured scenes keep
 // the body without any of it.
+//
+// kDispatch is the four-type material dispatch (:563-700; its NEE half
+// :748-749 and :826-843): DIFFUSE, the SPECULAR mirror, the
+// FRESNEL_TRANSMISSIVE dielectric (exact Fresnel, total internal
+// reflection) and the PRINCIPLED one-sample mix of a Lambertian base and a
+// GGX / Smith / Schlick lobe with sheen, whose eval (`prin_eval`) runs
+// twice per lane (the sampled direction and the NEE direction). It reads 6
+// material-parameter rows at `params_base` and is a template switch so
+// that all-diffuse scenes keep the Lambertian body and its registers. The
+// power light pick (:710-720, :742-745) is a launch-uniform flag: an
+// upper-bound search over the f32 CDF in light row 17, equal to the
+// reference's compare-sum for a nondecreasing CDF (ties from zero-power
+// lights included), with the pick pdf from light row 16.
 #pragma once
 
 #include "mt.cuh"
@@ -26,7 +39,9 @@
 namespace rt3c {
 
 constexpr double PI_D = 3.14159265358979323846;
+constexpr float PI_F = (float)PI_D;
 constexpr float INV_PI = (float)(1.0 / PI_D);
+constexpr float E7 = 1e-7f;  // the dispatch body's guard against zero
 constexpr float TWO_PI = (float)(2.0 * PI_D);
 constexpr float INV_2_24 = 1.0f / 16777216.0f;
 
@@ -123,12 +138,67 @@ __device__ __forceinline__ void tex_fetch(const TexParams& tex, float tid,
              texel(q10, c) * ifu * fv + texel(q11, c) * fu * fv;
 }
 
-// Launch constants of the shading body.
+// Launch constants of the shading body. power: the power light pick;
+// params_base: the first material-parameter row (kDispatch).
 struct ShadeConsts {
-  int max_depth, num_lights, light_stride;
+  int max_depth, num_lights, light_stride, power, params_base;
   float shadow_tmin, shadow_eps, pick_pdf;
   float bg[3];
 };
+
+// One lane's material under kDispatch (pallas_shade.py :565-594).
+struct Mat {
+  bool is_spec, is_glass, is_prin, is_diff;
+  float albedo[3], f0[3];
+  float metal, ior, transm, sheen, a2, p_spec;
+};
+
+__device__ __forceinline__ float schlick5(float c) {
+  return (c * c) * (c * c) * c;
+}
+
+__device__ __forceinline__ float smith_g1(float cos_v, float a2) {
+  const float c2 = fminf(fmaxf(cos_v * cos_v, 1e-12f), 1.0f);
+  return 2.0f / (1.0f + sqrtf(1.0f + a2 * (1.0f - c2) / c2));
+}
+
+// f (rgb, out) and pdf of the principled lobe pair at local wo, wi, both 0
+// below the surface (prin_eval, :600-635).
+__device__ __forceinline__ float prin_eval(const Mat& m, float wox, float woy,
+                                           float woz, float wix, float wiy,
+                                           float wiz, float* f) {
+  const float cos_i = wiz;
+  const bool valid = (cos_i > E7) && (woz > E7);
+  float hx = wox + wix, hy = woy + wiy, hz = woz + wiz;
+  normalize3(hx, hy, hz, 1e-20f);
+  const float cos_h = hz;
+  const float cos_oh = wox * hx + woy * hy + woz * hz;
+  const float denom = cos_h * cos_h * (m.a2 - 1.0f) + 1.0f;
+  const float d_g = m.a2 / fmaxf(PI_F * denom * denom, 1e-12f);
+  const float g_sm = smith_g1(cos_i, m.a2) * smith_g1(woz, m.a2);
+  const float spec_s = d_g * g_sm / fmaxf(4.0f * cos_i * woz, 1e-9f);
+  const float sw =
+      schlick5(fminf(fmaxf(1.0f - fminf(fmaxf(cos_oh, 0.0f), 1.0f), 0.0f),
+                     1.0f));
+  const float f_sheen =
+      m.sheen * schlick5(fminf(fmaxf(1.0f - cos_oh, 0.0f), 1.0f));
+  for (int c = 0; c < 3; ++c)
+    f[c] = valid ? m.albedo[c] * ((1.0f - m.metal) * INV_PI) +
+                       (m.f0[c] + (1.0f - m.f0[c]) * sw) * spec_s + f_sheen
+                 : 0.0f;
+  const float pdf_spec =
+      d_g * fmaxf(cos_h, 0.0f) / fmaxf(4.0f * fabsf(cos_oh), 1e-12f);
+  return valid ? m.p_spec * pdf_spec +
+                     (1.0f - m.p_spec) * fmaxf(cos_i, 0.0f) * INV_PI
+               : 0.0f;
+}
+
+template <class T>
+__device__ __forceinline__ T pick4(const Mat& m, T spec_v, T glass_v, T prin_v,
+                                   T diff_v) {
+  return m.is_spec ? spec_v
+                   : (m.is_glass ? glass_v : (m.is_prin ? prin_v : diff_v));
+}
 
 // What one lane's shading produces.
 struct Shaded {
@@ -146,11 +216,13 @@ struct Shaded {
 // r: the lane's ray; h: its closest hit; m: misc columns 0-15; a: the
 // lane's attribute row (n0 n1 n2 emission diffuse, and for kTextured uv0
 // uv1 uv2 in fields 16-21, the diffuse texture id in 22, the uv transform in
-// 23-28 and the raw tangent and normal texture id at tex.nmap_base) read at
-// a[field * as]; lights_t [24, light_stride]. occluded(shadow_ray, want,
-// time) runs the shadow sweep and must be reached by every thread of the
-// block (K4, K5).
-template <bool kExternal, bool kTextured, class Occluded>
+// 23-28 and the raw tangent and normal texture id at tex.nmap_base; for
+// kDispatch mtype roughness metallic ior transmittance sheen at
+// p.params_base) read at a[field * as]; lights_t [24, light_stride], row 16
+// the pick pdf and row 17 the CDF of the power pick. occluded(shadow_ray,
+// want, time) runs the shadow sweep and must be reached by every thread of
+// the block (K4, K5).
+template <bool kExternal, bool kTextured, bool kDispatch, class Occluded>
 __device__ __forceinline__ Shaded shade_lane(const ShadeConsts& p,
                                              const Ray& r, const ClosestHit& h,
                                              const float* m, const float* a,
@@ -236,15 +308,15 @@ __device__ __forceinline__ Shaded shade_lane(const ShadeConsts& p,
 
   // --- BSDF sample: cosine hemisphere, reference draw order ---
   const bool adv = is_hit && alive;
-  rnd_masked(seed, adv);
+  const float z1 = rnd_masked(seed, adv);  // the dispatch's lobe choice
   rnd_masked(seed, adv);
   const float u1 = rnd_masked(seed, adv);
   const float u2 = rnd_masked(seed, adv);
   const float rad = sqrtf(u1);
   const float phi = TWO_PI * u2;
-  const float wx = rad * cosf(phi);
-  const float wy = rad * sinf(phi);
-  const float wz = sqrtf(fmaxf(1.0f - wx * wx - wy * wy, 0.0f));
+  float wx = rad * cosf(phi);
+  float wy = rad * sinf(phi);
+  float wz = sqrtf(fmaxf(1.0f - wx * wx - wy * wy, 0.0f));
   // ONB about ns (shader_common.h:15-48, branch as a select)
   const bool use_x = fabsf(nsx) > fabsf(nsz);
   float bx0 = use_x ? -nsy : 0.0f;
@@ -254,20 +326,125 @@ __device__ __forceinline__ Shaded shade_lane(const ShadeConsts& p,
   const float txx = by0 * nsz - bz0 * nsy;
   const float txy = bz0 * nsx - bx0 * nsz;
   const float txz = bx0 * nsy - by0 * nsx;
-  // reference Lambertian: attenuation = albedo * (1/pi) / (cos/pi)
-  const float inv_cos = 1.0f / fmaxf(wz * INV_PI, 1e-12f) * INV_PI;
+  float at_fac[3];
+  Mat mat;
+  float wox = 0.0f, woy = 0.0f, woz = 0.0f;
+  if constexpr (kDispatch) {
+    // --- the four-type dispatch (:564-700), wo = -d in the local frame ---
+    const float* mp = a + p.params_base * as;
+    const float mt_r = mp[0];
+    const float rough = mp[as];
+    mat.metal = mp[2 * as];
+    mat.ior = mp[3 * as];
+    mat.transm = mp[4 * as];
+    mat.sheen = mp[5 * as];
+    mat.is_spec = mt_r == 1.0f;
+    mat.is_glass = mt_r == 2.0f;
+    mat.is_prin = mt_r == 3.0f;
+    mat.is_diff = !(mat.is_spec || mat.is_glass || mat.is_prin);
+    wox = -(r.dx * txx + r.dy * txy + r.dz * txz);
+    woy = -(r.dx * bx0 + r.dy * by0 + r.dz * bz0);
+    woz = -(r.dx * nsx + r.dy * nsy + r.dz * nsz);
+    const float cos_o = fmaxf(woz, E7);
+    const float alpha = fmaxf(rough * rough, 1e-4f);
+    mat.a2 = alpha * alpha;
+    const float r0 = (mat.ior - 1.0f) / (mat.ior + 1.0f);
+    const float f0d = r0 * r0;
+    for (int c = 0; c < 3; ++c) {
+      mat.albedo[c] = albedo[c];
+      mat.f0[c] = f0d * (1.0f - mat.metal) + albedo[c] * mat.metal;
+    }
+    const float spec_w =
+        0.30f * mat.f0[0] + 0.59f * mat.f0[1] + 0.11f * mat.f0[2];
+    const float diff_w =
+        (0.30f * albedo[0] + 0.59f * albedo[1] + 0.11f * albedo[2]) *
+        (1.0f - mat.metal);
+    mat.p_spec =
+        fminf(fmaxf(spec_w / fmaxf(spec_w + diff_w, 1e-9f), 0.05f), 0.98f);
+
+    // FRESNEL_TRANSMISSIVE: the exact dielectric Fresnel at cos_o
+    const float ior = mat.ior;
+    const float cos_ci = fminf(fmaxf(cos_o, 0.0f), 1.0f);
+    const float sin2_t = (1.0f - cos_ci * cos_ci) / fmaxf(ior * ior, 1e-12f);
+    const bool tir = sin2_t >= 1.0f;
+    const float cos_t = sqrtf(fmaxf(1.0f - sin2_t, 0.0f));
+    const float r_par =
+        (ior * cos_ci - cos_t) / fmaxf(ior * cos_ci + cos_t, 1e-12f);
+    const float r_perp =
+        (cos_ci - ior * cos_t) / fmaxf(cos_ci + ior * cos_t, 1e-12f);
+    const float f_diel =
+        tir ? 1.0f : 0.5f * (r_par * r_par + r_perp * r_perp);
+    const float eta = 1.0f / ior;
+    const float sin2_r = eta * eta * fmaxf(1.0f - cos_o * cos_o, 0.0f);
+    const float cos_rt = sqrtf(fmaxf(1.0f - sin2_r, 0.0f));
+    const bool choose_refl = z1 < f_diel;
+    const float gl_x = choose_refl ? -wox : -eta * wox;
+    const float gl_y = choose_refl ? -woy : -eta * woy;
+    const float gl_z = choose_refl ? woz : -cos_rt;
+
+    // PRINCIPLED: the one-sample mix (sample_ggx_half on u1, u2)
+    const float phi_g = TWO_PI * u1;
+    const float den_g = 1.0f + (mat.a2 - 1.0f) * u2;
+    const float cos_hg =
+        sqrtf(fminf(fmaxf((1.0f - u2) / fmaxf(den_g, 1e-12f), 0.0f), 1.0f));
+    const float sin_hg = sqrtf(fmaxf(1.0f - cos_hg * cos_hg, 0.0f));
+    const float hgx = sin_hg * cosf(phi_g);
+    const float hgy = sin_hg * sinf(phi_g);
+    const float hgz = cos_hg;
+    const float cos_ohg = wox * hgx + woy * hgy + woz * hgz;
+    const bool take_spec = z1 < mat.p_spec;
+    const float pr_x = take_spec ? 2.0f * cos_ohg * hgx - wox : wx;
+    const float pr_y = take_spec ? 2.0f * cos_ohg * hgy - woy : wy;
+    const float pr_z = take_spec ? 2.0f * cos_ohg * hgz - woz : wz;
+    float f_pr[3];
+    const float pdf_pr = prin_eval(mat, wox, woy, woz, pr_x, pr_y, pr_z, f_pr);
+    // cos / pdf first, as XLA orders it
+    const float w_scale = fmaxf(pr_z, 0.0f) / fmaxf(pdf_pr, E7);
+    for (int c = 0; c < 3; ++c) {
+      const float w_glass =
+          choose_refl ? 1.0f : albedo[c] * mat.transm + (1.0f - mat.transm);
+      const float w_prin = pdf_pr > E7 ? f_pr[c] * w_scale : 0.0f;
+      at_fac[c] = pick4(mat, albedo[c], w_glass, w_prin, albedo[c]);
+    }
+    const float wix = pick4(mat, -wox, gl_x, pr_x, wx);
+    const float wiy = pick4(mat, -woy, gl_y, pr_y, wy);
+    const float wiz = pick4(mat, woz, gl_z, pr_z, wz);
+    wx = wix;
+    wy = wiy;
+    wz = wiz;
+  } else {
+    // reference Lambertian: attenuation = albedo * (1/pi) / (cos/pi)
+    const float inv_cos = 1.0f / fmaxf(wz * INV_PI, 1e-12f) * INV_PI;
+    for (int c = 0; c < 3; ++c) at_fac[c] = albedo[c] * inv_cos;
+  }
   o.ndx = wx * txx + wy * bx0 + wz * nsx;
   o.ndy = wx * txy + wy * by0 + wz * nsy;
   o.ndz = wx * txz + wy * bz0 + wz * nsz;
 
-  // --- NEE: uniform light pick, clamped to count - 1 ---
+  // --- NEE: uniform or power light pick, clamped to count - 1 ---
   const float u_pick = rnd_masked(seed, adv);
   const float lu = rnd_masked(seed, adv);
   const float lv = rnd_masked(seed, adv);
-  const float lidx = fminf(floorf(u_pick * (float)p.num_lights),
-                           (float)(p.num_lights - 1));
-  const float* l = lights_t + (int)lidx;
   const int ls = p.light_stride;
+  int lidx;
+  if (p.power) {
+    // searchsorted(cdf, u, right): the first entry above u
+    const float* cdf = lights_t + 17 * ls;
+    int lo = 0, hi = p.num_lights;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (cdf[mid] <= u_pick)
+        lo = mid + 1;
+      else
+        hi = mid;
+    }
+    lidx = min(lo, p.num_lights - 1);
+  } else {
+    lidx = (int)fminf(floorf(u_pick * (float)p.num_lights),
+                      (float)(p.num_lights - 1));
+  }
+  const float* l = lights_t + lidx;
+  const float pick_pdf = p.power ? l[16 * ls] : p.pick_pdf;
   const float su = sqrtf(lu);
   const float b0 = 1.0f - su;
   const float b1 = lv * su;
@@ -288,9 +465,11 @@ __device__ __forceinline__ Shaded shade_lane(const ShadeConsts& p,
   float le[3];
   for (int c = 0; c < 3; ++c) le[c] = degen ? 0.0f : l[(9 + c) * ls] * omega;
   const float pdf_light =
-      (degen ? 1.0f : 1.0f / fmaxf(omega, 1e-20f)) * p.pick_pdf;
+      (degen ? 1.0f : 1.0f / fmaxf(omega, 1e-20f)) * pick_pdf;
   const float n_dl = nsx * ldx + nsy * ldy + nsz * ldz;
-  o.want_shadow = adv && (n_dl > 0.0f);
+  bool is_delta = false;
+  if constexpr (kDispatch) is_delta = mat.is_spec || mat.is_glass;
+  o.want_shadow = adv && (n_dl > 0.0f) && !is_delta;  // no NEE on deltas
 
   // --- the shadow ray: swept here (K4) or handed out (K6) ---
   o.sr = Ray{o.px, o.py, o.pz, ldx, ldy, ldz, p.shadow_tmin,
@@ -306,13 +485,31 @@ __device__ __forceinline__ Shaded shade_lane(const ShadeConsts& p,
     lit = o.want_shadow && !occ;
   }
 
-  // weight = albedo/pi * powerHeuristic(pdf_light, |n.l|/pi)
-  const float pdf_sc = fabsf(n_dl) * INV_PI;
-  const float ph = (pdf_light * pdf_light) /
-                   fmaxf(pdf_light * pdf_light + pdf_sc * pdf_sc, 1e-20f);
+  float nee_w[3];
+  if constexpr (kDispatch) {
+    // the general NEE, Le omega f(wo, wl) n.l / pick_pdf, no MIS
+    const float wlx = ldx * txx + ldy * txy + ldz * txz;
+    const float wly = ldx * bx0 + ldy * by0 + ldz * bz0;
+    const float wlz = ldx * nsx + ldy * nsy + ldz * nsz;
+    float f_l[3];
+    prin_eval(mat, wox, woy, woz, wlx, wly, wlz, f_l);
+    const float scale = n_dl / fmaxf(pick_pdf, 1e-12f);
+    for (int c = 0; c < 3; ++c) {
+      const float f_ev =
+          mat.is_prin ? f_l[c] : (mat.is_diff ? albedo[c] * INV_PI : 0.0f);
+      nee_w[c] = lit ? le[c] * f_ev * scale : 0.0f;
+    }
+  } else {
+    // weight = albedo/pi * powerHeuristic(pdf_light, |n.l|/pi)
+    const float pdf_sc = fabsf(n_dl) * INV_PI;
+    const float ph = (pdf_light * pdf_light) /
+                     fmaxf(pdf_light * pdf_light + pdf_sc * pdf_sc, 1e-20f);
+    for (int c = 0; c < 3; ++c)
+      nee_w[c] = lit ? le[c] * albedo[c] * (ph * INV_PI) : 0.0f;
+  }
   float contrib[3];
   for (int c = 0; c < 3; ++c) {
-    float radiance = lit ? le[c] * albedo[c] * (ph * INV_PI) : 0.0f;
+    float radiance = nee_w[c];
     if (kExternal) {
       // provisional NEE leaves for the caller; the accumulator takes
       // emission and the miss background only
@@ -323,7 +520,7 @@ __device__ __forceinline__ Shaded shade_lane(const ShadeConsts& p,
     }
     radiance = is_hit ? radiance : p.bg[c];  // miss: constant background
     contrib[c] = emitted[c] + radiance * last_at[c];
-    o.new_at[c] = adv ? atten[c] * (albedo[c] * inv_cos) : atten[c];
+    o.new_at[c] = adv ? atten[c] * at_fac[c] : atten[c];
     o.new_last[c] = alive ? o.new_at[c] : last_at[c];
   }
 
@@ -339,7 +536,7 @@ __device__ __forceinline__ Shaded shade_lane(const ShadeConsts& p,
   }
   o.depth_new = depth + (alive ? 1.0f : 0.0f);
   o.alive_b = o.survive && (o.depth_new < (float)p.max_depth);
-  o.pdelta_new = alive ? 0.0f : prev_delta;
+  o.pdelta_new = alive ? (is_delta ? 1.0f : 0.0f) : prev_delta;
   o.seed = seed;
   return o;
 }

@@ -1,7 +1,9 @@
 """Built-in scenes: the Cornell box and the textured quad (port of
 rendertoy3c_tpu/scene/builtin.py `cornell_box` and `textured_quad_scene`,
-with the `quad` and `box_mesh` helpers), and the textured quad's variants
-that the tests and chip_smoke.py render (`textured_quad_variant`)."""
+with the `quad` and `box_mesh` helpers), and the variants that the tests
+and chip_smoke.py render: the textured quad's (`textured_quad_variant`)
+and the Cornell box with all four material types
+(`material_cornell_box`)."""
 from __future__ import annotations
 
 import dataclasses
@@ -9,7 +11,7 @@ import dataclasses
 import numpy as np
 
 from .camera import Camera
-from .material import Material
+from .material import Material, MaterialType
 from .mesh import Mesh
 from .texture import WRAP_CLAMP, WRAP_MIRROR, TextureImage
 
@@ -123,7 +125,9 @@ def textured_quad_variant(variant: str = "repeat", motion: bool = False,
     `textured_quad_scene` (this module's by default): "repeat" as built;
     "clamp_mirror" with uvs stretched to 2.5 uv - 0.75 under CLAMP/MIRROR;
     "uv_transform" with an offset, rotation and scale; "normal_map" with
-    bumpy_normal_map on the DIFFUSE floor; "features" with all three.
+    bumpy_normal_map on the DIFFUSE floor; "features" with all three;
+    "principled" with the normal map on a PRINCIPLED floor (roughness 0.8,
+    metallic 0.3, sheen 0.25; the reference's tests/test_texture.py:222).
     motion: the floor given a second key at +0.1 in x. texture_image: the
     class that carries the wrap modes (another package's TextureImage
     builds the same variant from that package's `textured_quad_scene`)."""
@@ -136,12 +140,41 @@ def textured_quad_variant(variant: str = "repeat", motion: bool = False,
     if variant in ("uv_transform", "features"):
         change.update(tex_offset=(0.15, -0.1), tex_rotation=0.35,
                       tex_scale=(1.5, 0.8))
-    if variant in ("normal_map", "features"):
+    if variant in ("normal_map", "features", "principled"):
         textures = textures + [bumpy_normal_map()]
         change.update(normal_texture_id=1)
+    if variant == "principled":
+        change.update(material_type=MaterialType.PRINCIPLED, roughness=0.8,
+                      metallic=0.3, sheen=0.25)
     floor.material = dataclasses.replace(floor.material, **change)
     if motion:
         v = floor.vertices
         meshes[0] = dataclasses.replace(
             floor, vertices=np.concatenate([v, v + np.float32([0.1, 0, 0])]))
     return meshes, textures, camera
+
+
+def material_cornell_box(motion: bool = False, base=None):
+    """(meshes, camera) of the Cornell box with every material type: the
+    floor PRINCIPLED (diffuse 0.7 0.6 0.5, roughness 0.35, metallic 0.6),
+    the red wall SPECULAR (0.9), the tall block FRESNEL_TRANSMISSIVE (ior
+    1.5, transmittance 0.8), the rest DIFFUSE (the reference's
+    tests/test_fused.py:67-90 in one scene). motion: the short block given
+    a second key at +0.1 in x. base: the output of a `cornell_box` (this
+    module's by default; another package's builds the same scene in that
+    package)."""
+    meshes, camera = base or cornell_box()
+    for i, change in ((0, dict(material_type=MaterialType.PRINCIPLED,
+                               diffuse=(0.7, 0.6, 0.5), roughness=0.35,
+                               metallic=0.6)),
+                      (3, dict(material_type=MaterialType.SPECULAR,
+                               diffuse=(0.9, 0.9, 0.9))),
+                      (6, dict(material_type=MaterialType.FRESNEL_TRANSMISSIVE,
+                               ior=1.5, transmittance=0.8,
+                               diffuse=(1.0, 1.0, 1.0)))):
+        meshes[i].material = dataclasses.replace(meshes[i].material, **change)
+    if motion:
+        v = meshes[7].vertices
+        meshes[7] = dataclasses.replace(
+            meshes[7], vertices=np.concatenate([v, v + np.float32([0.1, 0, 0])]))
+    return meshes, camera

@@ -2,9 +2,10 @@
 
 Port of rendertoy3c_tpu/scene/light.py's host build. Every triangle of an
 emissive mesh becomes one light; `power_cdf` is the inclusive normalised
-CDF of luminance * area (the power sampler's table, carried for parity).
-`pick_light_uniform` is the uniform pick, clamped to count - 1, in the
-float form of the megakernel (pallas_shade.py:711-713).
+CDF of luminance * area, the power sampler's table. `pick_light_uniform`
+is the uniform pick, clamped to count - 1, in the float form of the
+megakernel (pallas_shade.py:711-713); `pick_light_power` the power pick
+(light.py:88-95 of the reference).
 """
 from __future__ import annotations
 
@@ -55,3 +56,19 @@ def pick_light_uniform(u: torch.Tensor, num_lights: int):
     idx = torch.clamp(torch.floor(u * float(num_lights)),
                       max=float(num_lights - 1))
     return idx, 1.0 / float(num_lights)
+
+
+def pick_light_power(u: torch.Tensor, power_cdf: torch.Tensor,
+                     num_lights: int):
+    """Power-proportional pick by CDF inversion: index = searchsorted(cdf,
+    u, right), clamped to count - 1; pdf = cdf[i] - cdf[i - 1] in f32.
+    power_cdf: the table's CDF [>= num_lights] on u's device. Returns
+    (index as float32, pick pdf [...]). For a nondecreasing CDF the index
+    is the kernels' count of entries <= u, ties (zero-power lights)
+    included."""
+    cdf = power_cdf[:num_lights].contiguous()
+    idx = torch.clamp(torch.searchsorted(cdf, u.contiguous(), right=True),
+                      max=num_lights - 1)
+    lo = torch.where(idx > 0, cdf[torch.clamp(idx - 1, min=0)],
+                     torch.zeros_like(u))
+    return idx.to(torch.float32), cdf[idx] - lo

@@ -2,11 +2,11 @@
 
 Port of the part of rendertoy3c_tpu/scene/material.py the port uses
 (src/material.h:7-38): the fields the .obj loader fills, the texture ids,
-and the texture-coordinate transform (`uv_transform_row`,
-`has_uv_transform`, :60-102). The renderer shades diffuse, emission,
-diffuse textures and normal maps; other material types and the emissive
-and roughness maps are declared so that a scene can name them, and the
-tracer choice rejects them (trace/auto.py).
+the principled extras `metallic` and `sheen`, and the texture-coordinate
+transform (`uv_transform_row`, `has_uv_transform`, :60-102). The renderer
+shades the four material types, emission, diffuse textures and normal
+maps; the emissive and roughness maps are declared so that a scene can
+name them, and the tracer choice rejects them (trace/auto.py).
 """
 from __future__ import annotations
 
@@ -37,6 +37,9 @@ class Material:
     ior: float = 1.333
     transmittance: float = 0.0
     normal_texture_id: int = -1
+    # principled-BSDF extras (the reference's defaults)
+    metallic: float = 0.0
+    sheen: float = 0.0
     # texture-coordinate transform (cuda/MaterialData.h texture desc
     # offset/rotation/scale; glTF KHR_texture_transform):
     # uv' = offset + R(rotation) @ (scale * uv)

@@ -47,6 +47,11 @@ class MaterialTable(NamedTuple):
     mtype: np.ndarray  # [M] int32
     diffuse: np.ndarray  # [M, 3] f32
     emission: np.ndarray  # [M, 3] f32
+    roughness: np.ndarray  # [M] f32
+    metallic: np.ndarray  # [M] f32
+    ior: np.ndarray  # [M] f32
+    transmittance: np.ndarray  # [M] f32
+    sheen: np.ndarray  # [M] f32
     diffuse_tex: np.ndarray  # [M] int32, -1 = none
     emissive_tex: np.ndarray  # [M] int32
     roughness_tex: np.ndarray  # [M] int32
@@ -101,6 +106,12 @@ def build_material_table(materials: Sequence[Material]) -> MaterialTable:
         mtype=np.asarray([int(m.material_type) for m in materials], np.int32),
         diffuse=np.asarray([m.diffuse for m in materials], np.float32),
         emission=np.asarray([m.emissive for m in materials], np.float32),
+        roughness=np.asarray([m.roughness for m in materials], np.float32),
+        metallic=np.asarray([m.metallic for m in materials], np.float32),
+        ior=np.asarray([m.ior for m in materials], np.float32),
+        transmittance=np.asarray([m.transmittance for m in materials],
+                                 np.float32),
+        sheen=np.asarray([m.sheen for m in materials], np.float32),
         diffuse_tex=np.asarray([m.diffuse_texture_id for m in materials],
                                np.int32),
         emissive_tex=np.asarray([m.emissive_texture_id for m in materials],
@@ -213,7 +224,7 @@ def scene_from_numpy(geom: Mapping[str, np.ndarray],
 
     Each mapping holds numpy arrays by field name (the reference's
     GeometrySoA, MaterialTable, LightTable and TextureAtlas fields; extra
-    fields are ignored; an atlas without a quad table keeps None)."""
+    fields are ignored)."""
     def pick(cls, src):
         return cls(**{k: np.asarray(src[k]) for k in cls._fields})
 
@@ -221,8 +232,7 @@ def scene_from_numpy(geom: Mapping[str, np.ndarray],
     g = pick(GeometrySoA, geom)
     tex = None
     if atlas is not None:
-        tex = TextureAtlas(**{k: None if atlas.get(k) is None
-                              else np.asarray(atlas[k])
+        tex = TextureAtlas(**{k: np.asarray(atlas[k])
                               for k in TextureAtlas._fields})
     return Scene(geom=g, materials=mats, lights=pick(LightTable, lights),
                  atlas=tex, num_keys=int(g.v0.shape[0]),

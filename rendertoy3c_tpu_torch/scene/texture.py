@@ -1,13 +1,14 @@
 """Texture atlas and batched bilinear sampling.
 
 Port of rendertoy3c_tpu/scene/texture.py: the wrap modes, the shelf-packed
-RGBA8 atlas with its per-texture meta rows and its single-gather quad table
-(`build_texture_atlas`, :63-131), and `sample_texture_bilinear` (:164-215)
-on tensors, with both its quad path and its four-gather path. The atlas
-arrays stay numpy on the host; `atlas_to` puts them on a device.
-`sample_texture_bilinear` is the plain version of the texture fetch of the
-shading kernels (kernels/csrc/shade.cuh `tex_fetch`), which reads the RGBA8
-atlas with four loads and the same +1 neighbour rule as the quad table.
+RGBA8 atlas with its per-texture meta rows (`build_texture_atlas`,
+:63-131), its single-gather quad table on request (`build_quad_table`: no
+kernel of the port reads it), and `sample_texture_bilinear` (:164-215) on
+tensors, by four gathers of the RGBA8 texels. The atlas arrays stay numpy
+on the host; `atlas_to` puts them on a device. `sample_texture_bilinear`
+is the plain version of the texture fetch of the shading kernels
+(kernels/csrc/shade.cuh `tex_fetch`), which reads the RGBA8 atlas with four
+loads and the quad table's +1 neighbour rule.
 """
 from __future__ import annotations
 
@@ -45,19 +46,12 @@ class TextureAtlas(NamedTuple):
 
     data: np.ndarray  # [AH, AW, 4] uint8 (rows already v-flipped at load)
     meta: np.ndarray  # [T, 6] int32: (y0, x0, height, width, wrap_s, wrap_t)
-    # per atlas texel, the RGB of its 2x2 wrap-mode footprint (c00 c01 c10
-    # c11) scaled by 1/255: [AH * AW, 12] f32, None above 1 << 20 texels
-    quad: np.ndarray | None = None
 
 
 def empty_atlas() -> TextureAtlas:
     meta = np.zeros((1, 6), np.int32)
     meta[0, 2:4] = 1
     return TextureAtlas(data=np.zeros((1, 1, 4), np.uint8), meta=meta)
-
-
-# the reference builds the quad table only while it stays under ~48 MB
-_QUAD_TABLE_MAX_TEXELS = 1 << 20
 
 
 def _texel_scale() -> np.float32:
@@ -105,34 +99,36 @@ def build_texture_atlas(images: Sequence) -> TextureAtlas:
         y0, x0, h, w = meta[idx, :4]
         data[y0:y0 + h, x0:x0 + w] = im
 
-    quad = None
-    if atlas_h * atlas_w <= _QUAD_TABLE_MAX_TEXELS:
-        # per-texel 2x2 wrap-mode footprint, respecting texture regions
-        rgbf = data[..., :3].astype(np.float32) * _texel_scale()
-        c01 = rgbf.copy()
-        c10 = rgbf.copy()
-        c11 = rgbf.copy()
-        for idx in range(len(images)):
-            y0, x0, h, w, ws, wt = meta[idx]
-            sub = rgbf[y0:y0 + h, x0:x0 + w]
-            # +1 neighbour index per address mode; at the far edge both
-            # CLAMP and MIRROR resolve to the edge texel itself
-            nx = ((np.arange(w) + 1) % w if ws == WRAP_REPEAT
-                  else np.minimum(np.arange(w) + 1, w - 1))
-            ny = ((np.arange(h) + 1) % h if wt == WRAP_REPEAT
-                  else np.minimum(np.arange(h) + 1, h - 1))
-            c01[y0:y0 + h, x0:x0 + w] = sub[:, nx]
-            c10[y0:y0 + h, x0:x0 + w] = sub[ny, :]
-            c11[y0:y0 + h, x0:x0 + w] = sub[ny][:, nx]
-        quad = np.concatenate([rgbf, c01, c10, c11], axis=-1)
-        quad = quad.reshape(atlas_h * atlas_w, 12)
-    return TextureAtlas(data=data, meta=meta, quad=quad)
+    return TextureAtlas(data=data, meta=meta)
+
+
+def build_quad_table(atlas: TextureAtlas) -> np.ndarray:
+    """The reference's single-gather quad table (`TextureAtlas.quad`): per
+    atlas texel, the RGB of its 2x2 wrap-mode footprint (c00 c01 c10 c11)
+    scaled by 1/255, [AH * AW, 12] f32."""
+    data, meta = np.asarray(atlas.data), np.asarray(atlas.meta)
+    atlas_h, atlas_w = data.shape[:2]
+    rgbf = data[..., :3].astype(np.float32) * _texel_scale()
+    c01 = rgbf.copy()
+    c10 = rgbf.copy()
+    c11 = rgbf.copy()
+    for y0, x0, h, w, ws, wt in meta:
+        sub = rgbf[y0:y0 + h, x0:x0 + w]
+        # +1 neighbour index per address mode; at the far edge both CLAMP
+        # and MIRROR resolve to the edge texel itself
+        nx = ((np.arange(w) + 1) % w if ws == WRAP_REPEAT
+              else np.minimum(np.arange(w) + 1, w - 1))
+        ny = ((np.arange(h) + 1) % h if wt == WRAP_REPEAT
+              else np.minimum(np.arange(h) + 1, h - 1))
+        c01[y0:y0 + h, x0:x0 + w] = sub[:, nx]
+        c10[y0:y0 + h, x0:x0 + w] = sub[ny, :]
+        c11[y0:y0 + h, x0:x0 + w] = sub[ny][:, nx]
+    quad = np.concatenate([rgbf, c01, c10, c11], axis=-1)
+    return quad.reshape(atlas_h * atlas_w, 12)
 
 
 def atlas_to(atlas: TextureAtlas, device) -> TextureAtlas:
-    """The atlas's RGBA8 data and meta as contiguous tensors on `device`,
-    without the quad table: the kernels and `sample_texture_bilinear`'s
-    four-gather path read the texels themselves."""
+    """The atlas's RGBA8 data and meta as contiguous tensors on `device`."""
     def put(a):
         return torch.as_tensor(np.ascontiguousarray(a), device=device)
 
@@ -195,23 +191,18 @@ def sample_texture_bilinear(atlas: TextureAtlas, tex_id: torch.Tensor,
     centres at (i + 0.5) / size, u8 values scaled by 1/255, black where
     tex_id < 0.
 
-    Through the atlas's quad table when it has one (one [.., 12] gather),
-    else four gathers of the RGBA8 texels: the same values either way. The
-    combine order is the reference's, q00 (1-fu)(1-fv) + q01 fu (1-fv) +
-    q10 (1-fu) fv + q11 fu fv."""
+    Four gathers of the RGBA8 texels, which give the reference's quad-table
+    values exactly. The combine order is the reference's, q00 (1-fu)(1-fv)
+    + q01 fu (1-fv) + q10 (1-fu) fv + q11 fu fv."""
     (f00, f01, f10, f11), fu, fv = bilinear_footprint(atlas, tex_id, u, v)
     fu, fv = fu[..., None], fv[..., None]
-    if atlas.quad is not None:
-        q = torch.as_tensor(atlas.quad, device=u.device)[f00]
-        c00, c01, c10, c11 = q[..., 0:3], q[..., 3:6], q[..., 6:9], q[..., 9:12]
-    else:
-        rgb8 = torch.as_tensor(atlas.data, device=u.device).reshape(-1, 4)
-        scale = torch.tensor(_texel_scale(), device=u.device)
+    rgb8 = torch.as_tensor(atlas.data, device=u.device).reshape(-1, 4)
+    scale = torch.tensor(_texel_scale(), device=u.device)
 
-        def fetch(flat):
-            return rgb8[flat, :3].to(torch.float32) * scale
+    def fetch(flat):
+        return rgb8[flat, :3].to(torch.float32) * scale
 
-        c00, c01, c10, c11 = fetch(f00), fetch(f01), fetch(f10), fetch(f11)
+    c00, c01, c10, c11 = fetch(f00), fetch(f01), fetch(f10), fetch(f11)
     rgb = (c00 * (1 - fu) * (1 - fv) + c01 * fu * (1 - fv)
            + c10 * (1 - fu) * fv + c11 * fu * fv)
     return torch.where((tex_id >= 0)[..., None], rgb, torch.zeros_like(rgb))

@@ -23,9 +23,12 @@ boxes and skip ray tiles of 128 (MOTION_RAY_TILE) at or past `count`
 (kernels/csrc/mt_kernels.cu; plain versions `closest_motion_ref` /
 `any_motion_ref`).
 
-The plain versions sweep every tile densely; the kernels cull tiles by
-their boxes. Culling only skips tiles no ray of the block can hit, so both
-return the same hits.
+The kernels cull tiles by their boxes, per block of rays. The plain
+versions cull per ray: each ray tests the tiles whose boxes, padded by
+BOX_PAD of their size, its own slab test lets in (bounded by its best hit
+so far, or, any-hit, until its first hit). Culling only skips tiles a ray
+cannot hit, so both return the hits of a dense sweep of every tile, bit
+for bit (each ray's arithmetic is the same whichever rays share a batch).
 """
 from __future__ import annotations
 
@@ -43,6 +46,9 @@ TRI_TILE = 512
 SUPER_TILE = 8  # tri tiles per supertile (2-level cull)
 _BIG = 1e30
 _DET_EPS = 1e-10
+# the plain sweeps' box padding, relative to a box's size and place: far
+# above the rounding of a hit point, so no ray is culled from a tile it hits
+BOX_PAD = 1e-3
 
 
 class TriSoup(NamedTuple):
@@ -180,36 +186,69 @@ def live_rows(n: int, count: torch.Tensor,
     return tile_start < count.reshape(()).to(torch.int64)
 
 
-def _closest_dense(rays: torch.Tensor, n_tiles: int, test) -> torch.Tensor:
-    """Dense closest sweep: test(cols, k) -> (t, u, v, hit, prim_f) of tile
-    k; min t, lowest prim at equal t. Returns [R, 4] (t, prim_f, u, v)."""
-    cols = tuple(rays[:, c:c + 1] for c in range(8))
+def _culled_sweep(rays, count, tile, n_tiles, aabb, super_aabb, test,
+                  any_hit: bool):
+    """The plain sweep of a tiled soup, culled ray by ray: live rays (in
+    ray tiles of `tile` before `count`, with tmax > tmin) visit, in tile
+    order, the super-tiles and tiles whose padded boxes their own slab test
+    lets in; test(cols, k, idx) -> (t, u, v, hit, prim_f) of tile k for
+    the rays idx. Closest: min t, lowest prim at equal t, the box test
+    bounded by the best hit so far; returns [R, 4] (t, prim_f, u, v).
+    Any-hit: a ray stops at its first occluding tile; returns [R] bool."""
     r = rays.shape[0]
-    best_t = rays[:, 7].clone()
-    best_prim = torch.full((r,), -1.0, dtype=torch.float32, device=rays.device)
-    best_u = torch.zeros(r, dtype=torch.float32, device=rays.device)
-    best_v = torch.zeros(r, dtype=torch.float32, device=rays.device)
-    for k in range(n_tiles):
-        t, u, v, hit, prim_f = test(cols, k)
-        t = torch.where(hit, t, torch.full_like(t, _BIG))
-        t_c, idx = torch.min(t, dim=1)  # first minimum = lowest prim
-        better = t_c < best_t
-        best_t = torch.where(better, t_c, best_t)
-        best_prim = torch.where(better, prim_f[0, idx], best_prim)
-        best_u = torch.where(better, torch.gather(u, 1, idx[:, None])[:, 0],
-                             best_u)
-        best_v = torch.where(better, torch.gather(v, 1, idx[:, None])[:, 0],
-                             best_v)
-    return torch.stack([best_t, best_prim, best_u, best_v], dim=1)
-
-
-def _any_dense(rays: torch.Tensor, n_tiles: int, test) -> torch.Tensor:
-    """Dense any-hit sweep -> [R] bool."""
+    dev = rays.device
     cols = tuple(rays[:, c:c + 1] for c in range(8))
-    occ = torch.zeros(rays.shape[0], dtype=torch.bool, device=rays.device)
-    for k in range(n_tiles):
-        occ |= test(cols, k)[3].any(dim=1)
-    return occ
+    o, d, tmin = rays[:, 0:3], rays[:, 3:6], rays[:, 6]
+    inv = torch.where(d.abs() > 1e-20, 1.0 / d, torch.full_like(d, _BIG))
+    todo = live_rows(r, count, tile) & (rays[:, 7] > tmin)
+    best_t = rays[:, 7].clone()
+    best = torch.zeros((r, 3), dtype=torch.float32, device=dev)
+    best[:, 0] = -1.0  # prim_f, u, v
+    occ = torch.zeros(r, dtype=torch.bool, device=dev)
+
+    def padded(boxes):
+        lo, hi = boxes[:, 0:3], boxes[:, 3:6]
+        pad = BOX_PAD * (1.0 + torch.maximum(hi - lo, torch.maximum(
+            lo.abs(), hi.abs())).amax(dim=1, keepdim=True))
+        return lo - pad, hi + pad, (lo <= hi).all(dim=1).tolist(), pad[:, 0]
+
+    def own(box, k, among):
+        lo, hi, ok, pad = box
+        if not ok[k]:  # an empty tile's inverted box
+            return torch.zeros_like(among)
+        t0, t1 = (lo[k] - o) * inv, (hi[k] - o) * inv
+        tn = torch.minimum(t0, t1).amax(dim=1)
+        tf = torch.maximum(t0, t1).amin(dim=1)
+        tcur = rays[:, 7] if any_hit else best_t
+        return among & (tn <= tf) & (tf >= tmin - pad[k]) & (
+            tn <= tcur + pad[k])
+
+    def visit(k, m):
+        idx = (m & ~occ).nonzero()[:, 0]
+        if idx.numel() == 0:
+            return
+        t, u, v, hit, prim_f = test(tuple(c[idx] for c in cols), k, idx)
+        if any_hit:
+            occ[idx] = hit.any(dim=1)
+            return
+        t = torch.where(hit, t, torch.full_like(t, _BIG))
+        t_c, j = torch.min(t, dim=1)  # first minimum = lowest prim
+        better = t_c < best_t[idx]
+        best_t[idx] = torch.where(better, t_c, best_t[idx])
+        got = torch.stack([prim_f[0, j], torch.gather(u, 1, j[:, None])[:, 0],
+                           torch.gather(v, 1, j[:, None])[:, 0]], dim=1)
+        best[idx] = torch.where(better[:, None], got, best[idx])
+
+    tiles, supers = padded(aabb), padded(super_aabb)
+    for ks in range(-(-n_tiles // SUPER_TILE)):
+        ms = own(supers, ks, todo & ~occ)
+        if not bool(ms.any()):
+            continue
+        for k in range(ks * SUPER_TILE, min((ks + 1) * SUPER_TILE, n_tiles)):
+            visit(k, own(tiles, k, ms & ~occ))
+    if any_hit:
+        return occ
+    return torch.cat([best_t[:, None], best], dim=1)
 
 
 def _closest_out(rays, out, live):
@@ -226,30 +265,33 @@ def _any_out(occ, live):
     return out
 
 
+def _static_test(soup: TriSoup):
+    ct = soup.tris.shape[2]
+    return lambda cols, k, idx: mt_test(cols, soup.tris[k], k * ct)
+
+
 def closest_ref(rays: torch.Tensor, count: torch.Tensor,
                 soup: TriSoup) -> torch.Tensor:
     """Plain version of K1: [R, 8] rays -> [R, 4] (t, prim_f, u, v), miss =
     (tmax, -1, 0, 0). min t, lowest prim at equal t."""
-    ct = soup.tris.shape[2]
-    out = _closest_dense(rays, soup.tris.shape[0],
-                         lambda cols, k: mt_test(cols, soup.tris[k], k * ct))
+    out = _culled_sweep(rays, count, RAY_TILE, soup.tris.shape[0], soup.aabb,
+                        soup.super_aabb, _static_test(soup), False)
     return _closest_out(rays, out, live_rows(rays.shape[0], count))
 
 
 def any_ref(rays: torch.Tensor, count: torch.Tensor,
             soup: TriSoup) -> torch.Tensor:
     """Plain version of K2: [R, 8] rays -> [R, 4], column 0 = occluded."""
-    ct = soup.tris.shape[2]
-    occ = _any_dense(rays, soup.tris.shape[0],
-                     lambda cols, k: mt_test(cols, soup.tris[k], k * ct))
+    occ = _culled_sweep(rays, count, RAY_TILE, soup.tris.shape[0], soup.aabb,
+                        soup.super_aabb, _static_test(soup), True)
     return _any_out(occ, live_rows(rays.shape[0], count))
 
 
 def _motion_test(time: torch.Tensor, msoup: MotionSoup):
     tcol = time[:, None]
     ct = msoup.tris0.shape[2]
-    return lambda cols, k: mt_test(cols, msoup.tris0[k], k * ct,
-                                   msoup.tris1[k], tcol)
+    return lambda cols, k, idx: mt_test(cols, msoup.tris0[k], k * ct,
+                                        msoup.tris1[k], tcol[idx])
 
 
 def closest_motion_ref(rays: torch.Tensor, time: torch.Tensor,
@@ -258,7 +300,8 @@ def closest_motion_ref(rays: torch.Tensor, time: torch.Tensor,
     """Plain version of K3 closest: rays [R, 8] at per-ray times [R] ->
     [R, 4] as closest_ref; ray tiles of `tile` past `count` miss (128 for
     K3, 256 for the motion sweeps inside the megakernels)."""
-    out = _closest_dense(rays, msoup.tris0.shape[0], _motion_test(time, msoup))
+    out = _culled_sweep(rays, count, tile, msoup.tris0.shape[0], msoup.aabb,
+                        msoup.super_aabb, _motion_test(time, msoup), False)
     return _closest_out(rays, out, live_rows(rays.shape[0], count, tile))
 
 
@@ -266,7 +309,8 @@ def any_motion_ref(rays: torch.Tensor, time: torch.Tensor,
                    count: torch.Tensor, msoup: MotionSoup,
                    tile: int = MOTION_RAY_TILE) -> torch.Tensor:
     """Plain version of K3 any-hit: [R, 4], column 0 = occluded."""
-    occ = _any_dense(rays, msoup.tris0.shape[0], _motion_test(time, msoup))
+    occ = _culled_sweep(rays, count, tile, msoup.tris0.shape[0], msoup.aabb,
+                        msoup.super_aabb, _motion_test(time, msoup), True)
     return _any_out(occ, live_rows(rays.shape[0], count, tile))
 
 

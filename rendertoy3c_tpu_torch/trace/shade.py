@@ -4,9 +4,11 @@ in-kernel refill (K4) and without it (K5), and the external shade kernel
 
 Port of rendertoy3c_tpu/trace/pallas_shade.py for the port's
 configurations: all-diffuse (the Lambertian branch, :557-563 and
-:816-863), untextured or with diffuse textures, uv transforms and normal
-maps (:459-535), uniform light sampler, no AOV, misc width 16. It holds
-`build_shade_tables` (:72, without dispatch); `texture_state` (the
+:816-863) or the four-type material dispatch (`dispatch`, :563-700 and
+:826-843, in trace/bsdf.py), untextured or with diffuse textures, uv
+transforms and normal maps (:459-535), the uniform or the power light
+sampler (:710-720, :742-745), no AOV, misc width 16. It holds
+`build_shade_tables` (:72); `texture_state` (the
 reference's `_fused_texture_state`, :1101, without its TPU atlas limits);
 `fused_unsupported` (the narrowing of `fused_shade_eligible`, :1116),
 `FusedPipeline` (:1379) with `trace_shade` (K5, the merged megakernel of
@@ -43,7 +45,10 @@ A textured scene (texture_state 'diffuse') widens the attribute rows to
 24-40 and carries a TexState: the atlas's RGBA8 texels and meta rows on
 the device, which the kernels' textured variants read (shade.cuh
 `tex_fetch`) and the plain versions sample through
-`sample_texture_bilinear`.
+`sample_texture_bilinear`. A scene with a non-diffuse material appends the
+6 material-parameter rows at `params_base` (16, or 23-33 textured) and
+takes the kernels' dispatch variants; `power=True` picks lights by the
+CDF the light table carries in row 17.
 """
 from __future__ import annotations
 
@@ -60,8 +65,9 @@ from ..math.onb import onb_from_normal
 from ..math.sampling import sample_cosine_hemisphere, sample_uniform_triangle
 from ..math.vec import normalize3
 from ..scene.camera import camera_ray_dir
-from ..scene.light import pick_light_uniform
+from ..scene.light import pick_light_power, pick_light_uniform
 from ..scene.texture import TextureAtlas, atlas_to, sample_texture_bilinear
+from .bsdf import dispatch_sample, material_lanes, nee_bsdf
 from .mt import (RAY_TILE, MotionSoup, TriSoup, any_motion_ref, any_ref,
                  build_tri_soup, closest_motion_ref, closest_ref,
                  motion_union_aabbs)
@@ -74,7 +80,7 @@ MISC_OUT_W = 24  # K6's misc output: 16 state columns + 3 NEE, 8-aligned
 
 def build_shade_tables(scene, textured: bool = False,
                        uv_xform: bool = False, normal_maps: bool = False,
-                       f_limit: int | None = None):
+                       f_limit: int | None = None, dispatch: bool = False):
     """(attr_t [H, F], lights_t [24, Lp]) numpy tables, laid out as the
     reference's (pallas_shade.py:72-152).
 
@@ -83,16 +89,21 @@ def build_shade_tables(scene, textured: bool = False,
     texture id; with `uv_xform` rows 23-28 the material's uv transform
     (m00 m01 m10 m11 ox oy); with `normal_maps`, from `nmap_base` (23 or
     29) the raw per-face tangent e1 * duv2.y - e2 * duv1.y and the normal
-    texture id. H is padded to a multiple of 8. Light rows: v0 v1 v2
-    emission normal area, row 16 = per-light power-pick probability.
-    f_limit truncates the face axis to the traced soup's padded width."""
+    texture id. `dispatch` appends the 6 material-parameter rows at
+    `params_row` (mtype roughness metallic ior transmittance sheen). H is
+    padded to a multiple of 8. Light rows: v0 v1 v2 emission normal area,
+    row 16 = per-light power-pick probability, row 17 = the power CDF the
+    kernels' pick searches (the reference bakes it into its kernel as
+    constants). f_limit truncates the face axis to the traced soup's
+    padded width."""
     g = scene.geom
     f = g.mat_id.shape[0]
     if f_limit is not None:
         f = min(f, f_limit)
     mat_id = np.asarray(g.mat_id)[:f]
     nmap_base = nmap_row(uv_xform)
-    height = (nmap_base + (4 if normal_maps else 0)) if textured else 16
+    params_base = params_row(textured, uv_xform, normal_maps)
+    height = params_base + 6 if dispatch else params_base
     attr = np.zeros((f, -(-height // 8) * 8), np.float32)
     attr[:, 0:3] = np.asarray(g.n0[0])[:f]
     attr[:, 3:6] = np.asarray(g.n1[0])[:f]
@@ -114,6 +125,11 @@ def build_shade_tables(scene, textured: bool = False,
             attr[:, nmap_base:nmap_base + 3] = tang
             attr[:, nmap_base + 3] = np.asarray(
                 scene.materials.normal_tex)[mat_id]
+    if dispatch:
+        m = scene.materials
+        for k, col in enumerate((m.mtype, m.roughness, m.metallic, m.ior,
+                                 m.transmittance, m.sheen)):
+            attr[:, params_base + k] = np.asarray(col)[mat_id]
 
     lt = scene.lights
     n_l = max(scene.num_lights, 1)
@@ -128,12 +144,21 @@ def build_shade_tables(scene, textured: bool = False,
     cdf = np.asarray(lt.power_cdf, np.float32)[:n_l]
     prev = np.concatenate([np.zeros(1, np.float32), cdf[:-1]])
     lights[:n_l, 16] = cdf - prev
+    lights[:n_l, 17] = cdf
     return (np.ascontiguousarray(attr.T), np.ascontiguousarray(lights.T))
 
 
 def nmap_row(uv_xform: bool) -> int:
     """First normal-map row of a textured attribute table."""
     return 29 if uv_xform else 23
+
+
+def params_row(textured: bool, uv_xform: bool, normal_maps: bool) -> int:
+    """First material-parameter row (the reference's attr_params_base,
+    pallas_shade.py:62-69): the rows before it end there."""
+    if not textured:
+        return 16
+    return nmap_row(uv_xform) + (4 if normal_maps else 0)
 
 
 def texture_state(scene) -> str:
@@ -174,13 +199,16 @@ class TexState:
 
 
 def shade_tables_for(scene, device, f_limit: int | None = None):
-    """(attr_t [H, F], lights_t [24, Lp], TexState or None) of a scene the
-    gates accept: textured tables where texture_state is 'diffuse'."""
+    """(attr_t [H, F], lights_t [24, Lp], TexState or None, params_base)
+    of a scene the gates accept: textured tables where texture_state is
+    'diffuse', the material-parameter rows at params_base where a material
+    is not DIFFUSE (params_base 0 for an all-diffuse scene)."""
     textured = texture_state(scene) == "diffuse"
     uv_xform = textured and scene.any_uv_transform
     normal_maps = textured and scene.any_normal_map
+    dispatch = not scene.all_diffuse
     attr_t, lights_t = build_shade_tables(scene, textured, uv_xform,
-                                          normal_maps, f_limit)
+                                          normal_maps, f_limit, dispatch)
     tex = None
     if textured:
         # the kernels read meta rows by these ids unchecked
@@ -193,7 +221,9 @@ def shade_tables_for(scene, device, f_limit: int | None = None):
                                  f"scene's {n_tex} textures")
         tex = TexState(atlas=atlas_to(scene.atlas, device),
                        uv_xform=uv_xform, normal_maps=normal_maps)
-    return attr_t, lights_t, tex
+    params_base = (params_row(textured, uv_xform, normal_maps) if dispatch
+                   else 0)
+    return attr_t, lights_t, tex, params_base
 
 
 def _slice_checks(scene, cfg):
@@ -208,10 +238,6 @@ def _slice_checks(scene, cfg):
         (scene.any_normal_map and texture_state(scene) != "diffuse",
          "normal maps without texture images take the general pool, not "
          "ported yet (ROADMAP A22)"),
-        (not scene.all_diffuse, "material dispatch (non-diffuse "
-         "materials) is not ported yet (ROADMAP A12)"),
-        (cfg.light_sampler != "uniform",
-         "the power light sampler is not ported yet (ROADMAP A12)"),
         (cfg.aov, "AOV buffers are not ported yet (ROADMAP A13)"),
         (cfg.throughput_model != "reference",
          "the physical throughput model is not ported yet (ROADMAP A22)"),
@@ -261,6 +287,7 @@ class RefillConfig:
     shadow_eps: float
     bg: tuple
     seed_rot: int
+    power: bool = False  # the power light pick
 
 
 @dataclass(frozen=True)
@@ -273,6 +300,7 @@ class ShadeConfig:
     shadow_eps: float
     bg: tuple
     motion: bool
+    power: bool = False  # the power light pick
 
 
 @dataclass(frozen=True)
@@ -287,6 +315,7 @@ class ShadeTables:
     # a 2-key scene: both keys' tiles and the union cull boxes the sweeps use
     msoup: MotionSoup | None = None
     tex: TexState | None = None  # a textured scene's atlas and switches
+    params_base: int = 0  # material-parameter rows (dispatch), 0 = none
 
     def sweep_tables(self):
         """(tris, tris1, aabb, super_aabb) the kernels sweep: tris1 is None
@@ -344,14 +373,16 @@ def _textured_normal_and_albedo(a, w0, bu, bv, ng, tex: TexState):
 
 
 def _shade_lanes(rays, hit4, misc, a, lights_t, sc, shadow_occluded=None,
-                 tex: TexState | None = None):
-    """The shading body shared by K4, K5 and K6 (pallas_shade.py :436-880,
-    the Lambertian, uniform-light branch): emission at depth 0, miss
-    ambient, textures (`tex`), Lambertian draw, NEE light pick and area
-    sample, RR, the next state.
+                 tex: TexState | None = None, params_base: int = 0):
+    """The shading body shared by K4, K5 and K6 (pallas_shade.py
+    :436-880): emission at depth 0 and after delta lobes, miss ambient,
+    textures (`tex`), the Lambertian draw or (params_base > 0) the
+    four-type dispatch (trace/bsdf.py), the uniform or (sc.power) power
+    light pick and area sample, NEE, RR, the next state.
 
     hit4 [R, 4] (t, prim_f, u, v); a: attribute rows [>=15, R] gathered by
-    prim (the textured rows too for `tex`).
+    prim (the textured rows and the material-parameter rows at
+    params_base too).
     `shadow_occluded(shadow_rays [R, 8], time [R]) -> occ [R]` runs
     the in-kernel shadow sweep (K4, K5) at the shadow rays' time, a peek of
     the post-NEE stream; None is the external variant (K6): NEE is
@@ -393,23 +424,42 @@ def _shade_lanes(rays, hit4, misc, a, lights_t, sc, shadow_occluded=None,
 
     # --- BSDF sample (cosine hemisphere; reference draw order) ---
     adv = is_hit & alive
-    seed, _ = rng.rnd_masked(seed, adv)
+    seed, z1 = rng.rnd_masked(seed, adv)
     seed, _ = rng.rnd_masked(seed, adv)
     seed, u1 = rng.rnd_masked(seed, adv)
     seed, u2 = rng.rnd_masked(seed, adv)
     wx, wy, wz = sample_cosine_hemisphere(u1, u2)
     (txx, txy, txz), (bx0, by0, bz0) = onb_from_normal(nsx, nsy, nsz)
-    inv_cos = 1.0 / torch.clamp(wz * _INV_PI, min=1e-12) * _INV_PI
+    mat = None
+    if params_base:
+        # the four-type dispatch in the (t, b, n) frame, wo = -d
+        mat = material_lanes(a, params_base, albedo)
+        wo = (-(dx * txx + dy * txy + dz * txz),
+              -(dx * bx0 + dy * by0 + dz * bz0),
+              -(dx * nsx + dy * nsy + dz * nsz))
+        (wx, wy, wz), at_fac = dispatch_sample(mat, wo, (wx, wy, wz), z1,
+                                               u1, u2)
+    else:
+        # reference Lambertian: attenuation = albedo * (1/pi) / (cos/pi)
+        inv_cos = 1.0 / torch.clamp(wz * _INV_PI, min=1e-12) * _INV_PI
+        at_fac = [albedo[c] * inv_cos for c in range(3)]
     ndx = wx * txx + wy * bx0 + wz * nsx
     ndy = wx * txy + wy * by0 + wz * nsy
     ndz = wx * txz + wy * bz0 + wz * nsz
 
-    # --- NEE: uniform light pick, clamped to count - 1 ---
+    # --- NEE: uniform or power light pick, clamped to count - 1 ---
     seed, u_pick = rng.rnd_masked(seed, adv)
     seed, lu = rng.rnd_masked(seed, adv)
     seed, lv = rng.rnd_masked(seed, adv)
-    lidx, pick_pdf = pick_light_uniform(u_pick, sc.num_lights)
+    if sc.power:
+        lidx, _ = pick_light_power(u_pick, lights_t[17], sc.num_lights)
+    else:
+        lidx, _ = pick_light_uniform(u_pick, sc.num_lights)
     lrow = lights_t[:, lidx.to(torch.int64)]
+    # the pick pdf: the picked light's row 16, or 1 / count (a tensor: CUDA
+    # torch multiplies by the reciprocal of a Python divisor)
+    pick_pdf = (lrow[16] if sc.power
+                else torch.full_like(u_pick, 1.0 / float(sc.num_lights)))
     b0, b1, b2 = sample_uniform_triangle(lu, lv)
     lpx = b0 * lrow[0] + b1 * lrow[3] + b2 * lrow[6]
     lpy = b0 * lrow[1] + b1 * lrow[4] + b2 * lrow[7]
@@ -428,6 +478,8 @@ def _shade_lanes(rays, hit4, misc, a, lights_t, sc, shadow_occluded=None,
                             1.0 / torch.clamp(omega, min=1e-20)) * pick_pdf
     n_dl = nsx * ldx + nsy * ldy + nsz * ldz
     want_shadow = adv & (n_dl > 0.0)
+    if mat is not None:  # no NEE on delta lobes
+        want_shadow = want_shadow & ~mat.is_delta
 
     # --- shadow rays: swept here (K4) or handed to the caller (K6) ---
     tmax_s = torch.where(want_shadow, ldist - sc.shadow_eps, zero)
@@ -441,11 +493,22 @@ def _shade_lanes(rays, hit4, misc, a, lights_t, sc, shadow_occluded=None,
     else:
         lit = want_shadow & (shadow_occluded(shadow, occl_time) < 0.5)
 
-    pdf_sc = torch.abs(n_dl) * _INV_PI
-    ph = (pdf_light * pdf_light) / torch.clamp(
-        pdf_light * pdf_light + pdf_sc * pdf_sc, min=1e-20)
-    radiance = [torch.where(lit, le[c] * albedo[c] * (ph * _INV_PI), zero)
-                for c in range(3)]
+    if mat is None:
+        # weight = albedo/pi * powerHeuristic(pdf_light, |n.l|/pi)
+        pdf_sc = torch.abs(n_dl) * _INV_PI
+        ph = (pdf_light * pdf_light) / torch.clamp(
+            pdf_light * pdf_light + pdf_sc * pdf_sc, min=1e-20)
+        radiance = [torch.where(lit, le[c] * albedo[c] * (ph * _INV_PI),
+                                zero) for c in range(3)]
+    else:
+        # the general NEE, Le omega f(wo, wl) n.l / pick_pdf, no MIS
+        wl = (ldx * txx + ldy * txy + ldz * txz,
+              ldx * bx0 + ldy * by0 + ldz * bz0,
+              ldx * nsx + ldy * nsy + ldz * nsz)
+        f_ev = nee_bsdf(mat, wo, wl)
+        scale = n_dl / torch.clamp(pick_pdf, min=1e-12)
+        radiance = [torch.where(lit, le[c] * f_ev[c] * scale, zero)
+                    for c in range(3)]
     nee = None
     if external:
         nee = [radiance[c] * last_at[c] for c in range(3)]
@@ -453,7 +516,7 @@ def _shade_lanes(rays, hit4, misc, a, lights_t, sc, shadow_occluded=None,
     radiance = [torch.where(is_hit, radiance[c], torch.full_like(zero, b))
                 for c, b in zip(range(3), sc.bg)]
     contrib = [emitted[c] + radiance[c] * last_at[c] for c in range(3)]
-    new_at = [torch.where(adv, atten[c] * (albedo[c] * inv_cos), atten[c])
+    new_at = [torch.where(adv, atten[c] * at_fac[c], atten[c])
               for c in range(3)]
     new_last = [torch.where(alive, new_at[c], last_at[c]) for c in range(3)]
 
@@ -467,7 +530,9 @@ def _shade_lanes(rays, hit4, misc, a, lights_t, sc, shadow_occluded=None,
     accs = [acc[c] + torch.where(alive, contrib[c], zero) for c in range(3)]
     depth_new = depth + alive.to(torch.float32)
     alive_b = survive & (depth_new < float(sc.max_depth))
-    pdelta_new = torch.where(alive, zero, prev_delta)
+    pdelta_new = torch.where(
+        alive, zero if mat is None else mat.is_delta.to(torch.float32),
+        prev_delta)
     return dict(seed=seed, survive=survive, alive=alive, alive_b=alive_b,
                 want_shadow=want_shadow, new_at=new_at, new_last=new_last,
                 accs=accs, depth_new=depth_new, pdelta_new=pdelta_new,
@@ -501,7 +566,7 @@ def _shade_in_place_sweeps(rays, misc, count, tables: ShadeTables, sc,
     hit4 = closest(rays)
     a = tables.attr_t[:, torch.clamp(hit4[:, 1], min=0.0).to(torch.int64)]
     return _shade_lanes(rays, hit4, misc, a, tables.lights_t, sc, occluded,
-                        tables.tex)
+                        tables.tex, tables.params_base)
 
 
 def _tex_params(name: str, tex: TexState | None):
@@ -549,9 +614,9 @@ def trace_shade(rays, misc, count, tables: ShadeTables, sc: ShadeConfig,
         max_depth=sc.max_depth, num_lights=sc.num_lights,
         attr_stride=tables.attr_t.shape[1],
         light_stride=tables.lights_t.shape[1], n_tiles=tris.shape[0],
-        ct=tris.shape[2], motion=int(motion), pad_i=0,
-        shadow_tmin=sc.shadow_tmin, shadow_eps=sc.shadow_eps,
-        pick_pdf=1.0 / float(sc.num_lights),
+        ct=tris.shape[2], motion=int(motion), power=int(sc.power),
+        params_base=tables.params_base, shadow_tmin=sc.shadow_tmin,
+        shadow_eps=sc.shadow_eps, pick_pdf=1.0 / float(sc.num_lights),
         bg=(sc.bg[0], sc.bg[1], sc.bg[2]))
     index, stream = kbuild.launch_target(rays.device)
     err = kbuild.library().rt3c_trace_shade(
@@ -691,7 +756,8 @@ def trace_shade_refill(rays, misc, stash, stats_in, stats_out,
         num_lights=rc.num_lights, pixel_base=pixel_base,
         subframe_index=subframe_index, attr_stride=tables.attr_t.shape[1],
         light_stride=tables.lights_t.shape[1], n_tiles=tris.shape[0],
-        ct=tris.shape[2], motion=int(motion), seed_rot=rc.seed_rot & rng.M32,
+        ct=tris.shape[2], motion=int(motion), power=int(rc.power),
+        params_base=tables.params_base, seed_rot=rc.seed_rot & rng.M32,
         width_f=float(rc.width), height_f=float(rc.height),
         tmin=rc.primary_tmin, tmax=rc.primary_tmax,
         shadow_tmin=rc.shadow_tmin, shadow_eps=rc.shadow_eps,
@@ -750,7 +816,8 @@ class FusedPipeline:
                                aabb=aabb.contiguous(),
                                super_aabb=super_aabb.contiguous())
         f_limit = self.soup.tris.shape[0] * self.soup.tris.shape[2]
-        attr_t, lights_t, tex = shade_tables_for(scene, self.device, f_limit)
+        attr_t, lights_t, tex, params_base = shade_tables_for(
+            scene, self.device, f_limit)
         jump = _lcg_advance_table(cfg.samples_per_launch).astype(np.int64)
         self.tables = ShadeTables(
             soup=self.soup,
@@ -759,11 +826,12 @@ class FusedPipeline:
             jump=torch.as_tensor(jump, device=self.device),
             jump_u32=torch.as_tensor(jump.astype(np.uint32).view(np.int32),
                                      device=self.device),
-            msoup=msoup, tex=tex)
+            msoup=msoup, tex=tex, params_base=params_base)
         self.config = ShadeConfig(
             max_depth=cfg.max_depth, num_lights=scene.num_lights,
             shadow_tmin=cfg.shadow_tmin, shadow_eps=cfg.shadow_tmax_eps,
-            bg=tuple(float(b) for b in cfg.bg_radiance), motion=self.motion)
+            bg=tuple(float(b) for b in cfg.bg_radiance), motion=self.motion,
+            power=cfg.light_sampler == "power")
         self.refill_fn = refill_fn
         self.shade_fn = shade_fn
 
@@ -790,7 +858,7 @@ class FusedPipeline:
             primary_tmin=cfg.primary_tmin, primary_tmax=cfg.primary_tmax,
             shadow_tmin=cfg.shadow_tmin, shadow_eps=cfg.shadow_tmax_eps,
             bg=tuple(float(b) for b in cfg.bg_radiance),
-            seed_rot=int(cfg.seed or 0))
+            seed_rot=int(cfg.seed or 0), power=self.config.power)
         return partial(self.refill_fn, tables=self.tables, rc=rc)
 
 
@@ -802,6 +870,7 @@ class ExternalTables:
     attr: torch.Tensor  # [F, H] f32 attribute rows, read by prim
     lights_t: torch.Tensor  # [24, Lp] f32
     tex: TexState | None = None  # a textured scene's atlas and switches
+    params_base: int = 0  # material-parameter rows (dispatch), 0 = none
 
 
 def external_shade_ref(rays, hit4, misc, tables: ExternalTables,
@@ -809,7 +878,8 @@ def external_shade_ref(rays, hit4, misc, tables: ExternalTables,
     """Plain version of K6: (rays_out [R, 8], misc_out [R, 24], shadow
     [R, 8|16]) from rays [R, 8], hit4 [R, 4] and misc [R, 16]."""
     a = tables.attr[torch.clamp(hit4[:, 1], min=0.0).to(torch.int64)].T
-    r = _shade_lanes(rays, hit4, misc, a, tables.lights_t, ec, tex=tables.tex)
+    r = _shade_lanes(rays, hit4, misc, a, tables.lights_t, ec, tex=tables.tex,
+                     params_base=tables.params_base)
     rays_out, cols = _next_state(rays, misc, r)
     misc_out = torch.stack(
         cols + r["nee"] + [r["zero"]] * (MISC_OUT_W - 19), dim=1)
@@ -844,7 +914,8 @@ def external_shade(rays, hit4, misc, tables: ExternalTables,
         light_stride=tables.lights_t.shape[1], motion=int(ec.motion),
         shadow_tmin=ec.shadow_tmin, shadow_eps=ec.shadow_eps,
         pick_pdf=1.0 / float(ec.num_lights),
-        bg=(ec.bg[0], ec.bg[1], ec.bg[2]), attr_w=attr_w)
+        bg=(ec.bg[0], ec.bg[1], ec.bg[2]), attr_w=attr_w,
+        power=int(ec.power), params_base=tables.params_base)
     index, stream = kbuild.launch_target(rays.device)
     err = kbuild.library().rt3c_external_shade(
         index, p, rays.data_ptr(), hit4.data_ptr(), misc.data_ptr(),
@@ -875,15 +946,18 @@ class ExternalPipeline:
         self.device = torch.device(device)
         self.motion = scene.num_keys == 2
         self._closest, self._any = tracer
-        attr_t, lights_t, tex = shade_tables_for(scene, self.device)
+        attr_t, lights_t, tex, params_base = shade_tables_for(scene,
+                                                              self.device)
         self.tables = ExternalTables(
             attr=torch.as_tensor(np.ascontiguousarray(attr_t.T),
                                  device=self.device),
-            lights_t=torch.as_tensor(lights_t, device=self.device), tex=tex)
+            lights_t=torch.as_tensor(lights_t, device=self.device), tex=tex,
+            params_base=params_base)
         self.config = ShadeConfig(
             max_depth=cfg.max_depth, num_lights=scene.num_lights,
             shadow_tmin=cfg.shadow_tmin, shadow_eps=cfg.shadow_tmax_eps,
-            bg=tuple(float(b) for b in cfg.bg_radiance), motion=self.motion)
+            bg=tuple(float(b) for b in cfg.bg_radiance), motion=self.motion,
+            power=cfg.light_sampler == "power")
         self.shade_fn = shade_fn
 
     def trace_shade(self, rays, misc, count, time=None):

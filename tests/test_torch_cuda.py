@@ -577,3 +577,160 @@ def test_cli_renders_textured_town(dev, tmp_path):
                      str(out)]) == 0
     assert shade.external_shade.launches > 0
     assert out.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+
+
+def _dispatch_scene(name, motion=False):
+    """(scene, camera): the Cornell box with all four material types
+    ("material", 2-key with motion) or the principled, normal-mapped quad
+    ("principled_quad")."""
+    from rendertoy3c_tpu_torch.scene.builtin import (material_cornell_box,
+                                                     textured_quad_variant)
+
+    if name == "material":
+        meshes, cam = material_cornell_box(motion)
+        return build_scene(meshes), cam
+    meshes, textures, cam = textured_quad_variant("principled", motion)
+    return build_scene(meshes, textures=textures), cam
+
+
+@pytest.mark.parametrize("name, motion, sampler", [
+    ("material", False, "uniform"), ("material", True, "power"),
+    ("principled_quad", False, "power"), ("principled_quad", True, "uniform")])
+def test_dispatch_refill_kernel_matches_plain_version_on_one_block(
+        dev, name, motion, sampler):
+    """K4 dispatch (static, motion, textured, both) teacher-forced for 8
+    launches on one block: stats, seeds (and the time buffer) exact, lanes
+    within 1e-5 on at least 99%."""
+    scene, cam = _dispatch_scene(name, motion)
+    cfg = RenderConfig(width=64, height=64, samples_per_launch=4,
+                       max_depth=8, ray_block=256, integrator="pool",
+                       pool_pixel_major=True, light_sampler=sampler)
+    kern = shade.FusedPipeline(scene, cfg, dev)
+    assert kern.tables.params_base > 0 and kern.motion == motion
+    kern = kern.refill_shader(4096)
+    ref = shade.FusedPipeline(scene, cfg, dev, refill_fn=shade
+                              .trace_shade_refill_ref).refill_shader(4096)
+    state = [torch.zeros((256, w), dtype=torch.float32, device=dev)
+             for w in (8, 16, 16)]
+    state[1][:, 13] = -1.0
+    state[2][:, 0] = -1.0
+    time = [torch.zeros(256, dtype=torch.float32, device=dev)] if motion \
+        else []
+    stats = torch.zeros(4, dtype=torch.int32, device=dev)
+    for _ in range(8):
+        outs = []
+        for fn in (kern, ref):
+            out = [x.clone() for x in state + time]
+            st = torch.zeros(4, dtype=torch.int32, device=dev)
+            fn(*out[:3], stats, st, 0, 2, _scf(cam), *out[3:])
+            outs.append((out, st))
+        (got, st_k), (want, st_r) = outs
+        assert torch.equal(st_k, st_r)
+        for g, w in zip(got[:3], want[:3]):
+            # equal_nan: a seed's bits may read as a NaN float
+            same = torch.isclose(g, w, rtol=1e-5, atol=1e-5,
+                                 equal_nan=True).all(dim=1)
+            assert float(same.float().mean()) >= 0.99
+        assert torch.equal(got[1][:, 0].view(torch.int32),
+                           want[1][:, 0].view(torch.int32))
+        if motion:
+            assert torch.equal(got[3].view(torch.int32),
+                               want[3].view(torch.int32))
+        state, time, stats = want[:3], want[3:], st_r
+
+
+@pytest.mark.parametrize("name, motion, sampler", [
+    ("material", False, "power"), ("material", True, "uniform"),
+    ("principled_quad", False, "power"), ("principled_quad", True, "power")])
+def test_dispatch_trace_shade_kernel_matches_plain_version(dev, name, motion,
+                                                           sampler):
+    """K5 dispatch teacher-forced for 8 iterations from the plain version's
+    states: every output bit for bit."""
+    scene, cam = _dispatch_scene(name, motion)
+    cfg = RenderConfig(width=64, height=64, samples_per_launch=2,
+                       max_depth=8, ray_block=4096, integrator="pool",
+                       pool_pixel_major=False, light_sampler=sampler)
+    pipe = shade.FusedPipeline(scene, cfg, dev)
+    assert pipe.tables.params_base > 0
+    rays, misc = _lane_state(scene, cam, 4096, 17, dev)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    for it in range(8):
+        count = torch.tensor([4096 if it % 2 == 0 else 3000],
+                             dtype=torch.int32, device=dev)
+        time = torch.rand(4096, device=dev, generator=gen) if motion else None
+        got = shade.trace_shade(rays, misc, count, pipe.tables, pipe.config,
+                                time)
+        want = shade.trace_shade_ref(rays, misc, count, pipe.tables,
+                                     pipe.config, time)
+        for g, w in zip(got, want):
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+        rays, misc = want
+        fr, fm = _lane_state(scene, cam, 4096, 40 + it, dev)
+        dead = misc[:, 9] <= 0
+        rays = torch.where(dead[:, None], fr, rays)
+        misc = torch.where(dead[:, None], fm, misc)
+
+
+@pytest.mark.parametrize("textured", [False, True])
+def test_dispatch_external_shade_matches_plain_version(dev, textured):
+    """K6 dispatch with the power pick on the principled town (4294
+    faces), teacher-forced for 8 iterations: every output bit for bit."""
+    from rendertoy3c_tpu_torch.scene.town import town_scene
+    from rendertoy3c_tpu_torch.trace.auto import choose_tracer
+
+    scene, cam = town_scene(4000, textured=textured, principled=True)
+    cfg = RenderConfig(width=64, height=64, samples_per_launch=2,
+                       max_depth=8, ray_block=4096, integrator="pool",
+                       pool_pixel_major=True, light_sampler="power")
+    scene, _ = choose_tracer(scene, cfg, dev)
+    pipe = shade.ExternalPipeline(scene, cfg,
+                                  mt.make_mt_tracer(scene, dev, plain=True),
+                                  dev, shade_fn=shade.external_shade_ref)
+    assert pipe.tables.params_base > 0 and pipe.config.power
+    assert (pipe.tables.tex is not None) == textured
+    rays, misc = _lane_state(scene, cam, 4096, 9, dev)
+    count = torch.tensor([4096], dtype=torch.int32, device=dev)
+    for _ in range(8):
+        hit = pipe._closest(rays[:, 0:3], rays[:, 3:6], rays[:, 6],
+                            rays[:, 7], None, count)
+        hit4 = torch.stack([hit.t, hit.prim.float(), hit.u, hit.v], dim=1)
+        got = shade.external_shade(rays, hit4, misc, pipe.tables,
+                                   pipe.config)
+        want = shade.external_shade_ref(rays, hit4, misc, pipe.tables,
+                                        pipe.config)
+        for g, w in zip(got, want):
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+        rays, misc = pipe.trace_shade(rays, misc, count)
+    assert (misc[:, 8] > 2).any()
+
+
+@pytest.mark.parametrize("case", ["material_power", "principled_town"])
+def test_dispatch_pipelines_pass_gate(dev, case):
+    """bench.py:115-116 at 96^2, kernels against plain versions: the
+    material Cornell box with the power pick (K4 dispatch) and the
+    principled town, power, sorted (K1/K2 + K6 dispatch)."""
+    from rendertoy3c_tpu_torch.scene.town import town_scene
+    from rendertoy3c_tpu_torch.trace.auto import choose_tracer
+
+    if case == "material_power":
+        scene, cam = _dispatch_scene("material")
+        change = {}
+    else:
+        scene, cam = town_scene(4000, textured=True, principled=True)
+        change = dict(sort_rays=True)
+    cfg = RenderConfig(width=96, height=96, samples_per_launch=2,
+                       max_depth=6, ray_block=4096, integrator="pool",
+                       pool_pixel_major=True, light_sampler="power", **change)
+    scene, pipe = choose_tracer(scene, cfg, dev)
+    plain = (shade.FusedPipeline(
+        scene, cfg, dev, refill_fn=shade.trace_shade_refill_ref,
+        shade_fn=shade.trace_shade_ref)
+        if isinstance(pipe, shade.FusedPipeline) else shade.ExternalPipeline(
+            scene, cfg, mt.make_mt_tracer(scene, dev, plain=True), dev,
+            shade_fn=shade.external_shade_ref))
+    images = [render_frame(scene, cam.params(), cfg, tracer=p,
+                           device=dev)[0].accum.cpu().numpy()
+              for p in (pipe, plain)]
+    diff = np.abs(images[0] - images[1])
+    assert diff.mean() <= 2e-3
+    assert int((diff.max(axis=-1) > 0.35).sum()) <= 8 and diff.max() <= 8.0

@@ -34,6 +34,7 @@ from rendertoy3c_tpu_torch.integrate.path import render_frame
 from rendertoy3c_tpu_torch.io.genassets import generate_town
 from rendertoy3c_tpu_torch.io.obj import load_obj
 from rendertoy3c_tpu_torch.scene.builtin import box_mesh, cornell_box, quad
+from rendertoy3c_tpu_torch.scene.camera import Camera
 from rendertoy3c_tpu_torch.scene.material import Material, MaterialType
 from rendertoy3c_tpu_torch.scene.mesh import Mesh
 from rendertoy3c_tpu_torch.scene.scene import build_scene
@@ -115,15 +116,15 @@ def test_textured_external_shade_ref_matches_reference_kernel(
     _teacher_force(textured_towns[two_key], two_key)
 
 
-def _teacher_force(scenes, two_key):
+def _teacher_force(scenes, two_key, kw=KW):
     js, ts, cam = scenes
-    ts, pipe = choose_tracer(ts, RenderConfig(**KW), "cpu")
+    ts, pipe = choose_tracer(ts, RenderConfig(**kw), "cpu")
     if not two_key:
         js = j_morton_order(js)
     assert isinstance(pipe, shade.ExternalPipeline)
     assert pipe.motion == two_key
     j_shade, attr_rows, presample = make_external_shader(
-        js, JConfig(**KW), motion=two_key, interpret=True)
+        js, JConfig(**kw), motion=two_key, interpret=True)
     assert (presample is None) == (pipe.tables.tex is None)
     attr_rows = np.asarray(attr_rows)
     np.testing.assert_array_equal(pipe.tables.attr.numpy(), attr_rows)
@@ -183,15 +184,19 @@ def test_render_matches_reference_external_pipeline(towns, two_key,
     """tests/test_external.py `_match`, strict: >98% of pixels at rtol =
     atol = 3e-5, means within 5e-3, ray counts within 2% + 16. pool_stash
     -1 (auto: off for the external pipeline) and 1 (the stash branch)."""
-    js, ts, cam = towns[two_key]
-    jcfg = JConfig(**KW, pool_stash=pool_stash)
+    _match_external(*towns[two_key], dict(KW, pool_stash=pool_stash))
+
+
+def _match_external(js, ts, cam, kw):
+    """The port's render against the reference's over its own
+    ExternalPipeline by the strict rule."""
+    jcfg = JConfig(**kw)
     j_scene, j_pipe = j_choose_tracer(js, jcfg, on_tpu=True)
     assert type(j_pipe).__name__ == "ExternalPipeline"
     f_ref, s_ref = j_render_frame(j_scene, cam.params(), jcfg, subframes=1,
                                   tracer=j_pipe)
-    f, s = render_frame(ts, cam.params(),
-                        RenderConfig(**KW, pool_stash=pool_stash),
-                        subframes=1, device="cpu")
+    f, s = render_frame(ts, cam.params(), RenderConfig(**kw), subframes=1,
+                        device="cpu")
     a, b = f.accum.numpy(), np.asarray(f_ref.accum)
     assert np.isclose(a, b, rtol=3e-5, atol=3e-5).mean() > 0.98
     np.testing.assert_allclose(a.mean(), b.mean(), rtol=5e-3)
@@ -214,11 +219,37 @@ def test_pool_stash_option_renders_the_same_image(towns):
     assert int(films[0][1].radiance_rays) == int(films[1][1].radiance_rays)
 
 
-def _lit_box_grid(n):
-    lv, lf = quad([0, 8, 0], [0, 8, n], [n, 8, n], [n, 8, 0])
-    return box_grid_meshes(Material, Mesh, box_mesh, n=n) + [
-        Mesh(vertices=lv[None], indices=lf,
-             material=Material(emissive=(30.0, 30.0, 30.0)))]
+def _lit_box_grid(n, pkg="torch"):
+    """n * n boxes under a lamp, built by the port ("torch") or the
+    reference ("jax")."""
+    if pkg == "torch":
+        mat, mesh, box, quad_fn = Material, Mesh, box_mesh, quad
+    else:
+        from rendertoy3c_tpu.scene.builtin import box_mesh as mesh_fn
+        from rendertoy3c_tpu.scene.builtin import quad as quad_fn
+        from rendertoy3c_tpu.scene.material import Material as mat
+        from rendertoy3c_tpu.scene.mesh import Mesh as mesh
+        box = mesh_fn
+    lv, lf = quad_fn([0, 8, 0], [0, 8, n], [n, 8, n], [n, 8, 0])
+    return box_grid_meshes(mat, mesh, box, n=n) + [
+        mesh(vertices=lv[None], indices=lf,
+             material=mat(emissive=(30.0, 30.0, 30.0)))]
+
+
+def _principled_grid_pair():
+    """(reference scene, port scene, camera): 2354 faces, the boxes
+    PRINCIPLED."""
+    from rendertoy3c_tpu.scene.scene import build_scene as j_build_scene
+
+    scenes = []
+    for pkg, build in (("jax", j_build_scene), ("torch", build_scene)):
+        meshes = _lit_box_grid(14, pkg)
+        meshes[0].material = dataclasses.replace(
+            meshes[0].material, material_type=MaterialType.PRINCIPLED,
+            roughness=0.3, metallic=0.5)
+        scenes.append(build(meshes))
+    return (*scenes, Camera(eye=(7.0, 12.0, 24.0), lookat=(7.0, 0.0, 7.0),
+                            fov_y=50.0))
 
 
 def _three_key_town(tmp_path):
@@ -261,8 +292,16 @@ def test_out_of_slice_raises_naming_roadmap_item(towns, tmp_path, case,
                                                  item):
     """Cases of a ported ROADMAP item now render: the 2-key Cornell box
     through the fused pipeline's motion variant (A11), the town's sorted and
-    sample-major pools through the external pipeline (A8), and the textured
-    town through the external pipeline's textured K6 (A12's textures)."""
+    sample-major pools through the external pipeline (A8), the textured
+    town through the external pipeline's textured K6 (A12's textures), and
+    a principled scene and the power pick (A12's dispatch and power
+    sampler) as the reference renders them (`_match_external`)."""
+    if case == "principled":
+        _match_external(*_principled_grid_pair(), KW)
+        return
+    if case == "power_sampler":
+        _match_external(*towns[False], dict(KW, light_sampler="power"))
+        return
     scene, cfg = towns[False][1], RenderConfig(**KW)
     if case == "17k_faces":
         scene = build_scene(_lit_box_grid(38))
@@ -276,13 +315,8 @@ def test_out_of_slice_raises_naming_roadmap_item(towns, tmp_path, case,
     elif case == "two_key_cornell":
         scene = _moving_cornell()
         assert scene.num_keys == 2 and scene.num_faces <= shade.MAX_FACES
-    elif case == "principled":
-        meshes = _lit_box_grid(14)  # 2354 faces
-        meshes[0].material = Material(material_type=MaterialType.PRINCIPLED)
-        scene = build_scene(meshes)
     else:
-        change = {"power_sampler": dict(light_sampler="power"),
-                  "aov": dict(aov=True), "sorted": dict(sort_rays=True),
+        change = {"aov": dict(aov=True), "sorted": dict(sort_rays=True),
                   "sample_major": dict(pool_pixel_major=False)}[case]
         cfg = dataclasses.replace(cfg, **change)
     if item in ("A8", "A11") or case == "textured_obj":

@@ -22,6 +22,7 @@ MODULES = [
     "rendertoy3c_tpu_torch.scene.material", "rendertoy3c_tpu_torch.scene.scene",
     "rendertoy3c_tpu_torch.scene.texture",
     "rendertoy3c_tpu_torch.trace", "rendertoy3c_tpu_torch.trace.auto",
+    "rendertoy3c_tpu_torch.trace.bsdf", "rendertoy3c_tpu_torch.scene.light",
     "rendertoy3c_tpu_torch.trace.intersect", "rendertoy3c_tpu_torch.trace.mt",
     "rendertoy3c_tpu_torch.trace.shade",
 ]

@@ -46,8 +46,12 @@ def gate(a, b):
 def test_render_matches_reference_fused_pipeline():
     """tests/test_fused.py `_match` rule: >98% of pixels at rtol = atol =
     3e-5, means within 2e-3, ray counts within 1% + 8."""
-    js, ts, jcam, tcam = cornell_pair()
-    kw = _cfg()
+    _match_fused(*cornell_pair(), _cfg())
+
+
+def _match_fused(js, ts, jcam, tcam, kw):
+    """The render of the port against the reference's fused pipeline by
+    the `_match` rule."""
     f_ref, s_ref = j_render_frame(
         js, jcam.params(), JConfig(**kw), subframes=1,
         tracer=make_fused_pipeline(js, JConfig(**kw), interpret=True))
@@ -113,10 +117,17 @@ def _textured_scene():
     return build_scene(meshes, textures=[checker])
 
 
-def _mirror_scene():
-    meshes, _ = cornell_box()
-    meshes[3].material = Material(material_type=MaterialType.SPECULAR)
-    return build_scene(meshes)
+def _mirror_pair():
+    """cornell_pair() with the red wall a SPECULAR mirror."""
+    from rendertoy3c_tpu.scene.builtin import cornell_box as j_cornell_box
+    from rendertoy3c_tpu.scene.material import Material as JMaterial
+    from rendertoy3c_tpu.scene.scene import build_scene as j_build_scene
+
+    jm, jcam = j_cornell_box()
+    tm, tcam = cornell_box()
+    jm[3].material = JMaterial(material_type=MaterialType.SPECULAR)
+    tm[3].material = Material(material_type=MaterialType.SPECULAR)
+    return j_build_scene(jm), build_scene(tm), jcam, tcam
 
 
 def _motion_scene():
@@ -137,6 +148,8 @@ def _big_scene():
 
 
 PORTED = ("A8", "A11")  # sorted and sample-major pools, fused motion
+# A12's material dispatch and power pick: rendered against the reference
+RENDERED = ("mirror", "power")
 
 
 @pytest.mark.parametrize("case, item", [
@@ -150,15 +163,21 @@ PORTED = ("A8", "A11")  # sorted and sample-major pools, fused motion
 def test_outside_the_slice_raises_naming_the_roadmap_item(case, item):
     """Cases of a ported ROADMAP item (PORTED) now take the fused pipeline:
     the 2-key Cornell box its motion variant, the sample-major pool K5, and
-    a diffuse texture (A12's textures) the textured megakernel."""
+    a diffuse texture (A12's textures) the textured megakernel; a mirror
+    wall (A12's dispatch) and the power pick render as the reference does
+    (`_match_fused`)."""
+    if case in RENDERED:
+        kw = _cfg(light_sampler="power") if case == "power" else _cfg()
+        _match_fused(*(_mirror_pair() if case == "mirror" else
+                       cornell_pair()), kw)
+        return
     scene = build_scene(cornell_box()[0])
     cfg = RenderConfig(**_cfg())
-    if case in ("textured", "mirror", "motion", "big"):
-        scene = {"textured": _textured_scene, "mirror": _mirror_scene,
-                 "motion": _motion_scene, "big": _big_scene}[case]()
+    if case in ("textured", "motion", "big"):
+        scene = {"textured": _textured_scene, "motion": _motion_scene,
+                 "big": _big_scene}[case]()
     else:
-        change = {"power": dict(light_sampler="power"), "aov": dict(aov=True),
-                  "wave": dict(integrator="wave"),
+        change = {"aov": dict(aov=True), "wave": dict(integrator="wave"),
                   "sample_major": dict(pool_pixel_major=False)}[case]
         cfg = dataclasses.replace(cfg, **change)
     if item in PORTED or case == "textured":

@@ -1,10 +1,12 @@
 """The port's texture path against the reference, piece by piece.
 
-The atlas (data, meta and quad table) array-equal to the reference's
+The atlas (data and meta) array-equal to the reference's
 `build_texture_atlas` on the town's two PNGs and on odd sizes with mixed
-wrap modes; `sample_texture_bilinear` against the reference's on random
-uvs in [-2, 3] for the three wrap modes and texture id -1, through the quad
-table and through the four gathers: texel indices exact, rgb within 1e-6;
+wrap modes, and `build_quad_table` to the reference atlas's quad table;
+`sample_texture_bilinear` (four gathers) against the reference's on random
+uvs in [-2, 3] for the three wrap modes and texture id -1, through its
+quad table and through its four gathers: texel indices exact, rgb within
+1e-6;
 the stdlib PNG decoder equal to PIL, and the .obj loader's textures equal
 to the reference loader's with and without PIL; the textured shade tables
 array-equal; the texture gates; and the CLI's textured scenes against the
@@ -30,7 +32,8 @@ from rendertoy3c_tpu_torch.scene import texture as tx
 from rendertoy3c_tpu_torch.scene.scene import build_scene
 from rendertoy3c_tpu_torch.trace import shade
 from rendertoy3c_tpu_torch.trace.auto import choose_tracer
-from torch_port_util import textured_quad_meshes, textured_quad_pair
+from torch_port_util import (assert_light_rows_equal, textured_quad_meshes,
+                             textured_quad_pair)
 
 CFG = dict(width=16, height=16, samples_per_launch=2, max_depth=4,
            ray_block=256, integrator="pool", pool_pixel_major=True)
@@ -71,14 +74,23 @@ def _atlas_pair(name, town_pngs):
 @pytest.mark.parametrize("name", ["town", "odd_mixed"])
 def test_atlas_matches_reference(town_pngs, name):
     got, want = _atlas_pair(name, town_pngs)
-    for k in ("data", "meta", "quad"):
+    for k in ("data", "meta"):
         g, w = getattr(got, k), np.asarray(getattr(want, k))
         assert g.dtype == w.dtype, k
         np.testing.assert_array_equal(g, w, err_msg=k)
+    assert got._fields == ("data", "meta")  # no quad table unless asked
     empty, j_empty = tx.empty_atlas(), jtx._empty_atlas()
     np.testing.assert_array_equal(empty.data, np.asarray(j_empty.data))
     np.testing.assert_array_equal(empty.meta, np.asarray(j_empty.meta))
-    assert empty.quad is None and j_empty.quad is None
+    assert j_empty.quad is None
+
+
+@pytest.mark.parametrize("name", ["town", "odd_mixed"])
+def test_build_quad_table_matches_reference(town_pngs, name):
+    got, want = _atlas_pair(name, town_pngs)
+    quad = tx.build_quad_table(got)
+    assert quad.dtype == np.float32
+    np.testing.assert_array_equal(quad, np.asarray(want.quad))
 
 
 @pytest.mark.parametrize("path", ["quad", "four_gathers"])
@@ -91,8 +103,7 @@ def test_sample_texture_bilinear_matches_reference(mode, path):
     atlas = tx.build_texture_atlas([tx.TextureImage(im, m, m) for im in ims])
     j_atlas = jtx.build_texture_atlas([jtx.TextureImage(im, m, m)
                                        for im in ims])
-    if path == "four_gathers":
-        atlas = atlas._replace(quad=None)
+    if path == "four_gathers":  # else the reference's quad-table path
         j_atlas = j_atlas._replace(quad=None)
     n = 4096
     tid = rng.integers(-1, len(ims), n).astype(np.int32)
@@ -203,7 +214,7 @@ def test_textured_scene_and_shade_tables_array_equal(variant):
         np.testing.assert_array_equal(getattr(ts.materials, k),
                                       np.asarray(getattr(js.materials, k)),
                                       err_msg=k)
-    for k in ("data", "meta", "quad"):
+    for k in ("data", "meta"):
         np.testing.assert_array_equal(getattr(ts.atlas, k),
                                       np.asarray(getattr(js.atlas, k)))
     assert (ts.any_uv_transform, ts.any_normal_map) == (
@@ -213,9 +224,9 @@ def test_textured_scene_and_shade_tables_array_equal(variant):
     got = shade.build_shade_tables(ts, True, uv_xform, nmap, f_limit=128)
     want = j_tables(js, textured=True, f_limit=128, uv_xform=uv_xform,
                     normal_maps=nmap)
-    for a, b in zip(got, want):
-        assert a.shape == np.asarray(b).shape
-        np.testing.assert_array_equal(a, np.asarray(b))
+    assert got[0].shape == np.asarray(want[0]).shape
+    np.testing.assert_array_equal(got[0], np.asarray(want[0]))
+    assert_light_rows_equal(got[1], want[1], ts)
     assert got[0].shape[0] == {"repeat": 24, "uv_transform": 32,
                                "normal_map": 32, "features": 40}[variant]
 
@@ -311,7 +322,7 @@ def test_cli_scene_matches_reference_cli(monkeypatch, tmp_path, name):
         build_parser().parse_args(["--scene", *args]))
     js = j_build_scene(meshes, textures=textures or None)
     assert ts.textured and shade.texture_state(ts) == "diffuse"
-    for k in ("data", "meta", "quad"):
+    for k in ("data", "meta"):
         np.testing.assert_array_equal(getattr(ts.atlas, k),
                                       np.asarray(getattr(js.atlas, k)))
     for k in ts.materials._fields:

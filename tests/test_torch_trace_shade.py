@@ -85,13 +85,13 @@ def test_textured_trace_shade_ref_matches_reference_kernel(variant, motion):
     _teacher_force(motion, textured_quad_pair(variant, motion))
 
 
-def _teacher_force(motion, scenes):
+def _teacher_force(motion, scenes, cfg=CFG):
     js, ts, jcam, tcam = scenes
-    j_pipe = make_fused_pipeline(js, JConfig(**CFG), interpret=True)
-    j_shade = make_fused_shader(js, JConfig(**CFG), j_pipe.soup,
+    j_pipe = make_fused_pipeline(js, JConfig(**cfg), interpret=True)
+    j_shade = make_fused_shader(js, JConfig(**cfg), j_pipe.soup,
                                 j_pipe.soup1 if motion else None,
                                 interpret=True, merged=True)
-    pipe = shade.FusedPipeline(ts, RenderConfig(**CFG), "cpu")
+    pipe = shade.FusedPipeline(ts, RenderConfig(**cfg), "cpu")
     assert pipe.motion == motion and j_pipe.motion == motion
     rng = np.random.default_rng(31 + int(motion))
     rays, misc = _fresh_lanes(tcam, POOL, rng)

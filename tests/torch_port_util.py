@@ -7,7 +7,8 @@ import torch
 
 from rendertoy3c_tpu.scene.builtin import cornell_box as j_cornell_box
 from rendertoy3c_tpu.scene.scene import build_scene as j_build_scene
-from rendertoy3c_tpu_torch.scene.builtin import cornell_box
+from rendertoy3c_tpu_torch.scene.builtin import (cornell_box,
+                                                  material_cornell_box)
 from rendertoy3c_tpu_torch.scene.scene import build_scene, scene_from_numpy
 
 # The plain versions run many small tensor ops. Under pytest-xdist every
@@ -21,6 +22,19 @@ def cornell_pair():
     jm, jcam = j_cornell_box()
     tm, tcam = cornell_box()
     return j_build_scene(jm), build_scene(tm), jcam, tcam
+
+
+def assert_light_rows_equal(got, want, scene):
+    """The port's light table rows [24, Lp] against the reference's: rows
+    0-16 equal, row 17 the port's own, the power CDF its kernels search."""
+    want = np.asarray(want)
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got[:17], want[:17])
+    np.testing.assert_array_equal(got[18:], want[18:])
+    n_l = max(scene.num_lights, 1)  # a scene without lights has a dark one
+    np.testing.assert_array_equal(got[17, :n_l],
+                                  scene.lights.power_cdf[:n_l])
+    assert not got[17, n_l:].any()
 
 
 def moving_meshes(meshes):
@@ -73,14 +87,24 @@ def to_port_scene(jscene):
                             any_normal_map=jscene.any_normal_map)
 
 
-def j_town_scene(faces, two_key, out_dir, textured=False):
+def material_cornell_pair(motion=False):
+    """cornell_pair() of the Cornell box with all four material types
+    (scene/builtin.py material_cornell_box), 2-key if `motion`."""
+    jm, jcam = material_cornell_box(motion, j_cornell_box())
+    tm, tcam = material_cornell_box(motion)
+    return j_build_scene(jm), build_scene(tm), jcam, tcam
+
+
+def j_town_scene(faces, two_key, out_dir, textured=False, principled=False):
     """The reference's town (bench.py `_town_scene`, :307-337), untextured
-    unless `textured`, written to `out_dir`: (scene, camera)."""
+    unless `textured`, PRINCIPLED as BASELINE config 5 makes it if
+    `principled` (:327-334), written to `out_dir`: (scene, camera)."""
     import dataclasses
 
     from rendertoy3c_tpu.io.genassets import generate_town
     from rendertoy3c_tpu.io.obj import load_obj
     from rendertoy3c_tpu.scene.camera import Camera
+    from rendertoy3c_tpu.scene.material import MaterialType
 
     paths, camkw = generate_town(str(out_dir), faces_target=faces,
                                  two_key=two_key)
@@ -91,6 +115,15 @@ def j_town_scene(faces, two_key, out_dir, textured=False):
                 m.material, diffuse_texture_id=-1, emissive_texture_id=-1,
                 roughness_texture_id=-1, normal_texture_id=-1)
         textures = []
+    if principled:
+        rng = np.random.default_rng(5)
+        for m in meshes:
+            if max(m.material.emissive) > 0:
+                continue
+            m.material = dataclasses.replace(
+                m.material, material_type=MaterialType.PRINCIPLED,
+                roughness=float(rng.uniform(0.15, 0.7)),
+                metallic=float(rng.uniform(0.0, 0.9)))
     return j_build_scene(meshes, textures=textures or None), Camera(**camkw)
 
 
