@@ -146,7 +146,7 @@ GATE = dict(width=96, height=96, samples_per_launch=2, max_depth=6,
 TOWN_FACES = 16000  # generate_town gives 16054 faces (16384 padded)
 GATE_TOWN_FACES = 4000  # 4294 faces
 MT_SRC = "rendertoy3c_tpu_torch/kernels/csrc/mt_kernels.cu"
-K4_SRC = "rendertoy3c_tpu_torch/kernels/csrc/megakernel.cu"
+K4_SRC = "rendertoy3c_tpu_torch/kernels/csrc/megakernel.cuh"
 K6_SRC = "rendertoy3c_tpu_torch/kernels/csrc/external.cu"
 MEM_BPS = 3.35e12  # H100 SXM HBM3 bytes/s
 FP32_OPS = 67e12  # H100 SXM fp32 operations/s outside the tensor cores
@@ -177,6 +177,14 @@ NMAP_OPS = 67
 # + 1)) steps for n lights.
 DISPATCH_OPS = 430
 POWER_STEP_OPS = 5
+# the AOV rows (kAov), counted as above: per lane 6 selects and 6 adds
+# (aov_rows); K4's retire moves them into the stash and zeroes them (12
+# selects more)
+AOV_OPS = 12
+AOV_STASH_OPS = 12
+AOV = dict(aov=True)
+# the main paths' timings by name (median Mray/s, idle share), for phase 23
+PATHS = {}
 
 
 class PhaseFailed(Exception):
@@ -444,13 +452,15 @@ def phase_mt(dev, scene, camera):
 
 
 # ---------------------------------------------------------------- phase 3
-def _lane_state(pool, dev, motion=False):
+def _lane_state(pool, dev, motion=False, aov=False):
     """A pool before its first launch: [rays, misc, stash] and, for a
-    motion pipeline, the time buffer (zero, as the render starts it)."""
+    motion pipeline, the time buffer (zero, as the render starts it); misc
+    [P, 24] with the AOV rows."""
     import torch
 
     rays = torch.zeros((pool, 8), dtype=torch.float32, device=dev)
-    misc = torch.zeros((pool, 16), dtype=torch.float32, device=dev)
+    misc = torch.zeros((pool, 24 if aov else 16), dtype=torch.float32,
+                       device=dev)
     misc[:, 13] = -1.0
     stash = torch.zeros((pool, 16), dtype=torch.float32, device=dev)
     stash[:, 0] = -1.0
@@ -469,12 +479,14 @@ def _compare_lanes(got, want, claimed_as_set: bool):
     rk, mk, sk = got[:3]
     rr, mr, sr = want[:3]
     # want_shadow (misc 15) and the stash belong to the lane's finished
-    # path, the rest of a claiming lane's row (and its next time) to its
-    # new pixel
+    # path, the rest of a claiming lane's row (its AOV accs and its next
+    # time too) to its new pixel
     lane_k = torch.cat([sk, mk[:, 15:16]], dim=1)
     lane_r = torch.cat([sr, mr[:, 15:16]], dim=1)
-    rows_k = torch.cat([rk, mk[:, :15], *(t[:, None] for t in got[3:])], 1)
-    rows_r = torch.cat([rr, mr[:, :15], *(t[:, None] for t in want[3:])], 1)
+    rows_k = torch.cat([rk, mk[:, :15], mk[:, 16:],
+                        *(t[:, None] for t in got[3:])], 1)
+    rows_r = torch.cat([rr, mr[:, :15], mr[:, 16:],
+                        *(t[:, None] for t in want[3:])], 1)
     moved = mk[:, 13] != mr[:, 13]
     if claimed_as_set and bool(moved.any()):
         a = rows_k[moved][torch.argsort(mk[moved, 13])]
@@ -544,8 +556,8 @@ def megakernel_work(rays, misc, count, time, tables, sc):
     """(operations, table bytes) of one megakernel launch (K4 or K5) on
     these lanes: the closest and the shadow sweep, counted by mt_work on
     256-ray tiles (the shadow rays, their wants and their times from the
-    plain shading body), the shading body of every lane and its texture
-    work (texture_work)."""
+    plain shading body), the shading body of every lane, its texture work
+    (texture_work), and the AOV rows where sc.aov."""
     import torch
 
     from rendertoy3c_tpu_torch.trace import mt, shade
@@ -561,6 +573,8 @@ def megakernel_work(rays, misc, count, time, tables, sc):
     tex_ops, tex_bytes = texture_work(a, out, tables.tex)
     tex_ops += material_ops(rays.shape[0], tables.params_base, sc.power,
                             sc.num_lights)
+    if sc.aov:
+        tex_ops += rays.shape[0] * AOV_OPS
     shadow_ops, shadow_bytes = mt_work(
         out["shadow"], count, table, True,
         None if time is None else out["occl_time"],
@@ -574,31 +588,34 @@ def megakernel_work(rays, misc, count, time, tables, sc):
 
 def k4_bound(state, stats_in, tables, rc):
     """bound() of one K4 launch from this state [rays, misc, stash (,
-    time)]: megakernel_work and the refill operations of every lane; the
-    lane state is read and written once, the time buffer too."""
+    time)]: megakernel_work and the refill operations of every lane (with
+    AOV, the stash moves of its rows); the lane state (misc 64 or 96 B) is
+    read and written once, the time buffer too."""
     rays, misc = state[:2]
     time = state[3] if len(state) > 3 else None
     pool = rays.shape[0]
     ops, table_bytes = megakernel_work(rays, misc, stats_in[1:2], time,
                                        tables, rc)
-    n_bytes = (pool * 2 * (32 + 64 + 64 + (4 if time is not None else 0))
+    n_bytes = (pool * 2 * (32 + 4 * misc.shape[1] + 64
+                           + (4 if time is not None else 0))
                + 2 * 16 + table_bytes + 4 * tables.jump_u32.numel())
-    return bound(n_bytes, ops + pool * REFILL_OPS)
+    return bound(n_bytes, ops + pool * (REFILL_OPS
+                                        + (AOV_STASH_OPS if rc.aov else 0)))
 
 
-def phase_k4(dev, scene, camera, phase=3, label="K4"):
+def phase_k4(dev, scene, camera, phase=3, label="K4", change=None):
     """The refill megakernel (the motion variant for a 2-key scene)
     against its plain version: one block teacher-forced for 8 launches,
     then one launch at the pool width from a mid-render state; timed and
-    bounded per launch. A scene with a non-diffuse material (the dispatch
-    variant) must have every material type among the live lanes' hits of
-    that state."""
+    bounded per launch. MAIN with `change` applied (AOV: misc [P, 24]). A
+    scene with a non-diffuse material (the dispatch variant) must have
+    every material type among the live lanes' hits of that state."""
     import torch
 
     from rendertoy3c_tpu_torch.integrate.config import RenderConfig
     from rendertoy3c_tpu_torch.trace import shade
 
-    cfg = RenderConfig(**MAIN)
+    cfg = RenderConfig(**dict(MAIN, **(change or {})))
     n_pix = cfg.width * cfg.height
     p = camera.params()
     scf = tuple(float(x) for x in np.concatenate(
@@ -618,7 +635,7 @@ def phase_k4(dev, scene, camera, phase=3, label="K4"):
         return out, stats_out
 
     # (a) one block, teacher-forced for 8 launches
-    state = _lane_state(256, dev, motion)
+    state = _lane_state(256, dev, motion, cfg.aov)
     stats = torch.zeros(4, dtype=torch.int32, device=dev)
     err_a, bad_a = 0.0, 0
     for step in range(8):
@@ -642,10 +659,14 @@ def phase_k4(dev, scene, camera, phase=3, label="K4"):
 
     # (b) full pool width from a mid-render state of the plain version
     pool = cfg.ray_block
-    state = _lane_state(pool, dev, motion)
+    state = _lane_state(pool, dev, motion, cfg.aov)
     stats = torch.zeros(4, dtype=torch.int32, device=dev)
     for _ in range(12):
         state, stats = launch(ref, state, stats)
+    if cfg.aov:  # the stash holds retired lanes' guides
+        aov = slice(shade.STASH_AOV, shade.STASH_AOV + 6)
+        check(bool((state[2][:, aov] != 0).any()),
+              f"{label} pool: no AOV row in the stash at launch 12")
     tables = kern.keywords["tables"]
     types = ""
     if tables.params_base:
@@ -704,7 +725,8 @@ def plain_tracer(scene, cfg, dev):
 def render(scene, camera, cfg_kw, dev, plain: bool, warmup: int, timed: int):
     """Render through make_render_fn, the plain versions if `plain`.
     Returns (film, Mray/s per timed subframe, launches, seconds per timed
-    subframe, the step function, the image after the first subframe)."""
+    subframe, the step function, the film's buffers after the first
+    subframe: [accum] and with AOV the albedo and normal buffers)."""
     import torch
 
     from rendertoy3c_tpu_torch.film.film import film_create
@@ -717,11 +739,16 @@ def render(scene, camera, cfg_kw, dev, plain: bool, warmup: int, timed: int):
         scene, tracer = plain_tracer(scene, cfg, dev)
     step = make_render_fn(scene, cfg, tracer=tracer, device=dev)
     cam = camera.params()
-    film = film_create(cfg.height, cfg.width, device=dev)
+    film = film_create(cfg.height, cfg.width, device=dev, aov=cfg.aov)
+
+    def buffers(film):
+        return [b.clone() for b in (film.accum, film.albedo, film.normal)
+                if b is not None]
+
     first = None
     for _ in range(warmup):
         film, _ = step(cam, film)
-        first = film.accum.clone() if first is None else first
+        first = buffers(film) if first is None else first
     torch.cuda.synchronize()
     rates, secs, launches = [], [], 0
     for _ in range(timed):
@@ -733,7 +760,7 @@ def render(scene, camera, cfg_kw, dev, plain: bool, warmup: int, timed: int):
         rates.append(rays / dt / 1e6)
         secs.append(dt)
         launches += stats.pool_iters
-        first = film.accum.clone() if first is None else first
+        first = buffers(film) if first is None else first
     return film, rates, launches, secs, step, first
 
 
@@ -744,7 +771,10 @@ def gate_diff(a, b):
 
 def gate(scene, camera, dev, what: str, phase: int, **change):
     """The gate (bench.py:115-116) of kernels against plain versions on
-    the GATE config with `change` applied."""
+    the GATE config with `change` applied; with AOV, all three buffers of
+    the (first and only) subframe bit-equal too."""
+    import torch
+
     cfg_kw = dict(GATE, **change)
     f_k = render(scene, camera, cfg_kw, dev, False, 0, 1)[0]
     f_p = render(scene, camera, cfg_kw, dev, True, 0, 1)[0]
@@ -753,8 +783,16 @@ def gate(scene, camera, dev, what: str, phase: int, **change):
     check(mean_d <= 2e-3 and outl <= 8 and max_d <= 8.0,
           f"gate ({what}) failed: mean|d| {mean_d:.3g}, {outl} outliers, "
           f"max|d| {max_d:.3g}")
+    extra = ""
+    if change.get("aov"):
+        for name in ("accum", "albedo", "normal"):
+            check(torch.equal(getattr(f_k, name).view(torch.int32),
+                              getattr(f_p, name).view(torch.int32)),
+                  f"gate ({what}): the {name} buffers are not bit-equal")
+        extra = (f"; accum, albedo and normal bit-equal, albedo mean "
+                 f"{float(f_k.albedo.mean()):.6f}")
     print(f"phase {phase} gate 96^2 2spp {what}, kernels vs plain: mean|d| "
-          f"{mean_d:.3g}, outliers {outl}, max|d| {max_d:.3g}")
+          f"{mean_d:.3g}, outliers {outl}, max|d| {max_d:.3g}{extra}")
 
 
 def kernel_symbol(key: str):
@@ -767,7 +805,10 @@ def kernel_symbol(key: str):
 def device_rows(run):
     """[(device us, kernel name, launches)] of the CUDA kernels that
     run() launches, from torch.profiler (CUDA activity only), largest
-    first."""
+    first. The device events are summed by name straight from the
+    profiler's raw results: key_averages() builds an event tree in Python,
+    which took ~9 s per 1e5 events and made a traced town subframe last
+    ~26 s; its sums are the same."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -776,15 +817,15 @@ def device_rows(run):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    rows = []
-    for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:
+    sums = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
             continue
-        dt = getattr(evt, "self_device_time_total", None)
-        if dt is None:
-            dt = evt.self_cuda_time_total
-        rows.append((dt, evt.key, evt.count))
-    return sorted(rows, reverse=True)
+        row = sums.setdefault(e.name(), [0.0, 0])
+        row[0] += e.duration_ns() / 1e3
+        row[1] += 1
+    return sorted(((us, key, n) for key, (us, n) in sums.items()),
+                  reverse=True)
 
 
 def device_ms(calls) -> float:
@@ -853,7 +894,12 @@ def full_size(name, scene, camera, dev, smi, phase: int, counters, symbols,
     warm-up, 4 timed) with the launch counters zeroed just before and read
     just after, then the plain versions (n_plain subframes, the last 4 of
     them timed), means compared, a profile that must see each CUDA kernel
-    of `symbols`. Returns (kernel film, launches by kernel)."""
+    of `symbols`. With AOV the first subframes' albedo and normal buffers
+    must be bit-equal too. n_plain=0 renders no plain subframe: the path's
+    kernels and gate are held elsewhere. Records (median Mray/s, idle
+    share) in PATHS[name]; returns (kernel film, launches by kernel)."""
+    import torch
+
     cfg_kw = dict(MAIN, **(change or {}))
     for fn in counters.values():
         fn.launches = 0
@@ -862,36 +908,50 @@ def full_size(name, scene, camera, dev, smi, phase: int, counters, symbols,
     launches = {n: fn.launches for n, fn in counters.items()}
     for n, cnt in launches.items():
         check(cnt > 0, f"{name}: the main path launched {n} no time")
-    plain_timed = min(n_plain, 4)
-    film_p, rates_p, _, secs_p, _, first_p = render(
-        scene, camera, cfg_kw, dev, True, n_plain - plain_timed, plain_timed)
     img_k = film_k.accum.cpu().numpy()
-    img_p = film_p.accum.cpu().numpy()
     check(bool(np.isfinite(img_k).all()), f"{name}: kernel image not finite")
-    check(img_k.shape == (768, 768, 3), f"{name}: image shape {img_k.shape}")
-    rel = abs(img_k.mean() - img_p.mean()) / img_p.mean()
-    check(rel <= 0.01, f"{name}: image mean {img_k.mean()} vs plain "
-          f"{img_p.mean()} ({rel:.3%})")
-    # the first subframes: the same estimator on the same streams
-    mean_d, outl, max_d = gate_diff(first_k.cpu().numpy(),
-                                    first_p.cpu().numpy())
-    check(mean_d <= 2e-3 and outl <= 8 and max_d <= 8.0,
-          f"{name}: first subframe fails the gate: mean|d| {mean_d:.3g}, "
-          f"{outl} outliers, max|d| {max_d:.3g}")
+    shape = (cfg_kw["height"], cfg_kw["width"], 3)
+    check(img_k.shape == shape, f"{name}: image shape {img_k.shape}")
+    if film_k.albedo is not None:
+        for buf in (film_k.albedo, film_k.normal):
+            check(bool(torch.isfinite(buf).all()) and buf.shape == shape,
+                  f"{name}: AOV buffer not finite or of shape {buf.shape}")
     print(f"phase {phase} {name} 768^2 8spp depth 16 pool 32768 "
           f"{change or ''} on {smi}:")
     print(f"  kernels: Mray/s per subframe {rates_k}, median "
           f"{float(np.median(rates_k)):.6g}; s {secs_k}; "
           f"{it_k / 4:.1f} launches/subframe")
-    print(f"  plain:   Mray/s per subframe {rates_p}, median "
-          f"{float(np.median(rates_p)):.6g}; s {secs_p}")
-    print(f"  image mean kernels {img_k.mean():.6f}, plain "
-          f"{img_p.mean():.6f} (rel {rel:.3g}) over 5 and {n_plain} "
-          f"subframes; "
-          f"first subframe kernels vs plain: mean|d| {mean_d:.3g}, max|d| "
-          f"{max_d:.3g}; launches {launches}")
-    profile_subframe(step_k, film_k, camera, float(np.median(secs_k)),
-                     phase, symbols)
+    if n_plain:
+        plain_timed = min(n_plain, 4)
+        film_p, rates_p, _, secs_p, _, first_p = render(
+            scene, camera, cfg_kw, dev, True, n_plain - plain_timed,
+            plain_timed)
+        img_p = film_p.accum.cpu().numpy()
+        rel = abs(img_k.mean() - img_p.mean()) / img_p.mean()
+        check(rel <= 0.01, f"{name}: image mean {img_k.mean()} vs plain "
+              f"{img_p.mean()} ({rel:.3%})")
+        # the first subframes: the same estimator on the same streams
+        mean_d, outl, max_d = gate_diff(first_k[0].cpu().numpy(),
+                                        first_p[0].cpu().numpy())
+        check(mean_d <= 2e-3 and outl <= 8 and max_d <= 8.0,
+              f"{name}: first subframe fails the gate: mean|d| {mean_d:.3g}, "
+              f"{outl} outliers, max|d| {max_d:.3g}")
+        for k, p in zip(first_k[1:], first_p[1:]):
+            check(torch.equal(k.view(torch.int32), p.view(torch.int32)),
+                  f"{name}: the first subframes' AOV buffers differ")
+        print(f"  plain:   Mray/s per subframe {rates_p}, median "
+              f"{float(np.median(rates_p)):.6g}; s {secs_p}")
+        print(f"  image mean kernels {img_k.mean():.6f}, plain "
+              f"{img_p.mean():.6f} (rel {rel:.3g}) over 5 and {n_plain} "
+              f"subframes; first subframe kernels vs plain: mean|d| "
+              f"{mean_d:.3g}, max|d| {max_d:.3g}"
+              f"{', AOV buffers bit-equal' if len(first_k) > 1 else ''}")
+    print(f"  image mean {img_k.mean():.6f}; launches {launches}"
+          + (f"; albedo mean {float(film_k.albedo.mean()):.6f}"
+             if film_k.albedo is not None else ""))
+    idle = profile_subframe(step_k, film_k, camera, float(np.median(secs_k)),
+                            phase, symbols)
+    PATHS[name] = (float(np.median(rates_k)), idle)
     return film_k, launches
 
 
@@ -911,12 +971,13 @@ def main_path_states(scene, camera, dev, change=None, snapshots=SNAPSHOTS):
     path (MAIN with `change` applied; through make_render_fn with
     choose_tracer's pipeline, its calls recorded): {"closest": [(o, d,
     tmin, tmax, time, count)], "shade": [(rays, hit4, misc)], "any": [...as
-    closest]}."""
+    closest], "launches": {kernel: launches in that subframe}}."""
     import torch
 
     from rendertoy3c_tpu_torch.film.film import film_create
     from rendertoy3c_tpu_torch.integrate.config import RenderConfig
     from rendertoy3c_tpu_torch.integrate.path import make_render_fn
+    from rendertoy3c_tpu_torch.trace import mt, shade
     from rendertoy3c_tpu_torch.trace.auto import choose_tracer
 
     cfg = RenderConfig(**dict(MAIN, **(change or {})))
@@ -938,10 +999,17 @@ def main_path_states(scene, camera, dev, change=None, snapshots=SNAPSHOTS):
     pipe._any = record("any", pipe._any, 6)
     pipe.shade_fn = record("shade", pipe.shade_fn, 3)
     step = make_render_fn(scene, cfg, tracer=pipe, device=dev)
-    step(camera.params(), film_create(cfg.height, cfg.width, device=dev))
+    counters = {n: getattr(mt, n) for n in (
+        "mt_closest", "mt_any", "mt_closest_motion", "mt_any_motion")}
+    counters["external_shade"] = shade.external_shade
+    for fn in counters.values():
+        fn.launches = 0
+    step(camera.params(), film_create(cfg.height, cfg.width, device=dev,
+                                      aov=cfg.aov))
     torch.cuda.synchronize()
     check(all(len(v) == len(snapshots) for v in states.values()),
           f"main path: {seen} iterations, too few for the snapshots")
+    states["launches"] = {n: fn.launches for n, fn in counters.items()}
     return states
 
 
@@ -1109,9 +1177,10 @@ def phase_k6(dev, towns, states, phase=8, label="K6", change=None,
     own inputs (`states`, {key: main_path_states at `snapshots`}),
     bit-equal, its device
     time and bound (with the texture work of a textured town,
-    texture_work, and the material dispatch and power pick, material_ops).
-    MAIN with `change` applied. With the dispatch variant, the live lanes'
-    hits must include every material type of the scene."""
+    texture_work, the material dispatch and power pick, material_ops, and
+    the AOV rows). MAIN with `change` applied; with AOV the teacher-forced
+    lanes start with random AOV accs. With the dispatch variant, the live
+    lanes' hits must include every material type of the scene."""
     import torch
 
     from rendertoy3c_tpu_torch.integrate.config import RenderConfig
@@ -1126,9 +1195,19 @@ def phase_k6(dev, towns, states, phase=8, label="K6", change=None,
         motion = scene.num_keys == 2
         scene, pipe = choose_tracer(scene, cfg, dev)
         dispatch = pipe.tables.params_base > 0
+        mw = 24 if cfg.aov else 16
         prims, lives = [], []
         rng = np.random.default_rng(SEED + 8 + i)
-        rays, misc = _fresh_lanes(camera, pool, rng, dev)
+
+        def fresh():
+            rays, misc = _fresh_lanes(camera, pool, rng, dev)
+            if cfg.aov:
+                aov = torch.as_tensor(rng.uniform(-1, 1, (pool, 6)).astype(
+                    np.float32), device=dev)
+                misc = torch.cat([misc, aov, torch.zeros_like(aov[:, :2])], 1)
+            return rays, misc
+
+        rays, misc = fresh()
         count = torch.tensor([pool], dtype=torch.int32, device=dev)
         deep = 0
         for it in range(8):
@@ -1155,13 +1234,13 @@ def phase_k6(dev, towns, states, phase=8, label="K6", change=None,
             r2, m2, sh = want
             occ = pipe._any(sh[:, 0:3], sh[:, 3:6], sh[:, 6], sh[:, 7],
                             sh[:, 8] if motion else None, count)
-            nee = torch.where(occ[:, None], 0.0, m2[:, 16:19])
-            misc = torch.cat([m2[:, :10], m2[:, 10:13] + nee, m2[:, 13:16]],
+            nee = torch.where(occ[:, None], 0.0, m2[:, mw:mw + 3])
+            misc = torch.cat([m2[:, :10], m2[:, 10:13] + nee, m2[:, 13:mw]],
                              dim=1)
             rays = r2
             deep = max(deep, int(misc[:, 8].max()))
             dead = misc[:, 9] <= 0
-            fr, fm = _fresh_lanes(camera, pool, rng, dev)
+            fr, fm = fresh()
             rays = torch.where(dead[:, None], fr, rays)
             misc = torch.where(dead[:, None], fm, misc)
         print(f"phase {phase} {label} ({town_label(key)}): "
@@ -1187,10 +1266,13 @@ def phase_k6(dev, towns, states, phase=8, label="K6", change=None,
                 pipe.tables.tex)
             tex_ops += material_ops(pool, pipe.tables.params_base,
                                     pipe.config.power, pipe.config.num_lights)
-            costs.append((pool * (32 + 16 + 64 + 32 + 96 + 4 * got[2].shape[1])
+            # rays, hit4, misc in; rays, misc + 8, shadow rays out
+            costs.append((pool * (32 + 16 + 4 * mw + 32 + 4 * (mw + 8)
+                                  + 4 * got[2].shape[1])
                           + uniq * 4 * attr.shape[0] + tex_bytes
                           + 4 * pipe.tables.lights_t.numel(),
-                          pool * SHADE_OPS + tex_ops))
+                          pool * (SHADE_OPS + (AOV_OPS if cfg.aov else 0))
+                          + tex_ops))
         if dispatch:
             seen = check_material_types(scene, torch.cat(prims),
                                         torch.cat(lives), label)
@@ -1265,10 +1347,10 @@ def textured_quad(variant="repeat", motion=False):
 
 
 def k5_states(scene, camera, dev, change, snapshots=SNAPSHOTS):
-    """(pipeline, [(rays, misc, count, time)]): the inputs of K5 at the
-    pool iterations `snapshots` of one kernel subframe of the main path
-    with `change` (through make_render_fn with choose_tracer's
-    pipeline)."""
+    """(pipeline, [(rays, misc, count, time)], snapshots, K5 launches in
+    that subframe): the inputs of K5 at the pool iterations `snapshots` of
+    one kernel subframe of the main path with `change` (through
+    make_render_fn with choose_tracer's pipeline)."""
     import torch
 
     from rendertoy3c_tpu_torch.film.film import film_create
@@ -1292,12 +1374,15 @@ def k5_states(scene, camera, dev, change, snapshots=SNAPSHOTS):
 
     pipe.shade_fn = call
     step = make_render_fn(scene, cfg, tracer=pipe, device=dev)
-    step(camera.params(), film_create(cfg.height, cfg.width, device=dev))
+    shade.trace_shade.launches = 0
+    step(camera.params(), film_create(cfg.height, cfg.width, device=dev,
+                                      aov=cfg.aov))
     torch.cuda.synchronize()
+    launches = shade.trace_shade.launches
     pipe.shade_fn = fn
-    check(len(states) == len(snapshots),
+    check(len(states) == len(snapshots) and launches > 0,
           f"K5 path: {seen[0]} iterations, too few for the snapshots")
-    return pipe, states, snapshots
+    return pipe, states, snapshots, launches
 
 
 def phase_k5(dev, runs, phase=12):
@@ -1310,7 +1395,7 @@ def phase_k5(dev, runs, phase=12):
     from rendertoy3c_tpu_torch.trace import shade
 
     results = {}
-    for label, (pipe, states, snapshots) in runs.items():
+    for label, (pipe, states, snapshots, _) in runs.items():
         launches, costs, err, n_diff, n_bad = [], [], 0.0, 0, 0
         prims, lives = [], []
         for rays, misc, count, tm in states:
@@ -1337,8 +1422,9 @@ def phase_k5(dev, runs, phase=12):
             ops, table_bytes = megakernel_work(rays, misc, count, tm,
                                                pipe.tables, pipe.config)
             pool = rays.shape[0]
-            costs.append((pool * 2 * (32 + 64) + 4 + table_bytes
-                          + (4 * pool if tm is not None else 0), ops))
+            costs.append((pool * 2 * (32 + 4 * misc.shape[1]) + 4
+                          + table_bytes + (4 * pool if tm is not None else 0),
+                          ops))
         pool = states[0][0].shape[0]
         check(n_bad <= 0.001 * pool * len(states),
               f"{label}: {n_bad} lanes differ from the plain version")
@@ -1360,6 +1446,258 @@ def phase_k5(dev, runs, phase=12):
               f"{ms:.4f} ms per launch vs plain {plain_ms:.4f} "
               f"ms; bound {bound_ms:.4f} ms by {bound_by}{types}")
     return results
+
+
+# ---------------------------------------------------------------- phase 21+
+# the AOV K5 paths' snapshots on the quads (sorted and sample-major
+# subframes of the quads run 200-320 iterations)
+AOV_QUAD_SNAPSHOTS = (16, 64, 112, 160)
+FUSED_VARIANTS = ("", "_motion", "_textured", "_motion_textured",
+                  "_dispatch", "_motion_dispatch", "_textured_dispatch",
+                  "_motion_textured_dispatch")
+
+
+def fused_variant_scene(variant):
+    """(scene, camera) of a fused kernel variant ("_motion_textured" and
+    so on): the Cornell box, the normal-mapped textured quad, the material
+    Cornell box or the principled quad, 2-key with motion."""
+    motion = "motion" in variant
+    if "dispatch" in variant:
+        if "textured" in variant:
+            return textured_quad("principled", motion)
+        return material_cornell(motion)
+    if "textured" in variant:
+        return textured_quad("normal_map", motion)
+    if motion:
+        return moving_cornell()
+    from rendertoy3c_tpu_torch.scene.builtin import cornell_box
+    from rendertoy3c_tpu_torch.scene.scene import build_scene
+
+    meshes, camera = cornell_box()
+    return build_scene(meshes), camera
+
+
+def k5_path(variant):
+    """(schedule change, snapshots, name suffix) of a variant's K5 path:
+    sample-major for motion, else sorted, with the power pick on the
+    static dispatch variants (as phases 12, 15 and 18 run them)."""
+    motion, dispatch = "motion" in variant, "dispatch" in variant
+    change = (SAMPLE_MAJOR if motion else
+              SORTED_POWER if dispatch else SORTED)
+    snaps = AOV_QUAD_SNAPSHOTS if "textured" in variant else SNAPSHOTS
+    return change, snaps, ("_power" if change is SORTED_POWER else "")
+
+
+def path_launches(what, scene, camera, dev, change, counters, phase=21):
+    """One kernel subframe of the main path (MAIN with `change`) through
+    make_render_fn, the launch counters zeroed just before and read just
+    after; fails unless each counter moved and the image is finite.
+    Returns {counter: launches}."""
+    import torch
+
+    from rendertoy3c_tpu_torch.film.film import film_create
+    from rendertoy3c_tpu_torch.integrate.config import RenderConfig
+    from rendertoy3c_tpu_torch.integrate.path import make_render_fn
+
+    cfg = RenderConfig(**dict(MAIN, **change))
+    step = make_render_fn(scene, cfg, device=dev)
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    film, _ = step(camera.params(), film_create(cfg.height, cfg.width,
+                                                device=dev, aov=cfg.aov))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in counters.items()}
+    check(all(n > 0 for n in launches.values())
+          and bool(torch.isfinite(film.accum).all()),
+          f"{what}: launches {launches}, or the image is not finite")
+    print(f"phase {phase} {what}: one 768^2 8 spp subframe in {dt:.3f} s, "
+          f"launches {launches}")
+    return launches
+
+
+def kernel_entry(name, src, line, launches, res):
+    """One entry of the "kernels" line."""
+    return dict(name=name, route="cuda", source=src,
+                replaces=f"rendertoy3c_tpu/trace/pallas_shade.py:{line}",
+                launches=launches, **res, library_ms=None)
+
+
+def phase_fused_aov(dev):
+    """Phase 21 on the fused pipeline: K4 and K5 with aov=True in each of
+    the 8 variants against their plain versions (K4 as phase 3, K5 as
+    phase 12 on the inputs of the variant's own AOV path), each with the
+    launches of one subframe of its path; then the non-AOV instantiations
+    no main path ran before (K4 motion textured dispatch; K5 motion
+    dispatch, textured dispatch, motion textured dispatch), timed and
+    bounded the same way. Returns the entries of the "kernels" line."""
+    from rendertoy3c_tpu_torch.trace import shade
+
+    refill = {"trace_shade_refill": shade.trace_shade_refill}
+    entries = []
+    for v in FUSED_VARIANTS:
+        scene, camera = fused_variant_scene(v)
+        label = f"K4{v.replace('_', ' ')} AOV"
+        res = phase_k4(dev, scene, camera, 21, label, AOV)
+        n = path_launches(f"{label} path (pixel-major, aov)", scene, camera,
+                          dev, AOV, refill)["trace_shade_refill"]
+        entries.append(kernel_entry(f"trace_shade_refill{v}_aov", K4_SRC,
+                                    1329, n, res))
+        change, snaps, power = k5_path(v)
+        label = f"K5{v.replace('_', ' ')}{power.replace('_', ', ')} AOV"
+        run = k5_states(scene, camera, dev, dict(change, **AOV), snaps)
+        res, = phase_k5(dev, {label: run}, 21).values()
+        entries.append(kernel_entry(f"trace_shade{v}{power}_aov", K4_SRC,
+                                    1230, run[3], res))
+    # the non-AOV instantiations without a main path before
+    scene, camera = fused_variant_scene("_motion_textured_dispatch")
+    res = phase_k4(dev, scene, camera, 21, "K4 motion textured dispatch")
+    n = path_launches("K4 motion textured dispatch path", scene, camera, dev,
+                      {}, refill)["trace_shade_refill"]
+    entries.append(kernel_entry("trace_shade_refill_motion_textured_dispatch",
+                                K4_SRC, 1329, n, res))
+    for v in ("_motion_dispatch", "_textured_dispatch",
+              "_motion_textured_dispatch"):
+        scene, camera = fused_variant_scene(v)
+        change, snaps, power = k5_path(v)
+        label = f"K5{v.replace('_', ' ')}{power.replace('_', ', ')}"
+        run = k5_states(scene, camera, dev, change, snaps)
+        res, = phase_k5(dev, {label: run}, 21).values()
+        entries.append(kernel_entry(f"trace_shade{v}{power}", K4_SRC, 1230,
+                                    run[3], res))
+    return entries
+
+
+def phase_denoise_and_cli(dev, film):
+    """Phase 23's last part: atrous_denoise (3 iterations, 768^2) on the
+    Cornell AOV film, guided as the CLI runs it and unguided, timed by CUDA
+    events; then the CLI with --aov --denoise 3 -o out.exr at 768^2, whose
+    three EXR files must carry the EXR magic and the size of a 768^2 float
+    RGB image."""
+    import struct
+
+    import torch
+
+    from rendertoy3c_tpu_torch.film.denoise import atrous_denoise
+    from rendertoy3c_tpu_torch.film.image import write_exr
+
+    alb = torch.clamp(film.albedo, min=1e-3)
+
+    def guided():
+        return atrous_denoise(film.accum / alb, normal=film.normal,
+                              iterations=3) * alb
+
+    def plain():
+        return atrous_denoise(film.accum, iterations=3)
+
+    h, w = MAIN["height"], MAIN["width"]
+    out = guided()
+    check(bool(torch.isfinite(out).all()) and out.shape == (h, w, 3),
+          "denoiser: output not finite or of the wrong shape")
+    ms_g = cuda_ms([guided] * 5)
+    ms_p = cuda_ms([plain] * 5)
+    print(f"phase 23 atrous_denoise 768^2, 3 iterations, on the device: "
+          f"{ms_g:.3f} ms guided (albedo demodulation, normal guide), "
+          f"{ms_p:.3f} ms unguided; mean before {float(film.accum.mean()):.6f}"
+          f", after {float(out.mean()):.6f}")
+    tmp = tempfile.mkdtemp(prefix="rt3c_aov_cli_")
+    out_path = os.path.join(tmp, "out.exr")
+    cmd = [sys.executable, "-m", "rendertoy3c_tpu_torch.app.cli", "--scene",
+           "cornell", "--size", f"{w}x{h}", "--spp", "8", "--subframes", "2",
+           "--aov", "--denoise", "3", "-o", out_path]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=600)
+    dt = time.perf_counter() - t0
+    check(proc.returncode == 0, f"CLI --aov --denoise failed "
+          f"({proc.returncode}): {proc.stderr[-2000:]}")
+    ref = os.path.join(tmp, "zeros.exr")
+    write_exr(ref, np.zeros((h, w, 3), np.float32))
+    for name in ("out.exr", "out.albedo.exr", "out.normal.exr"):
+        path = os.path.join(tmp, name)
+        check(os.path.exists(path), f"CLI: {name} missing")
+        with open(path, "rb") as f:
+            magic = f.read(4)
+        check(magic == struct.pack("<i", 20000630)
+              and os.path.getsize(path) == os.path.getsize(ref),
+              f"CLI: {name} is not a 768^2 float RGB EXR")
+    print(f"phase 23 CLI --aov --denoise 3 -o out.exr at 768^2 (a process of "
+          f"its own, {dt:.2f} s): {proc.stdout.strip()}; out.exr, "
+          f"out.albedo.exr and out.normal.exr of {os.path.getsize(ref)} "
+          "bytes each")
+    return dict(guided_ms=ms_g, plain_ms=ms_p)
+
+
+def phase_town_aov(dev, town, tex_town, p_towns):
+    """Phase 21 on the external pipeline: K6 with aov=True in its 4
+    variants as phase 8, on the main-path inputs of each variant's own AOV
+    path (the static and the textured static town pixel-major, the
+    principled towns with the power pick, sorted), whose recording
+    subframe gives the launches. Returns the entries of the "kernels"
+    line."""
+    entries = []
+    for key, pair, change, snaps, name, label in (
+            ("static town", town, AOV, SNAPSHOTS, "external_shade_aov",
+             "K6 AOV"),
+            ("textured static town", tex_town, AOV, SNAPSHOTS,
+             "external_shade_textured_aov", "K6 textured AOV"),
+            (PT, p_towns[PT], dict(SORTED_POWER, **AOV), P_SNAPSHOTS,
+             "external_shade_dispatch_power_aov", "K6 dispatch, power, AOV"),
+            (TEX_PT, p_towns[TEX_PT], dict(SORTED_POWER, **AOV), P_SNAPSHOTS,
+             "external_shade_textured_dispatch_power_aov",
+             "K6 textured dispatch, power, AOV")):
+        states = main_path_states(*pair, dev, change, snaps)
+        res = phase_k6(dev, {key: pair}, {key: states}, 21, label, change,
+                       snaps)
+        entries.append(kernel_entry(name, K6_SRC, 1778,
+                                    states["launches"]["external_shade"],
+                                    res))
+    return entries
+
+
+def aov_pairs(dev, name, scene, camera, change, rounds: int, phase=23):
+    """A path without and with AOV timed in turns (ABBA: off, on, on, off
+    per round) after a warm-up subframe of each, each side on its own
+    film, so that host drift falls on both alike: (median s off, median s
+    on)."""
+    import torch
+
+    from rendertoy3c_tpu_torch.film.film import film_create
+    from rendertoy3c_tpu_torch.integrate.config import RenderConfig
+    from rendertoy3c_tpu_torch.integrate.path import make_render_fn
+
+    sides = []
+    for aov in (False, True):
+        cfg = RenderConfig(**dict(MAIN, **change, aov=aov))
+        step = make_render_fn(scene, cfg, device=dev)
+        film = film_create(cfg.height, cfg.width, device=dev, aov=aov)
+        film, _ = step(camera.params(), film)
+        sides.append([step, film, []])
+    torch.cuda.synchronize()
+    for _ in range(rounds):
+        for k in (0, 1, 1, 0):
+            step, film, secs = sides[k]
+            t0 = time.perf_counter()
+            sides[k][1], _ = step(camera.params(), film)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+    off, on = (float(np.median(side[2])) for side in sides)
+    print(f"phase {phase} {name} without and with AOV in turns "
+          f"({rounds} ABBA rounds): median subframe {off:.4f} s without, "
+          f"{on:.4f} s with AOV ({on / off:.4f}x); s without "
+          f"{[round(x, 4) for x in sides[0][2]]}, with "
+          f"{[round(x, 4) for x in sides[1][2]]}")
+    return off, on
+
+
+def aov_path_report(name, base):
+    """Phase 23's line of one AOV path beside the same path without AOV
+    from this run."""
+    (rate, idle), (rate0, idle0) = PATHS[name], PATHS[base]
+    print(f"phase 23 {name}: {rate:.6g} Mray/s (idle {idle:.3f}) vs "
+          f"{base} without AOV {rate0:.6g} Mray/s (idle {idle0:.3f}): "
+          f"{rate / rate0:.4f}x")
 
 
 def main() -> int:
@@ -1541,6 +1879,35 @@ def main() -> int:
         print(f"phase 20 (material Cornell, principled quad) done; "
               f"{time.perf_counter() - t_start:.1f} s since the start")
 
+        # ---- phases 21-23 on the fused pipeline: the AOV kernels, gates
+        # and main paths, the denoiser and the CLI
+        t0 = time.perf_counter()
+        aov_entries = phase_fused_aov(dev)
+        print(f"phase 21 (fused) done in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        gate(scene, camera, dev, "Cornell, aov", 22, **AOV)
+        gate(scene, camera, dev, "Cornell sorted, aov", 22, **SORTED, **AOV)
+        gate(*textured_quad("normal_map"), dev,
+             "textured quad normal_map, aov", 22, **AOV)
+        print(f"phase 22 (fused) done in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        film_aov, launches_k4a = full_size(
+            "cornell aov", scene, camera, dev, smi, 23,
+            {"trace_shade_refill": shade.trace_shade_refill},
+            ("refill_kernel",), AOV)
+        launches_k5a = full_size(
+            "cornell sorted aov", scene, camera, dev, smi, 23,
+            {"trace_shade": shade.trace_shade}, ("trace_shade_kernel",),
+            dict(SORTED, **AOV))[1]
+        aov_path_report("cornell aov", "cornell")
+        aov_path_report("cornell sorted aov", "cornell sorted")
+        aov_pairs(dev, "cornell", scene, camera, {}, 4)
+        aov_pairs(dev, "cornell sorted", scene, camera, SORTED, 1)
+        phase_denoise_and_cli(dev, film_aov)
+        del film_aov
+        print(f"phase 23 (fused) done in {time.perf_counter() - t0:.1f} s; "
+              f"{time.perf_counter() - t_start:.1f} s since the start")
+
         # ---- phase 7: K1/K2 and K3 on the 16054-face towns
         t0 = time.perf_counter()
         towns = {k: town_scene(TOWN_FACES, k) for k in (False, True)}
@@ -1664,6 +2031,22 @@ def main() -> int:
         print(f"phase 20 done; {time.perf_counter() - t_start:.1f} s since "
               "the start")
 
+        # ---- phases 21-23 on the external pipeline: K6 AOV, the town's
+        # AOV gate and BASELINE config 2's textured town with AOV
+        t0 = time.perf_counter()
+        aov_entries += phase_town_aov(dev, towns[False], tex_towns[False],
+                                      p_towns)
+        s, c = town_scene(GATE_TOWN_FACES, textured=True)
+        gate(s, c, dev, f"textured town ({s.num_faces} faces) sorted, aov",
+             22, **SORTED, **AOV)
+        launches_ta = full_size(
+            "textured town aov", *tex_towns[False], dev, smi, 23,
+            town_kernels, ("mt_kernel", "external_shade_kernel"), AOV,
+            n_plain=0)[1]
+        aov_path_report("textured town aov", "textured static town")
+        print(f"phases 21-23 (towns) done in {time.perf_counter() - t0:.1f} "
+              f"s; {time.perf_counter() - t_start:.1f} s since the start")
+
     except PhaseFailed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -1727,6 +2110,16 @@ def main() -> int:
                      launches_pt["external_shade"], k6d),
                     ("external_shade_textured_dispatch_power", K6_SRC, 1778,
                      launches_ptt["external_shade"], k6td))]
+    # the AOV instantiations (aov=True of the same pallas_calls) and the
+    # dispatch instantiations timed since; the three with a phase 23 main
+    # path take its launches
+    for e in aov_entries:
+        e["launches"] = {
+            "trace_shade_refill_aov": launches_k4a["trace_shade_refill"],
+            "trace_shade_aov": launches_k5a["trace_shade"],
+            "external_shade_textured_aov": launches_ta["external_shade"],
+        }.get(e["name"], e["launches"])
+    kernels += aov_entries
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

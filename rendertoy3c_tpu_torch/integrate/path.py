@@ -8,7 +8,10 @@ rule of `_render_pool_fused` (:1016-1048), `_render_pool_fused_krefill`
 `_render_pool_fused` (:1060-1393) over either pipeline's `trace_shade`
 (K5, or K6 between MT tracers) with its pixel-major and sample-major
 schedules and the ray sort, and `render_pixels`, `render_subframe`,
-`make_render_fn`, `render_frame` (:1396-1549).
+`make_render_fn`, `render_frame` (:1396-1549). With cfg.aov every loop
+carries the first-hit albedo and shading-normal accs (misc columns 16-21,
+stash columns 4-9) into two more images beside the radiance, which
+`render_subframe` blends into the film's guide buffers.
 
 The loops mirror the reference's while_loops. The loop condition is read
 once per window (one host synchronisation), and each window runs
@@ -30,7 +33,8 @@ from ..accel.morton import morton3d
 from ..film.film import Film, film_accumulate, film_create
 from ..math import rng
 from ..scene.camera import camera_ray_dir
-from ..trace.shade import ExternalPipeline, FusedPipeline
+from ..trace.shade import (ACC_COLS, AOV_COLS, ExternalPipeline,
+                           FusedPipeline, misc_width)
 
 
 class RenderStats(NamedTuple):
@@ -62,11 +66,21 @@ def _next_pow2(n: int) -> int:
     return p
 
 
-def _flush(image, misc, stash, spp: int, pixel_base: int, sink: int) -> None:
+_AOV_ACCS = slice(AOV_COLS, AOV_COLS + 6)  # misc columns of the AOV accs
+
+
+def _new_images(n_pix: int, aov: bool, device):
+    """The radiance image (and the two AOV images) of a pool, [n_pix + 1,
+    3] each: row n_pix is the sink of lanes with nothing to flush."""
+    return [torch.zeros((n_pix + 1, 3), dtype=torch.float32, device=device)
+            for _ in range(3 if aov else 1)]
+
+
+def _flush(images, misc, stash, spp: int, pixel_base: int, sink: int) -> None:
     """Scatter the stash (None when off) and the parked completed lanes
-    into the image and free them (path.py:915-955, :1297-1345). Lanes with
-    nothing to flush add into the sink row `sink` of the image, which is
-    dropped at the end."""
+    into the images and free them (path.py:915-955, :1297-1345). Lanes with
+    nothing to flush add into the sink row `sink`, which is dropped at the
+    end."""
     pixel = misc[:, 13]
     completed = (misc[:, 9] <= 0) & (pixel >= 0) & (misc[:, 14] >= spp)
     target = torch.where(completed, pixel.to(torch.int64) - pixel_base,
@@ -74,12 +88,17 @@ def _flush(image, misc, stash, spp: int, pixel_base: int, sink: int) -> None:
     if stash is not None:
         sp = stash[:, 0]
         starget = torch.where(sp >= 0, sp.to(torch.int64) - pixel_base, sink)
-        image.index_add_(0, starget, stash[:, 1:4])
-    image.index_add_(0, target, misc[:, 10:13])
+    for image, (mc, sc) in zip(images, ACC_COLS):
+        if stash is not None:
+            image.index_add_(0, starget, stash[:, sc:sc + 3])
+        image.index_add_(0, target, misc[:, mc:mc + 3])
     if stash is not None:
         stash.zero_()
         stash[:, 0] = -1.0
     misc[:, 10:13] = torch.where(completed[:, None], 0.0, misc[:, 10:13])
+    if len(images) > 1:
+        misc[:, _AOV_ACCS] = torch.where(completed[:, None], 0.0,
+                                         misc[:, _AOV_ACCS])
     misc[:, 13] = torch.where(completed, -1.0, pixel)
     misc[:, 14] = torch.where(completed, 0.0, misc[:, 14])
 
@@ -96,8 +115,8 @@ def _render_pool_fused_krefill(cfg, cam, pixel_idx, subframe_index: int,
                                flush_every: int):
     """Megakernel pool with in-kernel refill; a motion pipeline carries the
     lanes' ray times [P] through every launch, zero at the start
-    (path.py:863-864). Returns (rgb [N, 3], None, n_rad, n_shad,
-    launches)."""
+    (path.py:863-864). Returns (rgb [N, 3], (albedo, normal) [N, 3] each
+    with cfg.aov else None, n_rad, n_shad, launches)."""
     dev = fused.device
     n_pix = int(pixel_idx.shape[0])
     spp = cfg.samples_per_launch
@@ -106,13 +125,12 @@ def _render_pool_fused_krefill(cfg, cam, pixel_idx, subframe_index: int,
     f32 = dict(dtype=torch.float32, device=dev)
 
     rays = torch.zeros((pool, 8), **f32)
-    misc = torch.zeros((pool, 16), **f32)
+    misc = torch.zeros((pool, misc_width(cfg.aov)), **f32)
     misc[:, 13] = -1.0
     stash = torch.zeros((pool, 16), **f32)
     stash[:, 0] = -1.0
     time = torch.zeros(pool, **f32) if fused.motion else None
-    # row n_pix is the sink of lanes with nothing to flush
-    image = torch.zeros((n_pix + 1, 3), **f32)
+    images = _new_images(n_pix, cfg.aov, dev)
     # (next_work, count, n_live, 0) of the last launch; two buffers, since a
     # launch reads one while its blocks update the other
     stats = [torch.zeros(4, dtype=torch.int32, device=dev) for _ in range(2)]
@@ -124,7 +142,7 @@ def _render_pool_fused_krefill(cfg, cam, pixel_idx, subframe_index: int,
     cur = 0
     launches = 0
     while _pool_busy(misc, stats[cur][0], n_pix, spp):
-        _flush(image, misc, stash, spp, pixel_base, n_pix)
+        _flush(images, misc, stash, spp, pixel_base, n_pix)
         for _ in range(flush_every):
             shader(rays, misc, stash, stats[cur], stats[1 - cur], pixel_base,
                    subframe_index, scf, time)
@@ -132,13 +150,16 @@ def _render_pool_fused_krefill(cfg, cam, pixel_idx, subframe_index: int,
             n_rad += stats[cur][2]
             n_shad += (misc[:, 15] > 0).sum()
             launches += 1
-    _flush(image, misc, stash, spp, pixel_base, n_pix)
-    return _finish(image, n_pix, spp), None, n_rad, n_shad, launches
+    _flush(images, misc, stash, spp, pixel_base, n_pix)
+    return (*_finish(images, n_pix, spp), n_rad, n_shad, launches)
 
 
-def _finish(image, n_pix: int, spp: int):
+def _finish(images, n_pix: int, spp: int):
+    """(rgb [N, 3], (albedo, normal) or None): the images without their
+    sink row, divided by spp."""
     inv_spp = torch.tensor(1.0, dtype=torch.float32) / float(spp)
-    return image[:n_pix] * inv_spp.to(image.device)
+    out = [img[:n_pix] * inv_spp.to(img.device) for img in images]
+    return out[0], (tuple(out[1:]) if len(out) > 1 else None)
 
 
 def sort_key(rays, alive, lo, inv):
@@ -179,8 +200,10 @@ def _render_pool_xla_refill(scene, cfg, cam, pixel_idx, subframe_index: int,
     into the image in the iteration after it dies, and dead lanes take the
     next work items in lane order. cfg.sort_rays orders the lanes by
     sort_key (a stable sort, as jnp.argsort) and the live count is then
-    the number of live lanes. Returns (rgb [N, 3], None, n_rad, n_shad,
-    iterations)."""
+    the number of live lanes. With cfg.aov the AOV accs (misc columns
+    16-21) ride with the radiance acc: into the stash's columns 4-9, the
+    flushes, the resets and the sort. Returns (rgb [N, 3], (albedo,
+    normal) or None, n_rad, n_shad, iterations)."""
     dev = pipe.device
     n_pix = int(pixel_idx.shape[0])
     spp = cfg.samples_per_launch
@@ -197,15 +220,18 @@ def _render_pool_xla_refill(scene, cfg, cam, pixel_idx, subframe_index: int,
     if cfg.sort_rays:
         lo, inv = (torch.as_tensor(x, device=dev) for x in sort_box(scene))
 
+    aov = cfg.aov
+    n_acc = 9 if aov else 3  # the radiance acc, then the AOV accs
     rays = torch.zeros((pool, 8), **f32)
-    misc = torch.zeros((pool, 16), **f32)
+    misc = torch.zeros((pool, misc_width(aov)), **f32)
     misc[:, 13] = -1.0
-    # stash [P, 16]: col 0 pixel (-1 = free), 1-3 acc, as the K4 pool's
+    # stash [P, 16]: col 0 pixel (-1 = free), 1-3 acc, 4-9 the AOV accs,
+    # as the K4 pool's
     stash = None
     if use_stash:
         stash = torch.zeros((pool, 16), **f32)
         stash[:, 0] = -1.0
-    image = torch.zeros((n_pix + 1, 3), **f32)  # row n_pix: the sink
+    images = _new_images(n_pix, aov, dev)
     next_work = torch.zeros((), **i64)
     n_rad = torch.zeros((), **i64)
     n_shad = torch.zeros((), **i64)
@@ -219,8 +245,8 @@ def _render_pool_xla_refill(scene, cfg, cam, pixel_idx, subframe_index: int,
             completed = dead & (pixel >= 0) & (samp >= spp)
             can_stash = completed & (stash[:, 0] < 0)
             stash[:, 0] = torch.where(can_stash, pixel, stash[:, 0])
-            stash[:, 1:4] = torch.where(can_stash[:, None], acc,
-                                        stash[:, 1:4])
+            stash[:, 1:1 + n_acc] = torch.where(can_stash[:, None], acc,
+                                                stash[:, 1:1 + n_acc])
             acc = torch.where(can_stash[:, None], 0.0, acc)
             pixel = torch.where(can_stash, -1.0, pixel)
             samp = torch.where(can_stash, 0.0, samp)
@@ -247,7 +273,8 @@ def _render_pool_xla_refill(scene, cfg, cam, pixel_idx, subframe_index: int,
         flush = dead & (pixel >= 0)
         target = torch.where(flush, pixel.to(torch.int64) - pixel_base,
                              n_pix)
-        image.index_add_(0, target, acc)
+        for k, image in enumerate(images):
+            image.index_add_(0, target, acc[:, 3 * k:3 * k + 3])
         w = next_work + torch.cumsum(dead.to(torch.int64), 0) - 1
         take = dead & (w < total_work)
         w_c = torch.clamp(w, 0, total_work - 1)
@@ -265,8 +292,11 @@ def _render_pool_xla_refill(scene, cfg, cam, pixel_idx, subframe_index: int,
     def body(rays, misc, next_work):
         alive = misc[:, 9] > 0
         dead = ~alive
+        # acc: the radiance acc and (AOV) the albedo and normal accs
+        acc = (torch.cat([misc[:, 10:13], misc[:, _AOV_ACCS]], dim=1) if aov
+               else misc[:, 10:13])
         take, pixel, samp, samp_i, new_pixel, acc, next_work = take_work(
-            dead, misc[:, 13], misc[:, 14], misc[:, 10:13], next_work)
+            dead, misc[:, 13], misc[:, 14], acc, next_work)
         st, jx, jy = rng.sample_start(new_pixel, subframe_index,
                                       int(cfg.seed or 0), samp_i, jump)
         new_dir = torch.stack(camera_ray_dir(scf, new_pixel, cfg.width,
@@ -285,8 +315,10 @@ def _render_pool_xla_refill(scene, cfg, cam, pixel_idx, subframe_index: int,
             torch.where(take2, 1.0, misc[:, 1:4]),
             torch.where(take2, 1.0, misc[:, 4:7]),
             torch.where(take2, 0.0, misc[:, 7:9]),
-            alive2.to(torch.float32)[:, None], acc, pixel[:, None],
-            samp[:, None], torch.zeros_like(pixel)[:, None]], dim=1)
+            alive2.to(torch.float32)[:, None], acc[:, :3], pixel[:, None],
+            samp[:, None], torch.zeros_like(pixel)[:, None]]
+            + ([acc[:, 3:], torch.zeros_like(acc[:, :2])] if aov else []),
+            dim=1)
         n_live = alive2.sum()
         if cfg.sort_rays:
             order = torch.argsort(sort_key(rays, alive2, lo, inv),
@@ -307,7 +339,7 @@ def _render_pool_xla_refill(scene, cfg, cam, pixel_idx, subframe_index: int,
 
     while busy():
         if pixel_major:
-            _flush(image, misc, stash, spp, pixel_base, n_pix)
+            _flush(images, misc, stash, spp, pixel_base, n_pix)
         for _ in range(flush_every):
             if not pixel_major:  # the reference's per-iteration condition
                 iters += (next_work < total_work) | (misc[:, 9] > 0).any()
@@ -317,13 +349,14 @@ def _render_pool_xla_refill(scene, cfg, cam, pixel_idx, subframe_index: int,
             if pixel_major:
                 iters += 1
     if pixel_major:
-        _flush(image, misc, stash, spp, pixel_base, n_pix)
+        _flush(images, misc, stash, spp, pixel_base, n_pix)
     else:  # every lane is dead: flush what each still holds
         pixel = misc[:, 13]
-        image.index_add_(0, torch.where(
-            pixel >= 0, pixel.to(torch.int64) - pixel_base, n_pix),
-            misc[:, 10:13])
-    return _finish(image, n_pix, spp), None, n_rad, n_shad, int(iters)
+        target = torch.where(pixel >= 0, pixel.to(torch.int64) - pixel_base,
+                             n_pix)
+        for image, (mc, _) in zip(images, ACC_COLS):
+            image.index_add_(0, target, misc[:, mc:mc + 3])
+    return (*_finish(images, n_pix, spp), n_rad, n_shad, int(iters))
 
 
 def _render_pool_fused(scene, cfg, cam, pixel_idx, subframe_index: int,
@@ -364,8 +397,9 @@ def _render_pool_fused(scene, cfg, cam, pixel_idx, subframe_index: int,
 
 
 def render_pixels(scene, cfg, cam, tracer, pixel_idx, subframe_index: int):
-    """Path-trace a flat list of pixel indices. Returns (rgb [N, 3], None
-    (the AOV slot), radiance rays, shadow rays, pool iterations)."""
+    """Path-trace a flat list of pixel indices. Returns (rgb [N, 3], the
+    AOV slot: (albedo [N, 3], normal [N, 3]) with cfg.aov else None,
+    radiance rays, shadow rays, pool iterations)."""
     if not isinstance(tracer, (FusedPipeline, ExternalPipeline)):
         raise NotImplementedError(
             "only the fused and external pipelines are ported yet; the "
@@ -388,9 +422,10 @@ def render_subframe(scene, cam, film: Film, cfg, tracer=None):
         scene, tracer = choose_tracer(scene, cfg, film.accum.device)
     n_pixels = cfg.width * cfg.height
     pixel_idx = torch.arange(n_pixels, dtype=torch.int64)
-    rgb, _, n_rad, n_shad, launches = render_pixels(
+    rgb, aov, n_rad, n_shad, launches = render_pixels(
         scene, cfg, cam, tracer, pixel_idx, film.subframe_index)
-    film = film_accumulate(film, rgb.reshape(cfg.height, cfg.width, 3))
+    film = film_accumulate(film, rgb.reshape(cfg.height, cfg.width, 3),
+                           aov=aov)
     return film, RenderStats(radiance_rays=n_rad, shadow_rays=n_shad,
                              pool_iters=launches)
 
@@ -416,7 +451,8 @@ def render_frame(scene, camera_params, cfg, subframes: int = 1,
     (film, total stats)."""
     step = make_render_fn(scene, cfg, tracer=tracer, device=device)
     if film is None:
-        film = film_create(cfg.height, cfg.width, device=device)
+        film = film_create(cfg.height, cfg.width, device=device,
+                           aov=cfg.aov)
     total_rad = 0
     total_shad = 0
     for _ in range(subframes):

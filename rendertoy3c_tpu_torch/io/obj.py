@@ -9,22 +9,24 @@ only (the reference's optional native parser is not ported).
   * each shape is split per material id into separate meshes (mesh.cpp:63-71);
   * vertices dedup'd by their (v, vt, vn) index triple; all keyframes share
     the dedup map so topology stays aligned across keys (mesh.cpp:80-110);
-  * textures load as RGBA8 with a vertical flip (mesh.cpp:150-160), PNGs
-    through film.image.read_png (a stdlib decoder where PIL is missing),
-    other formats through PIL; a file that is missing or does not decode
-    gives texture id -1; dedup'd globally by filename;
+  * textures load as RGBA8 with a vertical flip (mesh.cpp:150-160)
+    through film.image.read_image (PIL, or stdlib decoders of PNG, TGA and
+    BMP where PIL is missing); a file that is missing gives texture id -1,
+    and so does one that does not decode, with a warning naming it;
+    dedup'd globally by filename;
   * material fields map like mesh.cpp:186-198: Kd->diffuse, Ke->emissive,
     Pr->roughness, aniso, Ni->ior, Tf->transmittance, map_* -> texture ids.
 """
 from __future__ import annotations
 
 import os
+import warnings
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..film.image import read_png
+from ..film.image import read_image
 from ..scene.material import Material
 from ..scene.mesh import Mesh
 
@@ -173,20 +175,19 @@ def _parse_obj(path: str) -> _ObjData:
 
 def _load_texture(path: str) -> Optional[np.ndarray]:
     """Load an image as RGBA8 with vertical flip (stbi convention of
-    mesh.cpp:150-160). A .png decodes through film.image.read_png (PIL, or
-    its stdlib decoder where PIL is missing); other formats need PIL.
-    Returns None when the file is missing or does not decode."""
-    try:
-        if path.lower().endswith(".png"):
-            rgba = read_png(path)
-        else:
-            from PIL import Image
-
-            with Image.open(path) as im:
-                rgba = np.asarray(im.convert("RGBA"), np.uint8)
-        return rgba[::-1].copy()
-    except Exception:
+    mesh.cpp:150-160), through film.image.read_image (PIL, or its stdlib
+    decoders of PNG, TGA and BMP where PIL is missing). Returns None when
+    the file is missing, as the reference does; a file that exists but does
+    not decode also gives None, with a warning that names it."""
+    if not os.path.isfile(path):
         return None
+    try:
+        rgba = read_image(path)
+    except Exception as e:  # any decoder's failure: the texture is dropped
+        warnings.warn(f"texture {path} does not decode and is left out "
+                      f"({type(e).__name__}: {e})", stacklevel=2)
+        return None
+    return rgba[::-1].copy()
 
 
 def _parse_obj_arrays(path: str):

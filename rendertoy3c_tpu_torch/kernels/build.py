@@ -25,8 +25,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
-SOURCES = ("mt_kernels.cu", "megakernel.cu", "external.cu")
-HEADERS = ("mt.cuh", "shade.cuh")
+SOURCES = ("mt_kernels.cu", "megakernel.cu", "megakernel_aov.cu",
+           "external.cu")
+HEADERS = ("mt.cuh", "shade.cuh", "megakernel.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false", "-prec-div=true", "-prec-sqrt=true",
@@ -36,7 +37,7 @@ LIB_NAME = "librt3c_kernels.so"
 
 
 class RefillParams(ctypes.Structure):
-    """Mirror of `RefillParams` in csrc/megakernel.cu, field for field."""
+    """Mirror of `RefillParams` in csrc/megakernel.cuh, field for field."""
 
     _fields_ = [
         ("n_pix", ctypes.c_int), ("spp", ctypes.c_int),
@@ -46,7 +47,7 @@ class RefillParams(ctypes.Structure):
         ("light_stride", ctypes.c_int), ("n_tiles", ctypes.c_int),
         ("ct", ctypes.c_int), ("motion", ctypes.c_int),
         ("power", ctypes.c_int), ("params_base", ctypes.c_int),
-        ("seed_rot", ctypes.c_uint32),
+        ("aov", ctypes.c_int), ("seed_rot", ctypes.c_uint32),
         ("width_f", ctypes.c_float), ("height_f", ctypes.c_float),
         ("tmin", ctypes.c_float), ("tmax", ctypes.c_float),
         ("shadow_tmin", ctypes.c_float), ("shadow_eps", ctypes.c_float),
@@ -57,14 +58,15 @@ class RefillParams(ctypes.Structure):
 
 
 class TraceShadeParams(ctypes.Structure):
-    """Mirror of `TraceShadeParams` in csrc/megakernel.cu, field for field."""
+    """Mirror of `TraceShadeParams` in csrc/megakernel.cuh, field for
+    field."""
 
     _fields_ = [
         ("max_depth", ctypes.c_int), ("num_lights", ctypes.c_int),
         ("attr_stride", ctypes.c_int), ("light_stride", ctypes.c_int),
         ("n_tiles", ctypes.c_int), ("ct", ctypes.c_int),
         ("motion", ctypes.c_int), ("power", ctypes.c_int),
-        ("params_base", ctypes.c_int),
+        ("params_base", ctypes.c_int), ("aov", ctypes.c_int),
         ("shadow_tmin", ctypes.c_float), ("shadow_eps", ctypes.c_float),
         ("pick_pdf", ctypes.c_float),
         ("bg", ctypes.c_float * 3),
@@ -81,7 +83,7 @@ class ExternalParams(ctypes.Structure):
         ("pick_pdf", ctypes.c_float),
         ("bg", ctypes.c_float * 3),
         ("attr_w", ctypes.c_int), ("power", ctypes.c_int),
-        ("params_base", ctypes.c_int),
+        ("params_base", ctypes.c_int), ("aov", ctypes.c_int),
     ]
 
 

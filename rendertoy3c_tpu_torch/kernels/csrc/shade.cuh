@@ -32,6 +32,12 @@
 // upper-bound search over the f32 CDF in light row 17, equal to the
 // reference's compare-sum for a nondecreasing CDF (ties from zero-power
 // lights included), with the pick pdf from light row 16.
+//
+// The AOV variants of the kernels (kAov, pallas_shade.py :881-893) read the
+// lane's albedo (the texel where a texture is present) and its
+// face-forwarded shading normal (after any normal map) from `Shaded`, with
+// `first` = a live lane that hit at depth 0; the instantiations without AOV
+// leave those fields unread, and the compiler drops them.
 #pragma once
 
 #include "mt.cuh"
@@ -211,6 +217,8 @@ struct Shaded {
   bool survive, alive_b, want_shadow;
   Ray sr;                      // the shadow ray (tmax 0 without one)
   float occl_time;             // the shadow ray's time (a peek)
+  bool first;                  // a live lane that hit at depth 0
+  float albedo[3], ns[3];      // the AOV rows' albedo and shading normal
 };
 
 // r: the lane's ray; h: its closest hit; m: misc columns 0-15; a: the
@@ -296,6 +304,9 @@ __device__ __forceinline__ Shaded shade_lane(const ShadeConsts& p,
   const float side =
       (-(r.dx * ngx + r.dy * ngy + r.dz * ngz) >= 0.0f) ? 1.0f : -1.0f;
   const float nsx = ngx * side, nsy = ngy * side, nsz = ngz * side;
+  o.ns[0] = nsx;
+  o.ns[1] = nsy;
+  o.ns[2] = nsz;
   o.px = r.ox + h.t * r.dx;
   o.py = r.oy + h.t * r.dy;
   o.pz = r.oz + h.t * r.dz;
@@ -304,10 +315,12 @@ __device__ __forceinline__ Shaded shade_lane(const ShadeConsts& p,
   for (int c = 0; c < 3; ++c) {
     emitted[c] = a[(9 + c) * as] * emit_gate * hit_f;
     albedo[c] = (kTextured && tid >= 0.0f) ? tex_rgb[c] : a[(12 + c) * as];
+    o.albedo[c] = albedo[c];
   }
 
   // --- BSDF sample: cosine hemisphere, reference draw order ---
   const bool adv = is_hit && alive;
+  o.first = adv && depth == 0.0f;
   const float z1 = rnd_masked(seed, adv);  // the dispatch's lobe choice
   rnd_masked(seed, adv);
   const float u1 = rnd_masked(seed, adv);

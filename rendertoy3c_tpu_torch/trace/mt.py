@@ -194,10 +194,14 @@ def _culled_sweep(rays, count, tile, n_tiles, aabb, super_aabb, test,
     lets in; test(cols, k, idx) -> (t, u, v, hit, prim_f) of tile k for
     the rays idx. Closest: min t, lowest prim at equal t, the box test
     bounded by the best hit so far; returns [R, 4] (t, prim_f, u, v).
-    Any-hit: a ray stops at its first occluding tile; returns [R] bool."""
+    Any-hit: a ray stops at its first occluding tile; returns [R] bool.
+
+    The slab tests of every ray against every box run in one batch before
+    the sweep (the same operations on the same values as one box at a
+    time); the sweep then only bounds them by each ray's current t, so a
+    launch makes a few operations per tile beside the triangle tests."""
     r = rays.shape[0]
     dev = rays.device
-    cols = tuple(rays[:, c:c + 1] for c in range(8))
     o, d, tmin = rays[:, 0:3], rays[:, 3:6], rays[:, 6]
     inv = torch.where(d.abs() > 1e-20, 1.0 / d, torch.full_like(d, _BIG))
     todo = live_rows(r, count, tile) & (rays[:, 7] > tmin)
@@ -206,40 +210,48 @@ def _culled_sweep(rays, count, tile, n_tiles, aabb, super_aabb, test,
     best[:, 0] = -1.0  # prim_f, u, v
     occ = torch.zeros(r, dtype=torch.bool, device=dev)
 
-    def padded(boxes):
+    def slabs(boxes):
+        """(entered [R, B], tn [R, B], pad [B]): each ray's own slab test
+        of every box padded by `pad` (an empty tile's inverted box enters
+        no ray), before the bound by the ray's current t."""
         lo, hi = boxes[:, 0:3], boxes[:, 3:6]
         pad = BOX_PAD * (1.0 + torch.maximum(hi - lo, torch.maximum(
             lo.abs(), hi.abs())).amax(dim=1, keepdim=True))
-        return lo - pad, hi + pad, (lo <= hi).all(dim=1).tolist(), pad[:, 0]
+        t0 = ((lo - pad)[None] - o[:, None]) * inv[:, None]
+        t1 = ((hi + pad)[None] - o[:, None]) * inv[:, None]
+        tn = torch.minimum(t0, t1).amax(dim=2)
+        tf = torch.maximum(t0, t1).amin(dim=2)
+        pad = pad[:, 0]
+        entered = ((lo <= hi).all(dim=1)[None] & (tn <= tf)
+                   & (tf >= tmin[:, None] - pad[None]))
+        return entered, tn, pad
 
     def own(box, k, among):
-        lo, hi, ok, pad = box
-        if not ok[k]:  # an empty tile's inverted box
-            return torch.zeros_like(among)
-        t0, t1 = (lo[k] - o) * inv, (hi[k] - o) * inv
-        tn = torch.minimum(t0, t1).amax(dim=1)
-        tf = torch.maximum(t0, t1).amin(dim=1)
+        """Rays of `among` that box k's slab test, bounded by their current
+        t, lets in."""
+        entered, tn, pad = box
         tcur = rays[:, 7] if any_hit else best_t
-        return among & (tn <= tf) & (tf >= tmin - pad[k]) & (
-            tn <= tcur + pad[k])
+        return among & entered[:, k] & (tn[:, k] <= tcur + pad[k])
 
     def visit(k, m):
-        idx = (m & ~occ).nonzero()[:, 0]
+        idx = m.nonzero()[:, 0]
         if idx.numel() == 0:
             return
-        t, u, v, hit, prim_f = test(tuple(c[idx] for c in cols), k, idx)
+        sub = rays[idx]
+        t, u, v, hit, prim_f = test(tuple(sub[:, c:c + 1] for c in range(8)),
+                                    k, idx)
         if any_hit:
             occ[idx] = hit.any(dim=1)
             return
-        t = torch.where(hit, t, torch.full_like(t, _BIG))
-        t_c, j = torch.min(t, dim=1)  # first minimum = lowest prim
-        better = t_c < best_t[idx]
-        best_t[idx] = torch.where(better, t_c, best_t[idx])
+        t_c, j = torch.min(torch.where(hit, t, _BIG), dim=1)  # first = lowest
+        bt = best_t[idx]
+        better = t_c < bt
+        best_t[idx] = torch.where(better, t_c, bt)
         got = torch.stack([prim_f[0, j], torch.gather(u, 1, j[:, None])[:, 0],
                            torch.gather(v, 1, j[:, None])[:, 0]], dim=1)
         best[idx] = torch.where(better[:, None], got, best[idx])
 
-    tiles, supers = padded(aabb), padded(super_aabb)
+    tiles, supers = slabs(aabb[:n_tiles]), slabs(super_aabb)
     for ks in range(-(-n_tiles // SUPER_TILE)):
         ms = own(supers, ks, todo & ~occ)
         if not bool(ms.any()):

@@ -7,7 +7,8 @@ configurations: all-diffuse (the Lambertian branch, :557-563 and
 :816-863) or the four-type material dispatch (`dispatch`, :563-700 and
 :826-843, in trace/bsdf.py), untextured or with diffuse textures, uv
 transforms and normal maps (:459-535), the uniform or the power light
-sampler (:710-720, :742-745), no AOV, misc width 16. It holds
+sampler (:710-720, :742-745), without or with the first-hit AOV rows
+(`aov`, :881-893, misc width 16 or 24). It holds
 `build_shade_tables` (:72); `texture_state` (the
 reference's `_fused_texture_state`, :1101, without its TPU atlas limits);
 `fused_unsupported` (the narrowing of `fused_shade_eligible`, :1116),
@@ -25,7 +26,10 @@ Per-lane state layout (pallas_shade.py:32-36):
   misc  [P, 16] f32: 0 seed(bits) | 1-3 atten | 4-6 last_atten
         | 7 prev_delta | 8 depth | 9 alive | 10-12 acc | 13 pixel
         | 14 samp | 15 want_shadow
-  stash [P, 16] f32: 0 pixel (-1 = free) | 1-3 acc | 4-15 zero
+        AOV (misc [P, 24]): | 16-18 first-hit albedo acc
+        | 19-21 first-hit shading-normal acc | 22-23 zero
+  stash [P, 16] f32: 0 pixel (-1 = free) | 1-3 acc | 4-9 the AOV accs
+                     (zero without AOV) | 10-15 zero
   time  [P]     f32: the ray time of a 2-key scene (the reference's
                      time8 [P, 8] holds it in each of its 8 columns)
   stats [4] int32  : next_work, count_hint, n_live, 0
@@ -35,11 +39,11 @@ time) and returns new rays and misc. Both sweep their rays in 256-ray
 tiles, static or motion, and skip the sweeps of tiles at or past the live
 count.
 
-K6 reads rays, the closest hit hit4 [R, 4] (t, prim_f, u, v) and misc,
-and writes new arrays: rays_out [R, 8], misc_out [R, 24] (columns 0-15 as
-misc, 16-18 the pending NEE term, 19-23 zero) and the shadow rays
-[R, 8] (org, dir, tmin, tmax), [R, 16] for motion with the ray time in
-column 8.
+K6 reads rays, the closest hit hit4 [R, 4] (t, prim_f, u, v) and misc
+[R, W] (W = 16, or 24 with AOV), and writes new arrays: rays_out [R, 8],
+misc_out [R, W + 8] (columns 0 to W-1 as misc, W to W+2 the pending NEE
+term, the rest zero) and the shadow rays [R, 8] (org, dir, tmin, tmax),
+[R, 16] for motion with the ray time in column 8.
 
 A textured scene (texture_state 'diffuse') widens the attribute rows to
 24-40 and carries a TexState: the atlas's RGBA8 texels and meta rows on
@@ -75,7 +79,16 @@ from .mt import (RAY_TILE, MotionSoup, TriSoup, any_motion_ref, any_ref,
 _INV_PI = 1.0 / math.pi
 MAX_FACES = 2048  # the fused path's face limit (pallas_shade.py:59)
 EXTERNAL_MAX_FACES = 16384  # the MT band's limit (auto.py:28)
-MISC_OUT_W = 24  # K6's misc output: 16 state columns + 3 NEE, 8-aligned
+AOV_COLS = 16  # first misc column of the AOV accs (16-18 albedo, 19-21 ns)
+STASH_AOV = 4  # first stash column of a retired lane's AOV accs (4-9)
+# (misc column, stash column) of each image's acc: the radiance, and with
+# AOV the first-hit albedo and shading normal
+ACC_COLS = ((10, 1), (AOV_COLS, STASH_AOV), (AOV_COLS + 3, STASH_AOV + 3))
+
+
+def misc_width(aov: bool) -> int:
+    """The misc state's width: 16, or 24 with the AOV rows."""
+    return 24 if aov else 16
 
 
 def build_shade_tables(scene, textured: bool = False,
@@ -238,7 +251,6 @@ def _slice_checks(scene, cfg):
         (scene.any_normal_map and texture_state(scene) != "diffuse",
          "normal maps without texture images take the general pool, not "
          "ported yet (ROADMAP A22)"),
-        (cfg.aov, "AOV buffers are not ported yet (ROADMAP A13)"),
         (cfg.throughput_model != "reference",
          "the physical throughput model is not ported yet (ROADMAP A22)"),
         (scene.num_lights < 1, "scenes without lights take the general "
@@ -288,6 +300,7 @@ class RefillConfig:
     bg: tuple
     seed_rot: int
     power: bool = False  # the power light pick
+    aov: bool = False  # misc [P, 24] with the first-hit AOV rows
 
 
 @dataclass(frozen=True)
@@ -301,6 +314,7 @@ class ShadeConfig:
     bg: tuple
     motion: bool
     power: bool = False  # the power light pick
+    aov: bool = False  # misc [R, 24] with the first-hit AOV rows
 
 
 @dataclass(frozen=True)
@@ -378,7 +392,9 @@ def _shade_lanes(rays, hit4, misc, a, lights_t, sc, shadow_occluded=None,
     :436-880): emission at depth 0 and after delta lobes, miss ambient,
     textures (`tex`), the Lambertian draw or (params_base > 0) the
     four-type dispatch (trace/bsdf.py), the uniform or (sc.power) power
-    light pick and area sample, NEE, RR, the next state.
+    light pick and area sample, NEE, RR, the next state, and (sc.aov) the
+    AOV rows: misc columns 16-21 plus the albedo and the face-forwarded
+    shading normal where `adv & (depth == 0)` (:881-893).
 
     hit4 [R, 4] (t, prim_f, u, v); a: attribute rows [>=15, R] gathered by
     prim (the textured rows and the material-parameter rows at
@@ -388,8 +404,8 @@ def _shade_lanes(rays, hit4, misc, a, lights_t, sc, shadow_occluded=None,
     the post-NEE stream; None is the external variant (K6): NEE is
     provisional on want_shadow and leaves as `nee`, for the caller to add
     on unoccluded lanes, and the shadow rays leave with that time. sc
-    carries max_depth, num_lights, shadow_tmin, shadow_eps, bg. Returns a
-    dict of the per-lane results."""
+    carries max_depth, num_lights, shadow_tmin, shadow_eps, bg, power, aov.
+    Returns a dict of the per-lane results."""
     t_hit, prim_f, bu, bv = hit4.unbind(1)
     ox, oy, oz, dx, dy, dz = rays[:, :6].unbind(1)
 
@@ -533,19 +549,25 @@ def _shade_lanes(rays, hit4, misc, a, lights_t, sc, shadow_occluded=None,
     pdelta_new = torch.where(
         alive, zero if mat is None else mat.is_delta.to(torch.float32),
         prev_delta)
+    aov = None
+    if sc.aov:
+        first = adv & (depth == 0.0)
+        aov = [misc[:, AOV_COLS + k] + torch.where(first, x, zero)
+               for k, x in enumerate(albedo + [nsx, nsy, nsz])]
     return dict(seed=seed, survive=survive, alive=alive, alive_b=alive_b,
                 want_shadow=want_shadow, new_at=new_at, new_last=new_last,
                 accs=accs, depth_new=depth_new, pdelta_new=pdelta_new,
                 p=(px, py, pz), nd=(ndx, ndy, ndz), o=(ox, oy, oz),
                 d=(dx, dy, dz), one=one, zero=zero, nee=nee, shadow=shadow,
-                occl_time=occl_time,
+                occl_time=occl_time, aov=aov,
                 tex_uv=None if tex is None else tex_uv)
 
 
 def _next_state(rays, misc, r):
-    """(rays_out [R, 8], misc columns 0-15 as a list of [R]) of a lane
-    shaded without the refill (pallas_shade.py :893-916): the bounce ray on
-    surviving lanes, tmin/tmax, pixel and sample passed on."""
+    """(rays_out [R, 8], misc columns 0-15, and 16-23 with the AOV rows,
+    as a list of [R]) of a lane shaded without the refill (pallas_shade.py
+    :893-918): the bounce ray on surviving lanes, tmin/tmax, pixel and
+    sample passed on."""
     rays_out = torch.stack(
         [torch.where(r["survive"], p, o)
          for p, o in zip(r["p"] + r["nd"], r["o"] + r["d"])]
@@ -555,6 +577,8 @@ def _next_state(rays, misc, r):
                r["alive_b"].to(torch.float32)]
             + r["accs"] + [misc[:, 13], misc[:, 14],
                            r["want_shadow"].to(torch.float32)])
+    if r["aov"] is not None:
+        cols += r["aov"] + [r["zero"]] * 2
     return rays_out, cols
 
 
@@ -581,8 +605,9 @@ def _tex_params(name: str, tex: TexState | None):
 def trace_shade_ref(rays, misc, count, tables: ShadeTables, sc: ShadeConfig,
                     time=None):
     """Plain version of K5: one pool iteration without the refill. rays
-    [P, 8], misc [P, 16], count int32 [1] (256-ray tiles at or past it skip
-    the sweeps), time [P] of a 2-key scene. Returns (rays_out, misc_out)."""
+    [P, 8], misc [P, 16] ([P, 24] with sc.aov), count int32 [1] (256-ray
+    tiles at or past it skip the sweeps), time [P] of a 2-key scene.
+    Returns (rays_out, misc_out)."""
     r = _shade_in_place_sweeps(rays, misc, count, tables, sc, time)
     rays_out, cols = _next_state(rays, misc, r)
     return rays_out, torch.stack(cols, dim=1)
@@ -591,7 +616,7 @@ def trace_shade_ref(rays, misc, count, tables: ShadeTables, sc: ShadeConfig,
 def trace_shade(rays, misc, count, tables: ShadeTables, sc: ShadeConfig,
                 time=None):
     """K5 wrapper: the CUDA kernel for CUDA tensors
-    (kernels/csrc/megakernel.cu `trace_shade_kernel`), `trace_shade_ref` on
+    (kernels/csrc/megakernel.cuh `trace_shade_kernel`), `trace_shade_ref` on
     the CPU."""
     if rays.device.type == "cpu":
         return trace_shade_ref(rays, misc, count, tables, sc, time)
@@ -603,19 +628,21 @@ def trace_shade(rays, misc, count, tables: ShadeTables, sc: ShadeConfig,
     kbuild.require_cuda("trace_shade", count, dtype=torch.int32)
     tex = _tex_params("trace_shade", tables.tex)
     pool = rays.shape[0]
-    if (rays.shape != (pool, 8) or misc.shape != (pool, 16)
+    mw = misc_width(sc.aov)
+    if (rays.shape != (pool, 8) or misc.shape != (pool, mw)
             or pool % RAY_TILE or (motion and time.shape != (pool,))):
-        raise ValueError("trace_shade: rays [P, 8], misc [P, 16] (and time "
-                         "[P] for motion) with P a multiple of 256")
+        raise ValueError(f"trace_shade: rays [P, 8], misc [P, {mw}] (and "
+                         "time [P] for motion) with P a multiple of 256")
     f32 = dict(dtype=torch.float32, device=rays.device)
     rays_out = torch.empty((pool, 8), **f32)
-    misc_out = torch.empty((pool, 16), **f32)
+    misc_out = torch.empty((pool, mw), **f32)
     p = kbuild.TraceShadeParams(
         max_depth=sc.max_depth, num_lights=sc.num_lights,
         attr_stride=tables.attr_t.shape[1],
         light_stride=tables.lights_t.shape[1], n_tiles=tris.shape[0],
         ct=tris.shape[2], motion=int(motion), power=int(sc.power),
-        params_base=tables.params_base, shadow_tmin=sc.shadow_tmin,
+        params_base=tables.params_base, aov=int(sc.aov),
+        shadow_tmin=sc.shadow_tmin,
         shadow_eps=sc.shadow_eps, pick_pdf=1.0 / float(sc.num_lights),
         bg=(sc.bg[0], sc.bg[1], sc.bg[2]))
     index, stream = kbuild.launch_target(rays.device)
@@ -638,7 +665,9 @@ def trace_shade_refill_ref(rays, misc, stash, stats_in, stats_out,
                            pixel_base: int, subframe_index: int, scf,
                            time=None, *, tables: ShadeTables,
                            rc: RefillConfig) -> None:
-    """Plain version of K4: one pool launch over all lanes, in place.
+    """Plain version of K4: one pool launch over all lanes, in place. With
+    rc.aov, misc is [P, 24] and a lane retired into the stash takes its
+    AOV accs there (stash columns 4-9, pallas_shade.py:964-967).
 
     Pixels are claimed by a cumulative sum over idle lanes in lane order,
     which is the TPU kernel's sequential claim order, so on the CPU this
@@ -668,6 +697,11 @@ def trace_shade_refill_ref(rays, misc, stash, stats_in, stats_out,
     new_st = [torch.where(can_stash, pixf, st[0])]
     new_st += [torch.where(can_stash, accs[c], st[1 + c]) for c in range(3)]
     accs = [torch.where(can_stash, zero, x) for x in accs]
+    aov = r["aov"]
+    if aov is not None:
+        new_st += [torch.where(can_stash, x, stash[:, STASH_AOV + k])
+                   for k, x in enumerate(aov)]
+        aov = [torch.where(can_stash, zero, x) for x in aov]
     pixf = torch.where(can_stash, -one, pixf)
     sampf = torch.where(can_stash, zero, sampf)
 
@@ -711,9 +745,10 @@ def trace_shade_refill_ref(rays, misc, stash, stats_in, stats_out,
         + [torch.where(take, one, new_last[c]) for c in range(3)]
         + [torch.where(take, zero, pdelta_new),
            torch.where(take, zero, depth_new), alive2.to(torch.float32)]
-        + accs + [pixf, sampf, want_shadow.to(torch.float32)], dim=1))
+        + accs + [pixf, sampf, want_shadow.to(torch.float32)]
+        + ([] if aov is None else aov + [zero] * 2), dim=1))
     stash.zero_()
-    stash[:, 0:4] = torch.stack(new_st, dim=1)
+    stash[:, 0:len(new_st)] = torch.stack(new_st, dim=1)
 
     lane = torch.arange(rays.shape[0], device=dev)
     count_hint = torch.where(alive2, lane + 1, torch.zeros_like(lane)).max()
@@ -726,7 +761,7 @@ def trace_shade_refill(rays, misc, stash, stats_in, stats_out,
                        *, tables: ShadeTables, rc: RefillConfig) -> None:
     """K4 wrapper: one pool launch, in place on rays/misc/stash (and the
     time [P] of a 2-key scene); fills stats_out from stats_in. The CUDA
-    kernel for CUDA tensors (kernels/csrc/megakernel.cu `refill_kernel`),
+    kernel for CUDA tensors (kernels/csrc/megakernel.cuh `refill_kernel`),
     `trace_shade_refill_ref` on the CPU."""
     if rays.device.type == "cpu":
         trace_shade_refill_ref(rays, misc, stash, stats_in, stats_out,
@@ -742,10 +777,11 @@ def trace_shade_refill(rays, misc, stash, stats_in, stats_out,
                         tables.jump_u32, dtype=torch.int32)
     tex = _tex_params("trace_shade_refill", tables.tex)
     pool = rays.shape[0]
-    if (rays.shape != (pool, 8) or misc.shape != (pool, 16)
+    mw = misc_width(rc.aov)
+    if (rays.shape != (pool, 8) or misc.shape != (pool, mw)
             or stash.shape != (pool, 16) or pool % RAY_TILE
             or (motion and time.shape != (pool,))):
-        raise ValueError("trace_shade_refill: rays [P, 8], misc [P, 16], "
+        raise ValueError(f"trace_shade_refill: rays [P, 8], misc [P, {mw}], "
                          "stash [P, 16] (and time [P] for motion) with P a "
                          "multiple of 256")
     if stats_in.data_ptr() == stats_out.data_ptr():
@@ -757,7 +793,8 @@ def trace_shade_refill(rays, misc, stash, stats_in, stats_out,
         subframe_index=subframe_index, attr_stride=tables.attr_t.shape[1],
         light_stride=tables.lights_t.shape[1], n_tiles=tris.shape[0],
         ct=tris.shape[2], motion=int(motion), power=int(rc.power),
-        params_base=tables.params_base, seed_rot=rc.seed_rot & rng.M32,
+        params_base=tables.params_base, aov=int(rc.aov),
+        seed_rot=rc.seed_rot & rng.M32,
         width_f=float(rc.width), height_f=float(rc.height),
         tmin=rc.primary_tmin, tmax=rc.primary_tmax,
         shadow_tmin=rc.shadow_tmin, shadow_eps=rc.shadow_eps,
@@ -831,7 +868,7 @@ class FusedPipeline:
             max_depth=cfg.max_depth, num_lights=scene.num_lights,
             shadow_tmin=cfg.shadow_tmin, shadow_eps=cfg.shadow_tmax_eps,
             bg=tuple(float(b) for b in cfg.bg_radiance), motion=self.motion,
-            power=cfg.light_sampler == "power")
+            power=cfg.light_sampler == "power", aov=cfg.aov)
         self.refill_fn = refill_fn
         self.shade_fn = shade_fn
 
@@ -839,7 +876,7 @@ class FusedPipeline:
         """One pool iteration through K5: closest sweep, shading, shadow
         sweep, RR and the next state. count: int32 [1] live-lane hint;
         time: per-lane ray time [P] of a motion scene. Returns (rays [P, 8],
-        misc [P, 16])."""
+        misc [P, 16|24])."""
         return self.shade_fn(rays, misc, count, self.tables, self.config,
                              time if self.motion else None)
 
@@ -858,7 +895,8 @@ class FusedPipeline:
             primary_tmin=cfg.primary_tmin, primary_tmax=cfg.primary_tmax,
             shadow_tmin=cfg.shadow_tmin, shadow_eps=cfg.shadow_tmax_eps,
             bg=tuple(float(b) for b in cfg.bg_radiance),
-            seed_rot=int(cfg.seed or 0), power=self.config.power)
+            seed_rot=int(cfg.seed or 0), power=self.config.power,
+            aov=cfg.aov)
         return partial(self.refill_fn, tables=self.tables, rc=rc)
 
 
@@ -875,14 +913,14 @@ class ExternalTables:
 
 def external_shade_ref(rays, hit4, misc, tables: ExternalTables,
                        ec: ShadeConfig):
-    """Plain version of K6: (rays_out [R, 8], misc_out [R, 24], shadow
-    [R, 8|16]) from rays [R, 8], hit4 [R, 4] and misc [R, 16]."""
+    """Plain version of K6: (rays_out [R, 8], misc_out [R, W + 8], shadow
+    [R, 8|16]) from rays [R, 8], hit4 [R, 4] and misc [R, W], W = 16 or
+    (ec.aov) 24."""
     a = tables.attr[torch.clamp(hit4[:, 1], min=0.0).to(torch.int64)].T
     r = _shade_lanes(rays, hit4, misc, a, tables.lights_t, ec, tex=tables.tex,
                      params_base=tables.params_base)
     rays_out, cols = _next_state(rays, misc, r)
-    misc_out = torch.stack(
-        cols + r["nee"] + [r["zero"]] * (MISC_OUT_W - 19), dim=1)
+    misc_out = torch.stack(cols + r["nee"] + [r["zero"]] * 5, dim=1)
     shadow = r["shadow"]
     if ec.motion:
         shadow = torch.cat([shadow, r["occl_time"][:, None],
@@ -901,13 +939,14 @@ def external_shade(rays, hit4, misc, tables: ExternalTables,
     tex = _tex_params("external_shade", tables.tex)
     n = rays.shape[0]
     attr_w = tables.attr.shape[1]
+    mw = misc_width(ec.aov)
     if (rays.shape != (n, 8) or hit4.shape != (n, 4)
-            or misc.shape != (n, 16) or attr_w % 8 or attr_w < 16):
-        raise ValueError("external_shade: rays [R, 8], hit4 [R, 4], misc "
-                         "[R, 16], attr [F, 16 + 8k]")
+            or misc.shape != (n, mw) or attr_w % 8 or attr_w < 16):
+        raise ValueError(f"external_shade: rays [R, 8], hit4 [R, 4], misc "
+                         f"[R, {mw}], attr [F, 16 + 8k]")
     f32 = dict(dtype=torch.float32, device=rays.device)
     rays_out = torch.empty((n, 8), **f32)
-    misc_out = torch.empty((n, MISC_OUT_W), **f32)
+    misc_out = torch.empty((n, mw + 8), **f32)
     shadow = torch.empty((n, 16 if ec.motion else 8), **f32)
     p = kbuild.ExternalParams(
         max_depth=ec.max_depth, num_lights=ec.num_lights,
@@ -915,7 +954,8 @@ def external_shade(rays, hit4, misc, tables: ExternalTables,
         shadow_tmin=ec.shadow_tmin, shadow_eps=ec.shadow_eps,
         pick_pdf=1.0 / float(ec.num_lights),
         bg=(ec.bg[0], ec.bg[1], ec.bg[2]), attr_w=attr_w,
-        power=int(ec.power), params_base=tables.params_base)
+        power=int(ec.power), params_base=tables.params_base,
+        aov=int(ec.aov))
     index, stream = kbuild.launch_target(rays.device)
     err = kbuild.library().rt3c_external_shade(
         index, p, rays.data_ptr(), hit4.data_ptr(), misc.data_ptr(),
@@ -957,14 +997,14 @@ class ExternalPipeline:
             max_depth=cfg.max_depth, num_lights=scene.num_lights,
             shadow_tmin=cfg.shadow_tmin, shadow_eps=cfg.shadow_tmax_eps,
             bg=tuple(float(b) for b in cfg.bg_radiance), motion=self.motion,
-            power=cfg.light_sampler == "power")
+            power=cfg.light_sampler == "power", aov=cfg.aov)
         self.shade_fn = shade_fn
 
     def trace_shade(self, rays, misc, count, time=None):
         """One pool iteration (pallas_shade.py:1857-1891): closest hit,
         K6, shadow any-hit, and the NEE term added on unoccluded lanes.
         count: int32 [1] live-lane hint; time: per-lane ray time [R] of a
-        motion scene. Returns (rays [R, 8], misc [R, 16])."""
+        motion scene. Returns (rays [R, 8], misc [R, 16|24])."""
         hit = self._closest(rays[:, 0:3], rays[:, 3:6], rays[:, 6],
                             rays[:, 7], time, count)
         hit4 = torch.stack([hit.t, hit.prim.to(torch.float32), hit.u,
@@ -973,6 +1013,7 @@ class ExternalPipeline:
                                           self.config)
         occ = self._any(sh[:, 0:3], sh[:, 3:6], sh[:, 6], sh[:, 7],
                         sh[:, 8] if self.motion else None, count)
-        nee = torch.where(occ[:, None], 0.0, misc_e[:, 16:19])
+        w = misc_width(self.config.aov)
+        nee = torch.where(occ[:, None], 0.0, misc_e[:, w:w + 3])
         return rays2, torch.cat(
-            [misc_e[:, :10], misc_e[:, 10:13] + nee, misc_e[:, 13:16]], dim=1)
+            [misc_e[:, :10], misc_e[:, 10:13] + nee, misc_e[:, 13:w]], dim=1)

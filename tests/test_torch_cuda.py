@@ -734,3 +734,185 @@ def test_dispatch_pipelines_pass_gate(dev, case):
     diff = np.abs(images[0] - images[1])
     assert diff.mean() <= 2e-3
     assert int((diff.max(axis=-1) > 0.35).sum()) <= 8 and diff.max() <= 8.0
+
+
+# ---------------------------------------------------------------- AOV
+def _aov_scene(motion, textured, dispatch):
+    """(scene, camera) of one AOV variant: the Cornell box (2-key with
+    motion), the normal-mapped textured quad, the material Cornell box, or
+    the principled quad."""
+    if dispatch:
+        return _dispatch_scene("principled_quad" if textured else "material",
+                               motion)
+    if textured:
+        return _textured_quad("normal_map", motion)
+    return _moving_cornell() if motion else (build_scene(cornell_box()[0]),
+                                             cornell_box()[1])
+
+
+AOV_VARIANTS = [(m, t, d) for m in (False, True) for t in (False, True)
+                for d in (False, True)]
+AOV_IDS = ["-".join(n for n, on in zip(("motion", "textured", "dispatch"), v)
+                    if on) or "plain" for v in AOV_VARIANTS]
+
+
+def _bits_equal(got, want):
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+def _widen_aov(misc, seed):
+    """misc [R, 16] -> [R, 24], the AOV accs random."""
+    gen = torch.Generator(device=misc.device).manual_seed(seed)
+    aov = torch.rand((misc.shape[0], 6), device=misc.device, generator=gen)
+    return torch.cat([misc, aov * 2 - 1, torch.zeros_like(aov[:, :2])], 1)
+
+
+@pytest.mark.parametrize("variant", AOV_VARIANTS, ids=AOV_IDS)
+def test_aov_refill_kernel_matches_plain_version(dev, variant):
+    """K4 with aov=True, every instantiation: teacher-forced for 8
+    launches on one block (claims in lane order), then for 6 launches at
+    4096 lanes over 4096 pixels from the plain version's state after its
+    first launch (every pixel claimed, so block order cannot matter), with
+    the stash in use: every output bit for bit, stats and the time buffer
+    exact."""
+    motion, textured, dispatch = variant
+    scene, cam = _aov_scene(*variant)
+    cfg = RenderConfig(width=64, height=64, samples_per_launch=1,
+                       max_depth=8, ray_block=4096, integrator="pool",
+                       pool_pixel_major=True, aov=True)
+    pipe = shade.FusedPipeline(scene, cfg, dev)
+    assert pipe.motion == motion and pipe.config.aov
+    assert (pipe.tables.tex is not None) == textured
+    assert (pipe.tables.params_base > 0) == dispatch
+    kern = pipe.refill_shader(4096)
+    ref = shade.FusedPipeline(scene, cfg, dev, refill_fn=shade
+                              .trace_shade_refill_ref).refill_shader(4096)
+
+    def launch(fn, state, stats):
+        out = [x.clone() for x in state]
+        st = torch.zeros(4, dtype=torch.int32, device=dev)
+        fn(*out[:3], stats, st, 0, 2, _scf(cam), *out[3:])
+        return out, st
+
+    for pool, n_launch, first in ((256, 8, 0), (4096, 6, 1)):
+        state = [torch.zeros((pool, w), dtype=torch.float32, device=dev)
+                 for w in (8, 24, 16)]
+        state[1][:, 13] = -1.0
+        state[2][:, 0] = -1.0
+        if motion:
+            state.append(torch.zeros(pool, dtype=torch.float32, device=dev))
+        stats = torch.zeros(4, dtype=torch.int32, device=dev)
+        for _ in range(first):
+            state, stats = launch(ref, state, stats)
+        stashed = 0
+        for _ in range(n_launch):
+            (got, st_k), (want, st_r) = (launch(kern, state, stats),
+                                         launch(ref, state, stats))
+            assert torch.equal(st_k, st_r)
+            _bits_equal(got, want)
+            stashed += int((want[2][:, 4:10] != 0).any(dim=1).sum())
+            state, stats = want, st_r
+        assert stashed > 0  # retired lanes carried their guides
+
+
+@pytest.mark.parametrize("variant", AOV_VARIANTS, ids=AOV_IDS)
+def test_aov_trace_shade_kernel_matches_plain_version(dev, variant):
+    """K5 with aov=True, every instantiation, on one block and at 4096
+    lanes: 8 iterations teacher-forced from the plain version's states (the
+    AOV accs random at the start), every output bit for bit."""
+    motion, textured, dispatch = variant
+    scene, cam = _aov_scene(*variant)
+    cfg = RenderConfig(width=64, height=64, samples_per_launch=2,
+                       max_depth=8, ray_block=4096, integrator="pool",
+                       pool_pixel_major=False, aov=True,
+                       light_sampler="power" if dispatch else "uniform")
+    pipe = shade.FusedPipeline(scene, cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    for pool in (256, 4096):
+        rays, misc = _lane_state(scene, cam, pool, 17, dev)
+        misc = _widen_aov(misc, 1)
+        for it in range(8):
+            count = torch.tensor([pool if it % 2 == 0 else pool - 100],
+                                 dtype=torch.int32, device=dev)
+            time = (torch.rand(pool, device=dev, generator=gen) if motion
+                    else None)
+            a = (rays, misc, count, pipe.tables, pipe.config, time)
+            got, want = shade.trace_shade(*a), shade.trace_shade_ref(*a)
+            _bits_equal(got, want)
+            rays, misc = want
+            fr, fm = _lane_state(scene, cam, pool, 40 + it, dev)
+            dead = misc[:, 9] <= 0
+            rays = torch.where(dead[:, None], fr, rays)
+            misc = torch.where(dead[:, None], _widen_aov(fm, it), misc)
+
+
+@pytest.mark.parametrize("textured", [False, True])
+@pytest.mark.parametrize("dispatch", [False, True])
+def test_aov_external_shade_matches_plain_version(dev, textured, dispatch):
+    """K6 with aov=True, every instantiation, on the 4294-face town (the
+    principled town for dispatch, with the power pick): 8 iterations
+    teacher-forced at 4096 lanes and on one block of 128, misc [R, 24] in
+    and [R, 32] out, every output bit for bit."""
+    from rendertoy3c_tpu_torch.scene.town import town_scene
+    from rendertoy3c_tpu_torch.trace.auto import choose_tracer
+
+    scene, cam = town_scene(4000, textured=textured, principled=dispatch)
+    cfg = RenderConfig(width=64, height=64, samples_per_launch=2,
+                       max_depth=8, ray_block=4096, integrator="pool",
+                       pool_pixel_major=True, aov=True,
+                       light_sampler="power" if dispatch else "uniform")
+    scene, _ = choose_tracer(scene, cfg, dev)
+    pipe = shade.ExternalPipeline(scene, cfg,
+                                  mt.make_mt_tracer(scene, dev, plain=True),
+                                  dev, shade_fn=shade.external_shade_ref)
+    assert (pipe.tables.tex is not None) == textured
+    assert (pipe.tables.params_base > 0) == dispatch
+    for n in (128, 4096):
+        rays, misc = _lane_state(scene, cam, n, 9, dev)
+        misc = _widen_aov(misc, 2)
+        count = torch.tensor([n], dtype=torch.int32, device=dev)
+        for _ in range(8):
+            hit = pipe._closest(rays[:, 0:3], rays[:, 3:6], rays[:, 6],
+                                rays[:, 7], None, count)
+            hit4 = torch.stack([hit.t, hit.prim.float(), hit.u, hit.v], 1)
+            a = (rays, hit4, misc, pipe.tables, pipe.config)
+            got = shade.external_shade(*a)
+            _bits_equal(got, shade.external_shade_ref(*a))
+            assert got[1].shape == (n, 32)
+            rays, misc = pipe.trace_shade(rays, misc, count)
+
+
+@pytest.mark.parametrize("case", ["cornell", "town_sorted"])
+def test_aov_pipelines_match_plain_versions(dev, case):
+    """render_frame with aov=True at 96^2, 2 spp, kernels against plain
+    versions: the radiance through the gate (bench.py:115-116), the albedo
+    and normal buffers bit for bit."""
+    from rendertoy3c_tpu_torch.scene.town import town_scene
+    from rendertoy3c_tpu_torch.trace.auto import choose_tracer
+
+    if case == "cornell":
+        scene, cam = build_scene(cornell_box()[0]), cornell_box()[1]
+        change = {}
+    else:
+        scene, cam = town_scene(4000, textured=True)
+        change = dict(sort_rays=True)
+    cfg = RenderConfig(width=96, height=96, samples_per_launch=2,
+                       max_depth=6, ray_block=4096, integrator="pool",
+                       pool_pixel_major=True, aov=True, **change)
+    scene, pipe = choose_tracer(scene, cfg, dev)
+    plain = (shade.FusedPipeline(
+        scene, cfg, dev, refill_fn=shade.trace_shade_refill_ref,
+        shade_fn=shade.trace_shade_ref)
+        if isinstance(pipe, shade.FusedPipeline) else shade.ExternalPipeline(
+            scene, cfg, mt.make_mt_tracer(scene, dev, plain=True), dev,
+            shade_fn=shade.external_shade_ref))
+    films = [render_frame(scene, cam.params(), cfg, tracer=p, device=dev)[0]
+             for p in (pipe, plain)]
+    diff = np.abs(films[0].accum.cpu().numpy() - films[1].accum.cpu().numpy())
+    assert diff.mean() <= 2e-3
+    assert int((diff.max(axis=-1) > 0.35).sum()) <= 8 and diff.max() <= 8.0
+    for name in ("albedo", "normal"):
+        assert torch.equal(getattr(films[0], name), getattr(films[1], name))
+    assert (films[0].albedo.sum(dim=-1) > 0).float().mean() > 0.3

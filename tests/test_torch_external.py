@@ -294,13 +294,15 @@ def test_out_of_slice_raises_naming_roadmap_item(towns, tmp_path, case,
     through the fused pipeline's motion variant (A11), the town's sorted and
     sample-major pools through the external pipeline (A8), the textured
     town through the external pipeline's textured K6 (A12's textures), and
-    a principled scene and the power pick (A12's dispatch and power
-    sampler) as the reference renders them (`_match_external`)."""
+    a principled scene, the power pick (A12's dispatch and power sampler)
+    and AOV (A13) as the reference renders them (`_match_external`)."""
     if case == "principled":
         _match_external(*_principled_grid_pair(), KW)
         return
-    if case == "power_sampler":
-        _match_external(*towns[False], dict(KW, light_sampler="power"))
+    if case in ("power_sampler", "aov"):
+        _match_external(*towns[False], dict(KW, **{
+            "power_sampler": dict(light_sampler="power"),
+            "aov": dict(aov=True)}[case]))
         return
     scene, cfg = towns[False][1], RenderConfig(**KW)
     if case == "17k_faces":
@@ -316,7 +318,7 @@ def test_out_of_slice_raises_naming_roadmap_item(towns, tmp_path, case,
         scene = _moving_cornell()
         assert scene.num_keys == 2 and scene.num_faces <= shade.MAX_FACES
     else:
-        change = {"aov": dict(aov=True), "sorted": dict(sort_rays=True),
+        change = {"sorted": dict(sort_rays=True),
                   "sample_major": dict(pool_pixel_major=False)}[case]
         cfg = dataclasses.replace(cfg, **change)
     if item in ("A8", "A11") or case == "textured_obj":

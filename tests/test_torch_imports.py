@@ -12,6 +12,7 @@ MODULES = [
     "rendertoy3c_tpu_torch.accel.lbvh", "rendertoy3c_tpu_torch.accel.morton",
     "rendertoy3c_tpu_torch.app.cli",
     "rendertoy3c_tpu_torch.film", "rendertoy3c_tpu_torch.film.image",
+    "rendertoy3c_tpu_torch.film.film", "rendertoy3c_tpu_torch.film.denoise",
     "rendertoy3c_tpu_torch.integrate",
     "rendertoy3c_tpu_torch.io", "rendertoy3c_tpu_torch.io.genassets",
     "rendertoy3c_tpu_torch.io.obj",
@@ -24,7 +25,8 @@ MODULES = [
     "rendertoy3c_tpu_torch.trace", "rendertoy3c_tpu_torch.trace.auto",
     "rendertoy3c_tpu_torch.trace.bsdf", "rendertoy3c_tpu_torch.scene.light",
     "rendertoy3c_tpu_torch.trace.intersect", "rendertoy3c_tpu_torch.trace.mt",
-    "rendertoy3c_tpu_torch.trace.shade",
+    "rendertoy3c_tpu_torch.trace.shade", "rendertoy3c_tpu_torch.tools",
+    "rendertoy3c_tpu_torch.tools.sweep_ab",
 ]
 
 

@@ -148,8 +148,9 @@ def _big_scene():
 
 
 PORTED = ("A8", "A11")  # sorted and sample-major pools, fused motion
-# A12's material dispatch and power pick: rendered against the reference
-RENDERED = ("mirror", "power")
+# A12's material dispatch and power pick, and A13's AOV: rendered against
+# the reference
+RENDERED = ("mirror", "power", "aov")
 
 
 @pytest.mark.parametrize("case, item", [
@@ -164,10 +165,11 @@ def test_outside_the_slice_raises_naming_the_roadmap_item(case, item):
     """Cases of a ported ROADMAP item (PORTED) now take the fused pipeline:
     the 2-key Cornell box its motion variant, the sample-major pool K5, and
     a diffuse texture (A12's textures) the textured megakernel; a mirror
-    wall (A12's dispatch) and the power pick render as the reference does
-    (`_match_fused`)."""
+    wall (A12's dispatch), the power pick and AOV (A13) render as the
+    reference does (`_match_fused`)."""
     if case in RENDERED:
-        kw = _cfg(light_sampler="power") if case == "power" else _cfg()
+        kw = _cfg(**{"power": dict(light_sampler="power"),
+                     "aov": dict(aov=True)}.get(case, {}))
         _match_fused(*(_mirror_pair() if case == "mirror" else
                        cornell_pair()), kw)
         return
@@ -177,7 +179,7 @@ def test_outside_the_slice_raises_naming_the_roadmap_item(case, item):
         scene = {"textured": _textured_scene, "motion": _motion_scene,
                  "big": _big_scene}[case]()
     else:
-        change = {"aov": dict(aov=True), "wave": dict(integrator="wave"),
+        change = {"wave": dict(integrator="wave"),
                   "sample_major": dict(pool_pixel_major=False)}[case]
         cfg = dataclasses.replace(cfg, **change)
     if item in PORTED or case == "textured":

@@ -24,7 +24,7 @@ from rendertoy3c_tpu.io.obj import load_obj as j_load_obj
 from rendertoy3c_tpu.scene import texture as jtx
 from rendertoy3c_tpu.scene.scene import build_scene as j_build_scene
 from rendertoy3c_tpu.trace.pallas_shade import build_shade_tables as j_tables
-from rendertoy3c_tpu_torch.film.image import read_png, read_png_stdlib
+from rendertoy3c_tpu_torch.film.image import read_image, read_image_stdlib
 from rendertoy3c_tpu_torch.integrate.config import RenderConfig
 from rendertoy3c_tpu_torch.io import obj as tobj
 from rendertoy3c_tpu_torch.io.genassets import generate_town
@@ -64,7 +64,7 @@ def _odd_images(rng):
 def _atlas_pair(name, town_pngs):
     if name == "town":
         d = town_pngs[0]
-        ims = [read_png(str(d / f))[::-1].copy()
+        ims = [read_image(str(d / f))[::-1].copy()
                for f in ("checker.png", "brick.png")]
         return tx.build_texture_atlas(ims), jtx.build_texture_atlas(ims)
     ours, theirs = _odd_images(np.random.default_rng(3))
@@ -161,12 +161,12 @@ def test_read_png_stdlib_equals_pil(town_pngs, tmp_path, name):
             _pil_png(path, smooth)
         else:
             Image.fromarray(rgb).quantize(64).save(path)  # 8-bit indices
-    got = read_png_stdlib(str(path))
+    got = read_image_stdlib(str(path))
     with Image.open(path) as im:
         want = np.asarray(im.convert("RGBA"), np.uint8)
     assert got.dtype == np.uint8 and got.shape == want.shape
     np.testing.assert_array_equal(got, want)
-    np.testing.assert_array_equal(read_png(str(path)), want)
+    np.testing.assert_array_equal(read_image(str(path)), want)
 
 
 @pytest.mark.parametrize("pil", [True, False], ids=["pil", "no_pil"])
