@@ -23,11 +23,13 @@ a JSON summary. Phases:
   4. the gate (bench.py:115-116) of kernels against plain versions at 96^2,
      2 spp, max_depth 6, ray_block 4096;
   5. the Cornell main path: 768^2, 8 spp, max_depth 16, ray_block 32768,
-     pixel-major pool; 1 warm-up and 4 timed subframes with the kernels
-     and with the plain versions; Mray/s counted as radiance + shadow rays;
-     the kernel image's mean within 1% of the plain image's, the first
-     subframes through the gate, every pixel finite; then a profile of one
-     more subframe;
+     pixel-major pool; 1 warm-up and 4 timed subframes with the kernels;
+     Mray/s counted as radiance + shadow rays; every pixel finite; the
+     kernels held to the plain versions on the middle sixteenth of the
+     image (rows 360-408: one subframe each through render_pixels, means
+     within 1%, the gate, with AOV the albedo and normal bands bit-equal;
+     every main path below that has plain versions does the same); then a
+     profile of one more subframe;
   6. the PNG of the kernel render;
   7. K1/K2 on the static and K3 (mt_closest_motion, mt_any_motion) on the
      2-key 16054-face town, against their plain versions and the brute
@@ -44,11 +46,10 @@ a JSON summary. Phases:
   9. the gate of phase 4 on the external path, the 4294-face town, static
      and 2-key;
  10. both 16054-face towns at the main path's config: 1 warm-up and 4
-     timed subframes with the kernels, 1 with the plain versions; Mray/s,
-     launches per subframe, image means within 1%, the first subframes
-     through the gate, every pixel finite, and the device idle share of
-     one profiled subframe (a phase fails if its profile shows no device
-     time or misses one of its kernels);
+     timed subframes with the kernels, the band of phase 5 against the
+     plain versions; Mray/s, launches per subframe, every pixel finite, and
+     the device idle share of one profiled subframe (a phase fails if its
+     profile shows no device time or misses one of its kernels);
  11. K4's motion variant against its plain version on the 2-key Cornell
      box (the last block given a second key at +0.1 in x), as phase 3:
      stats and the time buffer exact over 8 launches of one block, then
@@ -62,7 +63,7 @@ a JSON summary. Phases:
  13. the gate of phase 4 on the 2-key Cornell box (pixel-major), Cornell
      sorted and sample-major, and the 4294-face town sorted and
      sample-major (external pipeline);
- 14. three more main paths as phase 5, 1 plain subframe each: the 2-key
+ 14. three more main paths as phase 5: the 2-key
      Cornell box on the pixel-major pool (K4 motion), Cornell with
      sort_rays (K5) and the 2-key Cornell box sample-major (K5 motion);
  15. the textured kernels against their plain versions: textured K4 and
@@ -77,7 +78,7 @@ a JSON summary. Phases:
  16. the gate of phase 4 on the textured quad (repeat; CLAMP/MIRROR with
      uvs stretched to 2.5 uv - 0.75; a uv transform; a normal map) and on
      the textured 4294-face towns, static and 2-key;
- 17. the textured main paths as phase 5, 1 plain subframe each: the
+ 17. the textured main paths as phase 5: the
      textured quad pixel-major (textured K4) and sorted (textured K5), the
      2-key textured quad pixel-major (K4 motion) and sample-major (K5
      motion), and the textured 16054-face towns, static (K1/K2 + textured
@@ -100,13 +101,42 @@ a JSON summary. Phases:
      its 2-key variant sample-major, the principled quad, and the
      principled 4294-face town (textured: power, pixel-major and sorted;
      untextured: power, sorted);
- 20. the dispatch main paths as phase 5, 1 plain subframe each: the
+ 20. the dispatch main paths as phase 5: the
      material Cornell box pixel-major (K4 dispatch) and sorted with the
      power pick (K5 dispatch), the 2-key material Cornell box (K4 motion
      dispatch), the principled quad (textured K4 dispatch), and the
      principled towns, power, sorted: textured, BASELINE config 5 at the MT
      band's top (K1/K2 + textured K6 dispatch), and untextured (K1/K2 + K6
-     dispatch).
+     dispatch);
+ 21-23. the AOV kernels, gates and paths, the denoiser and the CLI;
+ 24. the hierwalk band (scenes of more than 16384 faces, the walk pool):
+     bench.py's hierwalk gate (:124-158) on K9 (walk_rounds, the walk
+     pool's rounds): 131072 camera rays from (0, 20, 45) on bench's 49k box
+     field and camera plus bounce rays on the 50000-face static and 2-key
+     towns (58054 faces), the K9-driven trace_closest_hier /
+     trace_any_hier bit-equal to their plain versions and exact against the
+     brute tracer; after phase 27, one K9 launch teacher-forced on the
+     lane states recorded at 4 boundaries of each walk main path, every
+     state column bit-equal, its device time per launch, walking lanes and
+     bound (rows gathered x 512 B against the slab and MT operations);
+ 25. K6 on C-major misc (transposed) on the walk paths' recorded boundary
+     inputs, in each variant they reach (untextured, textured, textured
+     dispatch with the power pick, textured AOV), bit for bit, timed and
+     bounded as phase 8;
+ 26. the gate of phase 4 on the walk pool over the 50000-face towns:
+     static, 2-key, textured, principled with the power pick, and
+     textured with AOV (all three buffers bit-equal);
+ 27. the walk main paths through make_render_fn with tune_config's pool
+     (16384 lanes, flush 8): BASELINE config 1 (the untextured town at
+     1920x1080), configs 2, 4 and 5 (the textured town, its 2-key form,
+     the principled town with the power pick; sort_rays, which the walk
+     pool ignores) and the 49k box field at 768^2, 8 spp, depth 16: 1
+     warm-up and 2 timed subframes each (bench.py's timed_c=2), Mray/s,
+     boundaries, K9 launches and walk rounds per subframe, rows gathered
+     per ray, every pixel finite, the idle share of one profiled subframe;
+     and one textured AOV subframe. No plain subframe runs at these sizes:
+     the plain walk runs ~150 small torch ops per round, so the images are
+     held to the plain versions by phases 24-26.
 
 Each kernel's bound is the larger of the bytes it must move over 3.35 TB/s
 and the operations its inputs need over the 67 TFLOP/s fp32 peak outside
@@ -120,8 +150,9 @@ and the power pick where the variant runs them.
 Phases 11-14, on the Cornell box, and the textured quad's, the material
 Cornell box's and the principled quad's parts of phases 15-20 run after
 phase 6 and before the towns, the textured towns' phase 15 right after
-phase 8, their phases 16-17 after phase 10, and the principled towns'
-phases 18-20 last.
+phase 8, their phases 16-17 after phase 10, the principled towns' phases
+18-20 and the towns' phases 21-23 after them, and phases 24-27 last
+(24's gate, 26, 27, then 24's and 25's checks on 27's states).
 Any failed phase exits non-zero. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -709,10 +740,13 @@ def phase_k4(dev, scene, camera, phase=3, label="K4", change=None):
 def plain_tracer(scene, cfg, dev):
     """(scene, pipeline) as choose_tracer gives them, over the plain
     versions of the kernels."""
+    from rendertoy3c_tpu_torch.integrate import walkpool
     from rendertoy3c_tpu_torch.trace import mt, shade
     from rendertoy3c_tpu_torch.trace.auto import choose_tracer
 
     scene, pipe = choose_tracer(scene, cfg, dev)
+    if isinstance(pipe, walkpool.WalkPoolPipeline):
+        return walk_pipes(scene, cfg, dev)[::2]
     if isinstance(pipe, shade.FusedPipeline):
         return scene, shade.FusedPipeline(
             scene, cfg, dev, refill_fn=shade.trace_shade_refill_ref,
@@ -722,11 +756,11 @@ def plain_tracer(scene, cfg, dev):
         shade_fn=shade.external_shade_ref)
 
 
-def render(scene, camera, cfg_kw, dev, plain: bool, warmup: int, timed: int):
-    """Render through make_render_fn, the plain versions if `plain`.
-    Returns (film, Mray/s per timed subframe, launches, seconds per timed
-    subframe, the step function, the film's buffers after the first
-    subframe: [accum] and with AOV the albedo and normal buffers)."""
+def render(scene, camera, cfg_kw, dev, plain: bool, warmup: int, timed: int,
+           tracer=None):
+    """Render through make_render_fn, the plain versions if `plain`, over
+    `tracer` if given. Returns (film, Mray/s per timed subframe, launches,
+    seconds per timed subframe, the step function)."""
     import torch
 
     from rendertoy3c_tpu_torch.film.film import film_create
@@ -734,21 +768,13 @@ def render(scene, camera, cfg_kw, dev, plain: bool, warmup: int, timed: int):
     from rendertoy3c_tpu_torch.integrate.path import make_render_fn
 
     cfg = RenderConfig(**cfg_kw)
-    tracer = None
-    if plain:
+    if plain and tracer is None:
         scene, tracer = plain_tracer(scene, cfg, dev)
     step = make_render_fn(scene, cfg, tracer=tracer, device=dev)
     cam = camera.params()
     film = film_create(cfg.height, cfg.width, device=dev, aov=cfg.aov)
-
-    def buffers(film):
-        return [b.clone() for b in (film.accum, film.albedo, film.normal)
-                if b is not None]
-
-    first = None
     for _ in range(warmup):
         film, _ = step(cam, film)
-        first = buffers(film) if first is None else first
     torch.cuda.synchronize()
     rates, secs, launches = [], [], 0
     for _ in range(timed):
@@ -760,8 +786,7 @@ def render(scene, camera, cfg_kw, dev, plain: bool, warmup: int, timed: int):
         rates.append(rays / dt / 1e6)
         secs.append(dt)
         launches += stats.pool_iters
-        first = buffers(film) if first is None else first
-    return film, rates, launches, secs, step, first
+    return film, rates, launches, secs, step
 
 
 def gate_diff(a, b):
@@ -769,15 +794,17 @@ def gate_diff(a, b):
     return diff.mean(), int((diff.max(axis=-1) > 0.35).sum()), diff.max()
 
 
-def gate(scene, camera, dev, what: str, phase: int, **change):
+def gate(scene, camera, dev, what: str, phase: int, tracers=(None, None),
+         **change):
     """The gate (bench.py:115-116) of kernels against plain versions on
-    the GATE config with `change` applied; with AOV, all three buffers of
-    the (first and only) subframe bit-equal too."""
+    the GATE config with `change` applied, over `tracers` (kernel, plain)
+    if given; with AOV, all three buffers of the (first and only) subframe
+    bit-equal too."""
     import torch
 
     cfg_kw = dict(GATE, **change)
-    f_k = render(scene, camera, cfg_kw, dev, False, 0, 1)[0]
-    f_p = render(scene, camera, cfg_kw, dev, True, 0, 1)[0]
+    f_k = render(scene, camera, cfg_kw, dev, False, 0, 1, tracers[0])[0]
+    f_p = render(scene, camera, cfg_kw, dev, True, 0, 1, tracers[1])[0]
     mean_d, outl, max_d = gate_diff(f_k.accum.cpu().numpy(),
                                     f_p.accum.cpu().numpy())
     check(mean_d <= 2e-3 and outl <= 8 and max_d <= 8.0,
@@ -828,7 +855,7 @@ def device_rows(run):
                   reverse=True)
 
 
-def device_ms(calls) -> float:
+def device_ms(calls, warmup=None) -> float:
     """Mean device time per call in ms of calls whose kernels are shorter
     than their wrappers' host work (K4 on a short scene, K5, K6), where
     CUDA events around back-to-back calls would time the host. After one
@@ -888,22 +915,67 @@ def profile_subframe(step, film, camera, untraced_s: float, phase: int,
     return idle
 
 
+BAND_ROWS = (360, 408)  # the middle sixteenth of a 768-row image
+
+
+def band_pair(name, scene, camera, cfg_kw, dev):
+    """Kernels against plain versions on a band of the image (BAND_ROWS),
+    one subframe each through render_pixels over choose_tracer's pipeline
+    and its plain twin, on the same streams: the band's means within 1%,
+    the gate on it, with AOV the albedo and normal bands bit-equal.
+    Returns (kernel mean, plain mean, seconds of each)."""
+    import torch
+
+    from rendertoy3c_tpu_torch.integrate.config import RenderConfig
+    from rendertoy3c_tpu_torch.integrate.path import render_pixels
+    from rendertoy3c_tpu_torch.trace.auto import choose_tracer
+
+    cfg = RenderConfig(**cfg_kw)
+    lo, hi = BAND_ROWS
+    pix = torch.arange(lo * cfg.width, hi * cfg.width, dtype=torch.int64)
+    out, aovs, secs = [], [], []
+    for make in (choose_tracer, plain_tracer):
+        ordered, tracer = make(scene, cfg, dev)
+        t0 = time.perf_counter()
+        rgb, aov = render_pixels(ordered, cfg, camera.params(), tracer, pix,
+                                 0)[:2]
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        out.append(rgb.reshape(hi - lo, cfg.width, 3).cpu().numpy())
+        aovs.append(aov or ())
+    for k, p in zip(*aovs):
+        check(torch.equal(k.view(torch.int32), p.view(torch.int32)),
+              f"{name}: the band's AOV buffers differ")
+    rel = abs(out[0].mean() - out[1].mean()) / out[1].mean()
+    check(rel <= 0.01 and bool(np.isfinite(out[0]).all()),
+          f"{name}: band mean {out[0].mean()} vs plain {out[1].mean()}")
+    mean_d, outl, max_d = gate_diff(*out)
+    check(mean_d <= 2e-3 and outl <= 8 and max_d <= 8.0,
+          f"{name}: the band fails the gate: mean|d| {mean_d:.3g}, {outl} "
+          f"outliers, max|d| {max_d:.3g}")
+    print(f"  band rows {lo}-{hi} (one subframe, kernels {secs[0]:.3f} s, "
+          f"plain {secs[1]:.3f} s): means {out[0].mean():.6f} and "
+          f"{out[1].mean():.6f} (rel {rel:.3g}); mean|d| {mean_d:.3g}, "
+          f"max|d| {max_d:.3g}" + (", AOV bands bit-equal" if aovs[0]
+                                   else ""))
+    return out[0].mean(), out[1].mean(), secs
+
+
 def full_size(name, scene, camera, dev, smi, phase: int, counters, symbols,
-              change=None, n_plain=1):
+              change=None, plain=True):
     """One main path at full size (MAIN with `change` applied): kernels (1
     warm-up, 4 timed) with the launch counters zeroed just before and read
-    just after, then the plain versions (n_plain subframes, the last 4 of
-    them timed), means compared, a profile that must see each CUDA kernel
-    of `symbols`. With AOV the first subframes' albedo and normal buffers
-    must be bit-equal too. n_plain=0 renders no plain subframe: the path's
-    kernels and gate are held elsewhere. Records (median Mray/s, idle
-    share) in PATHS[name]; returns (kernel film, launches by kernel)."""
+    just after, then (plain=True) the kernels held to the plain versions
+    on a band of the image (band_pair), and a profile that must see each
+    CUDA kernel of `symbols`. plain=False: the path's kernels and gate are
+    held elsewhere. Records (median Mray/s, idle share) in PATHS[name];
+    returns (kernel film, launches by kernel)."""
     import torch
 
     cfg_kw = dict(MAIN, **(change or {}))
     for fn in counters.values():
         fn.launches = 0
-    film_k, rates_k, it_k, secs_k, step_k, first_k = render(
+    film_k, rates_k, it_k, secs_k, step_k = render(
         scene, camera, cfg_kw, dev, False, 1, 4)
     launches = {n: fn.launches for n, fn in counters.items()}
     for n, cnt in launches.items():
@@ -921,31 +993,8 @@ def full_size(name, scene, camera, dev, smi, phase: int, counters, symbols,
     print(f"  kernels: Mray/s per subframe {rates_k}, median "
           f"{float(np.median(rates_k)):.6g}; s {secs_k}; "
           f"{it_k / 4:.1f} launches/subframe")
-    if n_plain:
-        plain_timed = min(n_plain, 4)
-        film_p, rates_p, _, secs_p, _, first_p = render(
-            scene, camera, cfg_kw, dev, True, n_plain - plain_timed,
-            plain_timed)
-        img_p = film_p.accum.cpu().numpy()
-        rel = abs(img_k.mean() - img_p.mean()) / img_p.mean()
-        check(rel <= 0.01, f"{name}: image mean {img_k.mean()} vs plain "
-              f"{img_p.mean()} ({rel:.3%})")
-        # the first subframes: the same estimator on the same streams
-        mean_d, outl, max_d = gate_diff(first_k[0].cpu().numpy(),
-                                        first_p[0].cpu().numpy())
-        check(mean_d <= 2e-3 and outl <= 8 and max_d <= 8.0,
-              f"{name}: first subframe fails the gate: mean|d| {mean_d:.3g}, "
-              f"{outl} outliers, max|d| {max_d:.3g}")
-        for k, p in zip(first_k[1:], first_p[1:]):
-            check(torch.equal(k.view(torch.int32), p.view(torch.int32)),
-                  f"{name}: the first subframes' AOV buffers differ")
-        print(f"  plain:   Mray/s per subframe {rates_p}, median "
-              f"{float(np.median(rates_p)):.6g}; s {secs_p}")
-        print(f"  image mean kernels {img_k.mean():.6f}, plain "
-              f"{img_p.mean():.6f} (rel {rel:.3g}) over 5 and {n_plain} "
-              f"subframes; first subframe kernels vs plain: mean|d| "
-              f"{mean_d:.3g}, max|d| {max_d:.3g}"
-              f"{', AOV buffers bit-equal' if len(first_k) > 1 else ''}")
+    if plain:
+        band_pair(name, scene, camera, cfg_kw, dev)
     print(f"  image mean {img_k.mean():.6f}; launches {launches}"
           + (f"; albedo mean {float(film_k.albedo.mean()):.6f}"
              if film_k.albedo is not None else ""))
@@ -1700,6 +1749,474 @@ def aov_path_report(name, base):
           f"{rate / rate0:.4f}x")
 
 
+# ---------------------------------------------------------------- phase 24+
+# the hierwalk band: BASELINE configs 1, 2, 4 and 5 (bench.py:507-525) on
+# bench's 50000-face town (generate_town gives 58054 faces) and bench's
+# 49k box field (bench.py:224-250, :589-591)
+WALK_FACES = 50000
+GATE_RAYS = 131072
+CONFIG1 = dict(width=1920, height=1080)
+# boundaries of a walk path's warm-up subframe whose K9 states and K6
+# inputs are recorded (a 768^2 town subframe runs ~340 boundaries)
+WALK_SNAPSHOTS = (8, 40, 100, 200)
+WALK_SRC = "rendertoy3c_tpu_torch/kernels/csrc/walk.cu"
+WALK_REPLACES = "rendertoy3c_tpu/integrate/walkpool.py:363"
+# K9's operations per walking lane-round beyond its row's tests, counted
+# from walk.cu as the constants above: the launch, the cut, the level
+# lookup, the stash or gate (WALK_ROUND_OPS), and per pending entry of
+# each level the prune, write-back and argmin step (WALK_POP_OPS)
+WALK_ROUND_OPS = 30
+WALK_POP_OPS = 4
+ROW_BYTES = 512
+
+
+def walk_scenes():
+    """{name: (scene, camera)} of the walk band: the 50000-face towns (the
+    untextured one of config 1; the textured ones of configs 2 and 4, 2-key
+    for 4; the textured principled one of config 5) and the 49k box
+    field."""
+    from rendertoy3c_tpu_torch.scene.builtin import box_field
+    from rendertoy3c_tpu_torch.scene.scene import build_scene
+    from rendertoy3c_tpu_torch.scene.town import town_scene
+
+    meshes, fcam = box_field()
+    return {"town": town_scene(WALK_FACES),
+            "textured town": town_scene(WALK_FACES, textured=True),
+            "2-key textured town": town_scene(WALK_FACES, True,
+                                              textured=True),
+            "principled town": town_scene(WALK_FACES, textured=True,
+                                          principled=True),
+            "box field": (build_scene(meshes), fcam)}
+
+
+def walk_pipes(scene, cfg, dev, ordered=None):
+    """(ordered scene, kernel pipeline, plain pipeline) of the walk pool:
+    the scene split-ordered as choose_tracer orders it (or `ordered`, that
+    order made before), the plain pipeline over K9's and K6's plain
+    versions."""
+    import dataclasses
+
+    from rendertoy3c_tpu_torch.accel.lbvh import split_order_scene
+    from rendertoy3c_tpu_torch.integrate import walkpool
+    from rendertoy3c_tpu_torch.trace import hierwalk, shade
+
+    leaf = hierwalk.HIER_LEAF if scene.num_keys == 1 else \
+        hierwalk.HIER_LEAF_MOTION
+    scene = ordered or split_order_scene(scene, leaf=leaf)
+    pipe = walkpool.make_walkpool_pipeline(scene, cfg, dev)
+    plain = dataclasses.replace(
+        pipe, walk_fn=functools.partial(walkpool.walk_rounds, plain=True),
+        shade_fn=shade.external_shade_ref)
+    return scene, pipe, plain
+
+
+def phase_hier_gate(dev, scenes):
+    """Phase 24: bench.py's hierwalk gate (:124-158) on K9: 131072 camera
+    rays from (0, 20, 45) on the 49k box field, camera and bounce rays on
+    the 50000-face static and 2-key towns (random times). The K9-driven
+    trace_closest_hier / trace_any_hier against their plain versions (prims,
+    occlusion, t, u, v bit-equal) and the brute tracer (prims and
+    occlusion exact)."""
+    import torch
+
+    from rendertoy3c_tpu_torch.accel.lbvh import split_order_scene
+    from rendertoy3c_tpu_torch.integrate.walkpool import walk_rounds
+    from rendertoy3c_tpu_torch.scene.camera import Camera, camera_ray_dir
+    from rendertoy3c_tpu_torch.trace import hierwalk
+    from rendertoy3c_tpu_torch.trace.intersect import (
+        trace_any_bruteforce, trace_closest_bruteforce)
+
+    for k, name in enumerate(("box field", "town", "2-key textured town")):
+        t0 = time.perf_counter()
+        scene, camera = scenes[name]
+        motion = scene.num_keys == 2
+        leaf = hierwalk.HIER_LEAF_MOTION if motion else hierwalk.HIER_LEAF
+        scene = split_order_scene(scene, leaf=leaf)
+        tab = hierwalk.build_hier_table(scene.geom, scene.num_faces,
+                                        num_keys=scene.num_keys, fanout=0,
+                                        device=dev)
+        rng = np.random.default_rng(SEED + 24 + k)
+        tm = (torch.as_tensor(rng.uniform(0, 1, GATE_RAYS).astype(np.float32),
+                              device=dev) if motion else None)
+        if name == "box field":
+            cam = Camera(eye=(0, 20, 45), lookat=(0, 0, 0), fov_y=50.0)
+            scf = tuple(float(x) for x in np.concatenate(
+                list(cam.params())).astype(np.float32))
+            pix = torch.arange(GATE_RAYS, device=dev) % (768 * 768)
+            zero = torch.zeros(GATE_RAYS, device=dev)
+            d = torch.stack(camera_ray_dir(scf, pix, 768, 768, zero, zero), 1)
+            o = torch.as_tensor(scf[:3], device=dev).expand(GATE_RAYS, 3)
+            o = o.contiguous()
+        else:
+            o, d = camera_and_bounce_rays(
+                scene, camera, GATE_RAYS // 2, GATE_RAYS, dev, rng,
+                None if tm is None else tm.cpu().numpy())
+        t_any = torch.as_tensor(rng.uniform(0.5, 60.0, GATE_RAYS)
+                                .astype(np.float32), device=dev)
+        walk_rounds.launches = 0
+        got = hierwalk.trace_closest_hier(tab, o, d, 1e-2, 1e16, time=tm)
+        occ = hierwalk.trace_any_hier(tab, o, d, 1e-3, t_any, time=tm)
+        launches = walk_rounds.launches
+        want = hierwalk.trace_closest_hier(tab, o, d, 1e-2, 1e16, time=tm,
+                                           plain=True)
+        occ_p = hierwalk.trace_any_hier(tab, o, d, 1e-3, t_any, time=tm,
+                                        plain=True)
+        for what, a, b in zip(("t", "prim", "u", "v"), got, want):
+            check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+                  f"phase 24 {name}: K9's closest {what} differs from the "
+                  "plain version")
+        check(torch.equal(occ, occ_p), f"phase 24 {name}: K9's occlusion "
+              "differs from the plain version")
+        brute = trace_closest_bruteforce(scene, o, d, 1e-2, 1e16, tm)
+        bad = int((brute.prim != got.prim).sum())
+        check(bad == 0, f"phase 24 {name}: {bad} prim mismatches vs brute")
+        occ_b = trace_any_bruteforce(scene, o, d, 1e-3, t_any, tm)
+        bad_o = int((occ_b != occ).sum())
+        check(bad_o == 0, f"phase 24 {name}: {bad_o} occlusion mismatches "
+              "vs brute")
+        print(f"phase 24 hierwalk gate, {name} ({scene.num_faces} faces, "
+              f"{tab.table.shape[0]} rows = {tab.table.numel() * 4 / 1e6:.2f}"
+              f" MB, fanout {tab.fanout}, {tab.n_levels} levels): {GATE_RAYS}"
+              f" rays, K9 ({launches} launches) bit-equal to the plain "
+              f"versions, 0 prim and 0 occlusion mismatches vs brute (hit "
+              f"share {float((got.prim >= 0).float().mean()):.3f}, occluded "
+              f"{float(occ.float().mean()):.3f}); "
+              f"{time.perf_counter() - t0:.1f} s")
+
+
+def walk_gate(scene, camera, dev, what, change, ordered=None):
+    """The gate of phase 4 at 96^2 on the walk pool, kernels against plain
+    versions, both over one split order (`ordered`, the scene's if given);
+    with AOV all three buffers bit-equal. Returns the ordered scene."""
+    from rendertoy3c_tpu_torch.integrate.config import RenderConfig
+
+    cfg_kw = dict(GATE, **change)
+    ordered, pipe, plain = walk_pipes(scene, RenderConfig(**cfg_kw), dev,
+                                      ordered)
+    gate(ordered, camera, dev, what, 26, tracers=(pipe, plain), **change)
+    return ordered
+
+
+def walk_path(name, scene, camera, dev, smi, change, timed=2):
+    """A walk-band main path through make_render_fn over choose_tracer's
+    pipeline (with tune_config): 1 warm-up subframe, during which K9's
+    states and K6's inputs at WALK_SNAPSHOTS boundaries are recorded, then
+    `timed` subframes with the launch counters zeroed just before, then
+    one profiled subframe (timed=0: the warm-up subframe only, its
+    launches counted). Returns {launches, states, shade, pipe, film}."""
+    import dataclasses
+
+    import torch
+
+    from rendertoy3c_tpu_torch.film.film import film_create
+    from rendertoy3c_tpu_torch.integrate import walkpool
+    from rendertoy3c_tpu_torch.integrate.config import RenderConfig
+    from rendertoy3c_tpu_torch.integrate.path import make_render_fn
+    from rendertoy3c_tpu_torch.trace import shade
+    from rendertoy3c_tpu_torch.trace.auto import choose_tracer, tune_config
+
+    cfg = tune_config(scene, RenderConfig(**dict(MAIN, **change)), dev)
+    t0 = time.perf_counter()
+    scene, pipe = choose_tracer(scene, cfg, dev)
+    order_s = time.perf_counter() - t0
+    rec = dict(on=True, boundary=0, states=[], shade=[], state=None)
+
+    def walk_fn(s, tab, motion, k):
+        if rec["on"] and rec["boundary"] in WALK_SNAPSHOTS:
+            rec["states"].append(s.clone())
+        rec["boundary"] += 1
+        rec["state"] = s
+        walkpool.walk_rounds(s, tab, motion, k)
+
+    def shade_fn(rays, hit4, misc, tables, config, transposed):
+        if rec["on"] and rec["boundary"] in WALK_SNAPSHOTS:
+            rec["shade"].append((rays.clone(), hit4.clone(), misc.clone()))
+        return shade.external_shade(rays, hit4, misc, tables, config,
+                                    transposed=transposed)
+
+    pipe = dataclasses.replace(pipe, walk_fn=walk_fn, shade_fn=shade_fn)
+    step = make_render_fn(scene, cfg, tracer=pipe, device=dev)
+    cam = camera.params()
+    film = film_create(cfg.height, cfg.width, device=dev)
+    counters = (walkpool.walk_rounds, shade.external_shade)
+
+    def zero():
+        rec["boundary"] = 0
+        for fn in counters:
+            fn.launches = 0
+
+    zero()
+    t0 = time.perf_counter()
+    film, stats = step(cam, film)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    rec["on"] = False
+    check(len(rec["states"]) == len(WALK_SNAPSHOTS),
+          f"{name}: {rec['boundary']} boundaries, too few for the snapshots")
+    launches = [fn.launches for fn in counters]
+    lines = [f"phase 27 {name} {cfg.width}x{cfg.height} 8spp depth 16 pool "
+             f"{cfg.ray_block} flush {cfg.flush_every} ({scene.num_faces} "
+             f"faces in split order, {pipe.n_levels} levels, fanout "
+             f"{pipe.fanout}; ordered and tabled in {order_s:.2f} s) on "
+             f"{smi}: warm-up {warm_s:.3f} s"]
+    if timed:
+        zero()
+        rates, secs, per = [], [], []
+        for _ in range(timed):
+            t0 = time.perf_counter()
+            film, stats = step(cam, film)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            rays = int(stats.radiance_rays) + int(stats.shadow_rays)
+            rows = int(rec["state"].rows)  # the subframe's own state
+            rates.append(rays / dt / 1e6)
+            secs.append(dt)
+            per.append(dict(rays=rays, walk_rounds=stats.walk_rounds,
+                            rows_per_ray=rows / rays))
+        launches = [fn.launches for fn in counters]
+        lines.append(
+            f"  Mray/s per subframe {rates}, median "
+            f"{float(np.median(rates)):.6g}; s {secs}; per subframe: "
+            f"{launches[0] / timed:.1f} boundaries (K9 launches), "
+            f"{launches[1] / timed:.1f} K6 launches, walk rounds "
+            f"{[p['walk_rounds'] for p in per]}, rows gathered per ray "
+            f"{[round(p['rows_per_ray'], 3) for p in per]}, rays "
+            f"{[p['rays'] for p in per]}")
+    img = film.accum
+    check(bool(torch.isfinite(img).all())
+          and tuple(img.shape) == (cfg.height, cfg.width, 3),
+          f"{name}: image not finite or of shape {tuple(img.shape)}")
+    lines.append(f"  image mean {float(img.mean()):.6f}; launches (K9, K6) "
+                 f"{launches}")
+    print("\n".join(lines))
+    if timed:
+        idle = profile_subframe(step, film, camera, float(np.median(secs)),
+                                27, ("walk_kernel", "external_shade_kernel"))
+        PATHS[name] = (float(np.median(rates)), idle)
+    return dict(launches=dict(zip(("walk_rounds", "external_shade"),
+                                  launches)),
+                states=rec["states"], shade=rec["shade"],
+                pipe=dataclasses.replace(pipe, walk_fn=walkpool.walk_rounds,
+                                         shade_fn=shade.external_shade),
+                film=film)
+
+
+def k9_work(s, pipe, rounds):
+    """(bytes, operations) of one K9 launch of `rounds` rounds from state
+    s, counted round by round on a clone run by the plain version: the
+    rows the walking lanes gather (512 B each), their leaf tests (MT, with
+    the 2-key lerp) or slab tests, every lane's pop over its pending
+    entries and the round's own operations; plus the state read and
+    written once."""
+    from rendertoy3c_tpu_torch.integrate import walkpool
+    from rendertoy3c_tpu_torch.trace.hierwalk import _L_TYPE
+
+    s = s.clone()
+    tab = pipe.table
+    cap = 7 if pipe.motion else 14
+    leaf_ops = cap * (MT_TEST_OPS + (LERP_OPS if pipe.motion else 0))
+    w = s.cur.shape[0]
+    rows = leaves = 0
+    for _ in range(rounds):
+        walkpool._launch_ref(s)
+        walking = s.cur >= 0
+        is_leaf = tab.table[s.cur.clamp(min=0).long(), _L_TYPE] > 0.5
+        rows += int(walking.sum())
+        leaves += int((walking & is_leaf).sum())
+        walkpool._walk_round(tab, s, pipe.motion)
+        walkpool._stash_and_gate_ref(s)
+    ops = (leaves * leaf_ops + (rows - leaves) * tab.fanout * BOX_OPS
+           + rounds * w * (WALK_ROUND_OPS
+                           + tab.n_levels * tab.fanout * WALK_POP_OPS))
+    state = sum(t.numel() * t.element_size() for _, t in s.tensors())
+    return rows * ROW_BYTES + 2 * state, ops, rows
+
+
+def phase_k9(dev, paths):
+    """Phase 24 on the main paths' states: one K9 launch teacher-forced on
+    each state recorded at WALK_SNAPSHOTS boundaries of each walk path
+    against its plain version (every state column bit-equal), then K9's
+    device time per launch on fresh clones of those states, the plain
+    version's, the walking lanes and the bound."""
+    import torch
+
+    from rendertoy3c_tpu_torch.integrate import walkpool
+    from rendertoy3c_tpu_torch.integrate.config import RenderConfig
+
+    calls, plain_calls, costs, walking = [], [], [], []
+    warm = None
+    for name, res in paths.items():
+        pipe = res["pipe"]
+        k = walkpool.phase_rounds(RenderConfig(), pipe.n_levels)
+        for s in res["states"]:
+            got, want = s.clone(), s.clone()
+            walkpool.walk_rounds(got, pipe.table, pipe.motion, k)
+            walkpool.walk_rounds(want, pipe.table, pipe.motion, k,
+                                 plain=True)
+            for (col, a), (_, b) in zip(got.tensors(), want.tensors()):
+                check(torch.equal(a.reshape(-1).view(torch.uint8),
+                                  b.reshape(-1).view(torch.uint8)),
+                      f"phase 24 K9 ({name}): state column {col} differs "
+                      "from the plain version")
+            if warm is None:
+                warm = functools.partial(walkpool.walk_rounds, s.clone(),
+                                         pipe.table, pipe.motion, k)
+            n_bytes, ops, rows = k9_work(s, pipe, k)
+            costs.append((n_bytes, ops))
+            walking.append(rows / k)
+            for _ in range(6):
+                c = s.clone()
+                calls.append(functools.partial(walkpool.walk_rounds, c,
+                                               pipe.table, pipe.motion, k))
+            c = s.clone()
+            plain_calls.append(functools.partial(
+                walkpool.walk_rounds, c, pipe.table, pipe.motion, k,
+                plain=True))
+        print(f"phase 24 K9 ({name}): one launch of {k} rounds on the "
+              f"states at boundaries {WALK_SNAPSHOTS}, every state column "
+              "bit-equal to the plain version")
+    res = dict(max_abs_err=0.0, ms=device_ms(calls, warmup=warm),
+               plain_ms=cuda_ms(plain_calls))
+    res["bound_ms"], res["bound_by"] = mean_bound(costs)
+    pool = next(iter(paths.values()))["states"][0].cur.shape[0]
+    mb = ", ".join(f"{p['pipe'].table.table.numel() * 4 / 1e6:.2f}"
+                   for p in paths.values())
+    print(f"phase 24 K9 on the main paths' states: device time "
+          f"{res['ms']:.4f} ms per launch vs plain {res['plain_ms']:.4f} ms; "
+          f"walking lanes per round {np.mean(walking):.1f} of {pool}; bound "
+          f"{res['bound_ms']:.4f} ms by {res['bound_by']} (rows gathered x "
+          f"{ROW_BYTES} B over 3.35 TB/s against the slab and MT operations "
+          f"over 67 TFLOP/s; the tables, {mb} MB, sit in the 50 MB L2)")
+    return res
+
+
+def phase_k6t(dev, label, paths):
+    """Phase 25: K6 on C-major misc on the walk paths' recorded boundary
+    inputs, bit for bit against its plain version, timed and bounded as
+    phase 8."""
+    import torch
+
+    from rendertoy3c_tpu_torch.trace import shade
+
+    launches, costs = [], []
+    for name, res in paths.items():
+        pipe = res["pipe"]
+        tables, config = pipe.shade_tables, pipe.shade_config
+        mw = pipe.misc_w
+        for rays, hit4, misc in res["shade"]:
+            a = (rays, hit4, misc, tables, config)
+            got = shade.external_shade(*a, transposed=True)
+            want = shade.external_shade_ref(*a, transposed=True)
+            check(all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+                      for g, w in zip(got, want)),
+                  f"phase 25 {label} ({name}) differs from its plain version")
+            launches.append(a)
+            pool = rays.shape[0]
+            prim = hit4[:, 1].clamp(min=0).to(torch.int64)
+            attr = tables.attr[prim].T
+            tex_ops, tex_bytes = texture_work(attr, shade._shade_lanes(
+                rays, hit4, misc.T, attr, tables.lights_t, config,
+                tex=tables.tex, params_base=tables.params_base), tables.tex)
+            tex_ops += material_ops(pool, tables.params_base, config.power,
+                                    config.num_lights)
+            costs.append((pool * (32 + 16 + 4 * mw + 32 + 4 * (mw + 8)
+                                  + 4 * got[2].shape[1])
+                          + torch.unique(prim).numel() * 4 * attr.shape[0]
+                          + tex_bytes + 4 * tables.lights_t.numel(),
+                          pool * (SHADE_OPS + (AOV_OPS if config.aov else 0))
+                          + tex_ops))
+    res = dict(max_abs_err=0.0)
+    res["ms"] = device_ms([functools.partial(shade.external_shade, *a,
+                                             transposed=True)
+                           for a in launches] * 6)
+    res["plain_ms"] = cuda_ms([functools.partial(shade.external_shade_ref, *a,
+                                                 transposed=True)
+                               for a in launches])
+    res["bound_ms"], res["bound_by"] = mean_bound(costs)
+    print(f"phase 25 {label} on the boundary inputs of "
+          f"{', '.join(paths)} (boundaries {WALK_SNAPSHOTS}), bit-equal to "
+          f"the plain version: device time {res['ms']:.4f} ms per "
+          f"{launches[0][0].shape[0]}-lane launch vs plain "
+          f"{res['plain_ms']:.4f} ms; bound {res['bound_ms']:.4f} ms by "
+          f"{res['bound_by']}")
+    return res
+
+
+def walk_band(dev, smi, t_start):
+    """Phases 24-27 on the hierwalk band. Returns the entries of the
+    "kernels" line: K9 and K6 on C-major misc in its four variants."""
+    t0 = time.perf_counter()
+    scenes = walk_scenes()
+    print(f"phase 24 walk scenes generated and loaded in "
+          f"{time.perf_counter() - t0:.2f} s: "
+          + ", ".join(f"{n} {s.num_faces} faces" for n, (s, _) in
+                      scenes.items()))
+    phase_hier_gate(dev, scenes)
+    print(f"phase 24 gate done; {time.perf_counter() - t_start:.1f} s since "
+          "the start")
+
+    # ---- phase 26: the 96^2 gates on the 50000-face towns
+    ordered = {}
+    for what, key, change in (
+            ("static", "town", {}),
+            ("2-key", "2-key textured town", {}),
+            ("textured", "textured town", {}),
+            ("principled, power", "principled town", POWER),
+            ("textured, aov", "textured town", AOV)):
+        ordered[key] = walk_gate(*scenes[key], dev, f"{what} town (walk "
+                                 "pool)", change, ordered.get(key))
+    print(f"phase 26 done; {time.perf_counter() - t_start:.1f} s since the "
+          "start")
+
+    # ---- phase 27: the main paths
+    paths = {
+        "config 1 town 1080p": walk_path(
+            "config 1 town 1080p", *scenes["town"], dev, smi, CONFIG1),
+        "config 2 textured town": walk_path(
+            "config 2 textured town", *scenes["textured town"], dev, smi,
+            SORTED),
+        "config 4 2-key textured town": walk_path(
+            "config 4 2-key textured town", *scenes["2-key textured town"],
+            dev, smi, SORTED),
+        "config 5 principled town": walk_path(
+            "config 5 principled town", *scenes["principled town"], dev,
+            smi, SORTED_POWER),
+        "49k box field": walk_path(
+            "49k box field", *scenes["box field"], dev, smi, SORTED),
+    }
+    aov_path = walk_path("textured town aov", *scenes["textured town"], dev,
+                         smi, AOV, timed=0)
+    print(f"phase 27 done; {time.perf_counter() - t_start:.1f} s since the "
+          "start")
+
+    # ---- phases 24-25 on the main paths' recorded states
+    k9 = phase_k9(dev, paths)
+    entries = [dict(name="walk_rounds", route="cuda", source=WALK_SRC,
+                    replaces=WALK_REPLACES,
+                    launches=sum(p["launches"]["walk_rounds"]
+                                 for p in paths.values()),
+                    **k9, library_ms=None)]
+    for name, label, keys in (
+            ("external_shade_transposed", "K6 transposed",
+             ("config 1 town 1080p", "49k box field")),
+            ("external_shade_transposed_textured", "K6 transposed textured",
+             ("config 2 textured town", "config 4 2-key textured town")),
+            ("external_shade_transposed_textured_dispatch_power",
+             "K6 transposed textured dispatch, power",
+             ("config 5 principled town",)),
+            ("external_shade_transposed_textured_aov",
+             "K6 transposed textured AOV", ("textured town aov",))):
+        group = {k: aov_path if k == "textured town aov" else paths[k]
+                 for k in keys}
+        res = phase_k6t(dev, label, group)
+        entries.append(kernel_entry(
+            name, K6_SRC, 1778, sum(p["launches"]["external_shade"]
+                                    for p in group.values()), res))
+    print(f"phases 24-27 done; {time.perf_counter() - t_start:.1f} s since "
+          "the start")
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -1757,7 +2274,7 @@ def main() -> int:
         film_k, launches_c = full_size(
             "cornell", scene, camera, dev, smi, 5,
             {"trace_shade_refill": shade.trace_shade_refill},
-            ("refill_kernel",), n_plain=5)
+            ("refill_kernel",))
 
         # ---- phase 6: PNG
         out_dir = tempfile.mkdtemp(prefix="rt3c_smoke_")
@@ -2042,10 +2559,13 @@ def main() -> int:
         launches_ta = full_size(
             "textured town aov", *tex_towns[False], dev, smi, 23,
             town_kernels, ("mt_kernel", "external_shade_kernel"), AOV,
-            n_plain=0)[1]
+            plain=False)[1]
         aov_path_report("textured town aov", "textured static town")
         print(f"phases 21-23 (towns) done in {time.perf_counter() - t0:.1f} "
               f"s; {time.perf_counter() - t_start:.1f} s since the start")
+
+        # ---- phases 24-27: the hierwalk band
+        walk_entries = walk_band(dev, smi, t_start)
 
     except PhaseFailed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
@@ -2120,6 +2640,7 @@ def main() -> int:
             "external_shade_textured_aov": launches_ta["external_shade"],
         }.get(e["name"], e["launches"])
     kernels += aov_entries
+    kernels += walk_entries
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

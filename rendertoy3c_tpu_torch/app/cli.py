@@ -41,6 +41,7 @@ from ..integrate.path import make_render_fn
 from ..scene.builtin import cornell_box, textured_quad_scene
 from ..scene.camera import Camera
 from ..scene.scene import build_scene
+from ..trace.auto import tune_config
 
 
 def _vec3(s: str):
@@ -168,8 +169,11 @@ def main(argv=None) -> int:
     if args.fov:
         camera.fov_y = args.fov
     camera.aspect_ratio = w / h
-    step = make_render_fn(build_scene(meshes, textures=textures or None),
-                          cfg, device=device)
+    scene = build_scene(meshes, textures=textures or None)
+    # the walk band's pool width and cadence on the card (as the
+    # reference's CLI applies them on its accelerator)
+    cfg = tune_config(scene, cfg, device)
+    step = make_render_fn(scene, cfg, device=device)
     cam = camera.params()
     film = film_create(h, w, device=device, aov=cfg.aov)
     rays = 0

@@ -7,7 +7,8 @@ rule of `_render_pool_fused` (:1016-1048), `_render_pool_fused_krefill`
 (:832-989) over the refill megakernel (K4), the XLA-refill loop of
 `_render_pool_fused` (:1060-1393) over either pipeline's `trace_shade`
 (K5, or K6 between MT tracers) with its pixel-major and sample-major
-schedules and the ray sort, and `render_pixels`, `render_subframe`,
+schedules and the ray sort, and `render_pixels` (which sends a
+WalkPoolPipeline to integrate/walkpool.py), `render_subframe`,
 `make_render_fn`, `render_frame` (:1396-1549). With cfg.aov every loop
 carries the first-hit albedo and shading-normal accs (misc columns 16-21,
 stash columns 4-9) into two more images beside the radiance, which
@@ -35,12 +36,14 @@ from ..math import rng
 from ..scene.camera import camera_ray_dir
 from ..trace.shade import (ACC_COLS, AOV_COLS, ExternalPipeline,
                            FusedPipeline, misc_width)
+from .walkpool import WalkPoolPipeline, _render_pipepool
 
 
 class RenderStats(NamedTuple):
     radiance_rays: torch.Tensor  # int64 scalar
     shadow_rays: torch.Tensor  # int64 scalar
     pool_iters: int = 0  # megakernel launches this subframe
+    walk_rounds: int = 0  # walk-pool traversal rounds this subframe
 
 
 def _lcg_advance_table(spp: int) -> np.ndarray:
@@ -399,7 +402,21 @@ def _render_pool_fused(scene, cfg, cam, pixel_idx, subframe_index: int,
 def render_pixels(scene, cfg, cam, tracer, pixel_idx, subframe_index: int):
     """Path-trace a flat list of pixel indices. Returns (rgb [N, 3], the
     AOV slot: (albedo [N, 3], normal [N, 3]) with cfg.aov else None,
-    radiance rays, shadow rays, pool iterations)."""
+    radiance rays, shadow rays, pool iterations or, for the walk pool,
+    walk rounds)."""
+    if isinstance(tracer, WalkPoolPipeline):
+        if cfg.integrator != "pool":
+            raise ValueError("WalkPoolPipeline requires cfg.integrator='pool'")
+        paths = cfg.pool_paths or 2
+        if paths < 2:
+            # the reference's classic pool (walkpool.py :578), which it
+            # holds bit-identical per pixel to P = 2
+            raise NotImplementedError(
+                "the classic walk pool (pool_paths=1) is not ported yet; "
+                "pool_paths 0 (auto) and >= 2 take the pipelined pool "
+                "(ROADMAP A18)")
+        return _render_pipepool(scene, cfg, cam, tracer, pixel_idx,
+                                subframe_index, paths=paths)
     if not isinstance(tracer, (FusedPipeline, ExternalPipeline)):
         raise NotImplementedError(
             "only the fused and external pipelines are ported yet; the "
@@ -422,12 +439,15 @@ def render_subframe(scene, cam, film: Film, cfg, tracer=None):
         scene, tracer = choose_tracer(scene, cfg, film.accum.device)
     n_pixels = cfg.width * cfg.height
     pixel_idx = torch.arange(n_pixels, dtype=torch.int64)
-    rgb, aov, n_rad, n_shad, launches = render_pixels(
+    rgb, aov, n_rad, n_shad, steps = render_pixels(
         scene, cfg, cam, tracer, pixel_idx, film.subframe_index)
     film = film_accumulate(film, rgb.reshape(cfg.height, cfg.width, 3),
                            aov=aov)
+    if isinstance(tracer, WalkPoolPipeline):
+        return film, RenderStats(radiance_rays=n_rad, shadow_rays=n_shad,
+                                 walk_rounds=steps)
     return film, RenderStats(radiance_rays=n_rad, shadow_rays=n_shad,
-                             pool_iters=launches)
+                             pool_iters=steps)
 
 
 def make_render_fn(scene, cfg, tracer=None, *, device) -> Callable:

@@ -26,7 +26,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 SOURCES = ("mt_kernels.cu", "megakernel.cu", "megakernel_aov.cu",
-           "external.cu")
+           "external.cu", "walk.cu")
 HEADERS = ("mt.cuh", "shade.cuh", "megakernel.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
@@ -84,7 +84,26 @@ class ExternalParams(ctypes.Structure):
         ("bg", ctypes.c_float * 3),
         ("attr_w", ctypes.c_int), ("power", ctypes.c_int),
         ("params_base", ctypes.c_int), ("aov", ctypes.c_int),
+        ("transposed", ctypes.c_int),
     ]
+
+
+class WalkParams(ctypes.Structure):
+    """Mirror of `WalkParams` in csrc/walk.cu, field for field: the walk
+    table's shape, the rounds of one launch and the walk pool's state
+    tensors (integrate/walkpool.py `WalkState`, in its field order)."""
+
+    _fields_ = [
+        ("w", ctypes.c_int), ("n_levels", ctypes.c_int),
+        ("fanout", ctypes.c_int), ("paths", ctypes.c_int),
+        ("misc_w", ctypes.c_int), ("rounds", ctypes.c_int),
+        ("motion", ctypes.c_int), ("pad", ctypes.c_int),
+        ("level_lo", ctypes.c_int * 8), ("level_hi", ctypes.c_int * 8),
+    ] + [(name, ctypes.c_void_p) for name in (
+        "ray", "wtime", "cur", "wslot", "wmode", "wfound", "wb_t", "wb_prim",
+        "wb_u", "wb_v", "ents", "bases", "mc", "nrays", "nee", "pray",
+        "ptime", "pmode", "pvalid", "btime", "hray", "ht", "hprim", "hu",
+        "hv", "hfound", "hmode", "hvalid", "rows")]
 
 
 class TexParams(ctypes.Structure):
@@ -183,6 +202,8 @@ def library() -> ctypes.CDLL:
         ci, ctypes.POINTER(ExternalParams), vp, vp, vp, vp, ci, vp, ci, vp,
         vp, vp, tex, vp]
     lib.rt3c_external_shade.restype = ci
+    lib.rt3c_walk_rounds.argtypes = [ci, ctypes.POINTER(WalkParams), vp, vp]
+    lib.rt3c_walk_rounds.restype = ci
     return lib
 
 

@@ -2,8 +2,10 @@
 //
 // Replaces rendertoy3c_tpu/trace/pallas_shade.py make_external_shader.shade
 // (:1678-1817, pallas_call at :1778), which is _make_shade_kernel(
-// external=True) (:271), in its non-transposed, non-instanced
-// configuration, with and without motion, untextured or textured,
+// external=True) (:271), in its non-instanced configuration, with misc
+// row-major or C-major (transposed=True, the walk pool's layout,
+// pallas_shade.py:1761-1820), with and without motion, untextured or
+// textured,
 // all-diffuse or with the material dispatch (kDispatch: 6 more attribute
 // rows at params_base), without or with the first-hit AOV rows (kAov, a
 // template switch as in K4), with the uniform or the power light pick.
@@ -18,7 +20,16 @@
 // in columns MW to MW + 2, zeros after), and the shadow rays
 // shadow [R, 8] (org, dir, tmin, tmax), [R, 16] for motion with the ray's
 // time in column 8. The caller traces the shadow rays (K2 or K3) and adds
-// the NEE term on unoccluded lanes.
+// the NEE term on unoccluded lanes. With p.transposed, misc is C-major
+// [MW, R] and misc_out [MW + 8, R] (the walk pool traces and gates the
+// shadow rays in its own rounds, K9); rays, hits and shadow rays stay
+// row-major.
+//
+// The layout is a runtime stride, not a template switch: C-major is the
+// coalesced layout on a GPU (lane i reads misc[c * R + i], a warp 128
+// contiguous bytes per column), row-major reads MW * 4 contiguous bytes
+// per lane as float4s; both are one uniform branch around the loads and
+// the stores, so the 8 instantiations (and nvcc's time) stay as they were.
 //
 // One thread per lane, 128-thread blocks. The attribute row is read by
 // max(prim, 0) straight from the [F, W] table: the TPU kernel receives
@@ -49,6 +60,7 @@ struct ExternalParams {
   float bg[3];
   int attr_w;  // the attribute row's width: 16, or 24-40 textured
   int power, params_base, aov;
+  int transposed;  // misc C-major [MW, R], misc_out [MW + 8, R]
 };
 
 template <bool kTex, bool kDispatch, bool kAov>
@@ -70,8 +82,12 @@ __global__ void __launch_bounds__(EXT_BLOCK)
   const float4 hv = reinterpret_cast<const float4*>(hit4)[i];
   const ClosestHit h{hv.x, hv.y, hv.z, hv.w};
   float m[MW];
-  {
+  if (p.transposed) {
+#pragma unroll
+    for (int c = 0; c < MW; ++c) m[c] = misc[c * (size_t)n + i];
+  } else {
     const float4* mp = reinterpret_cast<const float4*>(misc + MW * (size_t)i);
+#pragma unroll
     for (int q = 0; q < MW / 4; ++q) {
       const float4 x = mp[q];
       m[4 * q + 0] = x.x;
@@ -94,26 +110,30 @@ __global__ void __launch_bounds__(EXT_BLOCK)
                       o.survive ? o.pz : r.oz, o.survive ? o.ndx : r.dx);
   rp[1] = make_float4(o.survive ? o.ndy : r.dy, o.survive ? o.ndz : r.dz,
                       r.tmin, r.tmax);
-  float4* mo = reinterpret_cast<float4*>(misc_out + (MW + 8) * (size_t)i);
-  mo[0] = make_float4(__uint_as_float(o.seed), o.new_at[0], o.new_at[1],
-                      o.new_at[2]);
-  mo[1] = make_float4(o.new_last[0], o.new_last[1], o.new_last[2],
-                      o.pdelta_new);
-  mo[2] = make_float4(o.depth_new, o.alive_b ? 1.0f : 0.0f, o.accs[0],
-                      o.accs[1]);
-  mo[3] = make_float4(o.accs[2], m[13], m[14], o.want_shadow ? 1.0f : 0.0f);
+  // the next state, with AOV the albedo and normal accs, then the
+  // pending NEE term and zeros
+  float mo[MW + 8] = {__uint_as_float(o.seed), o.new_at[0], o.new_at[1],
+                      o.new_at[2], o.new_last[0], o.new_last[1],
+                      o.new_last[2], o.pdelta_new, o.depth_new,
+                      o.alive_b ? 1.0f : 0.0f, o.accs[0], o.accs[1],
+                      o.accs[2], m[13], m[14], o.want_shadow ? 1.0f : 0.0f};
   if constexpr (kAov) {
-    float aov[6];
     for (int c = 0; c < 3; ++c) {
-      aov[c] = m[16 + c] + (o.first ? o.albedo[c] : 0.0f);
-      aov[3 + c] = m[19 + c] + (o.first ? o.ns[c] : 0.0f);
+      mo[16 + c] = m[16 + c] + (o.first ? o.albedo[c] : 0.0f);
+      mo[19 + c] = m[19 + c] + (o.first ? o.ns[c] : 0.0f);
     }
-    mo[4] = make_float4(aov[0], aov[1], aov[2], aov[3]);
-    mo[5] = make_float4(aov[4], aov[5], 0.0f, 0.0f);
   }
-  constexpr int q = MW / 4;  // the float4 that starts the NEE term
-  mo[q] = make_float4(o.nee[0], o.nee[1], o.nee[2], 0.0f);
-  mo[q + 1] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int c = 0; c < 3; ++c) mo[MW + c] = o.nee[c];
+  if (p.transposed) {
+#pragma unroll
+    for (int c = 0; c < MW + 8; ++c) misc_out[c * (size_t)n + i] = mo[c];
+  } else {
+    float4* mp = reinterpret_cast<float4*>(misc_out + (MW + 8) * (size_t)i);
+#pragma unroll
+    for (int q = 0; q < (MW + 8) / 4; ++q)
+      mp[q] = make_float4(mo[4 * q], mo[4 * q + 1], mo[4 * q + 2],
+                          mo[4 * q + 3]);
+  }
   const int sw = p.motion ? 16 : 8;
   float4* sp = reinterpret_cast<float4*>(shadow_out + sw * (size_t)i);
   sp[0] = make_float4(o.sr.ox, o.sr.oy, o.sr.oz, o.sr.dx);
@@ -128,7 +148,7 @@ __global__ void __launch_bounds__(EXT_BLOCK)
 
 // tex: the atlas of a textured scene, null for an untextured one;
 // p->params_base > 0 takes the dispatch variant, p->aov the AOV variant
-// (misc [R, 24], misc_out [R, 32]).
+// (misc [R, 24], misc_out [R, 32]); p->transposed takes misc C-major.
 extern "C" int rt3c_external_shade(int device, const rt3c::ExternalParams* p,
                                    const float* rays, const float* hit4,
                                    const float* misc, const float* attr,

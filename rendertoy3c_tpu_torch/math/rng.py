@@ -71,13 +71,25 @@ def sample_start(pixel, subframe_index: int, seed_rot: int, samp_idx,
                  jump: torch.Tensor):
     """(state, jx, jy): the stream of sample `samp_idx` of each pixel (both
     int64 [R]) after its two jitter draws (raygen.cu:32-39). The stream is
-    tea(pixel, subframe) XOR seed_rot, moved past the two draws of each
-    earlier sample by row samp_idx of `jump` ([spp, 2] int64 (a, c) rows,
-    integrate/path.py `_lcg_advance_table`); indices outside [1, spp) take
-    row 0."""
+    tea(pixel, subframe) XOR seed_rot (`pixel_streams`), moved past the
+    two draws of each earlier sample by row samp_idx of `jump` ([spp, 2]
+    int64 (a, c) rows, integrate/path.py `_lcg_advance_table`); indices
+    outside [1, spp) take row 0."""
+    return sample_start_from(pixel_streams(pixel, subframe_index, seed_rot),
+                             samp_idx, jump)
+
+
+def pixel_streams(pixel, subframe_index: int, seed_rot: int):
+    """tea(pixel, subframe) XOR seed_rot: each pixel's stream before its
+    samples' jumps."""
     st = tea(pixel, subframe_index)
     if seed_rot:
         st = st ^ (seed_rot & M32)
+    return st
+
+
+def sample_start_from(st, samp_idx, jump: torch.Tensor):
+    """sample_start from the pixels' streams `st` (pixel_streams)."""
     spp = jump.shape[0]
     aj = jump[torch.where((samp_idx >= 1) & (samp_idx < spp), samp_idx,
                           torch.zeros_like(samp_idx))]

@@ -1,9 +1,9 @@
 """Built-in scenes: the Cornell box and the textured quad (port of
 rendertoy3c_tpu/scene/builtin.py `cornell_box` and `textured_quad_scene`,
 with the `quad` and `box_mesh` helpers), and the variants that the tests
-and chip_smoke.py render: the textured quad's (`textured_quad_variant`)
-and the Cornell box with all four material types
-(`material_cornell_box`)."""
+and chip_smoke.py render: the textured quad's (`textured_quad_variant`),
+the Cornell box with all four material types (`material_cornell_box`)
+and bench.py's 64x64 box field (`box_field`, 49154 faces)."""
 from __future__ import annotations
 
 import dataclasses
@@ -178,3 +178,32 @@ def material_cornell_box(motion: bool = False, base=None):
         meshes[7] = dataclasses.replace(
             meshes[7], vertices=np.concatenate([v, v + np.float32([0.1, 0, 0])]))
     return meshes, camera
+
+
+def box_field(n: int = 64, box_mesh_fn=box_mesh, quad_fn=quad,
+              material_cls=Material, mesh_cls=Mesh):
+    """(meshes, camera) of bench.py's box field (`_box_field_scene`,
+    :224-250; its camera :589-590): n x n boxes of random height (seed 0)
+    on a unit grid centred at the origin, 12 faces each, under a 12 x 12
+    lamp at y = 25 (n = 64: 49154 faces, the hierwalk gate's scene and
+    `large_scene_49k`). The helpers default to this package's; a test
+    passes the reference's to build its twin."""
+    rng = np.random.default_rng(0)
+    white = material_cls(diffuse=(0.7, 0.7, 0.7))
+    v_all, f_all, off = [], [], 0
+    h = n // 2
+    for gx in range(n):
+        for gz in range(n):
+            m = box_mesh_fn([gx - h, 0, gz - h],
+                            [gx - h + 0.8, rng.uniform(0.3, 2.0),
+                             gz - h + 0.8], white)
+            v_all.append(m.vertices[0])
+            f_all.append(m.indices + off)
+            off += m.vertices.shape[1]
+    big = mesh_cls(vertices=np.concatenate(v_all)[None],
+                   indices=np.concatenate(f_all), material=white)
+    lv, lf = quad_fn([-6, 25, -6], [-6, 25, 6], [6, 25, 6], [6, 25, -6])
+    lamp = mesh_cls(vertices=lv[None], indices=lf,
+                    material=material_cls(emissive=(40.0, 40.0, 40.0)))
+    return [big, lamp], Camera(eye=(0.0, 20.0, 45.0), lookat=(0.0, 0.0, 0.0),
+                               fov_y=50.0)

@@ -1,37 +1,75 @@
 """Tracer choice for the path renderer.
 
-Port of rendertoy3c_tpu/trace/auto.py `choose_tracer` (:98-195), narrowed
-to the ported rungs of its ladder and never routing a scene elsewhere
-than the reference would:
+Port of rendertoy3c_tpu/trace/auto.py `choose_tracer` (:98-195) and
+`tune_config` (:46-90), narrowed to the ported rungs of its ladder and
+never routing a scene elsewhere than the reference would:
 
+  more than 16384 faces, static or 2-key, pool integrator
+                                      -> SAH split order (leaf 14, or 7
+                                         for 2 keys), then the walk pool
+                                         (integrate/walkpool.py, :157-181)
   static scene of more than 512 faces -> Morton face order first (:183-188)
   up to 2048 faces, static or 2-key   -> FusedPipeline (the megakernels)
   2049-16384 faces, static or 2-key   -> make_mt_tracer + ExternalPipeline
 
-2-key scenes keep their face order, as in the reference. Everything else
-raises NotImplementedError naming the ROADMAP item that adds it: more
-than 16384 faces (the hierwalk band) and more than 2 keys.
+2-key scenes of the MT band keep their face order, as in the reference.
+Everything else raises NotImplementedError naming the ROADMAP item that
+adds it: more than 2 keys, and the bare hierwalk tracer under the wave
+integrator or the general pool.
 Returns (scene, tracer): always render the returned scene, whose face
 order matches the tracer's tables.
 """
 from __future__ import annotations
 
-from ..accel.lbvh import morton_order_scene
+import dataclasses
+
+import torch
+
+from ..accel.lbvh import morton_order_scene, split_order_scene
+from ..integrate.walkpool import make_walkpool_pipeline
+from .hierwalk import HIER_LEAF, HIER_LEAF_MOTION
 from .mt import make_mt_tracer
-from .shade import (EXTERNAL_MAX_FACES, MAX_FACES, ExternalPipeline,
-                    FusedPipeline, external_unsupported, fused_unsupported)
+from .shade import (MAX_FACES, ExternalPipeline, FusedPipeline,
+                    external_unsupported, fused_unsupported)
+
+# past this many faces the per-ray walk takes over from the MT band
+LEAFWALK_MIN_FACES = 16384
+# the walk pool's width above 100000 faces (twice it below)
+POOL_BLOCK_LARGE = 8192
+
+
+def tune_config(scene, cfg, device):
+    """The walk band's pool knobs, which the reference applies on its
+    accelerator and the port on the CUDA device (`device` of type cuda):
+    a pool of 2 * POOL_BLOCK_LARGE lanes below 100000 faces and
+    POOL_BLOCK_LARGE above, and flush cadence 8, for pool scenes of more
+    than LEAFWALK_MIN_FACES faces; any other (scene, cfg, device) keeps
+    its cfg. Apply it before choose_tracer."""
+    if (torch.device(device).type != "cuda" or cfg.integrator != "pool"
+            or scene.num_faces <= LEAFWALK_MIN_FACES):
+        return cfg
+    wide = scene.num_faces < 100_000
+    return dataclasses.replace(
+        cfg,
+        ray_block=min(cfg.ray_block,
+                      2 * POOL_BLOCK_LARGE if wide else POOL_BLOCK_LARGE),
+        flush_every=cfg.flush_every or 8)
 
 
 def choose_tracer(scene, cfg, device):
     """(scene, tracer) for rendering `scene` under `cfg` on `device`."""
-    if scene.num_faces > EXTERNAL_MAX_FACES:
-        raise NotImplementedError(
-            f"scenes of more than {EXTERNAL_MAX_FACES} faces take the "
-            "hierwalk band and its walk pool (ROADMAP A17/A18)")
     if scene.num_keys > 2:
         raise NotImplementedError(
-            "more than 2 motion keys need the N-key brute tracer "
-            "(ROADMAP A5)")
+            "more than 2 motion keys need the N-key brute tracer and the "
+            "stacked segment tables (ROADMAP A5)")
+    if scene.num_faces > LEAFWALK_MIN_FACES:
+        if cfg.integrator != "pool":
+            raise NotImplementedError(
+                "the bare hierwalk tracer under the wave integrator is not "
+                "ported yet (ROADMAP A6/A7)")
+        leaf = HIER_LEAF if scene.num_keys == 1 else HIER_LEAF_MOTION
+        scene = split_order_scene(scene, leaf=leaf)
+        return scene, make_walkpool_pipeline(scene, cfg, device)
     if cfg.ray_block % 256:
         raise ValueError("the pool pipelines need ray_block % 256 == 0")
     if scene.num_faces > 512 and scene.num_keys == 1:

@@ -43,7 +43,9 @@ K6 reads rays, the closest hit hit4 [R, 4] (t, prim_f, u, v) and misc
 [R, W] (W = 16, or 24 with AOV), and writes new arrays: rays_out [R, 8],
 misc_out [R, W + 8] (columns 0 to W-1 as misc, W to W+2 the pending NEE
 term, the rest zero) and the shadow rays [R, 8] (org, dir, tmin, tmax),
-[R, 16] for motion with the ray time in column 8.
+[R, 16] for motion with the ray time in column 8. The walk pool's
+`transposed` layout takes misc C-major [W, R] and returns misc_out
+[W + 8, R] (integrate/walkpool.py).
 
 A textured scene (texture_state 'diffuse') widens the attribute rows to
 24-40 and carries a TexState: the atlas's RGBA8 texels and meta rows on
@@ -273,7 +275,7 @@ def external_unsupported(scene, cfg) -> str | None:
     return _first_failed(_slice_checks(scene, cfg) + (
         (scene.num_faces > EXTERNAL_MAX_FACES,
          f"scenes of more than {EXTERNAL_MAX_FACES} faces take the "
-         "hierwalk band and its walk pool (ROADMAP A17/A18)"),))
+         "hierwalk band's walk pool (WalkPoolPipeline)"),))
 
 
 def _first_failed(checks) -> str | None:
@@ -912,15 +914,20 @@ class ExternalTables:
 
 
 def external_shade_ref(rays, hit4, misc, tables: ExternalTables,
-                       ec: ShadeConfig):
+                       ec: ShadeConfig, transposed: bool = False):
     """Plain version of K6: (rays_out [R, 8], misc_out [R, W + 8], shadow
     [R, 8|16]) from rays [R, 8], hit4 [R, 4] and misc [R, W], W = 16 or
-    (ec.aov) 24."""
+    (ec.aov) 24. `transposed` (the walk pool's layout, pallas_shade.py
+    :1761-1820): misc comes C-major [W, R] and misc_out leaves [W + 8, R];
+    rays, hits and shadow rays stay row-major."""
+    if transposed:
+        misc = misc.T
     a = tables.attr[torch.clamp(hit4[:, 1], min=0.0).to(torch.int64)].T
     r = _shade_lanes(rays, hit4, misc, a, tables.lights_t, ec, tex=tables.tex,
                      params_base=tables.params_base)
     rays_out, cols = _next_state(rays, misc, r)
-    misc_out = torch.stack(cols + r["nee"] + [r["zero"]] * 5, dim=1)
+    misc_out = torch.stack(cols + r["nee"] + [r["zero"]] * 5,
+                           dim=0 if transposed else 1)
     shadow = r["shadow"]
     if ec.motion:
         shadow = torch.cat([shadow, r["occl_time"][:, None],
@@ -929,24 +936,26 @@ def external_shade_ref(rays, hit4, misc, tables: ExternalTables,
 
 
 def external_shade(rays, hit4, misc, tables: ExternalTables,
-                   ec: ShadeConfig):
+                   ec: ShadeConfig, transposed: bool = False):
     """K6 wrapper: the CUDA kernel for CUDA tensors
-    (kernels/csrc/external.cu), `external_shade_ref` on the CPU."""
+    (kernels/csrc/external.cu), `external_shade_ref` on the CPU. With
+    `transposed`, misc is C-major [W, R] and misc_out [W + 8, R]."""
     if rays.device.type == "cpu":
-        return external_shade_ref(rays, hit4, misc, tables, ec)
+        return external_shade_ref(rays, hit4, misc, tables, ec, transposed)
     kbuild.require_cuda("external_shade", rays, hit4, misc, tables.attr,
                         tables.lights_t)
     tex = _tex_params("external_shade", tables.tex)
     n = rays.shape[0]
     attr_w = tables.attr.shape[1]
     mw = misc_width(ec.aov)
+    misc_shape = (mw, n) if transposed else (n, mw)
     if (rays.shape != (n, 8) or hit4.shape != (n, 4)
-            or misc.shape != (n, mw) or attr_w % 8 or attr_w < 16):
+            or misc.shape != misc_shape or attr_w % 8 or attr_w < 16):
         raise ValueError(f"external_shade: rays [R, 8], hit4 [R, 4], misc "
-                         f"[R, {mw}], attr [F, 16 + 8k]")
+                         f"{list(misc_shape)}, attr [F, 16 + 8k]")
     f32 = dict(dtype=torch.float32, device=rays.device)
     rays_out = torch.empty((n, 8), **f32)
-    misc_out = torch.empty((n, mw + 8), **f32)
+    misc_out = torch.empty((mw + 8, n) if transposed else (n, mw + 8), **f32)
     shadow = torch.empty((n, 16 if ec.motion else 8), **f32)
     p = kbuild.ExternalParams(
         max_depth=ec.max_depth, num_lights=ec.num_lights,
@@ -955,7 +964,7 @@ def external_shade(rays, hit4, misc, tables: ExternalTables,
         pick_pdf=1.0 / float(ec.num_lights),
         bg=(ec.bg[0], ec.bg[1], ec.bg[2]), attr_w=attr_w,
         power=int(ec.power), params_base=tables.params_base,
-        aov=int(ec.aov))
+        aov=int(ec.aov), transposed=int(transposed))
     index, stream = kbuild.launch_target(rays.device)
     err = kbuild.library().rt3c_external_shade(
         index, p, rays.data_ptr(), hit4.data_ptr(), misc.data_ptr(),

@@ -916,3 +916,148 @@ def test_aov_pipelines_match_plain_versions(dev, case):
     for name in ("albedo", "normal"):
         assert torch.equal(getattr(films[0], name), getattr(films[1], name))
     assert (films[0].albedo.sum(dim=-1) > 0).float().mean() > 0.3
+
+
+# ---------------------------------------------------- the hierwalk band
+def _walk_pool_scene(case):
+    """(split-ordered scene, camera) of a walk-pool test: the 24 x 24 box
+    field (3 table levels), its 2-key variant, the principled quad
+    (textured dispatch) or the Cornell box."""
+    import dataclasses
+
+    from rendertoy3c_tpu_torch.accel.lbvh import split_order_scene
+    from rendertoy3c_tpu_torch.scene.builtin import (box_field,
+                                                      textured_quad_variant)
+
+    if case in ("field", "field_2key"):
+        meshes, cam = box_field(24)
+    elif case == "principled_quad":
+        meshes, textures, cam = textured_quad_variant("principled")
+        return split_order_scene(build_scene(meshes, textures=textures),
+                                 leaf=14), cam
+    else:
+        meshes, cam = cornell_box()
+    scene = build_scene(meshes)
+    if case == "field_2key":
+        g = scene.geom
+        geom = g._replace(**{k: np.concatenate([getattr(g, k)] * 2)
+                             for k in ("e1", "e2", "n0", "n1", "n2")},
+                          v0=np.concatenate([g.v0, g.v0 + np.float32(
+                              [0.2, 0.0, 0.1])]))
+        scene = dataclasses.replace(scene, geom=geom, num_keys=2)
+    leaf = 7 if scene.num_keys == 2 else 14
+    return split_order_scene(scene, leaf=leaf), cam
+
+
+@pytest.mark.parametrize("case", ["field", "field_2key", "principled_quad"])
+def test_walk_kernel_matches_plain_version(dev, case):
+    """K9: one launch of 16 rounds from walk-pool states recorded at
+    boundaries 1, 4 and 7 of a 64^2 render (8-24 boundaries in all; the
+    quad's table is a single leaf, no directory level), against its plain
+    version on a clone: every state column bit for bit."""
+    import dataclasses
+
+    from rendertoy3c_tpu_torch.integrate import walkpool
+
+    scene, cam = _walk_pool_scene(case)
+    cfg = RenderConfig(width=64, height=64, samples_per_launch=2,
+                       max_depth=6, ray_block=2048, integrator="pool",
+                       pool_pixel_major=True)
+    pipe = walkpool.make_walkpool_pipeline(scene, cfg, dev)
+    states = []
+
+    def record(s, tab, motion, k):
+        if len(states) < 8:
+            states.append(s.clone())
+        walkpool.walk_rounds(s, tab, motion, k)
+
+    walkpool._render_pipepool(scene, cfg, cam.params(),
+                              dataclasses.replace(pipe, walk_fn=record),
+                              torch.arange(64 * 64), 0)
+    states = states[1::3]
+    assert len(states) == 3
+    walked = []
+    for s in states:
+        got, want = s.clone(), s.clone()
+        walkpool.walk_rounds(got, pipe.table, pipe.motion, 16)
+        walkpool.walk_rounds(want, pipe.table, pipe.motion, 16, plain=True)
+        for (name, a), (_, b) in zip(got.tensors(), want.tensors()):
+            assert torch.equal(a.view(torch.uint8), b.view(torch.uint8)), name
+        walked.append(int(got.rows) - int(s.rows))
+    assert walked[0] > 0
+
+
+@pytest.mark.parametrize("motion", [False, True])
+def test_hierwalk_tracers_match_plain_versions(dev, motion):
+    """trace_closest_hier / trace_any_hier on K9 against their plain versions
+    (bit for bit) and the brute tracer (prims and occlusion exact)."""
+    from rendertoy3c_tpu_torch.trace import hierwalk
+    from rendertoy3c_tpu_torch.trace.intersect import (
+        trace_any_bruteforce, trace_closest_bruteforce)
+
+    scene, _ = _walk_pool_scene("field_2key" if motion else "field")
+    tab = hierwalk.build_hier_table(scene.geom, scene.num_faces,
+                                    num_keys=scene.num_keys, fanout=0,
+                                    device=dev)
+    o, d = _rays(8192, 5, (-12, 0.2, -12), (12, 4, 12))
+    o, d = torch.as_tensor(o, device=dev), torch.as_tensor(d, device=dev)
+    rng = np.random.default_rng(6)
+    tmax = torch.as_tensor(rng.uniform(0.5, 10, 8192).astype(np.float32),
+                           device=dev)
+    t = (torch.as_tensor(rng.uniform(0, 1, 8192).astype(np.float32),
+                         device=dev) if motion else None)
+    got = hierwalk.trace_closest_hier(tab, o, d, 1e-3, 1e16, time=t)
+    want = hierwalk.trace_closest_hier(tab, o, d, 1e-3, 1e16, time=t,
+                                       plain=True)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    brute = trace_closest_bruteforce(scene, o, d, 1e-3, 1e16, time=t)
+    assert torch.equal(got.prim, brute.prim)
+    assert (got.prim >= 0).float().mean() > 0.3
+    occ = hierwalk.trace_any_hier(tab, o, d, 1e-3, tmax, time=t)
+    assert torch.equal(occ, hierwalk.trace_any_hier(tab, o, d, 1e-3, tmax,
+                                                    time=t, plain=True))
+    assert torch.equal(occ, trace_any_bruteforce(scene, o, d, 1e-3, tmax,
+                                                 time=t))
+
+
+@pytest.mark.parametrize("variant", ["untextured", "textured",
+                                     "dispatch_power", "aov"])
+def test_transposed_external_shade_matches_plain_version(dev, variant):
+    """K6 with C-major misc on the walk pool's boundary inputs (both
+    paths' lanes, recorded at every boundary of a 64^2 render): every
+    output bit for bit."""
+    import dataclasses
+
+    from rendertoy3c_tpu_torch.integrate import walkpool
+
+    scene, cam = _walk_pool_scene(
+        "principled_quad" if variant == "textured" else "cornell")
+    if variant == "dispatch_power":
+        from rendertoy3c_tpu_torch.accel.lbvh import split_order_scene
+        from rendertoy3c_tpu_torch.scene.builtin import material_cornell_box
+
+        meshes, cam = material_cornell_box()
+        scene = split_order_scene(build_scene(meshes), leaf=14)
+    cfg = RenderConfig(width=64, height=64, samples_per_launch=2,
+                       max_depth=6, ray_block=2048, integrator="pool",
+                       pool_pixel_major=True, aov=variant == "aov",
+                       light_sampler="power" if variant == "dispatch_power"
+                       else "uniform")
+    pipe = walkpool.make_walkpool_pipeline(scene, cfg, dev)
+    inputs = []
+
+    def record(rays, hit4, misc, tables, config, transposed):
+        inputs.append((rays.clone(), hit4.clone(), misc.clone()))
+        return shade.external_shade(rays, hit4, misc, tables, config,
+                                    transposed=transposed)
+
+    walkpool._render_pipepool(scene, cfg, cam.params(),
+                              dataclasses.replace(pipe, shade_fn=record),
+                              torch.arange(64 * 64), 0)
+    assert len(inputs) >= 8  # one launch per boundary, 8 or more
+    for rays, hit4, misc in inputs[::2]:
+        a = (rays, hit4, misc, pipe.shade_tables, pipe.shade_config)
+        got = shade.external_shade(*a, transposed=True)
+        _bits_equal(got, shade.external_shade_ref(*a, transposed=True))
+        assert got[1].shape == (pipe.misc_w + 8, rays.shape[0])

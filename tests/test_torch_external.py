@@ -13,8 +13,9 @@ town, the reference fed the pre-sampled texel block as its
 ExternalPipeline.trace_shade builds it (pallas_shade.py:1877-1882). The
 whole slice renders against the
 reference's render_frame over its own choose_tracer(on_tpu=True) pipeline
-by the strict rule of tests/test_external.py:35-55, and out-of-slice
-scenes and configs raise NotImplementedError naming their ROADMAP item."""
+by the strict rule of tests/test_external.py:35-55, out-of-slice
+scenes and configs raise NotImplementedError naming their ROADMAP item,
+and a scene past the band takes the walk pool."""
 import dataclasses
 import os
 import shutil
@@ -31,6 +32,7 @@ from rendertoy3c_tpu.trace.auto import choose_tracer as j_choose_tracer
 from rendertoy3c_tpu.trace.pallas_shade import make_external_shader
 from rendertoy3c_tpu_torch.integrate.config import RenderConfig
 from rendertoy3c_tpu_torch.integrate.path import render_frame
+from rendertoy3c_tpu_torch.integrate.walkpool import WalkPoolPipeline
 from rendertoy3c_tpu_torch.io.genassets import generate_town
 from rendertoy3c_tpu_torch.io.obj import load_obj
 from rendertoy3c_tpu_torch.scene.builtin import box_mesh, cornell_box, quad
@@ -293,9 +295,11 @@ def test_out_of_slice_raises_naming_roadmap_item(towns, tmp_path, case,
     """Cases of a ported ROADMAP item now render: the 2-key Cornell box
     through the fused pipeline's motion variant (A11), the town's sorted and
     sample-major pools through the external pipeline (A8), the textured
-    town through the external pipeline's textured K6 (A12's textures), and
-    a principled scene, the power pick (A12's dispatch and power sampler)
-    and AOV (A13) as the reference renders them (`_match_external`)."""
+    town through the external pipeline's textured K6 (A12's textures), a
+    principled scene, the power pick (A12's dispatch and power sampler)
+    and AOV (A13) as the reference renders them (`_match_external`), and a
+    scene of more than 16384 faces takes the walk pool (A17/A18;
+    tests/test_torch_walk_ladder.py holds what that band still refuses)."""
     if case == "principled":
         _match_external(*_principled_grid_pair(), KW)
         return
@@ -321,6 +325,11 @@ def test_out_of_slice_raises_naming_roadmap_item(towns, tmp_path, case,
         change = {"sorted": dict(sort_rays=True),
                   "sample_major": dict(pool_pixel_major=False)}[case]
         cfg = dataclasses.replace(cfg, **change)
+    if case == "17k_faces":
+        ordered, pipe = choose_tracer(scene, cfg, "cpu")
+        assert isinstance(pipe, WalkPoolPipeline)
+        assert pipe.num_faces == ordered.num_faces >= scene.num_faces
+        return
     if item in ("A8", "A11") or case == "textured_obj":
         _, pipe = choose_tracer(scene, cfg, "cpu")
         want = shade.FusedPipeline if item == "A11" else shade.ExternalPipeline

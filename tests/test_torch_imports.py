@@ -14,6 +14,9 @@ MODULES = [
     "rendertoy3c_tpu_torch.film", "rendertoy3c_tpu_torch.film.image",
     "rendertoy3c_tpu_torch.film.film", "rendertoy3c_tpu_torch.film.denoise",
     "rendertoy3c_tpu_torch.integrate",
+    "rendertoy3c_tpu_torch.integrate.config",
+    "rendertoy3c_tpu_torch.integrate.path",
+    "rendertoy3c_tpu_torch.integrate.walkpool",
     "rendertoy3c_tpu_torch.io", "rendertoy3c_tpu_torch.io.genassets",
     "rendertoy3c_tpu_torch.io.obj",
     "rendertoy3c_tpu_torch.kernels.build", "rendertoy3c_tpu_torch.math",
@@ -25,7 +28,8 @@ MODULES = [
     "rendertoy3c_tpu_torch.trace", "rendertoy3c_tpu_torch.trace.auto",
     "rendertoy3c_tpu_torch.trace.bsdf", "rendertoy3c_tpu_torch.scene.light",
     "rendertoy3c_tpu_torch.trace.intersect", "rendertoy3c_tpu_torch.trace.mt",
-    "rendertoy3c_tpu_torch.trace.shade", "rendertoy3c_tpu_torch.tools",
+    "rendertoy3c_tpu_torch.trace.shade", "rendertoy3c_tpu_torch.trace.hierwalk",
+    "rendertoy3c_tpu_torch.tools",
     "rendertoy3c_tpu_torch.tools.sweep_ab",
 ]
 

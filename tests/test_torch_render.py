@@ -21,6 +21,7 @@ from rendertoy3c_tpu_torch.film.image import write_png
 from rendertoy3c_tpu_torch.film.tonemap import aces_tonemap, make_color
 from rendertoy3c_tpu_torch.integrate.config import RenderConfig
 from rendertoy3c_tpu_torch.integrate.path import render_frame
+from rendertoy3c_tpu_torch.integrate.walkpool import WalkPoolPipeline
 from rendertoy3c_tpu_torch.scene.builtin import cornell_box
 from rendertoy3c_tpu_torch.scene.material import Material, MaterialType
 from rendertoy3c_tpu_torch.scene.scene import build_scene
@@ -166,7 +167,8 @@ def test_outside_the_slice_raises_naming_the_roadmap_item(case, item):
     the 2-key Cornell box its motion variant, the sample-major pool K5, and
     a diffuse texture (A12's textures) the textured megakernel; a mirror
     wall (A12's dispatch), the power pick and AOV (A13) render as the
-    reference does (`_match_fused`)."""
+    reference does (`_match_fused`); a scene of more than 16384 faces
+    takes the walk pool (A17/A18)."""
     if case in RENDERED:
         kw = _cfg(**{"power": dict(light_sampler="power"),
                      "aov": dict(aov=True)}.get(case, {}))
@@ -182,6 +184,11 @@ def test_outside_the_slice_raises_naming_the_roadmap_item(case, item):
         change = {"wave": dict(integrator="wave"),
                   "sample_major": dict(pool_pixel_major=False)}[case]
         cfg = dataclasses.replace(cfg, **change)
+    if case == "big":
+        ordered, pipe = choose_tracer(scene, cfg, "cpu")
+        assert isinstance(pipe, WalkPoolPipeline)
+        assert pipe.num_faces == ordered.num_faces > 16384
+        return
     if item in PORTED or case == "textured":
         _, pipe = choose_tracer(scene, cfg, "cpu")
         assert isinstance(pipe, shade.FusedPipeline)

@@ -158,3 +158,53 @@ def textured_quad_pair(variant="repeat", motion=False):
     tm, tt, tcam = textured_quad_meshes("torch", variant, motion)
     return (j_build_scene(jm, textures=jt), build_scene(tm, textures=tt),
             jcam, tcam)
+
+
+def lit_grid_scene(pkg, n=40):
+    """tests/test_walkpool.py:265-292's scene built by `pkg` ("jax" or
+    "torch"): n x n boxes (seed 0) under a 12 x 12 lamp at y = 25; n = 40
+    gives 19202 faces."""
+    if pkg == "torch":
+        from rendertoy3c_tpu_torch.scene.builtin import box_mesh, quad
+        from rendertoy3c_tpu_torch.scene.material import Material
+        from rendertoy3c_tpu_torch.scene.mesh import Mesh
+    else:
+        from rendertoy3c_tpu.scene.builtin import box_mesh, quad
+        from rendertoy3c_tpu.scene.material import Material
+        from rendertoy3c_tpu.scene.mesh import Mesh
+    lv, lf = quad([-6, 25, -6], [-6, 25, 6], [6, 25, 6], [6, 25, -6])
+    lamp = Mesh(vertices=lv[None], indices=lf,
+                material=Material(emissive=(40.0, 40.0, 40.0)))
+    meshes = box_grid_meshes(Material, Mesh, box_mesh, n=n, seed=0) + [lamp]
+    return (build_scene if pkg == "torch" else j_build_scene)(meshes)
+
+
+def box_field_pair(n=16, motion=False):
+    """(reference scene, port scene, camera) of scene/builtin.py
+    `box_field(n)` built by both packages; `motion` gives every face a
+    second key at +(0.3, 0.1, -0.2)."""
+    from rendertoy3c_tpu.scene.builtin import box_mesh, quad
+    from rendertoy3c_tpu.scene.material import Material
+    from rendertoy3c_tpu.scene.mesh import Mesh
+    from rendertoy3c_tpu_torch.scene.builtin import box_field
+
+    jm, _ = box_field(n, box_mesh, quad, Material, Mesh)
+    tm, cam = box_field(n)
+    if motion:
+        for meshes in (jm, tm):
+            for m in meshes:
+                v = m.vertices
+                m.vertices = np.concatenate(
+                    [v, v + np.float32([0.3, 0.1, -0.2])])
+    return j_build_scene(jm), build_scene(tm), cam
+
+
+def to_port_hier_table(jtab):
+    """The port's HierTable carrying a reference HierTable's arrays."""
+    from rendertoy3c_tpu_torch.trace.hierwalk import HierTable
+
+    assert jtab.n_seg == 1, "the stacked N-key tables are not ported"
+    return HierTable(table=torch.as_tensor(np.array(jtab.table)),
+                     level_starts=tuple(jtab.level_starts),
+                     leaf_start=int(jtab.leaf_start),
+                     num_faces=int(jtab.num_faces), fanout=int(jtab.fanout))
