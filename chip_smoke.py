@@ -28,8 +28,9 @@ a JSON summary. Phases:
      kernels held to the plain versions on the middle sixteenth of the
      image (rows 360-408: one subframe each through render_pixels, means
      within 1%, the gate, with AOV the albedo and normal bands bit-equal;
-     every main path below that has plain versions does the same); then a
-     profile of one more subframe;
+     every main path below that has plain versions does the same, the
+     trace-time instanced path on rows 376-392); then a profile of one
+     more subframe;
   6. the PNG of the kernel render;
   7. K1/K2 on the static and K3 (mt_closest_motion, mt_any_motion) on the
      2-key 16054-face town, against their plain versions and the brute
@@ -136,7 +137,31 @@ a JSON summary. Phases:
      per ray, every pixel finite, the idle share of one profiled subframe;
      and one textured AOV subframe. No plain subframe runs at these sizes:
      the plain walk runs ~150 small torch ops per round, so the images are
-     held to the plain versions by phases 24-26.
+     held to the plain versions by phases 24-26;
+ 28. trace-time instancing: bench.py's instanced gate (:192-220) on
+     K9-inst (walk_rounds over an instanced table): 131072 camera rays of
+     the 768^2 grid on bench's instance field at grid 8 (66 instances),
+     the K9-inst-driven trace_closest_inst_hier / trace_any_inst_hier
+     bit-equal to their plain versions and exact against the brute
+     instanced tracer (0 prim, 0 instance, 0 occlusion mismatches); the
+     2-key field at grid 8 on a forced fanout-32 table with random times
+     likewise;
+ 29. the gate of phase 4 on the trace-time Cornell (K9-inst under the
+     external pipeline, K6 with instance rows), a baked field at grid 6
+     and the 578-instance 2-key field (K9-inst at fanout 32);
+ 30. bench's instanced main paths with tune_config's pool (bench.py
+     :537-584): BASELINE config 3 `multi_instance_tlas` (baked by
+     build_scene, K4) as phase 5; `multi_instance_tracetime` (1 warm-up, 4
+     timed subframes, the band against the plain versions); the 578-
+     instance fields `multi_instance_large` (baked world table, K9, 16384
+     lanes) and `multi_instance_motion` (K9-inst, fanout 32, 8192 lanes)
+     as phase 27; each with Mray/s, launches per subframe (K9-inst, K9 and
+     K6 with instance rows must launch), every pixel finite, the idle
+     share of one profiled subframe;
+ 31. K9-inst on the 2-key field's recorded states and K9 on the baked
+     field's, and K6 with instance rows on the fields' (C-major) and the
+     trace-time path's (row-major) recorded inputs: bit for bit against
+     their plain versions, timed and bounded as phases 24-25.
 
 Each kernel's bound is the larger of the bytes it must move over 3.35 TB/s
 and the operations its inputs need over the 67 TFLOP/s fp32 peak outside
@@ -151,8 +176,9 @@ Phases 11-14, on the Cornell box, and the textured quad's, the material
 Cornell box's and the principled quad's parts of phases 15-20 run after
 phase 6 and before the towns, the textured towns' phase 15 right after
 phase 8, their phases 16-17 after phase 10, the principled towns' phases
-18-20 and the towns' phases 21-23 after them, and phases 24-27 last
-(24's gate, 26, 27, then 24's and 25's checks on 27's states).
+18-20 and the towns' phases 21-23 after them, then phases 24-27 (24's
+gate, 26, 27, then 24's and 25's checks on 27's states) and phases 28-31
+last.
 Any failed phase exits non-zero. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -745,8 +771,17 @@ def plain_tracer(scene, cfg, dev):
     from rendertoy3c_tpu_torch.trace.auto import choose_tracer
 
     scene, pipe = choose_tracer(scene, cfg, dev)
+    if isinstance(pipe, walkpool.WalkPoolPipeline) and pipe.instanced:
+        return scene, plain_walk_pipe(pipe)
     if isinstance(pipe, walkpool.WalkPoolPipeline):
         return walk_pipes(scene, cfg, dev)[::2]
+    if isinstance(pipe, shade.ExternalPipeline) and pipe.instanced:
+        from rendertoy3c_tpu_torch.trace.hier_instanced import \
+            make_inst_hierwalk_tracer
+
+        return scene, shade.ExternalPipeline(
+            scene, cfg, make_inst_hierwalk_tracer(scene, dev, plain=True),
+            dev, shade_fn=shade.external_shade_ref)
     if isinstance(pipe, shade.FusedPipeline):
         return scene, shade.FusedPipeline(
             scene, cfg, dev, refill_fn=shade.trace_shade_refill_ref,
@@ -889,15 +924,20 @@ def device_ms(calls, warmup=None) -> float:
 
 
 def profile_subframe(step, film, camera, untraced_s: float, phase: int,
-                     kernels):
+                     kernels, traced=None):
     """Device time by kernel over one subframe. The idle share is taken
     against the median untraced subframe, since tracing slows the host.
     Fails unless the profiler saw each of `kernels` (CUDA symbol names)
-    launched. Returns the idle share."""
-    cam = camera.params()
-    t0 = time.perf_counter()
-    rows = device_rows(lambda: step(cam, film))
-    wall = time.perf_counter() - t0
+    launched. traced: (device_rows, traced wall s) of a subframe traced
+    before (a warm-up), else one more subframe is traced here. Returns
+    the idle share."""
+    if traced is None:
+        cam = camera.params()
+        t0 = time.perf_counter()
+        rows = device_rows(lambda: step(cam, film))
+        wall = time.perf_counter() - t0
+    else:
+        rows, wall = traced
     busy = sum(r[0] for r in rows) / 1e6
     check(busy > 0, f"phase {phase} profile: no device time recorded")
     idle = max(0.0, 1 - busy / untraced_s)
@@ -916,10 +956,13 @@ def profile_subframe(step, film, camera, untraced_s: float, phase: int,
 
 
 BAND_ROWS = (360, 408)  # the middle sixteenth of a 768-row image
+# the middle 16 rows: the band of the trace-time instanced path, whose
+# plain walk runs half a second per row
+NARROW_BAND = (376, 392)
 
 
-def band_pair(name, scene, camera, cfg_kw, dev):
-    """Kernels against plain versions on a band of the image (BAND_ROWS),
+def band_pair(name, scene, camera, cfg_kw, dev, rows=BAND_ROWS):
+    """Kernels against plain versions on a band of the image (`rows`),
     one subframe each through render_pixels over choose_tracer's pipeline
     and its plain twin, on the same streams: the band's means within 1%,
     the gate on it, with AOV the albedo and normal bands bit-equal.
@@ -931,7 +974,7 @@ def band_pair(name, scene, camera, cfg_kw, dev):
     from rendertoy3c_tpu_torch.trace.auto import choose_tracer
 
     cfg = RenderConfig(**cfg_kw)
-    lo, hi = BAND_ROWS
+    lo, hi = rows
     pix = torch.arange(lo * cfg.width, hi * cfg.width, dtype=torch.int64)
     out, aovs, secs = [], [], []
     for make in (choose_tracer, plain_tracer):
@@ -1768,6 +1811,20 @@ WALK_REPLACES = "rendertoy3c_tpu/integrate/walkpool.py:363"
 WALK_ROUND_OPS = 30
 WALK_POP_OPS = 4
 ROW_BYTES = 512
+# K9-inst's operations beyond K9's, counted from walk.cu as above: the
+# bf16 unpack of a 32-wide child's box (two integer ops per axis), the
+# space switch at a static instance row (two 3 x 3 products and the
+# translation, the selects and the restore) and at a 2-key row (the lerp of
+# 12 entries, the cofactors, the determinant and its guarded reciprocal,
+# the 9 scalings, the origin's offset and the two products)
+UNPACK_OPS = 6
+INST_ROW_OPS = 42
+INST_ROW_MOTION_OPS = 125
+# K6's instance rows (shade.cuh): the 18-row gather's selects, the normal's
+# transform and second normalisation; under normal maps the tangent's
+# transform
+INST_SHADE_OPS = 45
+INST_TANGENT_OPS = 15
 
 
 def walk_scenes():
@@ -1804,10 +1861,20 @@ def walk_pipes(scene, cfg, dev, ordered=None):
         hierwalk.HIER_LEAF_MOTION
     scene = ordered or split_order_scene(scene, leaf=leaf)
     pipe = walkpool.make_walkpool_pipeline(scene, cfg, dev)
-    plain = dataclasses.replace(
+    return scene, pipe, plain_walk_pipe(pipe)
+
+
+def plain_walk_pipe(pipe):
+    """The walk pool pipeline over K9's (K9-inst's) and K6's plain
+    versions."""
+    import dataclasses
+
+    from rendertoy3c_tpu_torch.integrate import walkpool
+    from rendertoy3c_tpu_torch.trace import shade
+
+    return dataclasses.replace(
         pipe, walk_fn=functools.partial(walkpool.walk_rounds, plain=True),
         shade_fn=shade.external_shade_ref)
-    return scene, pipe, plain
 
 
 def phase_hier_gate(dev, scenes):
@@ -1897,13 +1964,33 @@ def walk_gate(scene, camera, dev, what, change, ordered=None):
     return ordered
 
 
-def walk_path(name, scene, camera, dev, smi, change, timed=2):
+# the launch counters of the walk pool's kernels: (name, wrapper, count)
+WALK_COUNTERS = (("walk_rounds", "walk_rounds", "launches"),
+                 ("walk_rounds_inst", "walk_rounds", "inst_launches"),
+                 ("external_shade", "external_shade", "launches"),
+                 ("external_shade_inst", "external_shade", "inst_launches"))
+
+
+def launch_counters():
+    """{name: (wrapper, count attribute)} of WALK_COUNTERS."""
+    from rendertoy3c_tpu_torch.integrate import walkpool
+    from rendertoy3c_tpu_torch.trace import shade
+
+    fns = dict(walk_rounds=walkpool.walk_rounds,
+               external_shade=shade.external_shade)
+    return {n: (fns[f], a) for n, f, a in WALK_COUNTERS}
+
+
+def walk_path(name, scene, camera, dev, smi, change, timed=2, phase=27,
+              need=("walk_rounds", "external_shade")):
     """A walk-band main path through make_render_fn over choose_tracer's
     pipeline (with tune_config): 1 warm-up subframe, during which K9's
-    states and K6's inputs at WALK_SNAPSHOTS boundaries are recorded, then
-    `timed` subframes with the launch counters zeroed just before, then
-    one profiled subframe (timed=0: the warm-up subframe only, its
-    launches counted). Returns {launches, states, shade, pipe, film}."""
+    (K9-inst's) states and K6's inputs at WALK_SNAPSHOTS boundaries are
+    recorded, then `timed` subframes with the launch counters zeroed just
+    before, then one profiled subframe (timed=0: the warm-up subframe
+    only, its launches counted). Fails unless every counter of `need`
+    (WALK_COUNTERS' names) is above 0. Returns {launches, states, shade,
+    pipe, film}."""
     import dataclasses
 
     import torch
@@ -1928,22 +2015,26 @@ def walk_path(name, scene, camera, dev, smi, change, timed=2):
         rec["state"] = s
         walkpool.walk_rounds(s, tab, motion, k)
 
-    def shade_fn(rays, hit4, misc, tables, config, transposed):
+    def shade_fn(rays, hit4, misc, tables, config, transposed, inst=None):
         if rec["on"] and rec["boundary"] in WALK_SNAPSHOTS:
-            rec["shade"].append((rays.clone(), hit4.clone(), misc.clone()))
+            rec["shade"].append((rays.clone(), hit4.clone(), misc.clone(),
+                                 None if inst is None else inst.clone()))
         return shade.external_shade(rays, hit4, misc, tables, config,
-                                    transposed=transposed)
+                                    transposed=transposed, inst=inst)
 
     pipe = dataclasses.replace(pipe, walk_fn=walk_fn, shade_fn=shade_fn)
     step = make_render_fn(scene, cfg, tracer=pipe, device=dev)
     cam = camera.params()
     film = film_create(cfg.height, cfg.width, device=dev)
-    counters = (walkpool.walk_rounds, shade.external_shade)
+    counters = launch_counters()
 
     def zero():
         rec["boundary"] = 0
-        for fn in counters:
-            fn.launches = 0
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+
+    def read():
+        return {n: getattr(fn, attr) for n, (fn, attr) in counters.items()}
 
     zero()
     t0 = time.perf_counter()
@@ -1953,12 +2044,12 @@ def walk_path(name, scene, camera, dev, smi, change, timed=2):
     rec["on"] = False
     check(len(rec["states"]) == len(WALK_SNAPSHOTS),
           f"{name}: {rec['boundary']} boundaries, too few for the snapshots")
-    launches = [fn.launches for fn in counters]
-    lines = [f"phase 27 {name} {cfg.width}x{cfg.height} 8spp depth 16 pool "
-             f"{cfg.ray_block} flush {cfg.flush_every} ({scene.num_faces} "
-             f"faces in split order, {pipe.n_levels} levels, fanout "
-             f"{pipe.fanout}; ordered and tabled in {order_s:.2f} s) on "
-             f"{smi}: warm-up {warm_s:.3f} s"]
+    launches = read()
+    lines = [f"phase {phase} {name} {cfg.width}x{cfg.height} 8spp depth 16 "
+             f"pool {cfg.ray_block} flush {cfg.flush_every} "
+             f"({scene.num_faces} faces in split order, {pipe.n_levels} "
+             f"levels, fanout {pipe.fanout}; ordered and tabled in "
+             f"{order_s:.2f} s) on {smi}: warm-up {warm_s:.3f} s"]
     if timed:
         zero()
         rates, secs, per = [], [], []
@@ -1973,71 +2064,87 @@ def walk_path(name, scene, camera, dev, smi, change, timed=2):
             secs.append(dt)
             per.append(dict(rays=rays, walk_rounds=stats.walk_rounds,
                             rows_per_ray=rows / rays))
-        launches = [fn.launches for fn in counters]
+        launches = read()
+        walk = launches["walk_rounds"] + launches["walk_rounds_inst"]
+        shades = launches["external_shade"] + launches["external_shade_inst"]
         lines.append(
             f"  Mray/s per subframe {rates}, median "
             f"{float(np.median(rates)):.6g}; s {secs}; per subframe: "
-            f"{launches[0] / timed:.1f} boundaries (K9 launches), "
-            f"{launches[1] / timed:.1f} K6 launches, walk rounds "
+            f"{walk / timed:.1f} boundaries (K9 launches), "
+            f"{shades / timed:.1f} K6 launches, walk rounds "
             f"{[p['walk_rounds'] for p in per]}, rows gathered per ray "
             f"{[round(p['rows_per_ray'], 3) for p in per]}, rays "
             f"{[p['rays'] for p in per]}")
+    for n in need:
+        check(launches[n] > 0, f"{name}: the main path launched {n} no time")
     img = film.accum
     check(bool(torch.isfinite(img).all())
           and tuple(img.shape) == (cfg.height, cfg.width, 3),
           f"{name}: image not finite or of shape {tuple(img.shape)}")
-    lines.append(f"  image mean {float(img.mean()):.6f}; launches (K9, K6) "
+    lines.append(f"  image mean {float(img.mean()):.6f}; launches "
                  f"{launches}")
     print("\n".join(lines))
     if timed:
-        idle = profile_subframe(step, film, camera, float(np.median(secs)),
-                                27, ("walk_kernel", "external_shade_kernel"))
+        idle = profile_subframe(
+            step, film, camera, float(np.median(secs)), phase,
+            ("walk_kernel", "external_shade_kernel"))
         PATHS[name] = (float(np.median(rates)), idle)
-    return dict(launches=dict(zip(("walk_rounds", "external_shade"),
-                                  launches)),
-                states=rec["states"], shade=rec["shade"],
+    return dict(launches=launches, states=rec["states"], shade=rec["shade"],
                 pipe=dataclasses.replace(pipe, walk_fn=walkpool.walk_rounds,
                                          shade_fn=shade.external_shade),
                 film=film)
 
 
 def k9_work(s, pipe, rounds):
-    """(bytes, operations) of one K9 launch of `rounds` rounds from state
-    s, counted round by round on a clone run by the plain version: the
-    rows the walking lanes gather (512 B each), their leaf tests (MT, with
-    the 2-key lerp) or slab tests, every lane's pop over its pending
-    entries and the round's own operations; plus the state read and
-    written once."""
+    """(bytes, operations, rows) of one K9 or K9-inst launch of `rounds`
+    rounds from state s, counted round by round on a clone run by the
+    plain version: the rows the walking lanes gather (512 B each), their
+    leaf tests (MT, with the 2-key lerp of a flat table's leaves), slab
+    tests (with the bf16 unpack at fanout 32) or instance-row space
+    switches, every lane's pop over its pending entries and the round's
+    own operations; plus the state read and written once."""
     from rendertoy3c_tpu_torch.integrate import walkpool
+    from rendertoy3c_tpu_torch.trace.hier_instanced import InstHierTable
     from rendertoy3c_tpu_torch.trace.hierwalk import _L_TYPE
 
     s = s.clone()
     tab = pipe.table
-    cap = 7 if pipe.motion else 14
-    leaf_ops = cap * (MT_TEST_OPS + (LERP_OPS if pipe.motion else 0))
+    inst = isinstance(tab, InstHierTable)
+    leaf_motion = pipe.motion and not inst
+    cap = 7 if leaf_motion else 14
+    leaf_ops = cap * (MT_TEST_OPS + (LERP_OPS if leaf_motion else 0))
+    box_ops = BOX_OPS + (UNPACK_OPS if tab.fanout == 32 else 0)
+    inst_ops = INST_ROW_MOTION_OPS if pipe.motion else INST_ROW_OPS
     w = s.cur.shape[0]
-    rows = leaves = 0
+    rows = leaves = insts = 0
     for _ in range(rounds):
-        walkpool._launch_ref(s)
+        walkpool._launch_ref(s, inst)
         walking = s.cur >= 0
-        is_leaf = tab.table[s.cur.clamp(min=0).long(), _L_TYPE] > 0.5
+        typ = tab.table[s.cur.clamp(min=0).long(), _L_TYPE]
+        is_inst = walking & (typ > 1.5)
         rows += int(walking.sum())
-        leaves += int((walking & is_leaf).sum())
-        walkpool._walk_round(tab, s, pipe.motion)
+        leaves += int((walking & (typ > 0.5) & ~is_inst).sum())
+        insts += int(is_inst.sum())
+        if inst:
+            walkpool._walk_round_inst(tab, s, pipe.motion)
+        else:
+            walkpool._walk_round(tab, s, pipe.motion)
         walkpool._stash_and_gate_ref(s)
-    ops = (leaves * leaf_ops + (rows - leaves) * tab.fanout * BOX_OPS
+    ops = (leaves * leaf_ops + insts * inst_ops
+           + (rows - leaves - insts) * tab.fanout * box_ops
            + rounds * w * (WALK_ROUND_OPS
                            + tab.n_levels * tab.fanout * WALK_POP_OPS))
     state = sum(t.numel() * t.element_size() for _, t in s.tensors())
     return rows * ROW_BYTES + 2 * state, ops, rows
 
 
-def phase_k9(dev, paths):
-    """Phase 24 on the main paths' states: one K9 launch teacher-forced on
-    each state recorded at WALK_SNAPSHOTS boundaries of each walk path
-    against its plain version (every state column bit-equal), then K9's
-    device time per launch on fresh clones of those states, the plain
-    version's, the walking lanes and the bound."""
+def phase_k9(dev, paths, label="K9", phase=24):
+    """Phase 24 (31 for K9-inst) on the main paths' states: one launch
+    teacher-forced on each state recorded at WALK_SNAPSHOTS boundaries of
+    each walk path against its plain version (every state column
+    bit-equal), then the kernel's device time per launch on fresh clones
+    of those states, the plain version's, the walking lanes and the
+    bound."""
     import torch
 
     from rendertoy3c_tpu_torch.integrate import walkpool
@@ -2047,7 +2154,9 @@ def phase_k9(dev, paths):
     warm = None
     for name, res in paths.items():
         pipe = res["pipe"]
-        k = walkpool.phase_rounds(RenderConfig(), pipe.n_levels)
+        k = walkpool.phase_rounds(
+            RenderConfig(), pipe.n_levels,
+            spacewalk=pipe.instanced and not pipe.inst_stride)
         for s in res["states"]:
             got, want = s.clone(), s.clone()
             walkpool.walk_rounds(got, pipe.table, pipe.motion, k)
@@ -2056,8 +2165,8 @@ def phase_k9(dev, paths):
             for (col, a), (_, b) in zip(got.tensors(), want.tensors()):
                 check(torch.equal(a.reshape(-1).view(torch.uint8),
                                   b.reshape(-1).view(torch.uint8)),
-                      f"phase 24 K9 ({name}): state column {col} differs "
-                      "from the plain version")
+                      f"phase {phase} {label} ({name}): state column {col} "
+                      "differs from the plain version")
             if warm is None:
                 warm = functools.partial(walkpool.walk_rounds, s.clone(),
                                          pipe.table, pipe.motion, k)
@@ -2072,73 +2181,85 @@ def phase_k9(dev, paths):
             plain_calls.append(functools.partial(
                 walkpool.walk_rounds, c, pipe.table, pipe.motion, k,
                 plain=True))
-        print(f"phase 24 K9 ({name}): one launch of {k} rounds on the "
-              f"states at boundaries {WALK_SNAPSHOTS}, every state column "
-              "bit-equal to the plain version")
+        print(f"phase {phase} {label} ({name}): one launch of {k} rounds on "
+              f"the states at boundaries {WALK_SNAPSHOTS}, every state "
+              "column bit-equal to the plain version")
     res = dict(max_abs_err=0.0, ms=device_ms(calls, warmup=warm),
                plain_ms=cuda_ms(plain_calls))
     res["bound_ms"], res["bound_by"] = mean_bound(costs)
     pool = next(iter(paths.values()))["states"][0].cur.shape[0]
     mb = ", ".join(f"{p['pipe'].table.table.numel() * 4 / 1e6:.2f}"
                    for p in paths.values())
-    print(f"phase 24 K9 on the main paths' states: device time "
+    print(f"phase {phase} {label} on the main paths' states: device time "
           f"{res['ms']:.4f} ms per launch vs plain {res['plain_ms']:.4f} ms; "
           f"walking lanes per round {np.mean(walking):.1f} of {pool}; bound "
           f"{res['bound_ms']:.4f} ms by {res['bound_by']} (rows gathered x "
-          f"{ROW_BYTES} B over 3.35 TB/s against the slab and MT operations "
-          f"over 67 TFLOP/s; the tables, {mb} MB, sit in the 50 MB L2)")
+          f"{ROW_BYTES} B over 3.35 TB/s against the slab, MT and space "
+          f"switch operations over 67 TFLOP/s; the tables, {mb} MB, sit in "
+          "the 50 MB L2)")
     return res
 
 
-def phase_k6t(dev, label, paths):
-    """Phase 25: K6 on C-major misc on the walk paths' recorded boundary
-    inputs, bit for bit against its plain version, timed and bounded as
-    phase 8."""
+def phase_k6t(dev, label, paths, phase=25):
+    """Phase 25 (31 with instance rows): K6 on the walk paths' recorded
+    boundary inputs (C-major misc), or on an external pipeline's
+    (row-major, with the flag `row_major` in the path's result), bit for
+    bit against its plain version, timed and bounded as phase 8."""
     import torch
 
     from rendertoy3c_tpu_torch.trace import shade
 
     launches, costs = [], []
     for name, res in paths.items():
-        pipe = res["pipe"]
-        tables, config = pipe.shade_tables, pipe.shade_config
-        mw = pipe.misc_w
-        for rays, hit4, misc in res["shade"]:
+        tables, config = res["tables"], res["config"]
+        transposed = not res.get("row_major")
+        mw = 24 if config.aov else 16
+        for rays, hit4, misc, inst in res["shade"]:
             a = (rays, hit4, misc, tables, config)
-            got = shade.external_shade(*a, transposed=True)
-            want = shade.external_shade_ref(*a, transposed=True)
+            kw = dict(transposed=transposed, inst=inst)
+            got = shade.external_shade(*a, **kw)
+            want = shade.external_shade_ref(*a, **kw)
             check(all(torch.equal(g.view(torch.int32), w.view(torch.int32))
                       for g, w in zip(got, want)),
-                  f"phase 25 {label} ({name}) differs from its plain version")
-            launches.append(a)
+                  f"phase {phase} {label} ({name}) differs from its plain "
+                  "version")
+            launches.append((a, kw))
             pool = rays.shape[0]
             prim = hit4[:, 1].clamp(min=0).to(torch.int64)
             attr = tables.attr[prim].T
+            it = (None if inst is None
+                  else shade.gather_inst_rows(tables.inst_rows, inst))
             tex_ops, tex_bytes = texture_work(attr, shade._shade_lanes(
-                rays, hit4, misc.T, attr, tables.lights_t, config,
-                tex=tables.tex, params_base=tables.params_base), tables.tex)
+                rays, hit4, misc.T if transposed else misc, attr,
+                tables.lights_t, config, tex=tables.tex,
+                params_base=tables.params_base, it=it), tables.tex)
             tex_ops += material_ops(pool, tables.params_base, config.power,
                                     config.num_lights)
+            inst_bytes = inst_ops = 0
+            if inst is not None:
+                inst_bytes = 4 * pool + 72 * int(torch.unique(inst).numel())
+                inst_ops = pool * (INST_SHADE_OPS + (
+                    INST_TANGENT_OPS if tables.tex is not None
+                    and tables.tex.normal_maps else 0))
             costs.append((pool * (32 + 16 + 4 * mw + 32 + 4 * (mw + 8)
                                   + 4 * got[2].shape[1])
                           + torch.unique(prim).numel() * 4 * attr.shape[0]
-                          + tex_bytes + 4 * tables.lights_t.numel(),
+                          + tex_bytes + inst_bytes
+                          + 4 * tables.lights_t.numel(),
                           pool * (SHADE_OPS + (AOV_OPS if config.aov else 0))
-                          + tex_ops))
+                          + tex_ops + inst_ops))
     res = dict(max_abs_err=0.0)
-    res["ms"] = device_ms([functools.partial(shade.external_shade, *a,
-                                             transposed=True)
-                           for a in launches] * 6)
-    res["plain_ms"] = cuda_ms([functools.partial(shade.external_shade_ref, *a,
-                                                 transposed=True)
-                               for a in launches])
+    res["ms"] = device_ms([functools.partial(shade.external_shade, *a, **kw)
+                           for a, kw in launches] * 6)
+    res["plain_ms"] = cuda_ms([functools.partial(shade.external_shade_ref,
+                                                 *a, **kw)
+                               for a, kw in launches])
     res["bound_ms"], res["bound_by"] = mean_bound(costs)
-    print(f"phase 25 {label} on the boundary inputs of "
-          f"{', '.join(paths)} (boundaries {WALK_SNAPSHOTS}), bit-equal to "
-          f"the plain version: device time {res['ms']:.4f} ms per "
-          f"{launches[0][0].shape[0]}-lane launch vs plain "
-          f"{res['plain_ms']:.4f} ms; bound {res['bound_ms']:.4f} ms by "
-          f"{res['bound_by']}")
+    print(f"phase {phase} {label} on the recorded inputs of "
+          f"{', '.join(paths)}, bit-equal to the plain version: device time "
+          f"{res['ms']:.4f} ms per {launches[0][0][0].shape[0]}-lane launch "
+          f"vs plain {res['plain_ms']:.4f} ms; bound {res['bound_ms']:.4f} "
+          f"ms by {res['bound_by']}")
     return res
 
 
@@ -2208,11 +2329,297 @@ def walk_band(dev, smi, t_start):
              "K6 transposed textured AOV", ("textured town aov",))):
         group = {k: aov_path if k == "textured town aov" else paths[k]
                  for k in keys}
-        res = phase_k6t(dev, label, group)
+        res = phase_k6t(dev, label, {k: dict(
+            v, tables=v["pipe"].shade_tables, config=v["pipe"].shade_config)
+            for k, v in group.items()})
         entries.append(kernel_entry(
             name, K6_SRC, 1778, sum(p["launches"]["external_shade"]
                                     for p in group.values()), res))
     print(f"phases 24-27 done; {time.perf_counter() - t_start:.1f} s since "
+          "the start")
+    return entries
+
+
+# ---------------------------------------------------------------- phase 28+
+# trace-time instancing: bench's instanced gate (bench.py:192-220) and its
+# four instanced configurations (:537-584): BASELINE config 3
+# (multi_instance_tlas, baked by build_scene, K4), multi_instance_tracetime
+# (the instanced walk under the external pipeline), multi_instance_large
+# (578 instances of the 972-face tower on the baked world table, K9) and
+# multi_instance_motion (its 2-key form on the instanced table at fanout
+# 32, K9-inst); K6 with instance rows on all but config 3
+INST_GATE_GRID = 8
+INST_REPLACES = "rendertoy3c_tpu/integrate/walkpool.py:456"
+# pool iterations of the trace-time path's warm-up subframe whose K6
+# inputs are recorded
+EXT_SNAPSHOTS = (32, 200, 600, 1000)
+
+
+def inst_scenes():
+    """{name: (scene, camera)} of bench's instanced configurations."""
+    from rendertoy3c_tpu_torch.scene.builtin import (instance_field,
+                                                      multi_instance_cornell)
+    from rendertoy3c_tpu_torch.scene.instanced import build_instanced_scene
+    from rendertoy3c_tpu_torch.scene.scene import build_scene
+
+    meshes, inst, cam = multi_instance_cornell()
+    large = instance_field(False)
+    motion = instance_field(True)
+    return {"multi_instance_tlas": (build_scene(meshes, instances=inst), cam),
+            "multi_instance_tracetime": (build_instanced_scene(meshes, inst),
+                                         cam),
+            "multi_instance_large": (build_instanced_scene(*large[:2]),
+                                     large[2]),
+            "multi_instance_motion": (build_instanced_scene(*motion[:2]),
+                                      motion[2])}
+
+
+def phase_inst_gate(dev):
+    """Phase 28: bench's instanced gate (bench.py:192-220): 131072 camera
+    rays of the 768^2 grid on bench's instance field at grid 8 (66
+    instances); the K9-inst-driven trace_closest_inst_hier and
+    trace_any_inst_hier (random tmax) bit-equal to their plain versions
+    and exact against the brute instanced tracer: 0 prim, 0 instance and 0
+    occlusion mismatches. Then the 2-key field at grid 8 on a forced
+    fanout-32 table with random times likewise: bit-equal to the plain
+    versions and 0 mismatches against the brute tracer."""
+    import torch
+
+    from rendertoy3c_tpu_torch.integrate.walkpool import walk_rounds
+    from rendertoy3c_tpu_torch.scene.builtin import instance_field
+    from rendertoy3c_tpu_torch.scene.camera import camera_ray_dir
+    from rendertoy3c_tpu_torch.scene.instanced import build_instanced_scene
+    from rendertoy3c_tpu_torch.trace import hier_instanced as hi
+    from rendertoy3c_tpu_torch.trace.instanced import make_instanced_tracer
+
+    for k, (what, motion, fanout) in enumerate((
+            ("static", False, None), ("2-key, fanout 32", True, 32))):
+        t0 = time.perf_counter()
+        meshes, inst, cam = instance_field(motion, INST_GATE_GRID)
+        scene = hi.split_order_instanced(build_instanced_scene(meshes, inst))
+        tab = hi.build_inst_hier_table(scene, fanout=fanout, device=dev)
+        scf = tuple(float(x) for x in np.concatenate(
+            list(cam.params())).astype(np.float32))
+        pix = torch.arange(GATE_RAYS, device=dev) % (768 * 768)
+        zero = torch.zeros(GATE_RAYS, device=dev)
+        d = torch.stack(camera_ray_dir(scf, pix, 768, 768, zero, zero), 1)
+        o = torch.as_tensor(scf[:3], device=dev).expand(GATE_RAYS, 3)
+        o = o.contiguous()
+        rng = np.random.default_rng(SEED + 28 + k)
+        tm = (torch.as_tensor(rng.uniform(0, 1, GATE_RAYS).astype(np.float32),
+                              device=dev) if motion else None)
+        t_any = torch.as_tensor(rng.uniform(0.5, 60.0, GATE_RAYS)
+                                .astype(np.float32), device=dev)
+        walk_rounds.inst_launches = 0
+        got = hi.trace_closest_inst_hier(tab, o, d, 1e-2, 1e16, time=tm)
+        occ = hi.trace_any_inst_hier(tab, o, d, 1e-3, t_any, time=tm)
+        launches = walk_rounds.inst_launches
+        want = hi.trace_closest_inst_hier(tab, o, d, 1e-2, 1e16, time=tm,
+                                          plain=True)
+        occ_p = hi.trace_any_inst_hier(tab, o, d, 1e-3, t_any, time=tm,
+                                       plain=True)
+        for col, a, b in zip(("t", "prim", "u", "v", "inst"), got, want):
+            check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+                  f"phase 28 {what}: K9-inst's closest {col} differs from "
+                  "the plain version")
+        check(torch.equal(occ, occ_p), f"phase 28 {what}: K9-inst's "
+              "occlusion differs from the plain version")
+        closest, any_hit = make_instanced_tracer(scene, dev)
+        brute = closest(o, d, 1e-2, 1e16, tm)
+        bad = [int((brute.prim != got.prim).sum()),
+               int((brute.inst != got.inst).sum()),
+               int((any_hit(o, d, 1e-3, t_any, tm) != occ).sum())]
+        check(max(bad) == 0, f"phase 28 {what}: {bad} prim, instance and "
+              "occlusion mismatches vs brute")
+        print(f"phase 28 instanced gate, {what} field at grid "
+              f"{INST_GATE_GRID} ({scene.num_instances} instances, "
+              f"{tab.table.shape[0]} rows, fanout {tab.fanout}, "
+              f"{tab.n_levels} levels): {GATE_RAYS} rays, K9-inst "
+              f"({launches} launches) bit-equal to the plain versions, "
+              f"{bad[0]} prim, {bad[1]} instance and {bad[2]} occlusion "
+              f"mismatches vs brute (hit share "
+              f"{float((got.prim >= 0).float().mean()):.3f}, occluded "
+              f"{float(occ.float().mean()):.3f}); "
+              f"{time.perf_counter() - t0:.1f} s")
+
+
+def inst_gates(dev, scenes):
+    """Phase 29: the gate of phase 4 at 96^2, kernels against plain
+    versions, on the trace-time Cornell (K9-inst under the external
+    pipeline, K6 with instance rows), a baked field at grid 6 (K9, K6
+    with instance rows; the bake forced below its face threshold) and the
+    578-instance 2-key field (K9-inst at fanout 32)."""
+    from rendertoy3c_tpu_torch.integrate.config import RenderConfig
+    from rendertoy3c_tpu_torch.integrate.walkpool import \
+        make_inst_walkpool_pipeline
+    from rendertoy3c_tpu_torch.scene.builtin import instance_field
+    from rendertoy3c_tpu_torch.scene.instanced import build_instanced_scene
+    from rendertoy3c_tpu_torch.trace.auto import choose_tracer
+    from rendertoy3c_tpu_torch.trace.hier_instanced import \
+        split_order_instanced
+
+    cfg = RenderConfig(**GATE)
+    for what, key in (("trace-time Cornell", "multi_instance_tracetime"),
+                      ("2-key 578-instance field", "multi_instance_motion")):
+        scene, camera = scenes[key]
+        ordered, pipe = choose_tracer(scene, cfg, dev)
+        plain = plain_tracer(scene, cfg, dev)[1]
+        gate(ordered, camera, dev, what, 29, tracers=(pipe, plain))
+    meshes, inst, camera = instance_field(False, 6)
+    ordered = split_order_instanced(build_instanced_scene(meshes, inst))
+    pipe = make_inst_walkpool_pipeline(ordered, cfg, dev, bake=True)
+    gate(ordered, camera, dev, "baked field at grid 6", 29,
+         tracers=(pipe, plain_walk_pipe(pipe)))
+
+
+def tracetime_path(name, scene, camera, dev, smi, timed=4, phase=30):
+    """multi_instance_tracetime through make_render_fn over choose_tracer's
+    external pipeline (with tune_config): 1 warm-up subframe, traced by
+    the profiler, during which K6's inputs at EXT_SNAPSHOTS pool
+    iterations are recorded, `timed` subframes with the launch counters
+    zeroed just before (K9-inst and K6 with instance rows must launch),
+    then the band of phase 5 (NARROW_BAND) against the plain versions;
+    the idle share is the warm-up's device busy time against the median
+    timed subframe. Returns {launches, shade, tables, config,
+    row_major}."""
+    import dataclasses
+
+    import torch
+
+    from rendertoy3c_tpu_torch.film.film import film_create
+    from rendertoy3c_tpu_torch.integrate.config import RenderConfig
+    from rendertoy3c_tpu_torch.integrate.path import make_render_fn
+    from rendertoy3c_tpu_torch.trace import shade
+    from rendertoy3c_tpu_torch.trace.auto import choose_tracer, tune_config
+
+    cfg = tune_config(scene, RenderConfig(**MAIN), dev)
+    ordered, pipe = choose_tracer(scene, cfg, dev)
+    check(isinstance(pipe, shade.ExternalPipeline) and pipe.instanced,
+          f"{name}: choose_tracer gave {type(pipe).__name__}")
+    rec = dict(on=True, it=0, shade=[])
+
+    def shade_fn(rays, hit4, misc, tables, config, inst=None):
+        if rec["on"] and rec["it"] in EXT_SNAPSHOTS:
+            rec["shade"].append((rays.clone(), hit4.clone(), misc.clone(),
+                                 inst.clone()))
+        rec["it"] += 1
+        return shade.external_shade(rays, hit4, misc, tables, config,
+                                    inst=inst)
+
+    pipe.shade_fn = shade_fn
+    step = make_render_fn(ordered, cfg, tracer=pipe, device=dev)
+    cam = camera.params()
+    film = film_create(cfg.height, cfg.width, device=dev)
+    counters = launch_counters()
+    t0 = time.perf_counter()
+    # the warm-up subframe is the profiled one: its trace costs ~3x its
+    # time, one subframe fewer to run
+    out = {}
+    warm_rows = device_rows(lambda: out.update(res=step(cam, film)))
+    warm_s = time.perf_counter() - t0
+    film = out["res"][0]
+    rec["on"] = False
+    check(len(rec["shade"]) == len(EXT_SNAPSHOTS),
+          f"{name}: {rec['it']} pool iterations, too few for the snapshots")
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    rates, secs, iters = [], [], []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        film, stats = step(cam, film)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rates.append((int(stats.radiance_rays) + int(stats.shadow_rays))
+                     / dt / 1e6)
+        secs.append(dt)
+        iters.append(stats.pool_iters)
+    launches = {n: getattr(fn, attr) for n, (fn, attr) in counters.items()}
+    for n in ("walk_rounds_inst", "external_shade_inst"):
+        check(launches[n] > 0, f"{name}: the main path launched {n} no time")
+    img = film.accum
+    check(bool(torch.isfinite(img).all())
+          and tuple(img.shape) == (cfg.height, cfg.width, 3),
+          f"{name}: image not finite or of shape {tuple(img.shape)}")
+    print(f"phase {phase} {name} 768^2 8spp depth 16 pool {cfg.ray_block} "
+          f"flush {cfg.flush_every} sort {cfg.sort_rays} ({ordered.num_faces}"
+          f" stored faces, {ordered.num_instances} instances) on {smi}: "
+          f"warm-up {warm_s:.3f} s\n  Mray/s per subframe {rates}, median "
+          f"{float(np.median(rates)):.6g}; s {secs}; pool iterations "
+          f"{iters}; per subframe {launches['walk_rounds_inst'] / timed:.1f}"
+          f" K9-inst and {launches['external_shade_inst'] / timed:.1f} K6 "
+          f"launches; image mean {float(img.mean()):.6f}; launches "
+          f"{launches}")
+    band_pair(name, scene, camera, dataclasses.asdict(cfg), dev, NARROW_BAND)
+    idle = profile_subframe(step, film, camera, float(np.median(secs)),
+                            phase, ("walk_kernel", "external_shade_kernel"),
+                            traced=(warm_rows, warm_s))
+    PATHS[name] = (float(np.median(rates)), idle)
+    return dict(launches=launches, shade=rec["shade"], tables=pipe.tables,
+                config=pipe.config, row_major=True)
+
+
+def inst_band(dev, smi, t_start):
+    """Phases 28-31 on trace-time instancing. Returns the entries of the
+    "kernels" line: K9-inst and K6 with instance rows, C-major and
+    row-major."""
+    from rendertoy3c_tpu_torch.trace import shade
+
+    t0 = time.perf_counter()
+    scenes = inst_scenes()
+    print(f"phase 28 instanced scenes built in {time.perf_counter() - t0:.2f}"
+          " s: " + ", ".join(
+              f"{n} {s.num_faces} faces" + (
+                  f", {s.num_instances} instances"
+                  if hasattr(s, "num_instances") else "")
+              for n, (s, _) in scenes.items()))
+    phase_inst_gate(dev)
+    inst_gates(dev, scenes)
+    print(f"phases 28-29 done; {time.perf_counter() - t_start:.1f} s since "
+          "the start")
+
+    # ---- phase 30: the main paths
+    full_size("multi_instance_tlas", *scenes["multi_instance_tlas"], dev,
+              smi, 30, {"trace_shade_refill": shade.trace_shade_refill},
+              ("refill_kernel",))
+    paths = {
+        "multi_instance_tracetime": tracetime_path(
+            "multi_instance_tracetime", *scenes["multi_instance_tracetime"],
+            dev, smi),
+        "multi_instance_large": walk_path(
+            "multi_instance_large", *scenes["multi_instance_large"], dev,
+            smi, {}, phase=30, need=("walk_rounds", "external_shade_inst")),
+        "multi_instance_motion": walk_path(
+            "multi_instance_motion", *scenes["multi_instance_motion"], dev,
+            smi, {}, phase=30,
+            need=("walk_rounds_inst", "external_shade_inst")),
+    }
+    print(f"phase 30 done; {time.perf_counter() - t_start:.1f} s since the "
+          "start")
+
+    # ---- phase 31: the kernels on the main paths' recorded inputs
+    k9i = phase_k9(dev, {"multi_instance_motion":
+                         paths["multi_instance_motion"]}, "K9-inst", 31)
+    phase_k9(dev, {"multi_instance_large": paths["multi_instance_large"]},
+             "K9 (baked world table)", 31)
+    entries = [dict(name="walk_rounds_inst", route="cuda", source=WALK_SRC,
+                    replaces=INST_REPLACES,
+                    launches=sum(p["launches"]["walk_rounds_inst"]
+                                 for p in paths.values()),
+                    **k9i, library_ms=None)]
+    fields = {k: dict(v, tables=v["pipe"].shade_tables,
+                      config=v["pipe"].shade_config)
+              for k, v in paths.items() if k != "multi_instance_tracetime"}
+    for name, label, group in (
+            ("external_shade_inst_transposed", "K6 instance rows, C-major",
+             fields),
+            ("external_shade_inst", "K6 instance rows, row-major",
+             {"multi_instance_tracetime":
+              paths["multi_instance_tracetime"]})):
+        res = phase_k6t(dev, label, group, phase=31)
+        entries.append(kernel_entry(
+            name, K6_SRC, 1778, sum(p["launches"]["external_shade_inst"]
+                                    for p in group.values()), res))
+    print(f"phases 28-31 done; {time.perf_counter() - t_start:.1f} s since "
           "the start")
     return entries
 
@@ -2567,6 +2974,9 @@ def main() -> int:
         # ---- phases 24-27: the hierwalk band
         walk_entries = walk_band(dev, smi, t_start)
 
+        # ---- phases 28-31: trace-time instancing
+        inst_entries = inst_band(dev, smi, t_start)
+
     except PhaseFailed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -2641,6 +3051,7 @@ def main() -> int:
         }.get(e["name"], e["launches"])
     kernels += aov_entries
     kernels += walk_entries
+    kernels += inst_entries
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

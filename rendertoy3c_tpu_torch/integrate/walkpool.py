@@ -46,13 +46,22 @@ import torch
 from ..kernels import build as kbuild
 from ..math import rng
 from ..scene.camera import camera_ray_dir
+from ..trace.hier_instanced import _L_FIRST as _LI_FIRST
+from ..trace.hier_instanced import _L_TYPE as _LI_TYPE
+from ..trace.hier_instanced import (InstHierTable, _inst_space,
+                                    baked_world_eligible,
+                                    build_baked_world_table,
+                                    build_inst_hier_table)
 from ..trace.hierwalk import (_BIG, _L_FIRST, _L_TYPE, HierTable, _dir_entries,
                               _leaf_mt, _prune_cut, _safe_inv,
                               build_hier_table)
 from ..trace.shade import (ACC_COLS, AOV_COLS, ExternalTables, ShadeConfig,
                            _first_failed, _slice_checks, external_shade,
-                           misc_width, shade_tables_for)
+                           inst_transform_rows, misc_width, shade_tables_for)
 
+# past this many (effective) faces the per-ray walk takes over from the MT
+# band, and a static instance field takes the baked world table
+LEAFWALK_MIN_FACES = 16384
 # directory fanout of the walk pool's tables: 0 = auto (16 with fixed
 # blocks or 20 with DP groups, hierwalk.build_hier_table)
 POOL_DIR_FANOUT = 0
@@ -93,6 +102,14 @@ class WalkState:
     hmode: torch.Tensor  # [P, W] bool
     hvalid: torch.Tensor  # [P, W] bool a finished walk awaits the boundary
     rows: torch.Tensor  # [1] int64 rows gathered (walking lane-rounds)
+    # the instanced walk (K9-inst): the ray in the space it walks in, the
+    # instance of that space (-1 = world), the best hit's instance, and
+    # each path's finished closest walk's instance
+    o_cur: torch.Tensor  # [W, 3] f32
+    d_cur: torch.Tensor  # [W, 3] f32
+    inst_cur: torch.Tensor  # [W] i32
+    wb_inst: torch.Tensor  # [W] i32
+    hinst: torch.Tensor  # [P, W] i32
 
     @property
     def paths(self) -> int:
@@ -138,14 +155,19 @@ def new_walk_state(w: int, n_levels: int, fanout: int, paths: int,
         hfound=torch.zeros((paths, w), **b),
         hmode=torch.zeros((paths, w), **b),
         hvalid=torch.zeros((paths, w), **b),
-        rows=torch.zeros(1, dtype=torch.int64, device=device))
+        rows=torch.zeros(1, dtype=torch.int64, device=device),
+        o_cur=torch.zeros((w, 3), **f32), d_cur=torch.zeros((w, 3), **f32),
+        inst_cur=torch.full((w,), -1, **i32),
+        wb_inst=torch.full((w,), -1, **i32),
+        hinst=torch.full((paths, w), -1, **i32))
 
 
 # ------------------------------------------------ K9's plain version
-def _launch_ref(s: WalkState) -> None:
+def _launch_ref(s: WalkState, inst: bool = False) -> None:
     """Fill free scratches from the first pending path (walkpool.py
     :1170-1212): the walk restarts at the root with its ray's tmax as the
-    best t; its entries need no reset (see _walk_round's pop)."""
+    best t; its entries need no reset (see _walk_round's pop). An
+    instanced walk (`inst`) starts in world space with no instance."""
     free = s.cur < 0
     taken = torch.zeros_like(free)
     for p in range(s.paths):
@@ -160,6 +182,11 @@ def _launch_ref(s: WalkState) -> None:
     s.wb_t.copy_(torch.where(taken, s.ray[:, 7], s.wb_t))
     s.wb_prim.copy_(torch.where(taken, -1, s.wb_prim))
     s.cur.copy_(torch.where(taken, 0, s.cur))
+    if inst:
+        s.o_cur.copy_(torch.where(taken[:, None], s.ray[:, 0:3], s.o_cur))
+        s.d_cur.copy_(torch.where(taken[:, None], s.ray[:, 3:6], s.d_cur))
+        s.inst_cur.copy_(torch.where(taken, -1, s.inst_cur))
+        s.wb_inst.copy_(torch.where(taken, -1, s.wb_inst))
 
 
 def _walk_round(tab: HierTable, s: WalkState, motion: bool) -> None:
@@ -232,6 +259,101 @@ def _walk_round(tab: HierTable, s: WalkState, motion: bool) -> None:
     s.cur.copy_(torch.where(walking, nxt, cur))
 
 
+def _walk_round_inst(tab: InstHierTable, s: WalkState, motion: bool) -> None:
+    """Advance every walking lane of an instanced table by one round
+    (walkpool.py :456-576), in place: the leaf test and the slab tests run
+    in the lane's current space (o_cur, d_cur; t stays in world units); an
+    instance row moves the lane into its instance's object space (a 2-key
+    row inverts its forward keys lerped to the walk's time) and jumps to
+    the mesh's root without a pop; a pop from a world level restores the
+    world ray and instance -1. The best hit keeps the instance it came
+    with (wb_inst).
+
+    The pop writes the pruned entries back as _BIG, as `_walk_round` does;
+    the reference's instanced round writes back only the popped slot, so
+    its finished walks leave pruned entries that the next walk in the
+    scratch pops (ROADMAP C9)."""
+    fanout = tab.fanout
+    cur = s.cur
+    o_w, d_w = s.ray[:, 0:3], s.ray[:, 3:6]
+    o_cur, d_cur = s.o_cur, s.d_cur
+    tmin_c = s.ray[:, 6:7]
+    walking = cur >= 0
+    s.rows += walking.sum()
+    lane = torch.arange(fanout, device=cur.device)[:, None]
+
+    rows = tab.table[torch.clamp(cur, min=0).to(torch.int64)]
+    typ = rows[:, _LI_TYPE]
+    is_inst = typ > 1.5
+    is_leaf = (typ > 0.5) & ~is_inst
+    first = rows[:, _LI_FIRST].to(torch.int32)
+
+    # leaf: Moller-Trumbore in the current space
+    zero = torch.zeros_like(s.wb_t)
+    tcur = torch.where(s.wfound, zero, s.wb_t)
+    t, u, v, hit = _leaf_mt(rows, o_cur, d_cur, tmin_c, tcur[:, None])
+    hit = hit & (is_leaf & walking)[:, None]
+    wmode = s.wmode
+    wfound = s.wfound | (wmode & hit.any(dim=1))
+    cap = hit.shape[1]
+    tt = torch.where(hit, t, torch.full_like(t, _BIG))
+    t_leaf = tt.min(dim=1).values
+    at_min = tt <= t_leaf[:, None]
+    caps = torch.arange(cap, device=cur.device)
+    lane_sel = torch.where(at_min, caps, cap).min(dim=1).values
+    one = at_min & (caps == lane_sel[:, None])
+    better = ~wmode & (t_leaf < s.wb_t)
+    wb_t = torch.where(better, t_leaf, s.wb_t)
+    s.wb_prim.copy_(torch.where(better, first + lane_sel.to(torch.int32),
+                                s.wb_prim))
+    s.wb_inst.copy_(torch.where(better, s.inst_cur, s.wb_inst))
+    s.wb_u.copy_(torch.where(better, torch.where(one, u, 0.0).sum(dim=1),
+                             s.wb_u))
+    s.wb_v.copy_(torch.where(better, torch.where(one, v, 0.0).sum(dim=1),
+                             s.wb_v))
+    s.wb_t.copy_(wb_t)
+    s.wfound.copy_(wfound)
+
+    # instance row: switch into object space
+    o_t, d_t, iid = _inst_space(rows, o_w, d_w, s.wtime, motion)
+    sel_i = walking & is_inst
+    o_cur = torch.where(sel_i[:, None], o_t, o_cur)
+    d_cur = torch.where(sel_i[:, None], d_t, d_cur)
+    inst_cur = torch.where(sel_i, iid.to(torch.int32), s.inst_cur)
+
+    # directory: slab-test the children in the current space
+    cut = _prune_cut(torch.where(wfound, zero, wb_t))
+    ent = _dir_entries(rows, o_cur, _safe_inv(d_cur), tmin_c, cut[:, None],
+                       fanout).T
+    is_dir = walking & ~is_leaf & ~is_inst
+    for lv, (lo_b, hi_b) in enumerate(tab.level_bounds()):
+        at_lv = is_dir & (cur >= lo_b) & (cur < hi_b)
+        s.ents[lv] = torch.where(at_lv[None], ent, s.ents[lv])
+        s.bases[lv] = torch.where(at_lv, first, s.bases[lv])
+
+    # ordered pop (instance rows do not pop), then an instance row's jump
+    nxt = torch.full_like(cur, -1)
+    pop_lv = torch.full_like(cur, -1)
+    for lv in reversed(range(tab.n_levels)):
+        e = s.ents[lv]
+        ee = torch.where(e < cut[None], e, torch.full_like(e, _BIG))
+        e_min = ee.min(dim=0).values
+        has = ((e_min < _BIG) & walking & ~is_inst & (nxt < 0) & ~wfound)
+        j = torch.where(ee <= e_min[None], lane, fanout).min(dim=0).values
+        nxt = torch.where(has, s.bases[lv] + j.to(torch.int32), nxt)
+        pop_lv = torch.where(has, lv, pop_lv)
+        taken = has[None] & (lane == j[None])
+        s.ents[lv] = torch.where(taken, torch.full_like(ee, _BIG), ee)
+    nxt = torch.where(walking & is_inst & ~wfound, first, nxt)
+
+    # a pop at a world level leaves the instance: restore the world ray
+    back = (pop_lv >= 0) & (pop_lv < tab.n_world)
+    s.o_cur.copy_(torch.where(back[:, None], o_w, o_cur))
+    s.d_cur.copy_(torch.where(back[:, None], d_w, d_cur))
+    s.inst_cur.copy_(torch.where(back, -1, inst_cur))
+    s.cur.copy_(torch.where(walking, nxt, cur))
+
+
 def _stash_and_gate_ref(s: WalkState) -> None:
     """A finished closest walk parks in its path's columns for the
     boundary's shade; a finished shadow walk gates inline: the path's
@@ -251,6 +373,7 @@ def _stash_and_gate_ref(s: WalkState) -> None:
         s.hfound[p] = torch.where(f, s.wfound, s.hfound[p])
         s.hmode[p] = torch.where(f, s.wmode, s.hmode[p])
         s.hvalid[p] |= f
+        s.hinst[p] = torch.where(f, s.wb_inst, s.hinst[p])
         fs = fin_sh & (s.wslot == p)
         gate = fs & ~s.wfound
         s.mc[p, 10:13] += torch.where(gate[None], s.nee[p], 0.0)
@@ -262,26 +385,32 @@ def _stash_and_gate_ref(s: WalkState) -> None:
     s.wslot.copy_(torch.where(fin, -1, s.wslot))
 
 
-def _pipe_rounds_ref(s: WalkState, tab: HierTable, motion: bool,
-                     rounds: int) -> None:
-    """Plain version of K9: `rounds` pool rounds in place."""
+def _pipe_rounds_ref(s: WalkState, tab, motion: bool, rounds: int) -> None:
+    """Plain version of K9 (a HierTable) and K9-inst (an InstHierTable):
+    `rounds` pool rounds in place."""
+    inst = isinstance(tab, InstHierTable)
     for _ in range(rounds):
-        _launch_ref(s)
-        _walk_round(tab, s, motion)
+        _launch_ref(s, inst)
+        if inst:
+            _walk_round_inst(tab, s, motion)
+        else:
+            _walk_round(tab, s, motion)
         _stash_and_gate_ref(s)
 
 
-def walk_rounds(s: WalkState, tab: HierTable, motion: bool, rounds: int,
+def walk_rounds(s: WalkState, tab, motion: bool, rounds: int,
                 plain: bool = False) -> None:
-    """K9 wrapper: `rounds` pool rounds (launch, walk round, stash, inline
-    gate) over every lane, in place on `s`. The CUDA kernel
-    (kernels/csrc/walk.cu) for CUDA tensors, `_pipe_rounds_ref` on the CPU
-    or with `plain`."""
+    """K9 / K9-inst wrapper: `rounds` pool rounds (launch, walk round,
+    stash, inline gate) over every lane, in place on `s`, over a HierTable
+    (K9) or an InstHierTable (K9-inst, `motion`: 2-key instance rows). The
+    CUDA kernel (kernels/csrc/walk.cu) for CUDA tensors,
+    `_pipe_rounds_ref` on the CPU or with `plain`."""
     if plain or s.cur.device.type == "cpu":
         _pipe_rounds_ref(s, tab, motion, rounds)
         return
     w = s.cur.shape[0]
     n_levels, fanout = tab.n_levels, tab.fanout
+    inst = isinstance(tab, InstHierTable)
     if n_levels > MAX_LEVELS:
         raise NotImplementedError(f"walk_rounds: {n_levels} directory "
                                   f"levels, K9 takes at most {MAX_LEVELS}")
@@ -290,9 +419,11 @@ def walk_rounds(s: WalkState, tab: HierTable, motion: bool, rounds: int,
                          "table's levels and fanout")
     kbuild.require_cuda("walk_rounds", tab.table, s.ray, s.wtime, s.wb_t,
                         s.wb_u, s.wb_v, s.ents, s.mc, s.nrays, s.nee, s.pray,
-                        s.ptime, s.btime, s.hray, s.ht, s.hu, s.hv)
+                        s.ptime, s.btime, s.hray, s.ht, s.hu, s.hv, s.o_cur,
+                        s.d_cur)
     kbuild.require_cuda("walk_rounds", s.cur, s.wslot, s.wb_prim, s.bases,
-                        s.hprim, dtype=torch.int32)
+                        s.hprim, s.inst_cur, s.wb_inst, s.hinst,
+                        dtype=torch.int32)
     kbuild.require_cuda("walk_rounds", s.wmode, s.wfound, s.pmode, s.pvalid,
                         s.hfound, s.hmode, s.hvalid, dtype=torch.bool)
     kbuild.require_cuda("walk_rounds", s.rows, dtype=torch.int64)
@@ -303,26 +434,32 @@ def walk_rounds(s: WalkState, tab: HierTable, motion: bool, rounds: int,
     p = kbuild.WalkParams(
         w=w, n_levels=n_levels, fanout=fanout, paths=s.paths,
         misc_w=s.mc.shape[1], rounds=rounds, motion=int(motion),
+        n_world=tab.n_world if inst else 0,
         level_lo=tuple(lo), level_hi=tuple(hi),
         **{name: t.data_ptr() for name, t in s.tensors()})
     index, stream = kbuild.launch_target(s.cur.device)
     err = kbuild.library().rt3c_walk_rounds(index, p, tab.table.data_ptr(),
                                             stream)
     kbuild.check(err, "walk_rounds")
-    walk_rounds.launches += 1
+    if inst:
+        walk_rounds.inst_launches += 1
+    else:
+        walk_rounds.launches += 1
 
 
-walk_rounds.launches = 0
+walk_rounds.launches = 0  # K9
+walk_rounds.inst_launches = 0  # K9-inst
 
 
 # ---------------------------------------------------------- the pipeline
 @dataclass(frozen=True)
 class WalkPoolPipeline:
     """The hier table, K6's tables and the launch functions of the walk
-    pool, on one device. Build it with make_walkpool_pipeline over the
-    split-ordered scene that choose_tracer returns with it."""
+    pool, on one device. Build it with make_walkpool_pipeline (or
+    make_inst_walkpool_pipeline) over the split-ordered scene that
+    choose_tracer returns with it."""
 
-    table: HierTable
+    table: HierTable | InstHierTable
     num_faces: int  # faces of the ordered scene (hits past it are misses)
     motion: bool  # 2-key scene: leaf rows lerped by the walk's time
     shade_tables: ExternalTables
@@ -332,6 +469,11 @@ class WalkPoolPipeline:
     device: torch.device
     walk_fn: object = walk_rounds  # K9, or _pipe_rounds_ref-like
     shade_fn: object = external_shade  # K6, or external_shade_ref
+    # a trace-time instanced scene: K6 takes each hit's instance
+    instanced: bool = False
+    # > 0: the walk rides a baked world table whose hits encode
+    # eff = instance * inst_stride + face (decoded before shading)
+    inst_stride: int = 0
 
     @property
     def n_levels(self) -> int:
@@ -341,14 +483,41 @@ class WalkPoolPipeline:
     def fanout(self) -> int:
         return self.table.fanout
 
-    def shade(self, rays, hit4, misc_t):
+    def shade(self, rays, hit4, misc_t, inst=None):
         """K6 on C-major misc [MW, W]: (rays [W, 8], misc [MW + 8, W],
-        shadow [W, 8 | 16])."""
+        shadow [W, 8 | 16]); inst [W] int32: an instanced scene's hit
+        instances."""
+        kw = dict(inst=inst) if self.instanced else {}
         return self.shade_fn(rays, hit4, misc_t, self.shade_tables,
-                             self.shade_config, transposed=True)
+                             self.shade_config, transposed=True, **kw)
 
     def rounds(self, s: WalkState, k: int) -> None:
         self.walk_fn(s, self.table, self.motion, k)
+
+
+def _shade_stage(scene, cfg, device):
+    """(ExternalTables, ShadeConfig) of K6 for the walk pool's scene."""
+    reason = _first_failed(_slice_checks(scene, cfg))
+    if reason is not None:
+        # the reference shades such scenes in its XLA stage (:255)
+        raise NotImplementedError(
+            f"{reason}; the walk pool's XLA shade stage for such scenes is "
+            "not ported yet (ROADMAP A22)")
+    attr_t, lights_t, tex, params_base = shade_tables_for(scene, device)
+    inst_rows = None
+    if hasattr(scene, "instance_mesh"):
+        inst_rows = torch.as_tensor(inst_transform_rows(scene), device=device)
+    tables = ExternalTables(
+        attr=torch.as_tensor(np.ascontiguousarray(attr_t.T), device=device),
+        lights_t=torch.as_tensor(lights_t, device=device), tex=tex,
+        params_base=params_base, inst_rows=inst_rows)
+    config = ShadeConfig(
+        max_depth=cfg.max_depth, num_lights=scene.num_lights,
+        shadow_tmin=cfg.shadow_tmin, shadow_eps=cfg.shadow_tmax_eps,
+        bg=tuple(float(b) for b in cfg.bg_radiance),
+        motion=scene.num_keys == 2, power=cfg.light_sampler == "power",
+        aov=cfg.aov)
+    return tables, config
 
 
 def make_walkpool_pipeline(scene, cfg, device, walk_fn=walk_rounds,
@@ -356,27 +525,12 @@ def make_walkpool_pipeline(scene, cfg, device, walk_fn=walk_rounds,
     """The node table (fanout auto) and K6's tables for `scene`, already
     split-ordered. walk_fn / shade_fn default to the kernels' wrappers,
     which run the plain versions on CPU tensors."""
-    reason = _first_failed(_slice_checks(scene, cfg))
-    if reason is not None:
-        # the reference shades such scenes in its XLA stage (:255)
-        raise NotImplementedError(
-            f"{reason}; the walk pool's XLA shade stage for such scenes is "
-            "not ported yet (ROADMAP A22)")
     device = torch.device(device)
+    tables, config = _shade_stage(scene, cfg, device)
     motion = scene.num_keys == 2
     tab = build_hier_table(scene.geom, scene.num_faces,
                            num_keys=scene.num_keys, fanout=POOL_DIR_FANOUT,
                            device=device)
-    attr_t, lights_t, tex, params_base = shade_tables_for(scene, device)
-    tables = ExternalTables(
-        attr=torch.as_tensor(np.ascontiguousarray(attr_t.T), device=device),
-        lights_t=torch.as_tensor(lights_t, device=device), tex=tex,
-        params_base=params_base)
-    config = ShadeConfig(
-        max_depth=cfg.max_depth, num_lights=scene.num_lights,
-        shadow_tmin=cfg.shadow_tmin, shadow_eps=cfg.shadow_tmax_eps,
-        bg=tuple(float(b) for b in cfg.bg_radiance), motion=motion,
-        power=cfg.light_sampler == "power", aov=cfg.aov)
     return WalkPoolPipeline(
         table=tab, num_faces=tab.num_faces, motion=motion,
         shade_tables=tables, shade_config=config,
@@ -384,15 +538,50 @@ def make_walkpool_pipeline(scene, cfg, device, walk_fn=walk_rounds,
         device=device, walk_fn=walk_fn, shade_fn=shade_fn)
 
 
-def phase_rounds(cfg, n_levels: int) -> int:
+def make_inst_walkpool_pipeline(iscene, cfg, device, walk_fn=walk_rounds,
+                                shade_fn=external_shade,
+                                bake: bool | None = None) -> WalkPoolPipeline:
+    """The walk pool over a trace-time instanced scene of at most 2 keys,
+    already split_order_instanced (walkpool.py :182-252): a static field
+    of more than LEAFWALK_MIN_FACES effective faces that
+    baked_world_eligible admits walks a baked world table on K9 (`bake`
+    True / False forces it either way, for the tests); any other walks
+    the instanced table on K9-inst. K6 transforms each hit's normal by
+    its instance's rows either way."""
+    if iscene.num_keys > 2:
+        raise ValueError("the instanced walk pool takes at most 2 transform "
+                         "keys (ROADMAP C1)")
+    device = torch.device(device)
+    tables, config = _shade_stage(iscene, cfg, device)
+    motion = iscene.num_keys == 2
+    eff_faces = sum(iscene.mesh_ranges[m][1] for m in iscene.instance_mesh)
+    if bake is None:
+        bake = (baked_world_eligible(iscene)
+                and eff_faces > LEAFWALK_MIN_FACES)
+    if bake:
+        tab, stride = build_baked_world_table(iscene, device=device)
+        num_faces = stride
+    else:
+        tab = build_inst_hier_table(iscene, device=device)
+        num_faces, stride = tab.num_faces, 0
+    return WalkPoolPipeline(
+        table=tab, num_faces=num_faces, motion=motion, shade_tables=tables,
+        shade_config=config, misc_w=misc_width(cfg.aov),
+        shadow_w=16 if motion else 8, device=device, walk_fn=walk_fn,
+        shade_fn=shade_fn, instanced=True, inst_stride=stride)
+
+
+def phase_rounds(cfg, n_levels: int, spacewalk: bool = False) -> int:
     """K, the rounds between two phase boundaries (walkpool.py
-    :1037-1054): cfg.walk_phase_every, else 16 up to 5 table levels and
-    32 past them."""
+    :1037-1054): cfg.walk_phase_every, else 32 past 5 table levels, 20 for
+    a space-switching instanced walk and 16 otherwise."""
     if cfg.walk_phase_every < 0:
         raise ValueError("walk_phase_every must be >= 0 (0 = auto)")
     if cfg.walk_phase_every:
         return cfg.walk_phase_every
-    return 32 if n_levels > 5 else 16
+    if n_levels > 5:
+        return 32
+    return 20 if spacewalk else 16
 
 
 # ------------------------------------------------------------ the pool
@@ -432,7 +621,8 @@ def _render_pipepool(scene, cfg, cam, pipe: WalkPoolPipeline, pixel_idx,
     spp = cfg.samples_per_launch
     pixel_base = int(pixel_idx[0])
     pool = max(min(cfg.ray_block, _next_pow2(n_pix * spp)), 256)
-    k_phase = phase_rounds(cfg, pipe.n_levels)
+    k_phase = phase_rounds(cfg, pipe.n_levels,
+                           spacewalk=pipe.instanced and not pipe.inst_stride)
     flush_n = cfg.flush_every or 8
     aov = cfg.aov
     stash2 = not aov  # the capacity-2 stash carries no AOV columns
@@ -463,17 +653,26 @@ def _render_pipepool(scene, cfg, cam, pipe: WalkPoolPipeline, pixel_idx,
         mc = s.mc
         # phase A: shade the paths whose closest walk finished
         m_a = s.hvalid & ~s.hmode
-        valid = m_a & (s.hprim >= 0) & (s.hprim < pipe.num_faces)
+        hprim, hinst = s.hprim, s.hinst
+        if pipe.inst_stride:
+            # a baked world table's hit: eff = instance * stride + face
+            # (walkpool.py :1248-1258, decoded here instead of per round)
+            hinst = torch.where(hprim >= 0, hprim // pipe.inst_stride, -1)
+            hprim = torch.where(hprim >= 0, hprim - hinst * pipe.inst_stride,
+                                -1)
+        valid = m_a & (hprim >= 0) & (hprim < pipe.num_faces)
         zero = torch.zeros_like(s.hu)
         hit4 = torch.stack([
             torch.where(valid, s.ht, s.hray[..., 7]),
-            torch.where(valid, s.hprim, -1).to(torch.float32),
+            torch.where(valid, hprim, -1).to(torch.float32),
             torch.where(valid, s.hu, zero),
             torch.where(valid, s.hv, zero)], dim=-1)
         misc_in = mc.transpose(0, 1).reshape(mw, paths * pool)
         misc_in[9] = m_a.reshape(-1).to(torch.float32)
+        inst = (torch.where(valid, hinst, -1).view(-1) if pipe.instanced
+                else None)
         rays2, misc_e, sh = pipe.shade(s.hray.view(-1, 8), hit4.view(-1, 4),
-                                       misc_in)
+                                       misc_in, inst)
         misc_e = misc_e.view(mw + 8, paths, pool).transpose(0, 1)
         mc.copy_(torch.where(m_a[:, None], misc_e[:, :mw], mc))
         s.nrays.copy_(torch.where(m_a[..., None],

@@ -84,26 +84,29 @@ class ExternalParams(ctypes.Structure):
         ("bg", ctypes.c_float * 3),
         ("attr_w", ctypes.c_int), ("power", ctypes.c_int),
         ("params_base", ctypes.c_int), ("aov", ctypes.c_int),
-        ("transposed", ctypes.c_int),
+        ("transposed", ctypes.c_int), ("n_inst", ctypes.c_int),
     ]
 
 
 class WalkParams(ctypes.Structure):
     """Mirror of `WalkParams` in csrc/walk.cu, field for field: the walk
     table's shape, the rounds of one launch and the walk pool's state
-    tensors (integrate/walkpool.py `WalkState`, in its field order)."""
+    tensors (integrate/walkpool.py `WalkState`, in its field order);
+    n_world > 0 takes K9-inst over an instanced table of n_world world
+    levels."""
 
     _fields_ = [
         ("w", ctypes.c_int), ("n_levels", ctypes.c_int),
         ("fanout", ctypes.c_int), ("paths", ctypes.c_int),
         ("misc_w", ctypes.c_int), ("rounds", ctypes.c_int),
-        ("motion", ctypes.c_int), ("pad", ctypes.c_int),
+        ("motion", ctypes.c_int), ("n_world", ctypes.c_int),
         ("level_lo", ctypes.c_int * 8), ("level_hi", ctypes.c_int * 8),
     ] + [(name, ctypes.c_void_p) for name in (
         "ray", "wtime", "cur", "wslot", "wmode", "wfound", "wb_t", "wb_prim",
         "wb_u", "wb_v", "ents", "bases", "mc", "nrays", "nee", "pray",
         "ptime", "pmode", "pvalid", "btime", "hray", "ht", "hprim", "hu",
-        "hv", "hfound", "hmode", "hvalid", "rows")]
+        "hv", "hfound", "hmode", "hvalid", "rows", "o_cur", "d_cur",
+        "inst_cur", "wb_inst", "hinst")]
 
 
 class TexParams(ctypes.Structure):
@@ -200,7 +203,7 @@ def library() -> ctypes.CDLL:
     lib.rt3c_mt_trace_motion.restype = ci
     lib.rt3c_external_shade.argtypes = [
         ci, ctypes.POINTER(ExternalParams), vp, vp, vp, vp, ci, vp, ci, vp,
-        vp, vp, tex, vp]
+        vp, vp, tex, vp, vp, vp]
     lib.rt3c_external_shade.restype = ci
     lib.rt3c_walk_rounds.argtypes = [ci, ctypes.POINTER(WalkParams), vp, vp]
     lib.rt3c_walk_rounds.restype = ci

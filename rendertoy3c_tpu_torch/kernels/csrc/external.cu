@@ -2,7 +2,8 @@
 //
 // Replaces rendertoy3c_tpu/trace/pallas_shade.py make_external_shader.shade
 // (:1678-1817, pallas_call at :1778), which is _make_shade_kernel(
-// external=True) (:271), in its non-instanced configuration, with misc
+// external=True) (:271), with or without instance rows (inst_base, :447-501,
+// :1747-1759), with misc
 // row-major or C-major (transposed=True, the walk pool's layout,
 // pallas_shade.py:1761-1820), with and without motion, untextured or
 // textured,
@@ -30,6 +31,14 @@
 // contiguous bytes per column), row-major reads MW * 4 contiguous bytes
 // per lane as float4s; both are one uniform branch around the loads and
 // the stores, so the 8 instantiations (and nvcc's time) stay as they were.
+//
+// Instance rows (p.n_inst > 0, a trace-time instanced scene): the lane reads
+// its hit's instance id from inst_ids [R] and that instance's 18 rows from
+// inst_rows [I, 18] (the identity where the id is -1) and shade_lane moves
+// the normal, and a normal map's tangent, to world space, so the AOV normal
+// is the world one too. The TPU kernel receives the rows gathered outside
+// (instanced_attr_t, :1555), a workaround of its own. A runtime switch like
+// `transposed`: no instantiation is added.
 //
 // One thread per lane, 128-thread blocks. The attribute row is read by
 // max(prim, 0) straight from the [F, W] table: the TPU kernel receives
@@ -61,6 +70,7 @@ struct ExternalParams {
   int attr_w;  // the attribute row's width: 16, or 24-40 textured
   int power, params_base, aov;
   int transposed;  // misc C-major [MW, R], misc_out [MW + 8, R]
+  int n_inst;      // > 0: instance rows inst_rows [n_inst, 18], inst_ids [R]
 };
 
 template <bool kTex, bool kDispatch, bool kAov>
@@ -74,7 +84,9 @@ __global__ void __launch_bounds__(EXT_BLOCK)
                           float* __restrict__ rays_out,
                           float* __restrict__ misc_out,
                           float* __restrict__ shadow_out,
-                          const TexParams tex) {
+                          const TexParams tex,
+                          const float* __restrict__ inst_rows,
+                          const int* __restrict__ inst_ids) {
   constexpr int MW = kAov ? 24 : 16;
   const int i = blockIdx.x * EXT_BLOCK + threadIdx.x;
   if (i >= n) return;
@@ -101,9 +113,18 @@ __global__ void __launch_bounds__(EXT_BLOCK)
   const ShadeConsts sc{p.max_depth, p.num_lights, p.light_stride,
                        p.power, p.params_base, p.shadow_tmin, p.shadow_eps,
                        p.pick_pdf, {p.bg[0], p.bg[1], p.bg[2]}};
+  InstRows inst;
+  inst.on = p.n_inst > 0;
+  if (inst.on) {
+    const int id = inst_ids[i];
+    const float* src = inst_rows + 18 * (size_t)min(max(id, 0), p.n_inst - 1);
+#pragma unroll
+    for (int q = 0; q < 18; ++q)
+      inst.m[q] = id >= 0 ? src[q] : ((q % 9) % 4 == 0 ? 1.0f : 0.0f);
+  }
   const Shaded o = shade_lane<true, kTex, kDispatch>(
       sc, r, h, m, attr + p.attr_w * (size_t)prim, 1, lights_t, tex,
-      [](const Ray&, bool, float) { return false; });
+      [](const Ray&, bool, float) { return false; }, inst);
 
   float4* rp = reinterpret_cast<float4*>(rays_out + 8 * (size_t)i);
   rp[0] = make_float4(o.survive ? o.px : r.ox, o.survive ? o.py : r.oy,
@@ -147,6 +168,8 @@ __global__ void __launch_bounds__(EXT_BLOCK)
 }  // namespace rt3c
 
 // tex: the atlas of a textured scene, null for an untextured one;
+// inst_rows / inst_ids: an instanced scene's rows and hit instances (p->n_inst
+// > 0), else null;
 // p->params_base > 0 takes the dispatch variant, p->aov the AOV variant
 // (misc [R, 24], misc_out [R, 32]); p->transposed takes misc C-major.
 extern "C" int rt3c_external_shade(int device, const rt3c::ExternalParams* p,
@@ -155,10 +178,14 @@ extern "C" int rt3c_external_shade(int device, const rt3c::ExternalParams* p,
                                    int n_faces, const float* lights_t, int n,
                                    float* rays_out, float* misc_out,
                                    float* shadow_out,
-                                   const rt3c::TexParams* tex, void* stream) {
+                                   const rt3c::TexParams* tex,
+                                   const float* inst_rows,
+                                   const int* inst_ids, void* stream) {
   if (n < 0 || n_faces < 1 || p->num_lights < 1 || p->attr_w < 16 ||
       p->params_base < 0 || p->params_base + 6 > p->attr_w ||
-      (tex && (tex->texels == nullptr || tex->meta == nullptr)))
+      (tex && (tex->texels == nullptr || tex->meta == nullptr)) ||
+      p->n_inst < 0 ||
+      (p->n_inst > 0 && (inst_rows == nullptr || inst_ids == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   const cudaError_t dev_err = cudaSetDevice(device);
@@ -173,7 +200,7 @@ extern "C" int rt3c_external_shade(int device, const rt3c::ExternalParams* p,
                                 decltype(kAov)::value>
         <<<grid, rt3c::EXT_BLOCK, 0, s>>>(*p, rays, hit4, misc, attr, n_faces,
                                           lights_t, n, rays_out, misc_out,
-                                          shadow_out, t);
+                                          shadow_out, t, inst_rows, inst_ids);
   };
   const auto with_aov = [&](auto kTex, auto kDispatch,
                             const rt3c::TexParams& t) {

@@ -33,6 +33,14 @@
 // reference's compare-sum for a nondecreasing CDF (ties from zero-power
 // lights included), with the pick pdf from light row 16.
 //
+// An instanced lane of K6 (`InstRows` on, trace-time instancing) carries
+// its hit instance's 18 transform rows: rows 0-8 the inverse-transpose that
+// moves the interpolated object-space normal to world space before its
+// second normalisation (pallas_shade.py :447-457), rows 9-17 the forward
+// linear part that moves a normal map's raw tangent (:487-501); the
+// identity where the lane hit no instance. K4 and K5 pass it off, and the
+// compiler drops the branch from them.
+//
 // The AOV variants of the kernels (kAov, pallas_shade.py :881-893) read the
 // lane's albedo (the texel where a texture is present) and its
 // face-forwarded shading normal (after any normal map) from `Shaded`, with
@@ -206,6 +214,12 @@ __device__ __forceinline__ T pick4(const Mat& m, T spec_v, T glass_v, T prin_v,
                    : (m.is_glass ? glass_v : (m.is_prin ? prin_v : diff_v));
 }
 
+// An instanced lane's transform rows (see the note at the top).
+struct InstRows {
+  bool on;
+  float m[18];  // 0-8 inverse-transpose, 9-17 forward linear, row-major
+};
+
 // What one lane's shading produces.
 struct Shaded {
   uint32_t seed;               // after the RR draw
@@ -229,14 +243,15 @@ struct Shaded {
 // p.params_base) read at a[field * as]; lights_t [24, light_stride], row 16
 // the pick pdf and row 17 the CDF of the power pick. occluded(shadow_ray,
 // want, time) runs the shadow sweep and must be reached by every thread of
-// the block (K4, K5).
+// the block (K4, K5). inst: an instanced lane's transform rows (K6).
 template <bool kExternal, bool kTextured, bool kDispatch, class Occluded>
 __device__ __forceinline__ Shaded shade_lane(const ShadeConsts& p,
                                              const Ray& r, const ClosestHit& h,
                                              const float* m, const float* a,
                                              int as, const float* lights_t,
                                              const TexParams& tex,
-                                             Occluded occluded) {
+                                             Occluded occluded,
+                                             const InstRows& inst = {}) {
   Shaded o;
   // --- unpack the lane state (misc layout, pallas_shade.py:32-36) ---
   uint32_t seed = __float_as_uint(m[0]);
@@ -256,6 +271,16 @@ __device__ __forceinline__ Shaded shade_lane(const ShadeConsts& p,
   float ngy = w0 * a[1 * as] + bu * a[4 * as] + bv * a[7 * as];
   float ngz = w0 * a[2 * as] + bu * a[5 * as] + bv * a[8 * as];
   normalize3(ngx, ngy, ngz);
+  if (inst.on) {
+    const float* it = inst.m;
+    const float nx2 = it[0] * ngx + it[1] * ngy + it[2] * ngz;
+    const float ny2 = it[3] * ngx + it[4] * ngy + it[5] * ngz;
+    const float nz2 = it[6] * ngx + it[7] * ngy + it[8] * ngz;
+    ngx = nx2;
+    ngy = ny2;
+    ngz = nz2;
+    normalize3(ngx, ngy, ngz);
+  }
   float tex_rgb[3] = {0.0f, 0.0f, 0.0f};
   float tid = -1.0f;
   if constexpr (kTextured) {
@@ -281,6 +306,15 @@ __device__ __forceinline__ Shaded shade_lane(const ShadeConsts& p,
       const float ntsy = n_rgb[1] * 2.0f - 1.0f;
       const float ntsz = n_rgb[2] * 2.0f - 1.0f;
       float tgx = nm[0], tgy = nm[as], tgz = nm[2 * as];
+      if (inst.on) {
+        const float* it = inst.m;
+        const float tx2 = it[9] * tgx + it[10] * tgy + it[11] * tgz;
+        const float ty2 = it[12] * tgx + it[13] * tgy + it[14] * tgz;
+        const float tz2 = it[15] * tgx + it[16] * tgy + it[17] * tgz;
+        tgx = tx2;
+        tgy = ty2;
+        tgz = tz2;
+      }
       const float d_tn = tgx * ngx + tgy * ngy + tgz * ngz;
       tgx = tgx - ngx * d_tn;
       tgy = tgy - ngy * d_tn;

@@ -3,7 +3,9 @@ rendertoy3c_tpu/scene/builtin.py `cornell_box` and `textured_quad_scene`,
 with the `quad` and `box_mesh` helpers), and the variants that the tests
 and chip_smoke.py render: the textured quad's (`textured_quad_variant`),
 the Cornell box with all four material types (`material_cornell_box`)
-and bench.py's 64x64 box field (`box_field`, 49154 faces)."""
+and bench.py's 64x64 box field (`box_field`, 49154 faces); the instanced
+scenes: the reference's `instanced_cornell`, bench's BASELINE config 3
+(`multi_instance_cornell`) and its 578-instance field (`instance_field`)."""
 from __future__ import annotations
 
 import dataclasses
@@ -13,6 +15,7 @@ import numpy as np
 from .camera import Camera
 from .material import Material, MaterialType
 from .mesh import Mesh
+from .scene import Instance
 from .texture import WRAP_CLAMP, WRAP_MIRROR, TextureImage
 
 
@@ -207,3 +210,124 @@ def box_field(n: int = 64, box_mesh_fn=box_mesh, quad_fn=quad,
                     material=material_cls(emissive=(40.0, 40.0, 40.0)))
     return [big, lamp], Camera(eye=(0.0, 20.0, 45.0), lookat=(0.0, 0.0, 0.0),
                                fov_y=50.0)
+
+
+def instanced_cornell():
+    """(meshes, instances, camera): the Cornell shell and one block mesh
+    placed three times by instance transforms (the reference's
+    scene/builtin.py `instanced_cornell`, :89-117)."""
+    meshes, camera = cornell_box(with_blocks=False)
+    block = box_mesh([-0.25, 0.0, -0.25], [0.25, 0.5, 0.25],
+                     Material(diffuse=(0.73, 0.73, 0.73)))
+    meshes.append(block)
+    block_id = len(meshes) - 1
+
+    def xform(tx, tz, angle_deg, scale=1.0):
+        a = np.deg2rad(angle_deg)
+        c, s = np.cos(a, dtype=np.float32), np.sin(a, dtype=np.float32)
+        m = np.zeros((3, 4), np.float32)
+        m[:, :3] = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]],
+                            np.float32) * scale
+        m[:, 3] = (tx, 0.0, tz)
+        return m
+
+    instances = [Instance(mesh_index=i) for i in range(block_id)]
+    instances += [
+        Instance(mesh_index=block_id, transforms=xform(-0.45, -0.3, 20.0)),
+        Instance(mesh_index=block_id, transforms=xform(0.4, 0.25, -15.0)),
+        Instance(mesh_index=block_id,
+                 transforms=xform(0.0, 0.55, 35.0, scale=0.6)),
+    ]
+    return meshes, instances, camera
+
+
+def multi_instance_cornell():
+    """(meshes, instances, camera) of bench.py's `multi_instance_tlas`
+    (BASELINE config 3, :560-574) and `multi_instance_tracetime`
+    (:576-584): the Cornell shell without blocks plus its floor quad
+    (mesh 0) placed 9 times, scaled by 0.25 on a 3 x 3 grid at y = 0.2.
+    build_scene bakes it; build_instanced_scene keeps it two-level."""
+    meshes, camera = cornell_box(with_blocks=False)
+    inst = [Instance(mesh_index=i) for i in range(len(meshes))]
+    for gx in (-0.6, 0.0, 0.6):
+        for gz in (-0.6, 0.0, 0.6):
+            t = np.zeros((3, 4), np.float32)
+            t[:, :3] = np.eye(3) * 0.25
+            t[:, 3] = (gx, 0.2, gz)
+            inst.append(Instance(mesh_index=0, transforms=t))
+    return meshes, inst, camera
+
+
+def instance_field(motion: bool = False, grid: int = 24):
+    """(meshes, instances, camera) of bench.py's instance field
+    (`_instance_field_scene`, :253-304; seed 0): one tower mesh of 81
+    boxes (972 faces) placed grid x grid times on a unit grid, a 16 x 16
+    lamp at y = 20 and a 60 x 60 floor; grid 24 gives 578 instances and
+    562k effective faces (`multi_instance_large`), `motion` a second key
+    per tower of up to 0.35 rad of yaw and 0.3 of drift
+    (`multi_instance_motion`)."""
+    rng = np.random.default_rng(0)
+    white = Material(diffuse=(0.7, 0.7, 0.7))
+    v_all, f_all, off = [], [], 0
+    for _ in range(81):
+        x, y, z = rng.uniform(0, 0.8, 3)
+        m = box_mesh([x, y * 2, z], [x + 0.15, y * 2 + 0.3, z + 0.15],
+                     white)
+        v_all.append(m.vertices[0])
+        f_all.append(m.indices + off)
+        off += m.vertices.shape[1]
+    tower = Mesh(vertices=np.concatenate(v_all)[None],
+                 indices=np.concatenate(f_all), material=white)
+    lv, lf = quad([-8, 20, -8], [-8, 20, 8], [8, 20, 8], [8, 20, -8])
+    lamp = Mesh(vertices=lv[None], indices=lf,
+                material=Material(emissive=(40.0, 40.0, 40.0)))
+    fv, ff = quad([-30, 0, -30], [30, 0, -30], [30, 0, 30], [-30, 0, 30])
+    floor = Mesh(vertices=fv[None], indices=ff, material=white)
+    inst = [Instance(mesh_index=1), Instance(mesh_index=2)]
+    for gx in range(grid):
+        for gz in range(grid):
+            t = np.zeros((3, 4), np.float32)
+            t[:, :3] = np.eye(3)
+            t[:, 3] = (gx - grid // 2, 0, gz - grid // 2)
+            if motion:
+                ang = rng.uniform(-0.35, 0.35)
+                c, s = np.cos(ang), np.sin(ang)
+                t1 = np.zeros((3, 4), np.float32)
+                t1[:, :3] = np.asarray(
+                    [[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
+                t1[:, 3] = t[:, 3] + rng.uniform(-0.3, 0.3, 3)
+                inst.append(Instance(mesh_index=0,
+                                     transforms=np.stack([t, t1])))
+            else:
+                inst.append(Instance(mesh_index=0, transforms=t))
+    cam = Camera(eye=(0.0, 16.0, 34.0), lookat=(0.0, 0.5, 0.0), fov_y=50.0)
+    return [tower, lamp, floor], inst, cam
+
+
+def instanced_bumpy_quad():
+    """(meshes, instances, textures, camera): a normal-mapped quad placed
+    by a rotated, non-uniformly scaled instance under a lamp (the
+    reference's tests/test_hier_instanced.py:227-270), for the instance
+    rows' tangent transform."""
+    h, w = 16, 16
+    yy, xx = np.mgrid[0:h, 0:w] / 8.0 * np.pi
+    n = np.stack([0.45 * np.sin(xx), 0.45 * np.cos(yy),
+                  np.sqrt(1.0 - 0.45 ** 2) * np.ones_like(xx)], axis=-1)
+    ntex = np.concatenate([((n * 0.5 + 0.5) * 255).astype(np.uint8),
+                           np.full((h, w, 1), 255, np.uint8)], axis=-1)
+    white = Material(diffuse=(0.7, 0.7, 0.7), normal_texture_id=0)
+    fv, ff = quad([-1, 0, -1], [1, 0, -1], [1, 0, 1], [-1, 0, 1])
+    uvs = np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32)
+    bumpy = Mesh(vertices=fv[None], indices=ff, texcoords=uvs,
+                 material=white)
+    lv, lf = quad([-0.5, 2.5, -0.5], [-0.5, 2.5, 0.5], [0.5, 2.5, 0.5],
+                  [0.5, 2.5, -0.5])
+    lamp = Mesh(vertices=lv[None], indices=lf,
+                material=Material(emissive=(15.0, 15.0, 15.0)))
+    c, s = np.cos(0.7), np.sin(0.7)
+    rot = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
+    t = np.zeros((3, 4), np.float32)
+    t[:, :3] = rot @ np.diag([1.3, 1.0, 0.8]).astype(np.float32)
+    instances = [Instance(mesh_index=0, transforms=t), Instance(mesh_index=1)]
+    cam = Camera(eye=(0, 2.2, 3.2), lookat=(0, 0, 0), fov_y=45.0)
+    return [bumpy, lamp], instances, [ntex], cam

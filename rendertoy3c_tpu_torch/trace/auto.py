@@ -4,6 +4,13 @@ Port of rendertoy3c_tpu/trace/auto.py `choose_tracer` (:98-195) and
 `tune_config` (:46-90), narrowed to the ported rungs of its ladder and
 never routing a scene elsewhere than the reference would:
 
+  trace-time instanced scene (InstancedScene) of at most 2 keys, pool
+                                      -> split_order_instanced, then
+                                         (:117-148) more than 16384
+                                         effective faces: the instanced
+                                         walk pool (a static field on its
+                                         baked world table); else the
+                                         instanced walk + ExternalPipeline
   more than 16384 faces, static or 2-key, pool integrator
                                       -> SAH split order (leaf 14, or 7
                                          for 2 keys), then the walk pool
@@ -14,8 +21,9 @@ never routing a scene elsewhere than the reference would:
 
 2-key scenes of the MT band keep their face order, as in the reference.
 Everything else raises NotImplementedError naming the ROADMAP item that
-adds it: more than 2 keys, and the bare hierwalk tracer under the wave
-integrator or the general pool.
+adds it: more than 2 keys (for instances, K7: C1), the bare hierwalk and
+instanced tracers under the wave integrator or the general pool (A6/A7),
+and the XLA shade stage (A22).
 Returns (scene, tracer): always render the returned scene, whose face
 order matches the tracer's tables.
 """
@@ -26,27 +34,55 @@ import dataclasses
 import torch
 
 from ..accel.lbvh import morton_order_scene, split_order_scene
-from ..integrate.walkpool import make_walkpool_pipeline
+from ..integrate.walkpool import (LEAFWALK_MIN_FACES,
+                                  make_inst_walkpool_pipeline,
+                                  make_walkpool_pipeline)
+from .hier_instanced import (baked_world_eligible, make_inst_hierwalk_tracer,
+                             split_order_instanced)
 from .hierwalk import HIER_LEAF, HIER_LEAF_MOTION
 from .mt import make_mt_tracer
 from .shade import (MAX_FACES, ExternalPipeline, FusedPipeline,
                     external_unsupported, fused_unsupported)
 
-# past this many faces the per-ray walk takes over from the MT band
-LEAFWALK_MIN_FACES = 16384
 # the walk pool's width above 100000 faces (twice it below)
 POOL_BLOCK_LARGE = 8192
 
 
+def _is_instanced(scene) -> bool:
+    """True for a trace-time instanced scene (InstancedScene)."""
+    return hasattr(scene, "instance_mesh")
+
+
+def _eff_faces(iscene) -> int:
+    """Every instance's (padded) mesh faces: the instanced walk's load."""
+    return sum(iscene.mesh_ranges[m][1] for m in iscene.instance_mesh)
+
+
 def tune_config(scene, cfg, device):
-    """The walk band's pool knobs, which the reference applies on its
-    accelerator and the port on the CUDA device (`device` of type cuda):
+    """The pool knobs the reference applies on its accelerator and the
+    port on the CUDA device (`device` of type cuda), for the pool
+    integrator; any other (scene, cfg, device) keeps its cfg. Apply it
+    before choose_tracer.
+
+    An instanced scene of at most 2 keys: no ray sort, flush cadence 8, a
+    pool of 2 * POOL_BLOCK_LARGE lanes for a baked field of more than
+    LEAFWALK_MIN_FACES effective faces and POOL_BLOCK_LARGE otherwise.
+    Other scenes of more than LEAFWALK_MIN_FACES faces: flush cadence 8,
     a pool of 2 * POOL_BLOCK_LARGE lanes below 100000 faces and
-    POOL_BLOCK_LARGE above, and flush cadence 8, for pool scenes of more
-    than LEAFWALK_MIN_FACES faces; any other (scene, cfg, device) keeps
-    its cfg. Apply it before choose_tracer."""
-    if (torch.device(device).type != "cuda" or cfg.integrator != "pool"
-            or scene.num_faces <= LEAFWALK_MIN_FACES):
+    POOL_BLOCK_LARGE above."""
+    if torch.device(device).type != "cuda" or cfg.integrator != "pool":
+        return cfg
+    if _is_instanced(scene):
+        if scene.num_keys > 2:
+            return cfg
+        wide = (baked_world_eligible(scene)
+                and _eff_faces(scene) > LEAFWALK_MIN_FACES)
+        return dataclasses.replace(
+            cfg,
+            ray_block=min(cfg.ray_block,
+                          2 * POOL_BLOCK_LARGE if wide else POOL_BLOCK_LARGE),
+            sort_rays=False, flush_every=cfg.flush_every or 8)
+    if scene.num_faces <= LEAFWALK_MIN_FACES:
         return cfg
     wide = scene.num_faces < 100_000
     return dataclasses.replace(
@@ -58,6 +94,8 @@ def tune_config(scene, cfg, device):
 
 def choose_tracer(scene, cfg, device):
     """(scene, tracer) for rendering `scene` under `cfg` on `device`."""
+    if _is_instanced(scene):
+        return _choose_instanced(scene, cfg, device)
     if scene.num_keys > 2:
         raise NotImplementedError(
             "more than 2 motion keys need the N-key brute tracer and the "
@@ -86,3 +124,29 @@ def choose_tracer(scene, cfg, device):
         raise NotImplementedError(reason)
     return scene, ExternalPipeline(scene, cfg, make_mt_tracer(scene, device),
                                    device)
+
+
+def _choose_instanced(iscene, cfg, device):
+    """The instanced branch of choose_tracer (auto.py:117-150)."""
+    if iscene.num_keys > 2:
+        raise NotImplementedError(
+            "instanced scenes of more than 2 transform keys take the "
+            "unrolled instanced kernels (K7), not ported yet (ROADMAP C1)")
+    if cfg.integrator != "pool":
+        raise NotImplementedError(
+            "the bare instanced tracer under the wave integrator is not "
+            "ported yet (ROADMAP A6/A7)")
+    if cfg.ray_block % 256:
+        raise ValueError("the pool pipelines need ray_block % 256 == 0")
+    iscene = split_order_instanced(iscene)
+    if _eff_faces(iscene) > LEAFWALK_MIN_FACES:
+        return iscene, make_inst_walkpool_pipeline(iscene, cfg, device)
+    reason = external_unsupported(iscene, cfg)
+    if reason is not None:
+        # the reference renders these with the bare tracer in its
+        # general pool, or in its walk pool's XLA shade stage
+        raise NotImplementedError(
+            f"{reason}; the instanced tracer under the general pool is not "
+            "ported yet (ROADMAP A7/A22)")
+    return iscene, ExternalPipeline(
+        iscene, cfg, make_inst_hierwalk_tracer(iscene, device), device)

@@ -19,9 +19,16 @@ first face id and lane 127 = 1. A directory row holds its fanout (16 or
 20) child boxes component-major (lo.x[F] lo.y lo.z hi.x hi.y hi.z; padding
 children lo = hi = +BIG), lane 126 the first child's row and lane 127 = 0.
 
+A 32-wide directory row (FANOUT32, the instanced tables of
+trace/hier_instanced.py) packs each child's box as bf16 pairs, one f32
+lane per child and axis: lo in the low 16 bits, hi in the high 16, each
+rounded outward (`_bf16_outward` :108, `_pack_bf16_lohi` :122), so the
+boxes only loosen.
+
 Not ported, raising NotImplementedError with their ROADMAP item from
-`build_hier_table`: the bf16-packed 32-wide directories (FANOUT32) and the
-stacked segment tables of more than 2 keys (`build_hier_table_nkey`).
+`build_hier_table`: the flat tables' 32-wide directories (FANOUT32, which
+only an env knob of the reference reaches there) and the stacked segment
+tables of more than 2 keys (`build_hier_table_nkey`).
 """
 from __future__ import annotations
 
@@ -36,7 +43,7 @@ HIER_LEAF = 14  # triangles inline per leaf row (9 * 14 = 126 lanes)
 HIER_LEAF_MOTION = 7  # 2-key leaves: both keys inline (2 * 9 * 7 = 126)
 FANOUT = 16  # children per directory row (6 * 16 = 96 lanes of boxes)
 FANOUT20 = 20  # 6 * 20 = 120 lanes of boxes
-FANOUT32 = 32  # the bf16-packed directories: not ported (ROADMAP A17)
+FANOUT32 = 32  # bf16-packed directories: the instanced tables only
 ROW = 128
 _BIG = 1e30
 _DET_EPS = 1e-10
@@ -66,6 +73,26 @@ class HierTable:
         """(lo, hi) row ranges of each directory level."""
         his = tuple(self.level_starts[1:]) + (self.leaf_start,)
         return tuple(zip(self.level_starts, his))
+
+
+def _bf16_outward(x: np.ndarray, up: bool) -> np.ndarray:
+    """Box coordinates rounded outward (up: toward +inf) to bf16, as
+    uint16 bits. The pre-pad of |x| * 2^-7 dominates the bf16 rounding
+    error (<= |x| * 2^-9), so lo_b <= lo and hi_b >= hi."""
+    x = np.asarray(x, np.float32)
+    m = np.abs(x) * np.float32(2.0 ** -7) + np.float32(1e-34)
+    y = (x + m if up else x - m).astype(np.float32)
+    # round to nearest even on the upper 16 bits (finite values only)
+    u = y.view(np.uint32).astype(np.uint64)
+    u = (u + 0x7FFF + ((u >> 16) & 1)) >> 16
+    return u.astype(np.uint16)
+
+
+def _pack_bf16_lohi(lo16: np.ndarray, hi16: np.ndarray) -> np.ndarray:
+    """One f32 lane per child: the bf16 bits of lo in the low 16 bits and
+    of hi in the high 16 (u << 16 and u & 0xFFFF0000 widen them back)."""
+    u32 = ((hi16.astype(np.uint32) << 16) | lo16.astype(np.uint32))
+    return u32.view(np.float32)
 
 
 def _dp_group_sizes(lo: np.ndarray, hi: np.ndarray, fanout: int,
@@ -141,6 +168,68 @@ def _dir_half_area_sum(leaf_lo, leaf_hi, fanout: int) -> float:
         total += float((d[:, 0] * d[:, 1] + d[:, 1] * d[:, 2]
                         + d[:, 2] * d[:, 0]).sum())
     return total
+
+
+def _build_levels(lo, hi, fanout: int, var: bool):
+    """Bottom-up directory levels over ordered node boxes lo/hi [n, 3]:
+    DP-chosen runs of at most `fanout` (`var`) or fixed blocks. Returns
+    (levels, root lo, root hi); levels root first, each (clo [n, fanout,
+    3], chi, first_rel [n])."""
+    levels = []
+    while lo.shape[0] > 1:
+        groups = None
+        if var:
+            sizes = _dp_group_sizes(lo, hi, fanout, _VAR_DIR_LAM)
+            # a singleton-heavy solution must not stall the recursion
+            if len(sizes) * 2 <= lo.shape[0]:
+                n_dir = len(sizes)
+                clo = np.full((n_dir, fanout, 3), _BIG, np.float32)
+                chi = np.full((n_dir, fanout, 3), _BIG, np.float32)
+                first_rel = np.zeros(n_dir, np.int64)
+                pos = 0
+                for gi, sz in enumerate(sizes):
+                    clo[gi, :sz] = lo[pos:pos + sz]
+                    chi[gi, :sz] = hi[pos:pos + sz]
+                    first_rel[gi] = pos
+                    pos += sz
+                groups = (clo, chi, first_rel)
+        if groups is None:
+            groups = _fixed_groups(lo, hi, fanout)
+        levels.insert(0, groups)
+        lo, hi = _union_real(groups[0], groups[1])
+    return levels, lo[0], hi[0]
+
+
+def _write_dir(rows, clo, chi, first, fanout: int):
+    """Directory rows in place: the child boxes (f32, or bf16-packed at
+    FANOUT32), each row's first child row, type 0."""
+    for c in range(3):
+        if fanout == FANOUT32:
+            rows[:, c * fanout:(c + 1) * fanout] = _pack_bf16_lohi(
+                _bf16_outward(clo[:, :, c], up=False),
+                _bf16_outward(chi[:, :, c], up=True))
+        else:
+            rows[:, c * fanout:(c + 1) * fanout] = clo[:, :, c]
+            rows[:, (c + 3) * fanout:(c + 4) * fanout] = chi[:, :, c]
+    rows[:, _L_FIRST] = first.astype(np.float32)
+    rows[:, _L_TYPE] = 0.0
+
+
+def _dir_table(levels, n_leaf: int, fanout: int):
+    """(table [directory rows + n_leaf, ROW] f32 with the directory rows
+    of `levels` written and the leaf rows zero, the levels' first rows,
+    leaf_start)."""
+    starts = []
+    acc = 0
+    for clo, _, _ in levels:
+        starts.append(acc)
+        acc += clo.shape[0]
+    table = np.zeros((acc + n_leaf, ROW), np.float32)
+    for li, (clo, chi, first_rel) in enumerate(levels):
+        child_base = starts[li + 1] if li + 1 < len(levels) else acc
+        _write_dir(table[starts[li]:starts[li] + clo.shape[0]], clo, chi,
+                   child_base + first_rel, fanout)
+    return table, tuple(starts), acc
 
 
 def build_hier_table(geom, num_faces: int, num_keys: int = 1,
@@ -221,56 +310,14 @@ def build_hier_table(geom, num_faces: int, num_keys: int = 1,
         else:
             fanout = FANOUT20
 
-    # directory levels bottom-up
-    levels = []  # (clo, chi, first_rel) per level, root first
-    lo, hi = leaf_lo, leaf_hi
-    counts = [n_leaf]
-    while counts[0] > 1:
-        m = counts[0]
-        groups = None
-        if var_dirs:
-            sizes = _dp_group_sizes(lo, hi, fanout, _VAR_DIR_LAM)
-            # a singleton-heavy solution must not stall the recursion
-            if len(sizes) * 2 <= m:
-                n_dir = len(sizes)
-                clo = np.full((n_dir, fanout, 3), _BIG, np.float32)
-                chi = np.full((n_dir, fanout, 3), _BIG, np.float32)
-                first_rel = np.zeros(n_dir, np.int64)
-                pos = 0
-                for gi, sz in enumerate(sizes):
-                    clo[gi, :sz] = lo[pos:pos + sz]
-                    chi[gi, :sz] = hi[pos:pos + sz]
-                    first_rel[gi] = pos
-                    pos += sz
-                groups = (clo, chi, first_rel)
-        if groups is None:
-            groups = _fixed_groups(lo, hi, fanout)
-        levels.insert(0, groups)
-        lo, hi = _union_real(groups[0], groups[1])
-        counts.insert(0, groups[0].shape[0])
-
-    starts = []
-    acc = 0
-    for c in counts[:-1]:
-        starts.append(acc)
-        acc += c
-    leaf_start = acc
-    table = np.zeros((acc + n_leaf, ROW), np.float32)
-    for li, (clo, chi, first_rel) in enumerate(levels):
-        base = starts[li]
-        child_base = starts[li + 1] if li + 1 < len(levels) else leaf_start
-        rows = table[base:base + clo.shape[0]]
-        for c in range(3):
-            rows[:, c * fanout:(c + 1) * fanout] = clo[:, :, c]
-            rows[:, (c + 3) * fanout:(c + 4) * fanout] = chi[:, :, c]
-        rows[:, _L_FIRST] = (child_base + first_rel).astype(np.float32)
-        rows[:, _L_TYPE] = 0.0
+    levels = _build_levels(leaf_lo, leaf_hi, fanout, var_dirs)[0]
+    table, starts, leaf_start = _dir_table(levels, n_leaf, fanout)
     lrows = table[leaf_start:]
     lrows[:, :leaf_tris.shape[1]] = leaf_tris
     lrows[:, _L_FIRST] = cap * np.arange(n_leaf, dtype=np.float32)
     lrows[:, _L_TYPE] = 1.0
     return HierTable(table=torch.as_tensor(table, device=device),
-                     level_starts=tuple(starts), leaf_start=leaf_start,
+                     level_starts=starts, leaf_start=leaf_start,
                      num_faces=f, fanout=fanout)
 
 
@@ -315,13 +362,21 @@ def _leaf_mt(rows, o, d, tmin, tcur, time=None):
 def _dir_entries(rows, o, inv, tmin, tcur, fanout: int = FANOUT):
     """[R, fanout] child-box entry distances, _BIG where missed; o, inv
     [R, 3], tmin/tcur [R, 1]. Padding children (lo = hi = +BIG) fail the
-    slab test by themselves."""
+    slab test by themselves. Rows of fanout 32 carry bf16-packed boxes."""
     r = rows.shape[0]
     tn = torch.full((r, fanout), -_BIG, dtype=rows.dtype, device=rows.device)
     tf = torch.full((r, fanout), _BIG, dtype=rows.dtype, device=rows.device)
+    if fanout == FANOUT32:
+        u = rows[:, :3 * FANOUT32].contiguous().view(torch.int32)
     for c in range(3):
-        lo = rows[:, c * fanout:(c + 1) * fanout]
-        hi = rows[:, (c + 3) * fanout:(c + 4) * fanout]
+        if fanout == FANOUT32:
+            # the bf16 -> f32 widenings of the packed (lo, hi) halves
+            uc = u[:, c * fanout:(c + 1) * fanout]
+            lo = (uc << 16).view(torch.float32)
+            hi = (uc & -65536).view(torch.float32)
+        else:
+            lo = rows[:, c * fanout:(c + 1) * fanout]
+            hi = rows[:, (c + 3) * fanout:(c + 4) * fanout]
         oc = o[:, c:c + 1]
         ic = inv[:, c:c + 1]
         t0 = (lo - oc) * ic
@@ -349,12 +404,12 @@ def _prune_cut(best_t):
 
 
 # ------------------------------------------------------ the walk tracers
-def _walk(tab: HierTable, o, d, tmin, tmax, count, any_mode: bool,
-          time=None, plain: bool = False):
+def _walk(tab, o, d, tmin, tmax, count, any_mode: bool, time=None,
+          plain: bool = False):
     """Run the walk round (integrate/walkpool.py `walk_rounds`: K9 on a
-    CUDA device, its plain version on the CPU or with `plain`) to
-    completion over a ray batch, 16 rounds per launch. Returns the final
-    walk state."""
+    CUDA device, its plain version on the CPU or with `plain`; K9-inst
+    for an instanced table) to completion over a ray batch, 16 rounds per
+    launch. Returns the final walk state."""
     from ..integrate.walkpool import new_walk_state, walk_rounds
 
     r = o.shape[0]
@@ -366,6 +421,9 @@ def _walk(tab: HierTable, o, d, tmin, tmax, count, any_mode: bool,
     s = new_walk_state(r, tab.n_levels, tab.fanout, 0, 16, dev)
     s.ray.copy_(torch.cat([o.to(torch.float32), d.to(torch.float32),
                            tmin[:, None], tmax[:, None]], dim=1))
+    # an instanced walk starts in world space
+    s.o_cur.copy_(s.ray[:, 0:3])
+    s.d_cur.copy_(s.ray[:, 3:6])
     if time is not None:
         s.wtime.copy_(torch.broadcast_to(torch.as_tensor(time, **f32), (r,)))
     s.cur.copy_(torch.where(live, 0, -1).to(torch.int32))

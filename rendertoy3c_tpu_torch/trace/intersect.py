@@ -21,6 +21,7 @@ class Hit(NamedTuple):
     prim: torch.Tensor  # [R] int32 primitive index, -1 on miss
     u: torch.Tensor  # [R] f32 barycentric
     v: torch.Tensor  # [R] f32 barycentric
+    inst: torch.Tensor | None = None  # [R] int32 instance, -1 on miss
 
 
 def _cross(ax, ay, az, bx, by, bz):

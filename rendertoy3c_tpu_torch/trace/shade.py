@@ -271,9 +271,12 @@ def fused_unsupported(scene, cfg) -> str | None:
 
 def external_unsupported(scene, cfg) -> str | None:
     """Why (scene, cfg) is outside the external pipeline's slice, naming
-    the ROADMAP item that adds it; None when ExternalPipeline renders it."""
+    the ROADMAP item that adds it; None when ExternalPipeline renders it.
+    A trace-time instanced scene has no face limit here: its tracer is
+    the instanced walk (pallas_shade.py:1473-1478)."""
+    instanced = hasattr(scene, "instance_mesh")
     return _first_failed(_slice_checks(scene, cfg) + (
-        (scene.num_faces > EXTERNAL_MAX_FACES,
+        (not instanced and scene.num_faces > EXTERNAL_MAX_FACES,
          f"scenes of more than {EXTERNAL_MAX_FACES} faces take the "
          "hierwalk band's walk pool (WalkPoolPipeline)"),))
 
@@ -356,12 +359,14 @@ def _plain_sweeps(tables: ShadeTables, count, time):
             lambda sh, t: any_motion_ref(sh, t, count, m, RAY_TILE)[:, 0])
 
 
-def _textured_normal_and_albedo(a, w0, bu, bv, ng, tex: TexState):
+def _textured_normal_and_albedo(a, w0, bu, bv, ng, tex: TexState, it=None):
     """The texture work of the shading body (pallas_shade.py :459-535):
     uvs interpolated at (w0, bu, bv), the material's uv transform,
     the normal map applied to the interpolated normal `ng` before the
     faceforward, and the diffuse texture. Returns (ng, texture rgb [R, 3],
-    diffuse texture id [R], (u, v)); fetches by sample_texture_bilinear."""
+    diffuse texture id [R], (u, v)); fetches by sample_texture_bilinear.
+    it: an instanced lane's transform rows [18, R], whose forward rows
+    9-17 move the object-space tangent to world space (:487-501)."""
     tid = a[22]
     tu = w0 * a[16] + bu * a[18] + bv * a[20]
     tv = w0 * a[17] + bu * a[19] + bv * a[21]
@@ -375,6 +380,10 @@ def _textured_normal_and_albedo(a, w0, bu, bv, ng, tex: TexState):
             tex.atlas, ntex, tu, tv).unbind(1))
         ngx, ngy, ngz = ng
         tgx, tgy, tgz = a[nb], a[nb + 1], a[nb + 2]
+        if it is not None:
+            tgx, tgy, tgz = (it[9] * tgx + it[10] * tgy + it[11] * tgz,
+                             it[12] * tgx + it[13] * tgy + it[14] * tgz,
+                             it[15] * tgx + it[16] * tgy + it[17] * tgz)
         d_tn = tgx * ngx + tgy * ngy + tgz * ngz
         tgx, tgy, tgz, _ = normalize3(tgx - ngx * d_tn, tgy - ngy * d_tn,
                                       tgz - ngz * d_tn, eps=1e-12)
@@ -389,7 +398,7 @@ def _textured_normal_and_albedo(a, w0, bu, bv, ng, tex: TexState):
 
 
 def _shade_lanes(rays, hit4, misc, a, lights_t, sc, shadow_occluded=None,
-                 tex: TexState | None = None, params_base: int = 0):
+                 tex: TexState | None = None, params_base: int = 0, it=None):
     """The shading body shared by K4, K5 and K6 (pallas_shade.py
     :436-880): emission at depth 0 and after delta lobes, miss ambient,
     textures (`tex`), the Lambertian draw or (params_base > 0) the
@@ -400,7 +409,9 @@ def _shade_lanes(rays, hit4, misc, a, lights_t, sc, shadow_occluded=None,
 
     hit4 [R, 4] (t, prim_f, u, v); a: attribute rows [>=15, R] gathered by
     prim (the textured rows and the material-parameter rows at
-    params_base too).
+    params_base too). it: an instanced scene's transform rows [18, R] of
+    each lane's instance (inst_transform_rows), whose inverse-transpose
+    rows 0-8 move the object-space normal to world space (:447-457).
     `shadow_occluded(shadow_rays [R, 8], time [R]) -> occ [R]` runs
     the in-kernel shadow sweep (K4, K5) at the shadow rays' time, a peek of
     the post-NEE stream; None is the external variant (K6): NEE is
@@ -427,9 +438,14 @@ def _shade_lanes(rays, hit4, misc, a, lights_t, sc, shadow_occluded=None,
     ngy = w0 * a[1] + bu * a[4] + bv * a[7]
     ngz = w0 * a[2] + bu * a[5] + bv * a[8]
     ngx, ngy, ngz, _ = normalize3(ngx, ngy, ngz)
+    if it is not None:
+        ngx, ngy, ngz, _ = normalize3(
+            it[0] * ngx + it[1] * ngy + it[2] * ngz,
+            it[3] * ngx + it[4] * ngy + it[5] * ngz,
+            it[6] * ngx + it[7] * ngy + it[8] * ngz)
     if tex is not None:
         (ngx, ngy, ngz), tex_rgb, tid, tex_uv = _textured_normal_and_albedo(
-            a, w0, bu, bv, (ngx, ngy, ngz), tex)
+            a, w0, bu, bv, (ngx, ngy, ngz), tex, it)
     side = torch.where(-(dx * ngx + dy * ngy + dz * ngz) >= 0.0, one, -one)
     nsx, nsy, nsz = ngx * side, ngy * side, ngz * side
     px, py, pz = ox + t_hit * dx, oy + t_hit * dy, oz + t_hit * dz
@@ -911,20 +927,50 @@ class ExternalTables:
     lights_t: torch.Tensor  # [24, Lp] f32
     tex: TexState | None = None  # a textured scene's atlas and switches
     params_base: int = 0  # material-parameter rows (dispatch), 0 = none
+    # an instanced scene's transform rows [I, 18] (inst_transform_rows)
+    inst_rows: torch.Tensor | None = None
+
+
+_IDENTITY9 = (1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0)
+
+
+def inst_transform_rows(scene) -> np.ndarray:
+    """[I, 18] f32 per-instance rows of K6 (the reference's
+    `inst_attr_pack`, pallas_shade.py:1522): the key-0 inverse-transpose,
+    row-major, then the key-0 forward linear part (read only under normal
+    maps)."""
+    it = scene.instances
+    n = scene.num_instances
+    return np.ascontiguousarray(np.concatenate(
+        [np.asarray(it.inv_t)[:, 0].reshape(n, 9),
+         np.asarray(it.m)[:, 0, :, :3].reshape(n, 9)], axis=1), np.float32)
+
+
+def gather_inst_rows(inst_rows, inst):
+    """[18, R] transform rows of each lane's instance id, the identity
+    where inst < 0 (pallas_shade.py `gather_inst_rows`, :1548)."""
+    g = inst_rows[torch.clamp(inst, min=0).to(torch.int64)]
+    iden = torch.tensor(_IDENTITY9 * 2, dtype=g.dtype, device=g.device)
+    return torch.where((inst >= 0)[:, None], g, iden[None]).T
 
 
 def external_shade_ref(rays, hit4, misc, tables: ExternalTables,
-                       ec: ShadeConfig, transposed: bool = False):
+                       ec: ShadeConfig, transposed: bool = False,
+                       inst=None):
     """Plain version of K6: (rays_out [R, 8], misc_out [R, W + 8], shadow
     [R, 8|16]) from rays [R, 8], hit4 [R, 4] and misc [R, W], W = 16 or
     (ec.aov) 24. `transposed` (the walk pool's layout, pallas_shade.py
     :1761-1820): misc comes C-major [W, R] and misc_out leaves [W + 8, R];
-    rays, hits and shadow rays stay row-major."""
+    rays, hits and shadow rays stay row-major. An instanced scene
+    (tables.inst_rows) takes each lane's hit instance `inst` [R] int32
+    (-1: none) and transforms the normal (and the tangent) by its rows."""
     if transposed:
         misc = misc.T
     a = tables.attr[torch.clamp(hit4[:, 1], min=0.0).to(torch.int64)].T
+    it = (None if tables.inst_rows is None
+          else gather_inst_rows(tables.inst_rows, inst))
     r = _shade_lanes(rays, hit4, misc, a, tables.lights_t, ec, tex=tables.tex,
-                     params_base=tables.params_base)
+                     params_base=tables.params_base, it=it)
     rays_out, cols = _next_state(rays, misc, r)
     misc_out = torch.stack(cols + r["nee"] + [r["zero"]] * 5,
                            dim=0 if transposed else 1)
@@ -936,14 +982,25 @@ def external_shade_ref(rays, hit4, misc, tables: ExternalTables,
 
 
 def external_shade(rays, hit4, misc, tables: ExternalTables,
-                   ec: ShadeConfig, transposed: bool = False):
+                   ec: ShadeConfig, transposed: bool = False, inst=None):
     """K6 wrapper: the CUDA kernel for CUDA tensors
     (kernels/csrc/external.cu), `external_shade_ref` on the CPU. With
-    `transposed`, misc is C-major [W, R] and misc_out [W + 8, R]."""
+    `transposed`, misc is C-major [W, R] and misc_out [W + 8, R]; an
+    instanced scene's launch takes the hit instances `inst` [R] int32 and
+    gathers their transform rows in the kernel."""
     if rays.device.type == "cpu":
-        return external_shade_ref(rays, hit4, misc, tables, ec, transposed)
+        return external_shade_ref(rays, hit4, misc, tables, ec, transposed,
+                                  inst)
     kbuild.require_cuda("external_shade", rays, hit4, misc, tables.attr,
                         tables.lights_t)
+    n_inst = 0
+    if tables.inst_rows is not None:
+        kbuild.require_cuda("external_shade", rays, tables.inst_rows)
+        kbuild.require_cuda("external_shade", inst, dtype=torch.int32)
+        n_inst = tables.inst_rows.shape[0]
+        if inst.shape != (rays.shape[0],) or tables.inst_rows.shape[1] != 18:
+            raise ValueError("external_shade: inst [R] int32 and inst_rows "
+                             "[I, 18]")
     tex = _tex_params("external_shade", tables.tex)
     n = rays.shape[0]
     attr_w = tables.attr.shape[1]
@@ -964,19 +1021,25 @@ def external_shade(rays, hit4, misc, tables: ExternalTables,
         pick_pdf=1.0 / float(ec.num_lights),
         bg=(ec.bg[0], ec.bg[1], ec.bg[2]), attr_w=attr_w,
         power=int(ec.power), params_base=tables.params_base,
-        aov=int(ec.aov), transposed=int(transposed))
+        aov=int(ec.aov), transposed=int(transposed), n_inst=n_inst)
     index, stream = kbuild.launch_target(rays.device)
     err = kbuild.library().rt3c_external_shade(
         index, p, rays.data_ptr(), hit4.data_ptr(), misc.data_ptr(),
         tables.attr.data_ptr(), tables.attr.shape[0],
         tables.lights_t.data_ptr(), n, rays_out.data_ptr(),
-        misc_out.data_ptr(), shadow.data_ptr(), tex, stream)
+        misc_out.data_ptr(), shadow.data_ptr(), tex,
+        tables.inst_rows.data_ptr() if n_inst else None,
+        inst.data_ptr() if n_inst else None, stream)
     kbuild.check(err, "external_shade")
-    external_shade.launches += 1
+    if n_inst:
+        external_shade.inst_launches += 1
+    else:
+        external_shade.launches += 1
     return rays_out, misc_out, shadow
 
 
-external_shade.launches = 0
+external_shade.launches = 0  # K6
+external_shade.inst_launches = 0  # K6 with instance rows
 
 
 class ExternalPipeline:
@@ -984,9 +1047,13 @@ class ExternalPipeline:
     integrator's XLA-refill loop (integrate/path.py).
 
     tracer: callables f(o, d, tmin, tmax, time, count) as returned by
-    trace/mt.py `make_mt_tracer`. shade_fn is the K6 launch function; the
-    default picks the kernel or its plain version by the tensors' device,
-    and external_shade_ref runs the plain version on any device."""
+    trace/mt.py `make_mt_tracer`, or for a trace-time instanced scene by
+    trace/hier_instanced.py `make_inst_hierwalk_tracer` (its hits carry
+    their instance, and K6 takes the scene's instance rows, the
+    reference's `_inst_pack`, :1849-1873). shade_fn is the K6 launch
+    function; the default picks the kernel or its plain version by the
+    tensors' device, and external_shade_ref runs the plain version on any
+    device."""
 
     def __init__(self, scene, cfg, tracer, device, shade_fn=external_shade):
         reason = external_unsupported(scene, cfg)
@@ -997,11 +1064,15 @@ class ExternalPipeline:
         self._closest, self._any = tracer
         attr_t, lights_t, tex, params_base = shade_tables_for(scene,
                                                               self.device)
+        self.instanced = hasattr(scene, "instance_mesh")
         self.tables = ExternalTables(
             attr=torch.as_tensor(np.ascontiguousarray(attr_t.T),
                                  device=self.device),
             lights_t=torch.as_tensor(lights_t, device=self.device), tex=tex,
-            params_base=params_base)
+            params_base=params_base,
+            inst_rows=(torch.as_tensor(inst_transform_rows(scene),
+                                       device=self.device)
+                       if self.instanced else None))
         self.config = ShadeConfig(
             max_depth=cfg.max_depth, num_lights=scene.num_lights,
             shadow_tmin=cfg.shadow_tmin, shadow_eps=cfg.shadow_tmax_eps,
@@ -1018,8 +1089,9 @@ class ExternalPipeline:
                             rays[:, 7], time, count)
         hit4 = torch.stack([hit.t, hit.prim.to(torch.float32), hit.u,
                             hit.v], dim=1)
+        kw = dict(inst=hit.inst.to(torch.int32)) if self.instanced else {}
         rays2, misc_e, sh = self.shade_fn(rays, hit4, misc, self.tables,
-                                          self.config)
+                                          self.config, **kw)
         occ = self._any(sh[:, 0:3], sh[:, 3:6], sh[:, 6], sh[:, 7],
                         sh[:, 8] if self.motion else None, count)
         w = misc_width(self.config.aov)

@@ -1009,8 +1009,8 @@ def test_hierwalk_tracers_match_plain_versions(dev, motion):
     got = hierwalk.trace_closest_hier(tab, o, d, 1e-3, 1e16, time=t)
     want = hierwalk.trace_closest_hier(tab, o, d, 1e-3, 1e16, time=t,
                                        plain=True)
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
+    for a, b in zip(got, want):  # a flat table's hits carry no instance
+        assert (a is None and b is None) or torch.equal(a, b)
     brute = trace_closest_bruteforce(scene, o, d, 1e-3, 1e16, time=t)
     assert torch.equal(got.prim, brute.prim)
     assert (got.prim >= 0).float().mean() > 0.3
@@ -1061,3 +1061,171 @@ def test_transposed_external_shade_matches_plain_version(dev, variant):
         got = shade.external_shade(*a, transposed=True)
         _bits_equal(got, shade.external_shade_ref(*a, transposed=True))
         assert got[1].shape == (pipe.misc_w + 8, rays.shape[0])
+
+
+def _inst_scene(case):
+    """(split-ordered instanced scene, camera, textures) of an instanced
+    test: bench's instance field at grid 4 (static or 2-key) or the
+    normal-mapped quad under a rotated, scaled instance."""
+    from rendertoy3c_tpu_torch.scene.builtin import (instance_field,
+                                                      instanced_bumpy_quad)
+    from rendertoy3c_tpu_torch.scene.instanced import build_instanced_scene
+    from rendertoy3c_tpu_torch.trace.hier_instanced import \
+        split_order_instanced
+
+    if case == "normal_map":
+        meshes, inst, tex, cam = instanced_bumpy_quad()
+        return split_order_instanced(
+            build_instanced_scene(meshes, inst, textures=tex)), cam
+    meshes, inst, cam = instance_field(case == "field_2key", 4)
+    return split_order_instanced(build_instanced_scene(meshes, inst)), cam
+
+
+def _inst_pipe(case, dev, cfg):
+    """The instanced walk pool of a case: the space-switching table (at
+    fanout 32 for `fanout32`) or the baked world table (`baked`)."""
+    import dataclasses
+
+    from rendertoy3c_tpu_torch.integrate import walkpool
+    from rendertoy3c_tpu_torch.trace.hier_instanced import \
+        build_inst_hier_table
+
+    scene, cam = _inst_scene("field" if case in ("fanout32", "baked")
+                             else case)
+    pipe = walkpool.make_inst_walkpool_pipeline(scene, cfg, dev,
+                                                bake=case == "baked")
+    if case == "fanout32":
+        pipe = dataclasses.replace(pipe, table=build_inst_hier_table(
+            scene, fanout=32, device=dev))
+    return scene, cam, pipe
+
+
+@pytest.mark.parametrize("case", ["field", "field_2key", "fanout32",
+                                  "baked", "normal_map"])
+def test_inst_walk_kernel_matches_plain_version(dev, case):
+    """K9-inst (K9 on the baked table): one launch of 20 rounds from
+    instanced walk-pool states recorded at boundaries 1, 4 and 7 of a
+    64^2 render, against its plain version on a clone: every state column
+    bit for bit."""
+    import dataclasses
+
+    from rendertoy3c_tpu_torch.integrate import walkpool
+
+    cfg = RenderConfig(width=64, height=64, samples_per_launch=2,
+                       max_depth=6, ray_block=2048, integrator="pool",
+                       pool_pixel_major=True)
+    scene, cam, pipe = _inst_pipe(case, dev, cfg)
+    states = []
+
+    def record(s, tab, motion, k):
+        if len(states) < 8:
+            states.append(s.clone())
+        walkpool.walk_rounds(s, tab, motion, k)
+
+    walkpool._render_pipepool(scene, cfg, cam.params(),
+                              dataclasses.replace(pipe, walk_fn=record),
+                              torch.arange(64 * 64), 0)
+    states = states[1::3]
+    assert len(states) == 3
+    before = walkpool.walk_rounds.inst_launches
+    walked = []
+    for s in states:
+        got, want = s.clone(), s.clone()
+        walkpool.walk_rounds(got, pipe.table, pipe.motion, 20)
+        walkpool.walk_rounds(want, pipe.table, pipe.motion, 20, plain=True)
+        for (name, a), (_, b) in zip(got.tensors(), want.tensors()):
+            assert torch.equal(a.view(torch.uint8), b.view(torch.uint8)), name
+        walked.append(int(got.rows) - int(s.rows))
+    assert walked[0] > 0
+    assert (walkpool.walk_rounds.inst_launches > before) == (case != "baked")
+
+
+@pytest.mark.parametrize("motion", [False, True])
+def test_inst_hier_tracers_match_plain_versions(dev, motion):
+    """trace_closest_inst_hier / trace_any_inst_hier on K9-inst against
+    their plain versions (bit for bit) and the brute instanced tracer
+    (prim, instance and occlusion exact)."""
+    from rendertoy3c_tpu_torch.trace import hier_instanced as hi
+    from rendertoy3c_tpu_torch.trace.instanced import make_instanced_tracer
+
+    scene, _ = _inst_scene("field_2key" if motion else "field")
+    tab = hi.build_inst_hier_table(scene, device=dev)
+    o, d = _rays(8192, 5, (-3, 0.2, -3), (3, 4, 3))
+    o, d = torch.as_tensor(o, device=dev), torch.as_tensor(d, device=dev)
+    rng = np.random.default_rng(6)
+    tmax = torch.as_tensor(rng.uniform(0.5, 10, 8192).astype(np.float32),
+                           device=dev)
+    t = (torch.as_tensor(rng.uniform(0, 1, 8192).astype(np.float32),
+                         device=dev) if motion else None)
+    got = hi.trace_closest_inst_hier(tab, o, d, 1e-3, 1e16, time=t)
+    want = hi.trace_closest_inst_hier(tab, o, d, 1e-3, 1e16, time=t,
+                                      plain=True)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    bc, ba = make_instanced_tracer(scene, dev)
+    brute = bc(o, d, 1e-3, 1e16, t)
+    assert (got.prim != brute.prim).sum() <= (2 if motion else 0)
+    assert (got.inst != brute.inst).sum() <= (2 if motion else 0)
+    assert (got.prim >= 0).float().mean() > 0.3
+    occ = hi.trace_any_inst_hier(tab, o, d, 1e-3, tmax, time=t)
+    assert torch.equal(occ, hi.trace_any_inst_hier(tab, o, d, 1e-3, tmax,
+                                                   time=t, plain=True))
+    assert (occ != ba(o, d, 1e-3, tmax, t)).sum() <= (2 if motion else 0)
+
+
+@pytest.mark.parametrize("case", ["field", "field_2key", "normal_map",
+                                  "aov", "row_major"])
+def test_inst_external_shade_matches_plain_version(dev, case):
+    """K6 with instance rows on the instanced walk pool's boundary inputs
+    (C-major misc), and row-major on the trace-time external pipeline's:
+    every output bit for bit, with lanes of every instance and misses."""
+    import dataclasses
+
+    from rendertoy3c_tpu_torch.integrate import walkpool
+    from rendertoy3c_tpu_torch.integrate.path import render_pixels
+    from rendertoy3c_tpu_torch.trace.auto import choose_tracer
+
+    cfg = RenderConfig(width=64, height=64, samples_per_launch=2,
+                       max_depth=6, ray_block=2048, integrator="pool",
+                       pool_pixel_major=True, aov=case == "aov")
+    inputs = []
+
+    def record(rays, hit4, misc, tables, config, transposed=False,
+               inst=None):
+        inputs.append((rays.clone(), hit4.clone(), misc.clone(),
+                       inst.clone(), transposed))
+        return shade.external_shade(rays, hit4, misc, tables, config,
+                                    transposed=transposed, inst=inst)
+
+    if case == "row_major":
+        from rendertoy3c_tpu_torch.scene.builtin import \
+            multi_instance_cornell
+        from rendertoy3c_tpu_torch.scene.instanced import \
+            build_instanced_scene
+
+        meshes, inst, cam = multi_instance_cornell()
+        scene, pipe = choose_tracer(build_instanced_scene(meshes, inst), cfg,
+                                    dev)
+        assert isinstance(pipe, shade.ExternalPipeline)
+        pipe.shade_fn = record
+        render_pixels(scene, cfg, cam.params(), pipe, torch.arange(64 * 64),
+                      0)
+        tables, config = pipe.tables, pipe.config
+    else:
+        scene, cam, pipe = _inst_pipe("field" if case == "aov" else case,
+                                      dev, cfg)
+        walkpool._render_pipepool(scene, cfg, cam.params(),
+                                  dataclasses.replace(pipe, shade_fn=record),
+                                  torch.arange(64 * 64), 0)
+        tables, config = pipe.shade_tables, pipe.shade_config
+    assert len(inputs) >= 8
+    before = shade.external_shade.inst_launches
+    seen = set()
+    for rays, hit4, misc, inst, transposed in inputs[::2]:
+        a = (rays, hit4, misc, tables, config)
+        got = shade.external_shade(*a, transposed=transposed, inst=inst)
+        _bits_equal(got, shade.external_shade_ref(*a, transposed=transposed,
+                                                  inst=inst))
+        seen |= set(inst.unique().tolist())
+    assert shade.external_shade.inst_launches > before
+    assert -1 in seen and len(seen) > 2

@@ -29,6 +29,9 @@ MODULES = [
     "rendertoy3c_tpu_torch.trace.bsdf", "rendertoy3c_tpu_torch.scene.light",
     "rendertoy3c_tpu_torch.trace.intersect", "rendertoy3c_tpu_torch.trace.mt",
     "rendertoy3c_tpu_torch.trace.shade", "rendertoy3c_tpu_torch.trace.hierwalk",
+    "rendertoy3c_tpu_torch.scene.instanced",
+    "rendertoy3c_tpu_torch.trace.instanced",
+    "rendertoy3c_tpu_torch.trace.hier_instanced",
     "rendertoy3c_tpu_torch.tools",
     "rendertoy3c_tpu_torch.tools.sweep_ab",
 ]
