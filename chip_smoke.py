@@ -46,8 +46,9 @@ a JSON summary. Phases:
      launches queued behind a spin kernel);
   9. the gate of phase 4 on the external path, the 4294-face town, static
      and 2-key;
- 10. both 16054-face towns at the main path's config: 1 warm-up and 4
-     timed subframes with the kernels, the band of phase 5 against the
+ 10. both 16054-face towns at the main path's config: 1 warm-up and 2
+     timed subframes with the kernels (TOWN_TIMED, as for every MT town
+     path of phases 17, 20 and 23), the band of phase 5 against the
      plain versions; Mray/s, launches per subframe, every pixel finite, and
      the device idle share of one profiled subframe (a phase fails if its
      profile shows no device time or misses one of its kernels);
@@ -151,7 +152,7 @@ a JSON summary. Phases:
      and the 578-instance 2-key field (K9-inst at fanout 32);
  30. bench's instanced main paths with tune_config's pool (bench.py
      :537-584): BASELINE config 3 `multi_instance_tlas` (baked by
-     build_scene, K4) as phase 5; `multi_instance_tracetime` (1 warm-up, 4
+     build_scene, K4) as phase 5; `multi_instance_tracetime` (1 warm-up, 2
      timed subframes, the band against the plain versions); the 578-
      instance fields `multi_instance_large` (baked world table, K9, 16384
      lanes) and `multi_instance_motion` (K9-inst, fanout 32, 8192 lanes)
@@ -161,7 +162,26 @@ a JSON summary. Phases:
  31. K9-inst on the 2-key field's recorded states and K9 on the baked
      field's, and K6 with instance rows on the fields' (C-major) and the
      trace-time path's (row-major) recorded inputs: bit for bit against
-     their plain versions, timed and bounded as phases 24-25.
+     their plain versions, timed and bounded as phases 24-25;
+ 32. the resident-table walk (K8: walk_closest, walk_any) on bench's 49k
+     box field split-ordered at 256-face runs: 131072 camera rays from
+     (0, 20, 45) and one cosine bounce from each hit, the first launch
+     (output and cursor rows) and the pass loops bit-equal to the plain
+     versions, 0 prim and 0 occlusion mismatches against the brute
+     tracer; the same with a forced multi-pass walk (t_rounds = 4);
+ 33. the gates of phase 4 on the general pool: K8 against the plain walk
+     (sorted), the wave integrator against the pool over K8, and an
+     emissive- and roughness-textured quad (the A22 scene) on the bare MT
+     rung (K1/K2) against the plain MT tracer;
+ 34. `--tracer residentwalk`'s main path: the split-ordered box field
+     through make_render_fn over make_walk_tracer at bench's cfg_sorted
+     (768^2, 8 spp, depth 16, ray_block 32768, pixel-major, sorted): 1
+     warm-up and 2 timed subframes, Mray/s, K8 launches and passes per
+     subframe, every pixel finite, the band of phase 5 against the plain
+     walk, the idle share of one profiled subframe;
+ 35. K8 closest and any on the inputs of 4 closest and 4 shadow calls of
+     that path's warm-up: bit for bit, timed (device_ms) and bounded by
+     the slab and MT operations and the bytes moved (k8_work).
 
 Each kernel's bound is the larger of the bytes it must move over 3.35 TB/s
 and the operations its inputs need over the 67 TFLOP/s fp32 peak outside
@@ -177,8 +197,8 @@ Cornell box's and the principled quad's parts of phases 15-20 run after
 phase 6 and before the towns, the textured towns' phase 15 right after
 phase 8, their phases 16-17 after phase 10, the principled towns' phases
 18-20 and the towns' phases 21-23 after them, then phases 24-27 (24's
-gate, 26, 27, then 24's and 25's checks on 27's states) and phases 28-31
-last.
+gate, 26, 27, then 24's and 25's checks on 27's states), phases 28-31,
+and phases 32-35 last.
 Any failed phase exits non-zero. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -201,6 +221,10 @@ MAIN = dict(width=768, height=768, samples_per_launch=8, max_depth=16,
 GATE = dict(width=96, height=96, samples_per_launch=2, max_depth=6,
             ray_block=4096, integrator="pool", pool_pixel_major=True)
 TOWN_FACES = 16000  # generate_town gives 16054 faces (16384 padded)
+# timed subframes of the MT towns' paths (phases 10, 17, 20, 23) and of
+# the trace-time instanced path (phase 30): 2, as bench.py's timed_c, to
+# keep the script inside its time limit
+TOWN_TIMED = 2
 GATE_TOWN_FACES = 4000  # 4294 faces
 MT_SRC = "rendertoy3c_tpu_torch/kernels/csrc/mt_kernels.cu"
 K4_SRC = "rendertoy3c_tpu_torch/kernels/csrc/megakernel.cuh"
@@ -860,7 +884,7 @@ def gate(scene, camera, dev, what: str, phase: int, tracers=(None, None),
 def kernel_symbol(key: str):
     """The port's kernel name in a profiler key ('void
     rt3c::mt_kernel<false>(...)' -> 'mt_kernel'), else None."""
-    m = re.search(r"rt3c::(\w+)", key)
+    m = re.search(r"rt3c::(?:\w+::)*(\w+)", key)
     return m.group(1) if m else None
 
 
@@ -961,10 +985,12 @@ BAND_ROWS = (360, 408)  # the middle sixteenth of a 768-row image
 NARROW_BAND = (376, 392)
 
 
-def band_pair(name, scene, camera, cfg_kw, dev, rows=BAND_ROWS):
+def band_pair(name, scene, camera, cfg_kw, dev, rows=BAND_ROWS,
+              tracers=None):
     """Kernels against plain versions on a band of the image (`rows`),
     one subframe each through render_pixels over choose_tracer's pipeline
-    and its plain twin, on the same streams: the band's means within 1%,
+    and its plain twin (or `tracers`, a (kernel, plain) pair over the
+    scene as given), on the same streams: the band's means within 1%,
     the gate on it, with AOV the albedo and normal bands bit-equal.
     Returns (kernel mean, plain mean, seconds of each)."""
     import torch
@@ -977,11 +1003,13 @@ def band_pair(name, scene, camera, cfg_kw, dev, rows=BAND_ROWS):
     lo, hi = rows
     pix = torch.arange(lo * cfg.width, hi * cfg.width, dtype=torch.int64)
     out, aovs, secs = [], [], []
-    for make in (choose_tracer, plain_tracer):
+    makes = (choose_tracer, plain_tracer) if tracers is None else [
+        lambda *_, t=t: (scene, t) for t in tracers]
+    for make in makes:
         ordered, tracer = make(scene, cfg, dev)
         t0 = time.perf_counter()
         rgb, aov = render_pixels(ordered, cfg, camera.params(), tracer, pix,
-                                 0)[:2]
+                                 0, device=dev)[:2]
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         out.append(rgb.reshape(hi - lo, cfg.width, 3).cpu().numpy())
@@ -1005,9 +1033,10 @@ def band_pair(name, scene, camera, cfg_kw, dev, rows=BAND_ROWS):
 
 
 def full_size(name, scene, camera, dev, smi, phase: int, counters, symbols,
-              change=None, plain=True):
+              change=None, plain=True, timed=4):
     """One main path at full size (MAIN with `change` applied): kernels (1
-    warm-up, 4 timed) with the launch counters zeroed just before and read
+    warm-up, `timed` timed; TOWN_TIMED for the MT towns, whose subframes
+    take seconds) with the launch counters zeroed just before and read
     just after, then (plain=True) the kernels held to the plain versions
     on a band of the image (band_pair), and a profile that must see each
     CUDA kernel of `symbols`. plain=False: the path's kernels and gate are
@@ -1019,7 +1048,7 @@ def full_size(name, scene, camera, dev, smi, phase: int, counters, symbols,
     for fn in counters.values():
         fn.launches = 0
     film_k, rates_k, it_k, secs_k, step_k = render(
-        scene, camera, cfg_kw, dev, False, 1, 4)
+        scene, camera, cfg_kw, dev, False, 1, timed)
     launches = {n: fn.launches for n, fn in counters.items()}
     for n, cnt in launches.items():
         check(cnt > 0, f"{name}: the main path launched {n} no time")
@@ -1035,7 +1064,7 @@ def full_size(name, scene, camera, dev, smi, phase: int, counters, symbols,
           f"{change or ''} on {smi}:")
     print(f"  kernels: Mray/s per subframe {rates_k}, median "
           f"{float(np.median(rates_k)):.6g}; s {secs_k}; "
-          f"{it_k / 4:.1f} launches/subframe")
+          f"{it_k / timed:.1f} launches/subframe")
     if plain:
         band_pair(name, scene, camera, cfg_kw, dev)
     print(f"  image mean {img_k.mean():.6f}; launches {launches}"
@@ -2472,7 +2501,8 @@ def inst_gates(dev, scenes):
          tracers=(pipe, plain_walk_pipe(pipe)))
 
 
-def tracetime_path(name, scene, camera, dev, smi, timed=4, phase=30):
+def tracetime_path(name, scene, camera, dev, smi, timed=TOWN_TIMED,
+                   phase=30):
     """multi_instance_tracetime through make_render_fn over choose_tracer's
     external pipeline (with tune_config): 1 warm-up subframe, traced by
     the profiler, during which K6's inputs at EXT_SNAPSHOTS pool
@@ -2622,6 +2652,348 @@ def inst_band(dev, smi, t_start):
     print(f"phases 28-31 done; {time.perf_counter() - t_start:.1f} s since "
           "the start")
     return entries
+
+
+# ---------------------------------------------------------------- phase 32+
+# the resident-table walk (K8) under the general pool: `--tracer
+# residentwalk` on bench's 49k box field (bench.py:224-250, 587-591) at
+# bench's cfg_sorted (:514), the scene split-ordered at 256-face runs as
+# the reference's CLI orders it (app/cli.py:339-343)
+RW_SRC = "rendertoy3c_tpu_torch/kernels/csrc/resident_walk.cu"
+RW_REPLACES = "rendertoy3c_tpu/trace/pallas_walk.py:338"
+# K8's operations, counted from resident_walk.cu: a slab test of one (ray,
+# leaf box) pair (3 x (2 subtractions, 2 products, min, max), 4 min/max,
+# the 3 comparisons, the clamp and the row minimum), and one
+# Moller-Trumbore test of a (ray, face) pair with its selects
+RW_SLAB_OPS = 30
+RW_MT_OPS = 45
+# every this many closest (shadow) calls of the main path's warm-up, its
+# inputs are recorded; 4 of them, spread over the subframe, are timed
+RW_RECORD_EVERY = 10
+
+
+def resident_scene():
+    """(split-ordered scene, camera) of bench's 49k box field."""
+    from rendertoy3c_tpu_torch.accel.lbvh import split_order_scene
+    from rendertoy3c_tpu_torch.scene.builtin import box_field
+    from rendertoy3c_tpu_torch.scene.scene import build_scene
+
+    meshes, camera = box_field()
+    return split_order_scene(build_scene(meshes)), camera
+
+
+def resident_tracers(scene, dev):
+    """(K8's tracer, its plain twin), each over its own walk table; the
+    first records each walk's pass count in the lists `kern[0].passes`
+    (closest, any)."""
+    from rendertoy3c_tpu_torch.trace import residentwalk as rw
+
+    passes = ([], [])
+    kern = rw.make_walk_tracer(scene, dev, passes=passes)
+    kern[0].passes = passes
+    plain = rw.make_walk_tracer(scene, dev, plain=True)
+    return kern, plain
+
+
+def _bits_equal(a, b) -> bool:
+    import torch
+
+    return torch.equal(a.contiguous().view(torch.int32),
+                       b.contiguous().view(torch.int32))
+
+
+def phase_k8_gate(dev, scene, camera, tab):
+    """Phase 32: the K8 gate. 131072 rays on the 49k field: camera rays
+    from (0, 20, 45) (the 768^2 grid's first 65536 pixels) and one cosine
+    bounce from each hit, filled with random rays. The first launch of
+    K8 closest and any (output rows and cursor rows) and the pass loops'
+    hits and occlusion bit-equal to the plain versions; 0 prim and 0
+    occlusion mismatches against the brute tracer; a forced multi-pass
+    walk (t_rounds = 4) likewise."""
+    import torch
+
+    from rendertoy3c_tpu_torch.trace import residentwalk as rw
+    from rendertoy3c_tpu_torch.trace.intersect import (
+        trace_any_bruteforce, trace_closest_bruteforce)
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 32)
+    o, d = camera_and_bounce_rays(scene, camera, GATE_RAYS // 2, GATE_RAYS,
+                                  dev, rng)
+    t_any = torch.as_tensor(rng.uniform(0.5, 60.0, GATE_RAYS)
+                            .astype(np.float32), device=dev)
+    brute = trace_closest_bruteforce(scene, o, d, 1e-2, 1e16)
+    occ_b = trace_any_bruteforce(scene, o, d, 1e-3, t_any)
+    lines = []
+    for t_rounds in (rw.T_ROUNDS, 4):
+        rays, _ = rw._pack(o, d, 1e-2, 1e16, rw.RT)
+        rays_a, _ = rw._pack(o, d, 1e-3, t_any, rw.RT)
+        count = torch.tensor([GATE_RAYS], dtype=torch.int32, device=dev)
+        er, ir = rw._start(rays, rw.RT)
+        for name, kern, ref, r in (("closest", rw.walk_closest,
+                                    rw.walk_closest_ref, rays),
+                                   ("any", rw.walk_any, rw.walk_any_ref,
+                                    rays_a)):
+            out_k, cur_k = kern(count, er, ir, r, tab, rw.RT, t_rounds)
+            out_p, cur_p = ref(count, er, ir, r, tab, rw.RT, t_rounds)
+            check(_bits_equal(out_k, out_p) and _bits_equal(cur_k, cur_p),
+                  f"phase 32: K8 {name} (T = {t_rounds}) differs from its "
+                  "plain version on the first pass")
+        passes = []
+        got = rw.trace_closest_walk(tab, o, d, 1e-2, 1e16, t_rounds=t_rounds,
+                                    passes=passes)
+        want = rw.trace_closest_walk(tab, o, d, 1e-2, 1e16,
+                                     t_rounds=t_rounds,
+                                     plain=True)
+        for what, a, b in zip(("t", "prim", "u", "v"), got, want):
+            check(_bits_equal(a, b), f"phase 32: K8's closest {what} (T = "
+                  f"{t_rounds}) differs from the plain version")
+        occ = rw.trace_any_walk(tab, o, d, 1e-3, t_any, t_rounds=t_rounds,
+                                passes=passes)
+        check(torch.equal(occ, rw.trace_any_walk(
+            tab, o, d, 1e-3, t_any, t_rounds=t_rounds, plain=True)),
+            f"phase 32: K8's occlusion (T = {t_rounds}) differs from the "
+            "plain version")
+        bad = int((brute.prim != got.prim).sum())
+        bad_o = int((occ_b != occ).sum())
+        check(bad == 0 and bad_o == 0, f"phase 32: T = {t_rounds}: {bad} "
+              f"prim and {bad_o} occlusion mismatches vs brute")
+        check(t_rounds == rw.T_ROUNDS or passes[0] > 1,
+              f"phase 32: the forced walk ran {passes} passes")
+        lines.append(f"T = {t_rounds}: passes closest {passes[0]}, any "
+                     f"{passes[1]}")
+    print(f"phase 32 K8 gate, box field ({scene.num_faces} faces, "
+          f"{tab.n_leaves} leaves of 128, rows "
+          f"{tab.rows.numel() * 4 / 1e6:.2f} MB): {GATE_RAYS} rays, K8 "
+          f"closest and any bit-equal to the plain versions (first pass: "
+          f"output and cursor rows; every pass's hits and occlusion), 0 "
+          f"prim and 0 occlusion mismatches vs brute (hit share "
+          f"{float((got.prim >= 0).float().mean()):.3f}, occluded "
+          f"{float(occ.float().mean()):.3f}); {'; '.join(lines)}; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase_resident_gates(dev, scene, camera, tracers):
+    """Phase 33: the 96^2 gates. The general pool over K8 against its
+    plain version (sorted, as the main path); the wave integrator against
+    the general pool over K8; the A22 scene (the textured quad's floor
+    PRINCIPLED, emissive and its texture as its emissive and roughness
+    maps) on the bare MT rung (K1/K2) against the plain MT tracer."""
+    import dataclasses
+
+    from rendertoy3c_tpu_torch.scene.builtin import textured_quad_variant
+    from rendertoy3c_tpu_torch.scene.material import MaterialType
+    from rendertoy3c_tpu_torch.scene.scene import build_scene
+    from rendertoy3c_tpu_torch.trace.auto import choose_tracer
+    from rendertoy3c_tpu_torch.trace.mt import make_mt_tracer
+
+    gate(scene, camera, dev, "box field, residentwalk (general pool, "
+         "sorted)", 33, tracers=tracers, **SORTED)
+    f_w = render(scene, camera, dict(GATE, integrator="wave"), dev, False,
+                 0, 1, tracers[0])[0].accum.cpu().numpy()
+    f_p = render(scene, camera, GATE, dev, False, 0, 1,
+                 tracers[0])[0].accum.cpu().numpy()
+    mean_d, outl, max_d = gate_diff(f_w, f_p)
+    check(mean_d <= 2e-3 and outl <= 8 and max_d <= 8.0,
+          f"phase 33: the wave integrator fails the gate against the pool: "
+          f"mean|d| {mean_d:.3g}, {outl} outliers, max|d| {max_d:.3g}")
+    print(f"phase 33 gate 96^2 2spp box field, residentwalk, wave "
+          f"integrator vs general pool: mean|d| {mean_d:.3g}, outliers "
+          f"{outl}, max|d| {max_d:.3g}")
+    meshes, textures, qcam = textured_quad_variant("repeat")
+    meshes[0].material = dataclasses.replace(
+        meshes[0].material, material_type=MaterialType.PRINCIPLED,
+        roughness=0.5, emissive=(2.0, 2.0, 2.0), emissive_texture_id=0,
+        roughness_texture_id=0)
+    quad = build_scene(meshes, textures=textures)
+    from rendertoy3c_tpu_torch.integrate.config import RenderConfig
+
+    ordered, tracer = choose_tracer(quad, RenderConfig(**GATE), dev)
+    check(isinstance(tracer, tuple), "phase 33: the emissive-textured quad "
+          f"took {type(tracer).__name__}, not the bare MT tracer")
+    gate(ordered, qcam, dev, "emissive- and roughness-textured quad (A22, "
+         "bare MT tracer, general pool)", 33,
+         tracers=(tracer, make_mt_tracer(ordered, dev, plain=True)))
+
+
+def resident_path(scene, camera, dev, smi, tracers, timed=2, phase=34):
+    """Phase 34: `--tracer residentwalk` on the 49k field through
+    make_render_fn at cfg_sorted: 1 warm-up subframe, during which the
+    walk's inputs of every RW_RECORD_EVERY-th closest and shadow call are
+    recorded by a wrapper around make_walk_tracer's pair, then `timed`
+    subframes of the pair itself with K8's counters zeroed just before
+    and read just after; Mray/s, K8 launches and passes per
+    subframe, every pixel finite; the band of phase 5 against the plain
+    walk; the idle share of one profiled subframe. Returns {launches,
+    closest, any} (the recorded inputs: (rays, count) each)."""
+    import torch
+
+    from rendertoy3c_tpu_torch.film.film import film_create
+    from rendertoy3c_tpu_torch.integrate.config import RenderConfig
+    from rendertoy3c_tpu_torch.integrate.path import make_render_fn
+    from rendertoy3c_tpu_torch.trace import residentwalk as rw
+
+    name = "49k box field, residentwalk"
+    cfg_kw = dict(MAIN, **SORTED)
+    cfg = RenderConfig(**cfg_kw)
+    kern = tracers[0]
+    tab = kern[0].table
+    passes = kern[0].passes
+    rec = dict(closest=[], any=[], calls=[0, 0])
+
+    def recording(i, what):
+        def walk(o, d, tmin, tmax, time=None, count=None):
+            rec["calls"][i] += 1
+            if rec["calls"][i] % RW_RECORD_EVERY == 0:
+                rays, _ = rw._pack(o, d, tmin, tmax, rw.RT)
+                c = rw._count(count, o.shape[0], dev)
+                rec[what].append((rays, c.clone()))
+            return kern[i](o, d, tmin, tmax, time, count=count)
+        return walk
+
+    warm = make_render_fn(scene, cfg, tracer=(recording(0, "closest"),
+                                              recording(1, "any")),
+                          device=dev)
+    step = make_render_fn(scene, cfg, tracer=kern, device=dev)
+    cam = camera.params()
+    film = film_create(cfg.height, cfg.width, device=dev)
+    t0 = time.perf_counter()
+    film, _ = warm(cam, film)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    warm_calls = list(rec["calls"])
+    check(len(rec["closest"]) >= 4 and len(rec["any"]) >= 4,
+          f"{name}: {warm_calls} calls, too few to record")
+    rw.walk_closest.launches = 0
+    rw.walk_any.launches = 0
+    for p in passes:
+        p.clear()
+    rates, secs = [], []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        film, stats = step(cam, film)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rates.append((int(stats.radiance_rays) + int(stats.shadow_rays))
+                     / dt / 1e6)
+        secs.append(dt)
+    launches = {"resident_walk_closest": rw.walk_closest.launches,
+                "resident_walk_any": rw.walk_any.launches}
+    for n, cnt in launches.items():
+        check(cnt > 0, f"{name}: the main path launched {n} no time")
+    img = film.accum
+    check(bool(torch.isfinite(img).all())
+          and tuple(img.shape) == (cfg.height, cfg.width, 3),
+          f"{name}: image not finite or of shape {tuple(img.shape)}")
+    walks = [len(p) for p in passes]
+    per_walk = [sum(p) / max(len(p), 1) for p in passes]
+    print(f"phase {phase} {name} ({scene.num_faces} faces, "
+          f"{tab.n_leaves} leaves) {cfg.width}x{cfg.height} "
+          f"{cfg.samples_per_launch}spp depth {cfg.max_depth} pool "
+          f"{cfg.ray_block} sorted on {smi}: warm-up {warm_s:.3f} s, "
+          f"{warm_calls[0]} closest and "
+          f"{warm_calls[1]} shadow calls")
+    print(f"  Mray/s per subframe {rates}, median "
+          f"{float(np.median(rates)):.6g}; s {secs}; per subframe: K8 "
+          f"launches {launches['resident_walk_closest'] / timed:.1f} closest"
+          f" + {launches['resident_walk_any'] / timed:.1f} any over "
+          f"{walks[0] / timed:.1f} closest and {walks[1] / timed:.1f} shadow "
+          f"walks ({per_walk[0]:.3f} and {per_walk[1]:.3f} passes per "
+          f"walk); image mean {float(img.mean()):.6f}; launches "
+          f"{launches}")
+    band_pair(name, scene, camera, cfg_kw, dev, tracers=tracers)
+    idle = profile_subframe(step, film, camera, float(np.median(secs)),
+                            phase, ("resident_walk_kernel",))
+    PATHS[name] = (float(np.median(rates)), idle)
+    return dict(launches=launches, closest=rec["closest"], any=rec["any"],
+                table=tab)
+
+
+def k8_work(stats, rays, count, tab):
+    """(bytes, operations) of one K8 launch from the first cursor: the
+    slab tests of the live blocks' rays against every leaf box, the MT
+    tests the launch needs (the plain version's count in `stats`: closest,
+    every ray of a block against every face of each round it ran; any,
+    each ray unoccluded when a round starts against the faces up to its
+    first hit), the rays, leaf rows and boxes read once, the output and
+    cursor rows written once."""
+    from rendertoy3c_tpu_torch.trace import residentwalk as rw
+
+    b = rays.shape[0] // rw.RT
+    live_blocks = min(b, -(-int(count[0]) // rw.RT))
+    ops = (live_blocks * rw.RT * tab.n_leaves * RW_SLAB_OPS
+           + int(stats[0]) * RW_MT_OPS)
+    n_bytes = (rays.numel() * 4 + tab.rows.numel() * 4
+               + tab.aabb_lanes.numel() * 4 + b * 8 + rays.shape[0] * 16
+               + b * 32)
+    return n_bytes, ops
+
+
+def phase_k8_timed(dev, path, phase=35):
+    """Phase 35: K8 closest and any on the main path's recorded inputs (4
+    calls spread over the warm-up subframe, the first pass of each), bit
+    for bit against their plain versions, the kernel timed behind a spin
+    kernel (device_ms), the plain version by CUDA events; bounded by
+    k8_work. Returns {walk name: result fields}."""
+    from rendertoy3c_tpu_torch.trace import residentwalk as rw
+
+    tab = path["table"]
+    out = {}
+    for name, kern, ref in (("closest", rw.walk_closest, rw.walk_closest_ref),
+                            ("any", rw.walk_any, rw.walk_any_ref)):
+        # 4 calls spread over those with a live lane
+        recs = [r for r in path[name] if int(r[1][0]) > 0]
+        check(len(recs) >= 4, f"phase {phase}: {len(recs)} recorded {name} "
+              "calls with a live lane")
+        pick = [recs[int(i)] for i in np.linspace(0, len(recs) - 1, 4)]
+        calls_k, calls_p, works = [], [], []
+        for rays, count in pick:
+            er, ir = rw._start(rays, rw.RT)
+            out_k, cur_k = kern(count, er, ir, rays, tab)
+            stats = []
+            out_p, cur_p = ref(count, er, ir, rays, tab, stats=stats)
+            check(_bits_equal(out_k, out_p) and _bits_equal(cur_k, cur_p),
+                  f"phase {phase}: K8 {name} differs from its plain version "
+                  "on the main path's inputs")
+            works.append(k8_work(stats, rays, count, tab))
+            calls_k.append(lambda k=kern, a=(count, er, ir, rays, tab): k(*a))
+            calls_p.append(lambda r=ref, a=(count, er, ir, rays, tab): r(*a))
+        ms = device_ms(calls_k)
+        plain_ms = cuda_ms(calls_p)
+        bound_ms, bound_by = bound(
+            float(np.mean([w[0] for w in works])),
+            float(np.mean([w[1] for w in works])))
+        print(f"phase {phase} K8 {name} on the main path's inputs ("
+              f"{[int(c[1][0]) for c in pick]} live of "
+              f"{pick[0][0].shape[0]} rays): bit-equal to the plain version;"
+              f" {ms:.4f} ms per launch (plain {plain_ms:.3f} ms), bound "
+              f"{bound_ms:.4f} ms by {bound_by} ({bound_ms / ms:.1%})")
+        out[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by)
+    return out
+
+
+def resident_band(dev, smi, t_start):
+    """Phases 32-35 on the resident-table walk. Returns the entries of the
+    "kernels" line: K8 closest and any."""
+    t0 = time.perf_counter()
+    scene, camera = resident_scene()
+    tracers = resident_tracers(scene, dev)
+    tab = tracers[0][0].table
+    print(f"phase 32 box field split-ordered at 256-face runs and tabled in "
+          f"{time.perf_counter() - t0:.2f} s: {scene.num_faces} faces")
+    phase_k8_gate(dev, scene, camera, tab)
+    phase_resident_gates(dev, scene, camera, tracers)
+    print(f"phases 32-33 done; {time.perf_counter() - t_start:.1f} s since "
+          "the start")
+    path = resident_path(scene, camera, dev, smi, tracers)
+    res = phase_k8_timed(dev, path)
+    print(f"phases 32-35 done; {time.perf_counter() - t_start:.1f} s since "
+          "the start")
+    return [dict(name=f"resident_walk_{n}", route="cuda", source=RW_SRC,
+                 replaces=RW_REPLACES,
+                 launches=path["launches"][f"resident_walk_{n}"], **res[n],
+                 library_ms=None) for n in ("closest", "any")]
 
 
 def main() -> int:
@@ -2884,13 +3256,15 @@ def main() -> int:
             "static town", *towns[False], dev, smi, 10,
             {"mt_closest": mt.mt_closest, "mt_any": mt.mt_any,
              "external_shade": shade.external_shade},
-            ("mt_kernel", "external_shade_kernel"))[1]
+            ("mt_kernel", "external_shade_kernel"),
+            timed=TOWN_TIMED)[1]
         launches_m = full_size(
             "2-key town", *towns[True], dev, smi, 10,
             {"mt_closest_motion": mt.mt_closest_motion,
              "mt_any_motion": mt.mt_any_motion,
              "external_shade": shade.external_shade},
-            ("mt_motion_kernel", "external_shade_kernel"))[1]
+            ("mt_motion_kernel", "external_shade_kernel"),
+            timed=TOWN_TIMED)[1]
         print(f"phase 10 done; {time.perf_counter() - t_start:.1f} s since "
               "the start")
 
@@ -2903,13 +3277,15 @@ def main() -> int:
             "textured static town", *tex_towns[False], dev, smi, 17,
             {"mt_closest": mt.mt_closest, "mt_any": mt.mt_any,
              "external_shade": shade.external_shade},
-            ("mt_kernel", "external_shade_kernel"))[1]
+            ("mt_kernel", "external_shade_kernel"),
+            timed=TOWN_TIMED)[1]
         launches_mt = full_size(
             "textured 2-key town", *tex_towns[True], dev, smi, 17,
             {"mt_closest_motion": mt.mt_closest_motion,
              "mt_any_motion": mt.mt_any_motion,
              "external_shade": shade.external_shade},
-            ("mt_motion_kernel", "external_shade_kernel"))[1]
+            ("mt_motion_kernel", "external_shade_kernel"),
+            timed=TOWN_TIMED)[1]
         print(f"phase 17 done; {time.perf_counter() - t_start:.1f} s since "
               "the start")
 
@@ -2947,11 +3323,12 @@ def main() -> int:
                         "external_shade": shade.external_shade}
         launches_ptt = full_size(
             "principled town", *p_towns[TEX_PT], dev, smi, 20, town_kernels,
-            ("mt_kernel", "external_shade_kernel"), SORTED_POWER)[1]
+            ("mt_kernel", "external_shade_kernel"), SORTED_POWER,
+            timed=TOWN_TIMED)[1]
         launches_pt = full_size(
             "untextured principled town", *p_towns[PT], dev, smi, 20,
             town_kernels, ("mt_kernel", "external_shade_kernel"),
-            SORTED_POWER)[1]
+            SORTED_POWER, timed=TOWN_TIMED)[1]
         print(f"phase 20 done; {time.perf_counter() - t_start:.1f} s since "
               "the start")
 
@@ -2966,7 +3343,7 @@ def main() -> int:
         launches_ta = full_size(
             "textured town aov", *tex_towns[False], dev, smi, 23,
             town_kernels, ("mt_kernel", "external_shade_kernel"), AOV,
-            plain=False)[1]
+            plain=False, timed=TOWN_TIMED)[1]
         aov_path_report("textured town aov", "textured static town")
         print(f"phases 21-23 (towns) done in {time.perf_counter() - t0:.1f} "
               f"s; {time.perf_counter() - t_start:.1f} s since the start")
@@ -2976,6 +3353,9 @@ def main() -> int:
 
         # ---- phases 28-31: trace-time instancing
         inst_entries = inst_band(dev, smi, t_start)
+
+        # ---- phases 32-35: the resident-table walk (K8)
+        rw_entries = resident_band(dev, smi, t_start)
 
     except PhaseFailed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
@@ -3052,6 +3432,7 @@ def main() -> int:
     kernels += aov_entries
     kernels += walk_entries
     kernels += inst_entries
+    kernels += rw_entries
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,18 @@ reference loader's rule), with the textures their .mtl files name. The
 .obj camera defaults to the reference app's framing, eye (5,5,5) toward
 (0,1,0) at fov 45 (rendertoy3c_tpu/app/cli.py:192-197); `--eye --lookat
 --fov` override it.
-It renders on the pixel-major pool with the reference CLI's names and
+`--tracer` picks the tracer as the reference's CLI does (:303-349):
+`auto` (default) tunes the pool for the card and takes trace/auto.py's
+ladder; `pallas` the fused pipeline where it shades the scene, else the
+bare MT tracer (K1/K2, K3), on the Morton order past 512 static faces;
+`hierwalk` the bare hierarchical walk (K9) on the SAH split order;
+`residentwalk` the resident-table block walk (K8) on the split order at
+256-face runs; `brute` the brute tracer. A bare tracer renders under the
+general pool or, with `--integrator wave`, the wave integrator
+(integrate/path.py). `leafwalk` and `bvh` are not ported (ROADMAP A17,
+A24) and exit with an error naming the item.
+It renders on the pool (pixel-major) or the wave integrator
+(`--integrator`) with the reference CLI's names and
 defaults for --max-depth (32), --seed (0), --ray-block (65536),
 --flush-every (0 = auto), --light-sampler (uniform or power), --aov (the
 first-hit albedo and normal guide buffers) and --denoise N (N a-trous
@@ -43,6 +54,9 @@ from ..scene.camera import Camera
 from ..scene.scene import build_scene
 from ..trace.auto import tune_config
 
+TRACERS = ("auto", "pallas", "hierwalk", "leafwalk", "residentwalk", "bvh",
+           "brute")
+
 
 def _vec3(s: str):
     parts = [float(x) for x in s.split(",")]
@@ -70,6 +84,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="vertical fov, degrees")
     p.add_argument("--max-depth", type=int, default=32)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--tracer", choices=TRACERS, default="auto",
+                   help="auto = the tracer ladder (trace/auto.py); pallas, "
+                   "hierwalk, residentwalk, brute = that bare tracer (or "
+                   "the fused pipeline for pallas)")
+    p.add_argument("--integrator", choices=["pool", "wave"], default="pool",
+                   help="path-tracer schedule: the persistent ray pool or "
+                   "the per-block waves")
     p.add_argument("--ray-block", type=int, default=1 << 16)
     p.add_argument("--flush-every", type=int, default=0,
                    help="pool framebuffer flush cadence, 0 = auto by "
@@ -102,6 +123,42 @@ def load_scene(names):
     meshes, textures = load_obj(names)
     return meshes, textures, Camera(eye=(5.0, 5.0, 5.0),
                                     lookat=(0.0, 1.0, 0.0), fov_y=45.0)
+
+
+def pick_tracer(kind: str, scene, cfg, device):
+    """(scene, tracer) of a --tracer other than auto (the reference CLI's
+    :303-349): the scene in the face order the tracer's tables take."""
+    from ..accel.lbvh import morton_order_scene, split_order_scene
+
+    if kind in ("leafwalk", "bvh"):
+        item = "A17" if kind == "leafwalk" else "A24"
+        raise SystemExit(f"--tracer {kind} is not ported yet (ROADMAP "
+                         f"{item})")
+    if kind == "brute":
+        from ..trace.intersect import make_bruteforce_tracer
+
+        return scene, make_bruteforce_tracer(scene, chunk=cfg.tri_chunk)
+    if kind == "hierwalk":
+        from ..trace.hierwalk import (HIER_LEAF, HIER_LEAF_MOTION,
+                                      make_hierwalk_tracer)
+
+        leaf = HIER_LEAF if scene.num_keys == 1 else HIER_LEAF_MOTION
+        scene = split_order_scene(scene, leaf=leaf)
+        return scene, make_hierwalk_tracer(scene, device)
+    if kind == "residentwalk":
+        from ..trace.residentwalk import make_walk_tracer
+
+        scene = split_order_scene(scene)
+        return scene, make_walk_tracer(scene, device)
+    from ..trace.mt import make_mt_tracer
+    from ..trace.shade import FusedPipeline, fused_unsupported
+
+    if scene.num_faces > 512 and scene.num_keys == 1:
+        scene = morton_order_scene(scene)
+    if (cfg.integrator == "pool" and cfg.ray_block % 256 == 0
+            and fused_unsupported(scene, cfg) is None):
+        return scene, FusedPipeline(scene, cfg, device)
+    return scene, make_mt_tracer(scene, device)
 
 
 def denoised(film, iterations: int):
@@ -158,8 +215,9 @@ def main(argv=None) -> int:
     device = torch.device(args.device)
     cfg = RenderConfig(width=w, height=h, samples_per_launch=args.spp,
                        max_depth=args.max_depth, seed=args.seed,
-                       ray_block=args.ray_block, integrator="pool",
-                       pool_pixel_major=True, flush_every=args.flush_every,
+                       ray_block=args.ray_block, integrator=args.integrator,
+                       pool_pixel_major=args.integrator == "pool",
+                       flush_every=args.flush_every,
                        light_sampler=args.light_sampler, aov=args.aov)
     meshes, textures, camera = load_scene(args.scene)
     if args.eye:
@@ -170,10 +228,14 @@ def main(argv=None) -> int:
         camera.fov_y = args.fov
     camera.aspect_ratio = w / h
     scene = build_scene(meshes, textures=textures or None)
-    # the walk band's pool width and cadence on the card (as the
-    # reference's CLI applies them on its accelerator)
-    cfg = tune_config(scene, cfg, device)
-    step = make_render_fn(scene, cfg, device=device)
+    if args.tracer == "auto":
+        # the walk band's pool width and cadence on the card (as the
+        # reference's CLI applies them on its accelerator), then the ladder
+        cfg = tune_config(scene, cfg, device)
+        step = make_render_fn(scene, cfg, device=device)
+    else:
+        scene, tracer = pick_tracer(args.tracer, scene, cfg, device)
+        step = make_render_fn(scene, cfg, tracer=tracer, device=device)
     cam = camera.params()
     film = film_create(h, w, device=device, aov=cfg.aov)
     rays = 0

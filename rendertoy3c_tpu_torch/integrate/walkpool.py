@@ -614,7 +614,7 @@ def _render_pipepool(scene, cfg, cam, pipe: WalkPoolPipeline, pixel_idx,
     The loop condition is read once per window. Returns (rgb [N, 3],
     (albedo, normal) or None, n_rad, n_shad, walk rounds)."""
     # deferred: integrate/path.py imports this module
-    from .path import _lcg_advance_table, _next_pow2
+    from .path import _lcg_advance_table, _next_pow2, _scf
 
     dev = pipe.device
     n_pix = int(pixel_idx.shape[0])
@@ -636,8 +636,7 @@ def _render_pipepool(scene, cfg, cam, pipe: WalkPoolPipeline, pixel_idx,
     streams = rng.pixel_streams(torch.arange(pixel_base, pixel_base + n_pix,
                                              device=dev), subframe_index,
                                 int(cfg.seed or 0))
-    scf = tuple(float(x) for x in np.concatenate(
-        [cam.eye, cam.u, cam.v, cam.w]).astype(np.float32))
+    scf = _scf(cam)
     eye = torch.tensor(scf[0:3], dtype=torch.float32, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)
     tmin = torch.full((paths * pool, 1), cfg.primary_tmin, **f32)

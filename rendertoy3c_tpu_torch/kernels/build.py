@@ -26,7 +26,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 SOURCES = ("mt_kernels.cu", "megakernel.cu", "megakernel_aov.cu",
-           "external.cu", "walk.cu")
+           "external.cu", "walk.cu", "resident_walk.cu")
 HEADERS = ("mt.cuh", "shade.cuh", "megakernel.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
@@ -207,6 +207,9 @@ def library() -> ctypes.CDLL:
     lib.rt3c_external_shade.restype = ci
     lib.rt3c_walk_rounds.argtypes = [ci, ctypes.POINTER(WalkParams), vp, vp]
     lib.rt3c_walk_rounds.restype = ci
+    lib.rt3c_resident_walk.argtypes = [ci, ci, vp, vp, vp, vp, ci, vp, vp,
+                                       ci, ci, vp, vp, vp]
+    lib.rt3c_resident_walk.restype = ci
     return lib
 
 

@@ -23,3 +23,23 @@ def onb_from_normal(nx: torch.Tensor, ny: torch.Tensor, nz: torch.Tensor):
     ty = bz * nx - bx * nz
     tz = bx * ny - by * nx
     return (tx, ty, tz), (bx, by, bz)
+
+
+def onb_local_to_world(p_local: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """Onb::inverse_transform on [R, 3] tensors: p.x t + p.y b + p.z n
+    (the reference's onb.py :35-41)."""
+    (tx, ty, tz), (bx, by, bz) = onb_from_normal(n[:, 0], n[:, 1], n[:, 2])
+    t = torch.stack([tx, ty, tz], dim=-1)
+    b = torch.stack([bx, by, bz], dim=-1)
+    return p_local[:, 0:1] * t + p_local[:, 1:2] * b + p_local[:, 2:3] * n
+
+
+def onb_world_to_local(p_world: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """A world vector in the (t, b, n) frame, [R, 3] (onb.py :44-54)."""
+    from .vec import dot
+
+    (tx, ty, tz), (bx, by, bz) = onb_from_normal(n[:, 0], n[:, 1], n[:, 2])
+    t = torch.stack([tx, ty, tz], dim=-1)
+    b = torch.stack([bx, by, bz], dim=-1)
+    return torch.stack([dot(p_world, t), dot(p_world, b), dot(p_world, n)],
+                       dim=-1)

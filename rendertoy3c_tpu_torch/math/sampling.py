@@ -29,3 +29,20 @@ def sample_uniform_triangle(u: torch.Tensor, v: torch.Tensor):
     b0 = 1.0 - su
     b1 = v * su
     return b0, b1, 1.0 - b0 - b1
+
+
+def safe_sqrt(x: torch.Tensor) -> torch.Tensor:
+    """src/util/math.h:21-23: sqrt of max(0, x)."""
+    return torch.sqrt(torch.clamp(x, min=0.0))
+
+
+def cosine_hemisphere_pdf(cos_theta: torch.Tensor) -> torch.Tensor:
+    """src/util/sampling.h:40-42."""
+    return cos_theta * (1.0 / math.pi)
+
+
+def power_heuristic(p1: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:
+    """MIS power heuristic (beta = 2), shader_common.h:137-145."""
+    p1_2 = p1 * p1
+    p2_2 = p2 * p2
+    return p1_2 / (p1_2 + p2_2)

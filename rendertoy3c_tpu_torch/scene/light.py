@@ -5,7 +5,9 @@ emissive mesh becomes one light; `power_cdf` is the inclusive normalised
 CDF of luminance * area, the power sampler's table. `pick_light_uniform`
 is the uniform pick, clamped to count - 1, in the float form of the
 megakernel (pallas_shade.py:711-713); `pick_light_power` the power pick
-(light.py:88-95 of the reference).
+(light.py:88-95 of the reference). `light_tensors` and `sample_light`
+(Light::Sample, light.py:97-134) serve the general shading of
+integrate/path.py.
 """
 from __future__ import annotations
 
@@ -72,3 +74,36 @@ def pick_light_power(u: torch.Tensor, power_cdf: torch.Tensor,
     lo = torch.where(idx > 0, cdf[torch.clamp(idx - 1, min=0)],
                      torch.zeros_like(u))
     return idx.to(torch.float32), cdf[idx] - lo
+
+
+def light_tensors(lights: LightTable, device) -> LightTable:
+    """The table's arrays as float32 tensors on `device`."""
+    return LightTable(*(torch.as_tensor(np.asarray(a, np.float32),
+                                        device=device) for a in lights))
+
+
+def sample_light(lights: LightTable, idx: torch.Tensor, u: torch.Tensor,
+                 v: torch.Tensor, p: torch.Tensor):
+    """Light::Sample (src/light.h:33-60) on [R] lanes: a uniform point of
+    light `idx` seen from p [R, 3]. lights: light_tensors' table. Returns
+    (position [R, 3], emission * solid angle [R, 3], pdf [R]) with the pdf
+    in solid angle (1 / omega) and the reference's guards: dist^2 < 1e-5
+    or omega < 1e-5 give emission 0 and pdf 1."""
+    from ..math.sampling import sample_uniform_triangle
+    from ..math.vec import dot
+
+    b0, b1, b2 = sample_uniform_triangle(u, v)
+    pos = (b0[:, None] * lights.v0[idx] + b1[:, None] * lights.v1[idx]
+           + b2[:, None] * lights.v2[idx])
+    dvec = pos - p
+    dist2 = dot(dvec, dvec)
+    safe_dist2 = torch.clamp(dist2, min=1e-20)
+    ndir = dvec * (1.0 / torch.sqrt(safe_dist2))[:, None]
+    omega = (torch.abs(dot(ndir, lights.normal[idx])) * lights.area[idx]
+             / safe_dist2)
+    degenerate = (dist2 < 1e-5) | (omega < 1e-5)
+    emission = torch.where(degenerate[:, None], 0.0,
+                           lights.emission[idx] * omega[:, None])
+    pdf = torch.where(degenerate, 1.0,
+                      1.0 / torch.clamp(omega, min=1e-20))
+    return pos, emission, pdf

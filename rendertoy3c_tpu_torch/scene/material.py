@@ -5,8 +5,9 @@ Port of the part of rendertoy3c_tpu/scene/material.py the port uses
 the principled extras `metallic` and `sheen`, and the texture-coordinate
 transform (`uv_transform_row`, `has_uv_transform`, :60-102). The renderer
 shades the four material types, emission, diffuse textures and normal
-maps; the emissive and roughness maps are declared so that a scene can
-name them, and the tracer choice rejects them (trace/auto.py).
+maps in every pipeline, and the emissive and roughness maps in the
+general shading of the bare tracers (integrate/path.py `_shade_and_nee`),
+where trace/auto.py sends the scenes that carry them.
 """
 from __future__ import annotations
 

@@ -171,9 +171,10 @@ def bilinear_footprint(atlas: TextureAtlas, tex_id: torch.Tensor,
                        u: torch.Tensor, v: torch.Tensor):
     """The four atlas texels of each lane's bilinear fetch as flat indices
     into [AH * AW] (c00, c01, c10, c11) and the weights' (fu, fv). tex_id
-    [...] int (values < 0 read texture 0); the atlas on u's device."""
+    [...] int, clamped into the meta table as XLA clamps a gather's index
+    (values < 0 read texture 0); the atlas on u's device."""
     meta = torch.as_tensor(atlas.meta, device=u.device).to(torch.int64)
-    m = meta[torch.clamp(tex_id.to(torch.int64), min=0)]
+    m = meta[torch.clamp(tex_id.to(torch.int64), 0, meta.shape[0] - 1)]
     y0, x0 = m[..., 0], m[..., 1]
     th, tw = m[..., 2], m[..., 3]
     iu0, iu1, fu = _wrap_footprint(u, tw, m[..., 4])

@@ -1,2 +1,2 @@
-from .intersect import (Hit, ray_triangle, trace_any_bruteforce,
-                        trace_closest_bruteforce)
+from .intersect import (Hit, make_bruteforce_tracer, ray_triangle,
+                        trace_any_bruteforce, trace_closest_bruteforce)

@@ -1,31 +1,45 @@
 """Tracer choice for the path renderer.
 
 Port of rendertoy3c_tpu/trace/auto.py `choose_tracer` (:98-195) and
-`tune_config` (:46-90), narrowed to the ported rungs of its ladder and
-never routing a scene elsewhere than the reference would:
+`tune_config` (:46-90), never routing a scene elsewhere than the
+reference would:
 
-  trace-time instanced scene (InstancedScene) of at most 2 keys, pool
+  trace-time instanced scene (InstancedScene) of at most 2 keys
                                       -> split_order_instanced, then
-                                         (:117-148) more than 16384
-                                         effective faces: the instanced
-                                         walk pool (a static field on its
-                                         baked world table); else the
-                                         instanced walk + ExternalPipeline
-  more than 16384 faces, static or 2-key, pool integrator
+                                         (:117-148) the pool with a
+                                         ray_block multiple of 256: more
+                                         than 16384 effective faces the
+                                         instanced walk pool (a static
+                                         field on its baked world table),
+                                         else the instanced walk +
+                                         ExternalPipeline when K6 shades
+                                         the scene; otherwise the bare
+                                         instanced walk tracer
+  more than 16384 faces, static or 2-key
                                       -> SAH split order (leaf 14, or 7
                                          for 2 keys), then the walk pool
-                                         (integrate/walkpool.py, :157-181)
+                                         (integrate/walkpool.py) under the
+                                         pool integrator, the bare
+                                         hierwalk tracer under the wave
+                                         integrator (:157-181)
   static scene of more than 512 faces -> Morton face order first (:183-188)
-  up to 2048 faces, static or 2-key   -> FusedPipeline (the megakernels)
-  2049-16384 faces, static or 2-key   -> make_mt_tracer + ExternalPipeline
+  up to 16384 faces, static or 2-key, the pool with a ray_block multiple
+  of 256, shaded by the kernels      -> FusedPipeline (the megakernels) up
+                                         to 2048 faces, else the bare MT
+                                         tracer (make_mt_tracer) +
+                                         ExternalPipeline
+  up to 16384 faces otherwise        -> the bare MT tracer (:190-195)
 
-2-key scenes of the MT band keep their face order, as in the reference.
-Everything else raises NotImplementedError naming the ROADMAP item that
-adds it: more than 2 keys (for instances, K7: C1), the bare hierwalk and
-instanced tracers under the wave integrator or the general pool (A6/A7),
-and the XLA shade stage (A22).
-Returns (scene, tracer): always render the returned scene, whose face
-order matches the tracer's tables.
+A bare (closest, any) tracer renders under the general pool or the wave
+integrator (integrate/path.py `_render_pool`, `_trace_block`), whose
+shading (`_shade_and_nee`) covers the scenes the kernels refuse: emissive
+and roughness textures, normal maps without images, the physical
+throughput model, scenes without lights. 2-key scenes of the MT band keep
+their face order, as in the reference. What stays out raises
+NotImplementedError naming the ROADMAP item that adds it: more than 2
+keys (A5; for instances, K7: C1) and the walk pool's XLA shade stage
+(A22). Returns (scene, tracer): always render the returned scene, whose
+face order matches the tracer's tables.
 """
 from __future__ import annotations
 
@@ -39,10 +53,10 @@ from ..integrate.walkpool import (LEAFWALK_MIN_FACES,
                                   make_walkpool_pipeline)
 from .hier_instanced import (baked_world_eligible, make_inst_hierwalk_tracer,
                              split_order_instanced)
-from .hierwalk import HIER_LEAF, HIER_LEAF_MOTION
+from .hierwalk import HIER_LEAF, HIER_LEAF_MOTION, make_hierwalk_tracer
 from .mt import make_mt_tracer
-from .shade import (MAX_FACES, ExternalPipeline, FusedPipeline,
-                    external_unsupported, fused_unsupported)
+from .shade import (ExternalPipeline, FusedPipeline, external_unsupported,
+                    fused_unsupported)
 
 # the walk pool's width above 100000 faces (twice it below)
 POOL_BLOCK_LARGE = 8192
@@ -92,6 +106,12 @@ def tune_config(scene, cfg, device):
         flush_every=cfg.flush_every or 8)
 
 
+def _pipeline_ok(cfg) -> bool:
+    """The pipelines take the pool integrator with a ray_block multiple of
+    256 (auto.py:154-156)."""
+    return cfg.integrator == "pool" and cfg.ray_block % 256 == 0
+
+
 def choose_tracer(scene, cfg, device):
     """(scene, tracer) for rendering `scene` under `cfg` on `device`."""
     if _is_instanced(scene):
@@ -101,29 +121,21 @@ def choose_tracer(scene, cfg, device):
             "more than 2 motion keys need the N-key brute tracer and the "
             "stacked segment tables (ROADMAP A5)")
     if scene.num_faces > LEAFWALK_MIN_FACES:
-        if cfg.integrator != "pool":
-            raise NotImplementedError(
-                "the bare hierwalk tracer under the wave integrator is not "
-                "ported yet (ROADMAP A6/A7)")
         leaf = HIER_LEAF if scene.num_keys == 1 else HIER_LEAF_MOTION
         scene = split_order_scene(scene, leaf=leaf)
-        return scene, make_walkpool_pipeline(scene, cfg, device)
-    if cfg.ray_block % 256:
-        raise ValueError("the pool pipelines need ray_block % 256 == 0")
+        if cfg.integrator == "pool":
+            return scene, make_walkpool_pipeline(scene, cfg, device)
+        return scene, make_hierwalk_tracer(scene, device)
     if scene.num_faces > 512 and scene.num_keys == 1:
         # spatially coherent face order tightens the per-tile cull boxes
         # (before the tracer build, so prim ids match the tables)
         scene = morton_order_scene(scene)
-    if scene.num_faces <= MAX_FACES:
-        reason = fused_unsupported(scene, cfg)
-        if reason is not None:
-            raise NotImplementedError(reason)
+    if _pipeline_ok(cfg) and fused_unsupported(scene, cfg) is None:
         return scene, FusedPipeline(scene, cfg, device)
-    reason = external_unsupported(scene, cfg)
-    if reason is not None:
-        raise NotImplementedError(reason)
-    return scene, ExternalPipeline(scene, cfg, make_mt_tracer(scene, device),
-                                   device)
+    tracer = make_mt_tracer(scene, device)
+    if _pipeline_ok(cfg) and external_unsupported(scene, cfg) is None:
+        return scene, ExternalPipeline(scene, cfg, tracer, device)
+    return scene, tracer
 
 
 def _choose_instanced(iscene, cfg, device):
@@ -132,21 +144,10 @@ def _choose_instanced(iscene, cfg, device):
         raise NotImplementedError(
             "instanced scenes of more than 2 transform keys take the "
             "unrolled instanced kernels (K7), not ported yet (ROADMAP C1)")
-    if cfg.integrator != "pool":
-        raise NotImplementedError(
-            "the bare instanced tracer under the wave integrator is not "
-            "ported yet (ROADMAP A6/A7)")
-    if cfg.ray_block % 256:
-        raise ValueError("the pool pipelines need ray_block % 256 == 0")
     iscene = split_order_instanced(iscene)
-    if _eff_faces(iscene) > LEAFWALK_MIN_FACES:
+    if _pipeline_ok(cfg) and _eff_faces(iscene) > LEAFWALK_MIN_FACES:
         return iscene, make_inst_walkpool_pipeline(iscene, cfg, device)
-    reason = external_unsupported(iscene, cfg)
-    if reason is not None:
-        # the reference renders these with the bare tracer in its
-        # general pool, or in its walk pool's XLA shade stage
-        raise NotImplementedError(
-            f"{reason}; the instanced tracer under the general pool is not "
-            "ported yet (ROADMAP A7/A22)")
-    return iscene, ExternalPipeline(
-        iscene, cfg, make_inst_hierwalk_tracer(iscene, device), device)
+    tracer = make_inst_hierwalk_tracer(iscene, device)
+    if _pipeline_ok(cfg) and external_unsupported(iscene, cfg) is None:
+        return iscene, ExternalPipeline(iscene, cfg, tracer, device)
+    return iscene, tracer

@@ -8,8 +8,10 @@ plain torch: `_leaf_mt` (:438), `_dir_entries` (:479), `_safe_inv` (:514)
 and `_prune_cut` (:518). `trace_closest_hier` and `trace_any_hier`
 (:675, :696) run the walk round (K9, integrate/walkpool.py
 `walk_rounds`, or its plain version) to completion over a ray batch; they
-serve the hierwalk gate and the tests. The render path is the walk pool
-(integrate/walkpool.py), which runs the same round inside its pool.
+serve the hierwalk gate, the tests and `make_hierwalk_tracer` (:709), the
+bare tracer of the wave integrator and the general pool. The pool
+integrator's render path is the walk pool (integrate/walkpool.py), which
+runs the same round inside its pool.
 
 Table layout: one 128-f32 row per node, the directory levels first (root =
 row 0), the leaves last. A leaf row holds HIER_LEAF (14) triangles inline
@@ -452,3 +454,33 @@ def trace_any_hier(tab: HierTable, o, d, tmin, tmax, count=None, time=None,
                    plain: bool = False) -> torch.Tensor:
     """Occlusion [R] bool by the hierarchical walk."""
     return _walk(tab, o, d, tmin, tmax, count, True, time, plain).wfound
+
+
+def make_hierwalk_tracer(scene, device, plain: bool = False):
+    """(closest, any_hit) over the hierarchical walk of a static or 2-key
+    scene (hierwalk.py:709 of the reference), each f(o, d, tmin, tmax,
+    time, count=None); a 2-key scene walks at each ray's time (0 when
+    time is None). Order the scene with split_order_scene(scene,
+    leaf=HIER_LEAF or HIER_LEAF_MOTION) first. The walk is K9 on a CUDA
+    device, its plain version on the CPU or with `plain`. More than 2
+    keys raise NotImplementedError (ROADMAP A5)."""
+    tab = build_hier_table(scene.geom, scene.num_faces,
+                           num_keys=scene.num_keys, device=device)
+    motion = scene.num_keys == 2
+
+    def time_col(time, o):
+        if not motion:
+            return None
+        return torch.broadcast_to(torch.as_tensor(
+            0.0 if time is None else time, dtype=torch.float32,
+            device=o.device), (o.shape[0],))
+
+    def closest(o, d, tmin, tmax, time=None, count=None):
+        return trace_closest_hier(tab, o, d, tmin, tmax, count,
+                                  time_col(time, o), plain)
+
+    def any_hit(o, d, tmin, tmax, time=None, count=None):
+        return trace_any_hier(tab, o, d, tmin, tmax, count,
+                              time_col(time, o), plain)
+
+    return closest, any_hit

@@ -5,7 +5,9 @@ triangle, chunk by chunk. Triangles are two-sided, barycentrics follow
 OptiX (P = (1-u-v)*p0 + u*p1 + v*p2), and the closest hit takes the lowest
 prim among equal t. Motion scenes lerp each triangle to the ray's time in
 [0, 1] between its keys, `a + (b - a) * frac` (`_tri_chunk`, :75-100).
-This is the oracle the MT kernels are held to.
+This is the oracle the MT kernels are held to, and with
+`make_bruteforce_tracer` the bare tracer of render_pixels when none is
+given.
 """
 from __future__ import annotations
 
@@ -134,3 +136,17 @@ def trace_any_bruteforce(scene, o, d, tmin, tmax, time=None,
                                     tmin[:, None], tmax[:, None])
         occluded |= hit.any(dim=1)
     return occluded
+
+
+def make_bruteforce_tracer(scene, chunk: int = 256):
+    """(closest, any_hit) over the brute tracers, each f(o, d, tmin, tmax,
+    time, count=None) (intersect.py:194-215 of the reference). count is
+    accepted for the tracer interface and ignored: every ray is traced."""
+
+    def closest(o, d, tmin, tmax, time, count=None):
+        return trace_closest_bruteforce(scene, o, d, tmin, tmax, time, chunk)
+
+    def any_hit(o, d, tmin, tmax, time, count=None):
+        return trace_any_bruteforce(scene, o, d, tmin, tmax, time, chunk)
+
+    return closest, any_hit

@@ -242,21 +242,23 @@ def shade_tables_for(scene, device, f_limit: int | None = None):
 
 
 def _slice_checks(scene, cfg):
-    """(failed, reason) pairs shared by both pipelines' gates."""
+    """(failed, reason) pairs shared by both pipelines' gates: what the
+    kernels do not shade. The tracer choice sends such scenes to a bare
+    tracer, shaded by integrate/path.py `_shade_and_nee` (the walk pool
+    refuses them, ROADMAP A22)."""
+    general = "shaded outside the kernels (integrate/path.py _shade_and_nee)"
     return (
         (cfg.integrator != "pool",
-         "the wave integrator is not ported yet (ROADMAP A6)"),
+         "the wave integrator renders bare tracers only"),
         (scene.num_keys > 2, "more than 2 motion keys need the N-key "
          "brute tracer (ROADMAP A5)"),
         (texture_state(scene) == "unsupported", "emissive and roughness "
-         "textures take the general pool, not ported yet (ROADMAP A22)"),
+         f"textures are {general}"),
         (scene.any_normal_map and texture_state(scene) != "diffuse",
-         "normal maps without texture images take the general pool, not "
-         "ported yet (ROADMAP A22)"),
+         f"normal maps without texture images are {general}"),
         (cfg.throughput_model != "reference",
-         "the physical throughput model is not ported yet (ROADMAP A22)"),
-        (scene.num_lights < 1, "scenes without lights take the general "
-         "pool, not ported yet (ROADMAP A7)"),
+         f"the physical throughput model is {general}"),
+        (scene.num_lights < 1, f"scenes without lights are {general}"),
     )
 
 

@@ -38,6 +38,7 @@ import torch
 from rendertoy3c_tpu.film.film import film_create as j_film_create
 from rendertoy3c_tpu.integrate.config import RenderConfig as JConfig
 from rendertoy3c_tpu.integrate.path import make_render_fn as j_render_fn
+from rendertoy3c_tpu.integrate.path import render_frame as j_render_frame
 from rendertoy3c_tpu.trace.auto import choose_tracer as j_choose_tracer
 from rendertoy3c_tpu.trace.pallas_mt import build_tri_soup as j_soup
 from rendertoy3c_tpu.trace.pallas_shade import (make_external_shader,
@@ -374,12 +375,28 @@ def test_aov_render_matches_reference_textured_town(aov_towns, pool_stash):
 
 
 def test_aov_wave_integrator_raises_naming_a6():
-    """The wave integrator stays outside the slice, with or without AOV."""
-    _, ts, _, _ = cornell_pair()
+    """The wave integrator (A6, ported) takes the bare MT tracer, with or
+    without AOV, and its first-hit guides match the reference's wave
+    integrator over its brute tracer (albedo and normal at rtol = atol =
+    1e-5; the radiance by the gate)."""
+    from rendertoy3c_tpu.trace.intersect import make_bruteforce_tracer
+
+    js, ts, jcam, tcam = cornell_pair()
     for aov in (False, True):
         cfg = RenderConfig(**dict(KW, integrator="wave", aov=aov))
-        with pytest.raises(NotImplementedError, match="A6"):
-            choose_tracer(ts, cfg, "cpu")
+        _, tracer = choose_tracer(ts, cfg, "cpu")
+        assert isinstance(tracer, tuple) and len(tracer) == 2
+    kw = dict(KW, integrator="wave", aov=True, width=16, height=16)
+    f_ref, _ = j_render_frame(js, jcam.params(), JConfig(**kw), subframes=1,
+                              tracer=make_bruteforce_tracer(js))
+    f, _ = render_frame(ts, tcam.params(), RenderConfig(**kw),
+                        device="cpu")
+    for name in ("albedo", "normal"):
+        np.testing.assert_allclose(getattr(f, name).numpy(),
+                                   np.asarray(getattr(f_ref, name)),
+                                   rtol=1e-5, atol=1e-5)
+    diff = np.abs(f.accum.numpy() - np.asarray(f_ref.accum))
+    assert diff.mean() <= 2e-3 and diff.max() <= 8.0
 
 
 def test_aov_off_leaves_film_plain():

@@ -1229,3 +1229,68 @@ def test_inst_external_shade_matches_plain_version(dev, case):
         seen |= set(inst.unique().tolist())
     assert shade.external_shade.inst_launches > before
     assert -1 in seen and len(seen) > 2
+
+
+def _bits(a, b) -> bool:
+    return torch.equal(a.contiguous().view(torch.int32),
+                       b.contiguous().view(torch.int32))
+
+
+@pytest.mark.parametrize("case", ["random", "forced_passes", "pool_state"])
+def test_resident_walk_kernels_match_plain_versions(dev, case):
+    """K8 closest and any (walk_closest, walk_any) against walk_closest_ref
+    and walk_any_ref: every launch's output rows and cursor rows bit for
+    bit, from the first pass's cursor and from a mid-walk one, with a
+    live count inside a block; then the pass loops' hits and occlusion
+    bit-equal, and the brute tracer's prims and occlusion. pool_state:
+    the rays of a sorted general-pool iteration (stale lanes past the
+    live count inside live blocks)."""
+    from rendertoy3c_tpu_torch.accel.lbvh import split_order_scene
+    from rendertoy3c_tpu_torch.trace import residentwalk as rw
+    from rendertoy3c_tpu_torch.trace.intersect import (
+        trace_any_bruteforce, trace_closest_bruteforce)
+
+    scene = split_order_scene(_box_grid_scene(16))
+    t_rounds = 2 if case == "forced_passes" else rw.T_ROUNDS
+    o, d = _rays(4000, 3, [-1, 0.1, -1], [17, 2.5, 17])
+    if case == "pool_state":
+        # a sorted pool: direction octant, then origin; the stale tail
+        # lanes keep their rays
+        key = (d[:, 0] >= 0) + 2 * (d[:, 1] >= 0) + 4 * (d[:, 2] >= 0)
+        order = np.lexsort((o[:, 0], key))
+        o, d = o[order], d[order]
+    ot = torch.as_tensor(o, device=dev)
+    dt = torch.as_tensor(d, device=dev)
+    tab = rw.build_walk_table(scene.geom, scene.num_faces, device=dev)
+    rays, r = rw._pack(ot, dt, 0.01, 1e16, rw.RT)
+    count = torch.tensor([3001], dtype=torch.int32, device=dev)
+    er, ir = rw._start(rays, rw.RT)
+    for kern, ref in ((rw.walk_closest, rw.walk_closest_ref),
+                      (rw.walk_any, rw.walk_any_ref)):
+        c_er, c_ir = er, ir
+        for _ in range(3):
+            out_k, cur_k = kern(count, c_er, c_ir, rays, tab, rw.RT, t_rounds)
+            out_p, cur_p = ref(count, c_er, c_ir, rays, tab, rw.RT, t_rounds)
+            assert _bits(out_k, out_p) and _bits(cur_k, cur_p)
+            c_er = cur_k[:, 1].contiguous()
+            c_ir = cur_k[:, 2].to(torch.int32)
+    for count in (None, torch.tensor(3001, device=dev)):
+        got = rw.trace_closest_walk(tab, ot, dt, 0.01, 1e16, count=count,
+                                    t_rounds=t_rounds)
+        want = rw.trace_closest_walk(tab, ot, dt, 0.01, 1e16, count=count,
+                                     t_rounds=t_rounds, plain=True)
+        for a, b in zip(got, want):
+            if a is not None:
+                assert _bits(a.float(), b.float())
+        tmax = torch.linspace(0.5, 30.0, ot.shape[0], device=dev)
+        occ = rw.trace_any_walk(tab, ot, dt, 1e-3, tmax, count=count,
+                                t_rounds=t_rounds)
+        assert torch.equal(occ, rw.trace_any_walk(
+            tab, ot, dt, 1e-3, tmax, count=count, t_rounds=t_rounds,
+            plain=True))
+    brute = trace_closest_bruteforce(scene, ot, dt, 0.01, 1e16)
+    full = rw.trace_closest_walk(tab, ot, dt, 0.01, 1e16, t_rounds=t_rounds)
+    assert torch.equal(full.prim, brute.prim)
+    assert torch.equal(rw.trace_any_walk(tab, ot, dt, 1e-3, tmax,
+                                         t_rounds=t_rounds),
+                       trace_any_bruteforce(scene, ot, dt, 1e-3, tmax))

@@ -17,11 +17,13 @@ MODULES = [
     "rendertoy3c_tpu_torch.integrate.config",
     "rendertoy3c_tpu_torch.integrate.path",
     "rendertoy3c_tpu_torch.integrate.walkpool",
+    "rendertoy3c_tpu_torch.integrate.bsdf",
     "rendertoy3c_tpu_torch.io", "rendertoy3c_tpu_torch.io.genassets",
     "rendertoy3c_tpu_torch.io.obj",
     "rendertoy3c_tpu_torch.kernels.build", "rendertoy3c_tpu_torch.math",
     "rendertoy3c_tpu_torch.math.onb", "rendertoy3c_tpu_torch.math.sampling",
-    "rendertoy3c_tpu_torch.math.vec", "rendertoy3c_tpu_torch.scene",
+    "rendertoy3c_tpu_torch.math.vec", "rendertoy3c_tpu_torch.math.microfacet",
+    "rendertoy3c_tpu_torch.scene",
     "rendertoy3c_tpu_torch.scene.builtin", "rendertoy3c_tpu_torch.scene.town",
     "rendertoy3c_tpu_torch.scene.material", "rendertoy3c_tpu_torch.scene.scene",
     "rendertoy3c_tpu_torch.scene.texture",
@@ -32,6 +34,8 @@ MODULES = [
     "rendertoy3c_tpu_torch.scene.instanced",
     "rendertoy3c_tpu_torch.trace.instanced",
     "rendertoy3c_tpu_torch.trace.hier_instanced",
+    "rendertoy3c_tpu_torch.trace.leafwalk",
+    "rendertoy3c_tpu_torch.trace.residentwalk",
     "rendertoy3c_tpu_torch.tools",
     "rendertoy3c_tpu_torch.tools.sweep_ab",
 ]

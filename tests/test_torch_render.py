@@ -152,6 +152,9 @@ PORTED = ("A8", "A11")  # sorted and sample-major pools, fused motion
 # A12's material dispatch and power pick, and A13's AOV: rendered against
 # the reference
 RENDERED = ("mirror", "power", "aov")
+# A6, the wave integrator: rendered over the bare MT tracer against the
+# reference's wave integrator over its brute tracer
+WAVE = ("wave",)
 
 
 @pytest.mark.parametrize("case, item", [
@@ -168,7 +171,22 @@ def test_outside_the_slice_raises_naming_the_roadmap_item(case, item):
     a diffuse texture (A12's textures) the textured megakernel; a mirror
     wall (A12's dispatch), the power pick and AOV (A13) render as the
     reference does (`_match_fused`); a scene of more than 16384 faces
-    takes the walk pool (A17/A18)."""
+    takes the walk pool (A17/A18); the wave integrator (A6) takes the bare
+    MT tracer and renders as the reference's wave integrator, by the
+    gate."""
+    if case in WAVE:
+        js, ts, jcam, tcam = cornell_pair()
+        kw = _cfg(integrator="wave")
+        _, tracer = choose_tracer(ts, RenderConfig(**kw), "cpu")
+        assert isinstance(tracer, tuple) and len(tracer) == 2
+        f_ref, _ = j_render_frame(js, jcam.params(), JConfig(**kw),
+                                  subframes=1,
+                                  tracer=make_bruteforce_tracer(js))
+        f, _ = render_frame(ts, tcam.params(), RenderConfig(**kw),
+                            subframes=1, device="cpu")
+        a, b = f.accum.numpy(), np.asarray(f_ref.accum)
+        assert gate(a, b), (np.abs(a - b).mean(), np.abs(a - b).max())
+        return
     if case in RENDERED:
         kw = _cfg(**{"power": dict(light_sampler="power"),
                      "aov": dict(aov=True)}.get(case, {}))

@@ -254,15 +254,39 @@ def test_textured_town_tables_array_equal(tmp_path, two_key):
     np.testing.assert_array_equal(ts.geom.uv0, np.asarray(js.geom.uv0))
 
 
+def _renders_like_reference(jscene, scene):
+    """A22's general shading, ported: the scene takes the bare MT tracer
+    (the kernels refuse it) and its pool render passes the gate
+    (bench.py:115-116) against the reference's over its brute tracer."""
+    from rendertoy3c_tpu.integrate.config import RenderConfig as JConfig
+    from rendertoy3c_tpu.integrate.path import render_frame as j_render
+    from rendertoy3c_tpu.trace.intersect import make_bruteforce_tracer
+    from rendertoy3c_tpu_torch.integrate.path import render_frame
+
+    _, tracer = choose_tracer(scene, RenderConfig(**CFG), "cpu")
+    assert isinstance(tracer, tuple) and len(tracer) == 2
+    cam = textured_quad_meshes("torch")[2].params()
+    f_ref, _ = j_render(jscene, cam, JConfig(**CFG), subframes=1,
+                        tracer=make_bruteforce_tracer(jscene))
+    f, _ = render_frame(scene, cam, RenderConfig(**CFG), device="cpu")
+    d = np.abs(f.accum.numpy() - np.asarray(f_ref.accum))
+    assert d.mean() <= 2e-3 and (d.max(-1) > 0.35).sum() <= 8
+    assert d.max() <= 8.0 and f.accum.numpy().mean() > 0
+
+
 @pytest.mark.parametrize("which", ["emissive", "roughness"])
 def test_emissive_and_roughness_textures_raise_naming_a22(which):
-    meshes, textures, _ = textured_quad_meshes("torch")
-    meshes[0].material = dataclasses.replace(
-        meshes[0].material, **{f"{which}_texture_id": 0})
-    scene = build_scene(meshes, textures=textures)
-    assert shade.texture_state(scene) == "unsupported"
-    with pytest.raises(NotImplementedError, match="A22"):
-        choose_tracer(scene, RenderConfig(**CFG), "cpu")
+    """Emissive and roughness textures (A22's general shading, ported)
+    render through the bare tracer, as the reference's general pool
+    renders them."""
+    scenes = []
+    for pkg, build in (("jax", j_build_scene), ("torch", build_scene)):
+        meshes, textures, _ = textured_quad_meshes(pkg)
+        meshes[0].material = dataclasses.replace(
+            meshes[0].material, **{f"{which}_texture_id": 0})
+        scenes.append(build(meshes, textures=textures))
+    assert shade.texture_state(scenes[1]) == "unsupported"
+    _renders_like_reference(*scenes)
 
 
 @pytest.mark.parametrize("which", ["diffuse", "normal"])
@@ -278,11 +302,13 @@ def test_texture_id_past_the_atlas_raises(which):
 
 
 def test_normal_map_without_textures_raises_naming_a22():
+    """A normal map whose image is not given (A22's general shading,
+    ported) renders through the bare tracer, as the reference's does."""
+    jm, _, _ = textured_quad_meshes("jax", "normal_map")
     meshes, _, _ = textured_quad_meshes("torch", "normal_map")
     scene = build_scene(meshes)  # the normal map's image is not given
     assert scene.any_normal_map and shade.texture_state(scene) == "none"
-    with pytest.raises(NotImplementedError, match="A22"):
-        choose_tracer(scene, RenderConfig(**CFG), "cpu")
+    _renders_like_reference(j_build_scene(jm), scene)
 
 
 def _cli_scene(monkeypatch, tmp_path, scene_args):
