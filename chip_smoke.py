@@ -23,14 +23,15 @@ a JSON summary. Phases:
   4. the gate (bench.py:115-116) of kernels against plain versions at 96^2,
      2 spp, max_depth 6, ray_block 4096;
   5. the Cornell main path: 768^2, 8 spp, max_depth 16, ray_block 32768,
-     pixel-major pool; 1 warm-up and 4 timed subframes with the kernels;
+     pixel-major pool; 1 warm-up and 2 timed subframes with the kernels;
      Mray/s counted as radiance + shadow rays; every pixel finite; the
      kernels held to the plain versions on the middle sixteenth of the
      image (rows 360-408: one subframe each through render_pixels, means
      within 1%, the gate, with AOV the albedo and normal bands bit-equal;
      every main path below that has plain versions does the same, the
      trace-time instanced path on rows 376-392); then a profile of one
-     more subframe;
+     more subframe (every main path profiles one subframe after its timed
+     ones, with any input recording off);
   6. the PNG of the kernel render;
   7. K1/K2 on the static and K3 (mt_closest_motion, mt_any_motion) on the
      2-key 16054-face town, against their plain versions and the brute
@@ -38,7 +39,10 @@ a JSON summary. Phases:
      random times): prims and occlusion exact, t/u/v within 1e-6, the
      count skip on 128-ray tiles for K3; then against their plain versions
      again, timed and bounded, on the main path's own inputs: those of
-     pool iterations 32, 128, 224 and 320 of one subframe of each town;
+     pool iterations 32, 128, 224 and 320 of one subframe of each town
+     (that subframe is phase 10's warm-up, as the subframes recorded in
+     phases 12, 15 and 18 are the warm-ups of their paths in phases 14,
+     17 and 20);
   8. K6 (external_shade) teacher-forced against its plain version at 32768
      lanes for 8 iterations on both towns: every output bit for bit; then
      bit for bit again on the main paths' inputs of phase 7, and its
@@ -46,8 +50,8 @@ a JSON summary. Phases:
      launches queued behind a spin kernel);
   9. the gate of phase 4 on the external path, the 4294-face town, static
      and 2-key;
- 10. both 16054-face towns at the main path's config: 1 warm-up and 2
-     timed subframes with the kernels (TOWN_TIMED, as for every MT town
+ 10. both 16054-face towns at the main path's config: 1 warm-up (phase
+     7's recorded subframe) and 2 timed subframes with the kernels (TOWN_TIMED, as for every MT town
      path of phases 17, 20 and 23), the band of phase 5 against the
      plain versions; Mray/s, launches per subframe, every pixel finite, and
      the device idle share of one profiled subframe (a phase fails if its
@@ -181,7 +185,34 @@ a JSON summary. Phases:
      walk, the idle share of one profiled subframe;
  35. K8 closest and any on the inputs of 4 closest and 4 shadow calls of
      that path's warm-up: bit for bit, timed (device_ms) and bounded by
-     the slab and MT operations and the bytes moved (k8_work).
+     the slab and MT operations and the bytes moved (k8_work);
+ 36. the non-merged K5 (make_fused_shader(merged=False): trace_shade_hit,
+     the K5 kernel with the closest hits given): within phases 12, 15, 18
+     and 21, on the recorded inputs of every K5 variant, closest_raw (K1
+     or K3) and then the non-merged K5 bit-equal to its plain version,
+     its lanes against the merged K5's, timed and bounded; after phase
+     12, one subframe each of Cornell sorted and the 2-key Cornell box
+     sample-major through a fused pipeline with K5 split so
+     (split_pipeline), with launches, bit-equal to the merged pipeline's
+     subframe;
+ 37. K7 (trace_instanced, the static two-level sweep): closest and any
+     bit-equal to the plain version on phase 28's 131072 rays of the
+     grid-8 field (its brute hits reused) and on 131072 camera rays of the
+     trace-time Cornell, at the full count and a count inside a tile; 0
+     prim, 0 instance and 0 occlusion mismatches against the brute
+     instanced tracer; timed and bounded (k7_work);
+ 38. K7's path: multi_instance_tracetime (bench.py:576-584) through
+     prepare_tracer_factory(kind="pallas") and make_render_fn_dist on a
+     1 x 1 NCCL mesh at MAIN: the warm-up subframe bit-equal to
+     make_render_fn's over the same pair; 2 timed subframes, Mray/s, K7
+     launches, every pixel finite, the band of rows 376-392 against the
+     plain K7, the idle share of one profiled subframe (both K7
+     instantiations must show);
+ 39. K7 closest and any on 4 recorded calls each of that path's warm-up:
+     bit for bit, timed (device_ms) and bounded;
+ 40. the (2, 1) and (1, 2) meshes of that path at 192^2 by the per-rank
+     function in one process: tile bit-equal to one device, spp by the
+     reference's test_tile_spp_mesh_statistics rule.
 
 Each kernel's bound is the larger of the bytes it must move over 3.35 TB/s
 and the operations its inputs need over the 67 TFLOP/s fp32 peak outside
@@ -198,7 +229,7 @@ phase 6 and before the towns, the textured towns' phase 15 right after
 phase 8, their phases 16-17 after phase 10, the principled towns' phases
 18-20 and the towns' phases 21-23 after them, then phases 24-27 (24's
 gate, 26, 27, then 24's and 25's checks on 27's states), phases 28-31,
-and phases 32-35 last.
+phases 32-35, and phases 37-40 last (phase 36's paths run after phase 12).
 Any failed phase exits non-zero. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -266,6 +297,8 @@ AOV_STASH_OPS = 12
 AOV = dict(aov=True)
 # the main paths' timings by name (median Mray/s, idle share), for phase 23
 PATHS = {}
+# the non-merged K5's results by phase_k5's label (phase 36)
+NON_MERGED = {}
 
 
 class PhaseFailed(Exception):
@@ -633,12 +666,14 @@ def check_material_types(scene, prims, live, what: str) -> list:
     return seen
 
 
-def megakernel_work(rays, misc, count, time, tables, sc):
+def megakernel_work(rays, misc, count, time, tables, sc,
+                    with_closest=True):
     """(operations, table bytes) of one megakernel launch (K4 or K5) on
     these lanes: the closest and the shadow sweep, counted by mt_work on
     256-ray tiles (the shadow rays, their wants and their times from the
     plain shading body), the shading body of every lane, its texture work
-    (texture_work), and the AOV rows where sc.aov."""
+    (texture_work), and the AOV rows where sc.aov. with_closest=False:
+    the non-merged K5, whose closest hits come in (no closest sweep)."""
     import torch
 
     from rendertoy3c_tpu_torch.trace import mt, shade
@@ -661,6 +696,8 @@ def megakernel_work(rays, misc, count, time, tables, sc):
         None if time is None else out["occl_time"],
         want=out["want_shadow"], tile=mt.RAY_TILE)
     # each table tile is read from memory once
+    if not with_closest:
+        closest_ops, closest_bytes = 0, 0
     table_bytes = max(closest_bytes, shadow_bytes) + 4 * (
         tables.attr_t.numel() + tables.lights_t.numel()) + tex_bytes
     return (closest_ops + shadow_ops + rays.shape[0] * SHADE_OPS + tex_ops,
@@ -816,10 +853,12 @@ def plain_tracer(scene, cfg, dev):
 
 
 def render(scene, camera, cfg_kw, dev, plain: bool, warmup: int, timed: int,
-           tracer=None):
+           tracer=None, warm=None):
     """Render through make_render_fn, the plain versions if `plain`, over
-    `tracer` if given. Returns (film, Mray/s per timed subframe, launches,
-    seconds per timed subframe, the step function)."""
+    `tracer` if given; `warm`: (step, film) after a warm-up subframe run
+    elsewhere, which the timed subframes continue. Returns (film, Mray/s
+    per timed subframe, launches, seconds per timed subframe, the step
+    function)."""
     import torch
 
     from rendertoy3c_tpu_torch.film.film import film_create
@@ -829,9 +868,12 @@ def render(scene, camera, cfg_kw, dev, plain: bool, warmup: int, timed: int,
     cfg = RenderConfig(**cfg_kw)
     if plain and tracer is None:
         scene, tracer = plain_tracer(scene, cfg, dev)
-    step = make_render_fn(scene, cfg, tracer=tracer, device=dev)
     cam = camera.params()
-    film = film_create(cfg.height, cfg.width, device=dev, aov=cfg.aov)
+    if warm is not None:
+        step, film = warm
+    else:
+        step = make_render_fn(scene, cfg, tracer=tracer, device=dev)
+        film = film_create(cfg.height, cfg.width, device=dev, aov=cfg.aov)
     for _ in range(warmup):
         film, _ = step(cam, film)
     torch.cuda.synchronize()
@@ -948,20 +990,16 @@ def device_ms(calls, warmup=None) -> float:
 
 
 def profile_subframe(step, film, camera, untraced_s: float, phase: int,
-                     kernels, traced=None):
-    """Device time by kernel over one subframe. The idle share is taken
-    against the median untraced subframe, since tracing slows the host.
-    Fails unless the profiler saw each of `kernels` (CUDA symbol names)
-    launched. traced: (device_rows, traced wall s) of a subframe traced
-    before (a warm-up), else one more subframe is traced here. Returns
-    the idle share."""
-    if traced is None:
-        cam = camera.params()
-        t0 = time.perf_counter()
-        rows = device_rows(lambda: step(cam, film))
-        wall = time.perf_counter() - t0
-    else:
-        rows, wall = traced
+                     kernels, variants=()):
+    """Device time by kernel over one more subframe. The idle share is
+    taken against the median untraced subframe, since tracing slows the
+    host. Fails unless the profiler saw each of `kernels` (CUDA symbol
+    names) launched, and each of `variants` (template arguments, e.g.
+    "<true>") of them. Returns the idle share."""
+    cam = camera.params()
+    t0 = time.perf_counter()
+    rows = device_rows(lambda: step(cam, film))
+    wall = time.perf_counter() - t0
     busy = sum(r[0] for r in rows) / 1e6
     check(busy > 0, f"phase {phase} profile: no device time recorded")
     idle = max(0.0, 1 - busy / untraced_s)
@@ -976,6 +1014,9 @@ def profile_subframe(step, film, camera, untraced_s: float, phase: int,
         for dt, key, cnt in mine:
             print(f"  in path: {key[:50]} {dt / 1e3 / cnt:.4f} ms per launch "
                   f"x{cnt}")
+        for v in variants:
+            check(any(name + v in r[1] for r in mine),
+                  f"phase {phase} profile: no launch of {name}{v}")
     return idle
 
 
@@ -1033,13 +1074,15 @@ def band_pair(name, scene, camera, cfg_kw, dev, rows=BAND_ROWS,
 
 
 def full_size(name, scene, camera, dev, smi, phase: int, counters, symbols,
-              change=None, plain=True, timed=4):
+              change=None, plain=True, timed=2, warm=None):
     """One main path at full size (MAIN with `change` applied): kernels (1
-    warm-up, `timed` timed; TOWN_TIMED for the MT towns, whose subframes
-    take seconds) with the launch counters zeroed just before and read
-    just after, then (plain=True) the kernels held to the plain versions
-    on a band of the image (band_pair), and a profile that must see each
-    CUDA kernel of `symbols`. plain=False: the path's kernels and gate are
+    warm-up and `timed` timed subframes) with the launch counters zeroed
+    before the warm-up and read after the timed subframes (`warm`: the
+    states of main_path_states, whose recorded subframe is the warm-up;
+    its launches are added), then
+    (plain=True) the kernels held to the plain versions on a band of the
+    image (band_pair), and a profile of one more subframe that must see
+    each CUDA kernel of `symbols`. plain=False: the path's kernels and gate are
     held elsewhere. Records (median Mray/s, idle share) in PATHS[name];
     returns (kernel film, launches by kernel)."""
     import torch
@@ -1048,8 +1091,10 @@ def full_size(name, scene, camera, dev, smi, phase: int, counters, symbols,
     for fn in counters.values():
         fn.launches = 0
     film_k, rates_k, it_k, secs_k, step_k = render(
-        scene, camera, cfg_kw, dev, False, 1, timed)
-    launches = {n: fn.launches for n, fn in counters.items()}
+        scene, camera, cfg_kw, dev, False, 0 if warm else 1, timed,
+        warm=warm and warm["warm"])
+    launches = {n: fn.launches + (warm["launches"][n] if warm else 0)
+                for n, fn in counters.items()}
     for n, cnt in launches.items():
         check(cnt > 0, f"{name}: the main path launched {n} no time")
     img_k = film_k.accum.cpu().numpy()
@@ -1092,7 +1137,10 @@ def main_path_states(scene, camera, dev, change=None, snapshots=SNAPSHOTS):
     path (MAIN with `change` applied; through make_render_fn with
     choose_tracer's pipeline, its calls recorded): {"closest": [(o, d,
     tmin, tmax, time, count)], "shade": [(rays, hit4, misc)], "any": [...as
-    closest], "launches": {kernel: launches in that subframe}}."""
+    closest], "launches": {kernel: launches in that subframe}, "warm":
+    (step, film after the subframe), which full_size's timed subframes
+    continue}. The recording stays wrapped around the pipeline: past the
+    snapshots it only counts calls."""
     import torch
 
     from rendertoy3c_tpu_torch.film.film import film_create
@@ -1125,12 +1173,13 @@ def main_path_states(scene, camera, dev, change=None, snapshots=SNAPSHOTS):
     counters["external_shade"] = shade.external_shade
     for fn in counters.values():
         fn.launches = 0
-    step(camera.params(), film_create(cfg.height, cfg.width, device=dev,
-                                      aov=cfg.aov))
+    film, _ = step(camera.params(), film_create(cfg.height, cfg.width,
+                                                device=dev, aov=cfg.aov))
     torch.cuda.synchronize()
     check(all(len(v) == len(snapshots) for v in states.values()),
           f"main path: {seen} iterations, too few for the snapshots")
     states["launches"] = {n: fn.launches for n, fn in counters.items()}
+    states["warm"] = (step, film)
     return states
 
 
@@ -1469,9 +1518,11 @@ def textured_quad(variant="repeat", motion=False):
 
 def k5_states(scene, camera, dev, change, snapshots=SNAPSHOTS):
     """(pipeline, [(rays, misc, count, time)], snapshots, K5 launches in
-    that subframe): the inputs of K5 at the pool iterations `snapshots` of
-    one kernel subframe of the main path with `change` (through
-    make_render_fn with choose_tracer's pipeline)."""
+    that subframe, warm): the inputs of K5 at the pool iterations
+    `snapshots` of one kernel subframe of the main path with `change`
+    (through make_render_fn with choose_tracer's pipeline); warm, that
+    subframe as full_size's warm-up ({"warm": (step, film), "launches":
+    {"trace_shade": n}})."""
     import torch
 
     from rendertoy3c_tpu_torch.film.film import film_create
@@ -1496,30 +1547,55 @@ def k5_states(scene, camera, dev, change, snapshots=SNAPSHOTS):
     pipe.shade_fn = call
     step = make_render_fn(scene, cfg, tracer=pipe, device=dev)
     shade.trace_shade.launches = 0
-    step(camera.params(), film_create(cfg.height, cfg.width, device=dev,
-                                      aov=cfg.aov))
+    film, _ = step(camera.params(), film_create(cfg.height, cfg.width,
+                                                device=dev, aov=cfg.aov))
     torch.cuda.synchronize()
     launches = shade.trace_shade.launches
     pipe.shade_fn = fn
     check(len(states) == len(snapshots) and launches > 0,
           f"K5 path: {seen[0]} iterations, too few for the snapshots")
-    return pipe, states, snapshots, launches
+    return pipe, states, snapshots, launches, dict(
+        warm=(step, film), launches={"trace_shade": launches})
 
 
 def phase_k5(dev, runs, phase=12):
     """K5 against trace_shade_ref on the recorded main-path inputs of each
     run ({label: (pipeline, states)}): lanes compared bit for bit (and
     within 1e-5 where not), device time per launch (device_ms), the
-    plain version's time and the bound."""
+    plain version's time and the bound. Then the non-merged K5 (phase 36)
+    on the same inputs: closest_raw (K1 or K3), then trace_shade_hit
+    bit-equal to trace_shade_hit_ref, and its lanes against the merged
+    K5's (reported: K3's 128-ray tiles may skip lanes past the count that
+    the merged sweep's 256-ray tiles run); its device time per launch
+    and the plain version's, under the merged bound less the closest
+    sweep's operations (in NON_MERGED[label])."""
     import torch
 
     from rendertoy3c_tpu_torch.trace import shade
 
     results = {}
-    for label, (pipe, states, snapshots, _) in runs.items():
+    for label, (pipe, states, snapshots, *_) in runs.items():
         launches, costs, err, n_diff, n_bad = [], [], 0.0, 0, 0
         prims, lives = [], []
+        hit_launches, hit_costs, hit_bad, hit_vs_merged = [], [], 0, 0
         for rays, misc, count, tm in states:
+            hit4 = pipe.closest_raw(rays, count, tm)
+            h = (rays, hit4, misc, count, pipe.tables, pipe.config)
+            got_h = shade.trace_shade_hit(*h)
+            want_h = shade.trace_shade_hit_ref(*h)
+            merged = shade.trace_shade(rays, misc, count, pipe.tables,
+                                       pipe.config, tm)
+            gh = torch.cat(got_h, 1).view(torch.int32)
+            hit_bad += int((gh != torch.cat(want_h, 1).view(torch.int32))
+                           .any(dim=1).sum())
+            hit_vs_merged += int((gh != torch.cat(merged, 1).view(
+                torch.int32)).any(dim=1).sum())
+            hit_launches.append(h)
+            ops, table_bytes = megakernel_work(rays, misc, count, tm,
+                                               pipe.tables, pipe.config,
+                                               with_closest=False)
+            hit_costs.append((rays.shape[0] * (2 * (32 + 4 * misc.shape[1])
+                                               + 16) + 4 + table_bytes, ops))
             if pipe.tables.params_base:
                 prims.append(shade._plain_sweeps(pipe.tables, count, tm)[0](
                     rays)[:, 1])
@@ -1566,6 +1642,20 @@ def phase_k5(dev, runs, phase=12):
               f"{n_bad} beyond 1e-5 or seed, max|d| {err:.3g}; device time "
               f"{ms:.4f} ms per launch vs plain {plain_ms:.4f} "
               f"ms; bound {bound_ms:.4f} ms by {bound_by}{types}")
+        check(hit_bad == 0, f"{label}: the non-merged K5 differs from its "
+              f"plain version on {hit_bad} lanes")
+        h_ms = device_ms([functools.partial(shade.trace_shade_hit, *h)
+                          for h in hit_launches] * 6)
+        h_plain = cuda_ms([functools.partial(shade.trace_shade_hit_ref, *h)
+                           for h in hit_launches])
+        h_bound, h_by = mean_bound(hit_costs)
+        NON_MERGED[label] = dict(max_abs_err=0.0, ms=h_ms, plain_ms=h_plain,
+                                 bound_ms=h_bound, bound_by=h_by)
+        print(f"phase 36 {label}, non-merged (closest_raw, then "
+              f"trace_shade_hit) on the same inputs: bit-equal to its plain "
+              f"version; {hit_vs_merged} lanes differ from the merged K5's; "
+              f"device time {h_ms:.4f} ms per launch vs plain {h_plain:.4f} "
+              f"ms; bound {h_bound:.4f} ms by {h_by}")
     return results
 
 
@@ -2017,9 +2107,9 @@ def walk_path(name, scene, camera, dev, smi, change, timed=2, phase=27,
     (K9-inst's) states and K6's inputs at WALK_SNAPSHOTS boundaries are
     recorded, then `timed` subframes with the launch counters zeroed just
     before, then one profiled subframe (timed=0: the warm-up subframe
-    only, its launches counted). Fails unless every counter of `need`
-    (WALK_COUNTERS' names) is above 0. Returns {launches, states, shade,
-    pipe, film}."""
+    only, its launches counted). Fails unless every
+    counter of `need` (WALK_COUNTERS' names) is above 0. Returns
+    {launches, states, shade, pipe, film}."""
     import dataclasses
 
     import torch
@@ -2411,7 +2501,8 @@ def phase_inst_gate(dev):
     and exact against the brute instanced tracer: 0 prim, 0 instance and 0
     occlusion mismatches. Then the 2-key field at grid 8 on a forced
     fanout-32 table with random times likewise: bit-equal to the plain
-    versions and 0 mismatches against the brute tracer."""
+    versions and 0 mismatches against the brute tracer. Returns the static
+    field's scene, rays and brute hits for phase 37."""
     import torch
 
     from rendertoy3c_tpu_torch.integrate.walkpool import walk_rounds
@@ -2455,9 +2546,10 @@ def phase_inst_gate(dev):
               "occlusion differs from the plain version")
         closest, any_hit = make_instanced_tracer(scene, dev)
         brute = closest(o, d, 1e-2, 1e16, tm)
+        brute_occ = any_hit(o, d, 1e-3, t_any, tm)
         bad = [int((brute.prim != got.prim).sum()),
                int((brute.inst != got.inst).sum()),
-               int((any_hit(o, d, 1e-3, t_any, tm) != occ).sum())]
+               int((brute_occ != occ).sum())]
         check(max(bad) == 0, f"phase 28 {what}: {bad} prim, instance and "
               "occlusion mismatches vs brute")
         print(f"phase 28 instanced gate, {what} field at grid "
@@ -2470,6 +2562,10 @@ def phase_inst_gate(dev):
               f"{float((got.prim >= 0).float().mean()):.3f}, occluded "
               f"{float(occ.float().mean()):.3f}); "
               f"{time.perf_counter() - t0:.1f} s")
+        if not motion:
+            field_in = dict(scene=scene, o=o, d=d, t_any=t_any, brute=brute,
+                            occ=brute_occ)
+    return field_in
 
 
 def inst_gates(dev, scenes):
@@ -2504,13 +2600,12 @@ def inst_gates(dev, scenes):
 def tracetime_path(name, scene, camera, dev, smi, timed=TOWN_TIMED,
                    phase=30):
     """multi_instance_tracetime through make_render_fn over choose_tracer's
-    external pipeline (with tune_config): 1 warm-up subframe, traced by
-    the profiler, during which K6's inputs at EXT_SNAPSHOTS pool
-    iterations are recorded, `timed` subframes with the launch counters
-    zeroed just before (K9-inst and K6 with instance rows must launch),
-    then the band of phase 5 (NARROW_BAND) against the plain versions;
-    the idle share is the warm-up's device busy time against the median
-    timed subframe. Returns {launches, shade, tables, config,
+    external pipeline (with tune_config): 1 warm-up subframe, during which
+    K6's inputs at EXT_SNAPSHOTS pool iterations are recorded, `timed`
+    subframes with the launch counters zeroed just before (K9-inst and K6
+    with instance rows must launch), then the band of phase 5
+    (NARROW_BAND) against the plain versions and one profiled subframe
+    (the idle share). Returns {launches, shade, tables, config,
     row_major}."""
     import dataclasses
 
@@ -2542,12 +2637,9 @@ def tracetime_path(name, scene, camera, dev, smi, timed=TOWN_TIMED,
     film = film_create(cfg.height, cfg.width, device=dev)
     counters = launch_counters()
     t0 = time.perf_counter()
-    # the warm-up subframe is the profiled one: its trace costs ~3x its
-    # time, one subframe fewer to run
-    out = {}
-    warm_rows = device_rows(lambda: out.update(res=step(cam, film)))
+    film, _ = step(cam, film)
+    torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    film = out["res"][0]
     rec["on"] = False
     check(len(rec["shade"]) == len(EXT_SNAPSHOTS),
           f"{name}: {rec['it']} pool iterations, too few for the snapshots")
@@ -2581,17 +2673,16 @@ def tracetime_path(name, scene, camera, dev, smi, timed=TOWN_TIMED,
           f"{launches}")
     band_pair(name, scene, camera, dataclasses.asdict(cfg), dev, NARROW_BAND)
     idle = profile_subframe(step, film, camera, float(np.median(secs)),
-                            phase, ("walk_kernel", "external_shade_kernel"),
-                            traced=(warm_rows, warm_s))
+                            phase, ("walk_kernel", "external_shade_kernel"))
     PATHS[name] = (float(np.median(rates)), idle)
     return dict(launches=launches, shade=rec["shade"], tables=pipe.tables,
                 config=pipe.config, row_major=True)
 
 
 def inst_band(dev, smi, t_start):
-    """Phases 28-31 on trace-time instancing. Returns the entries of the
+    """Phases 28-31 on trace-time instancing. Returns (the entries of the
     "kernels" line: K9-inst and K6 with instance rows, C-major and
-    row-major."""
+    row-major; phase 28's static field inputs; the scenes)."""
     from rendertoy3c_tpu_torch.trace import shade
 
     t0 = time.perf_counter()
@@ -2602,7 +2693,7 @@ def inst_band(dev, smi, t_start):
                   f", {s.num_instances} instances"
                   if hasattr(s, "num_instances") else "")
               for n, (s, _) in scenes.items()))
-    phase_inst_gate(dev)
+    field_in = phase_inst_gate(dev)
     inst_gates(dev, scenes)
     print(f"phases 28-29 done; {time.perf_counter() - t_start:.1f} s since "
           "the start")
@@ -2651,7 +2742,7 @@ def inst_band(dev, smi, t_start):
                                     for p in group.values()), res))
     print(f"phases 28-31 done; {time.perf_counter() - t_start:.1f} s since "
           "the start")
-    return entries
+    return entries, field_in, scenes
 
 
 # ---------------------------------------------------------------- phase 32+
@@ -2996,6 +3087,474 @@ def resident_band(dev, smi, t_start):
                  library_ms=None) for n in ("closest", "any")]
 
 
+# ---------------------------------------------------------------- phase 36+
+# the non-merged K5 (make_fused_shader(merged=False), pallas_shade.py:1230)
+# on the fused pipeline with K5 split (split_pipeline): closest_raw (K1, or
+# K3 for 2 keys) and then trace_shade_hit
+SPLIT_PATHS = (("cornell sorted, non-merged", False, SORTED),
+               ("2-key cornell sample-major, non-merged", True, SAMPLE_MAJOR))
+
+
+def split_pipeline(scene, cfg, dev):
+    """A FusedPipeline whose trace_shade runs closest_raw and then the
+    non-merged K5, as the reference's make_fused_shader(merged=False)
+    splits the megakernel."""
+    from rendertoy3c_tpu_torch.trace import shade
+
+    class SplitPipeline(shade.FusedPipeline):
+        def trace_shade(self, rays, misc, count, time=None):
+            hit4 = self.closest_raw(rays, count, time)
+            return shade.trace_shade_hit(rays, hit4, misc, count,
+                                         self.tables, self.config)
+
+    return SplitPipeline(scene, cfg, dev)
+
+
+def phase_split_paths(dev, scene, camera, m_scene, m_camera):
+    """Phase 36's main paths: one 768^2 8 spp subframe each of the Cornell
+    box sorted (K1 + the non-merged K5) and the 2-key Cornell box
+    sample-major (K3 + the non-merged motion K5) through make_render_fn
+    over split_pipeline, the launch counters zeroed just before and read
+    just after (the non-merged K5 and K1 or K3 must launch, the merged K5
+    not); each film bit-equal to one subframe of the merged pipeline.
+    Returns {name: (non-merged K5 launches, closest launches)}."""
+    import torch
+
+    from rendertoy3c_tpu_torch.film.film import film_create
+    from rendertoy3c_tpu_torch.integrate.config import RenderConfig
+    from rendertoy3c_tpu_torch.integrate.path import make_render_fn
+    from rendertoy3c_tpu_torch.trace import mt, shade
+
+    out = {}
+    for name, motion, change in SPLIT_PATHS:
+        s, c = (m_scene, m_camera) if motion else (scene, camera)
+        cfg = RenderConfig(**dict(MAIN, **change))
+        films, secs = [], []
+        closest = mt.mt_closest_motion if motion else mt.mt_closest
+        for make in (shade.FusedPipeline, split_pipeline):
+            step = make_render_fn(s, cfg, tracer=make(s, cfg, dev),
+                                  device=dev)
+            for fn in (shade.trace_shade, shade.trace_shade_hit, closest):
+                fn.launches = 0
+            t0 = time.perf_counter()
+            film, _ = step(c.params(),
+                           film_create(cfg.height, cfg.width, device=dev))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            films.append(film.accum)
+        n_hit, n_closest = shade.trace_shade_hit.launches, closest.launches
+        check(n_hit > 0 and n_closest == n_hit
+              and shade.trace_shade.launches == 0,
+              f"{name}: {n_hit} non-merged K5 and {n_closest} closest "
+              f"launches, {shade.trace_shade.launches} merged")
+        check(bool(torch.isfinite(films[1]).all()), f"{name}: not finite")
+        same = torch.equal(films[0].view(torch.int32),
+                           films[1].view(torch.int32))
+        check(same, f"{name}: the split subframe differs from the merged "
+              "pipeline's")
+        print(f"phase 36 {name}: one subframe in {secs[1]:.3f} s (merged "
+              f"{secs[0]:.3f} s), {n_hit} non-merged K5 and {n_closest} "
+              f"{closest.__name__} launches; the film bit-equal to the "
+              f"merged pipeline's; image mean {float(films[1].mean()):.6f}")
+        out[name] = (n_hit, n_closest)
+    return out
+
+
+# trace-time instancing on K7 (trace/instanced_mt.py, the reference's
+# trace/pallas_instanced.py): bench's multi_instance_tracetime (bench.py
+# :576-584) through the reference's parallel/dist.py route,
+# prepare_tracer_factory(kind="pallas") and make_render_fn_dist, on a 1 x 1
+# NCCL mesh
+K7_SRC = "rendertoy3c_tpu_torch/kernels/csrc/instanced_mt.cu"
+K7_REPLACES = "rendertoy3c_tpu/trace/pallas_instanced.py:244"
+# K7's operations, counted from instanced_mt.cu as the constants above: a
+# slab test of one (ray, instance box) pair (6 subtractions, 6 products,
+# 10 min/max, 3 comparisons, the vote), the object-space transform of one
+# ray (15 products and 12 sums), one Moller-Trumbore test with the tile
+# minimum's compare and selects
+K7_BOX_OPS = 26
+K7_XFORM_OPS = 27
+K7_MT_OPS = MT_TEST_OPS + 3
+# every this many closest (shadow) calls of the K7 path's warm-up, its
+# inputs are recorded; 4 of them are timed
+K7_RECORD_EVERY = 100
+
+
+def k7_work(rays, count, soup, any_hit: bool):
+    """(operations, bytes) that one K7 launch on these rays needs, counted
+    ray by ray: every live ray tests every instance box; a ray whose own
+    box test admits an instance (bounded by its best t so far, closest,
+    or its tmax, any-hit) is transformed and tests the instance's mesh
+    tiles (closest: all 128 faces of each; any-hit: up to its first hit,
+    and no tile once occluded). The kernel's tile vote lets a ray into
+    every instance any ray of its tile enters, which this count does not
+    charge. The rays and the outputs count once, the instance table once,
+    each mesh tile once if any ray tests it."""
+    import torch
+
+    from rendertoy3c_tpu_torch.trace import instanced_mt as im
+    from rendertoy3c_tpu_torch.trace.mt import live_rows, mt_test
+
+    r = rays.shape[0]
+    o, d, tmin, tmax = rays[:, 0:3], rays[:, 3:6], rays[:, 6], rays[:, 7]
+    inv = torch.where(d.abs() > 1e-20, 1.0 / d, torch.full_like(d, 1e30))
+    tab = soup.table
+    t0 = (tab[None, :, 12:15] - o[:, None]) * inv[:, None]
+    t1 = (tab[None, :, 15:18] - o[:, None]) * inv[:, None]
+    tn = torch.minimum(t0, t1).amax(dim=2)
+    tf = torch.maximum(t0, t1).amin(dim=2)
+    ok = (tn <= tf) & (tf >= tmin[:, None])
+    live = live_rows(r, count)
+    best_t = tmax.clone()
+    occ = torch.zeros(r, dtype=torch.bool, device=rays.device)
+    xforms, tests, tiles = 0, 0, set()
+    for i, (start, n_tiles) in enumerate(soup.inst_tiles.tolist()):
+        tcur = tmax if any_hit else best_t
+        own = live & ok[:, i] & (tn[:, i] <= tcur) & ~occ
+        idx = own.nonzero()[:, 0]
+        if idx.numel() == 0:
+            continue
+        xforms += idx.numel()
+        m = tab[i, 0:12]
+        ob, db = o[idx], d[idx]
+        cols = tuple(
+            (m[4 * a] * ob[:, 0:1] + m[4 * a + 1] * ob[:, 1:2]
+             + m[4 * a + 2] * ob[:, 2:3] + m[4 * a + 3]) for a in range(3)
+        ) + tuple(
+            (m[4 * a] * db[:, 0:1] + m[4 * a + 1] * db[:, 1:2]
+             + m[4 * a + 2] * db[:, 2:3]) for a in range(3))
+        for k in range(start, start + n_tiles):
+            tiles.add(k)
+            bound = (tmax if any_hit else best_t)[idx, None]
+            t, _, _, hit, _ = mt_test(cols + (tmin[idx, None], bound),
+                                      soup.tris[k], k * im.ITILE)
+            if any_hit:
+                todo = ~occ[idx]
+                first = torch.where(hit.any(dim=1),
+                                    hit.int().argmax(dim=1) + 1, im.ITILE)
+                tests += int(first[todo].sum())
+                occ[idx] |= hit.any(dim=1)
+            else:
+                tests += idx.numel() * im.ITILE
+                t_c = torch.where(hit, t, 1e30).amin(dim=1)
+                best_t[idx] = torch.minimum(best_t[idx], t_c)
+    n_live = int(live.sum())
+    ops = (n_live * tab.shape[0] * K7_BOX_OPS + xforms * K7_XFORM_OPS
+           + tests * K7_MT_OPS)
+    n_bytes = (r * 64 + 4 + tab.numel() * 4 + soup.inst_tiles.numel() * 4
+               + len(tiles) * 9 * im.ITILE * 4)
+    return ops, n_bytes
+
+
+def phase_k7_gate(dev, field_in, scenes):
+    """Phase 37: K7 (trace_instanced, closest and any) against its plain
+    version and the brute instanced tracer: on phase 28's 131072 camera
+    rays of bench's instance field at grid 8 (66 instances), reusing phase
+    28's brute closest hits and occlusion (which K9-inst matched), and on
+    131072 camera rays spread over the 768^2 image of the trace-time
+    Cornell (15 instances) with random tmax in [0.1, 4] for the shadow
+    test; raw outputs bit-equal at the full count and at a count inside a
+    ray tile, 0 prim, 0 instance and 0 occlusion mismatches; K7's time on
+    these rays (cuda_ms), the plain version's and the bound (k7_work).
+    Returns {scene name: (scene, soup)}."""
+    import torch
+
+    from rendertoy3c_tpu_torch.scene.camera import camera_ray_dir
+    from rendertoy3c_tpu_torch.trace import instanced_mt as im
+    from rendertoy3c_tpu_torch.trace.instanced import make_instanced_tracer
+    from rendertoy3c_tpu_torch.trace.mt import pack_rays
+
+    scene, cam = scenes["multi_instance_tracetime"]
+    scf = tuple(float(x) for x in np.concatenate(
+        list(cam.params())).astype(np.float32))
+    pix = torch.arange(GATE_RAYS, device=dev) * (768 * 768) // GATE_RAYS
+    zero = torch.zeros(GATE_RAYS, device=dev)
+    d = torch.stack(camera_ray_dir(scf, pix, 768, 768, zero, zero), 1)
+    o = torch.as_tensor(scf[:3], device=dev).expand(GATE_RAYS, 3)
+    o = o.contiguous()
+    rng = np.random.default_rng(SEED + 37)
+    t_any = torch.as_tensor(rng.uniform(0.1, 4.0, GATE_RAYS)
+                            .astype(np.float32), device=dev)
+    closest, any_hit = make_instanced_tracer(scene, dev)
+    cornell_in = dict(scene=scene, o=o, d=d, t_any=t_any,
+                      brute=closest(o, d, 1e-2, 1e16),
+                      occ=any_hit(o, d, 1e-3, t_any))
+    out = {}
+    for name, g in (("instance field at grid 8", field_in),
+                    ("trace-time Cornell", cornell_in)):
+        t0 = time.perf_counter()
+        soup = im.build_instanced_soup(g["scene"], dev)
+        k_closest, k_any = im.make_instanced_mt_tracer(g["scene"], dev)
+        res = {}
+        for any_hit, tmin, tmax in ((False, 1e-2, 1e16),
+                                    (True, 1e-3, g["t_any"])):
+            rays, r = pack_rays(g["o"], g["d"], tmin, tmax)
+            for n in (r, r - 1000):
+                count = torch.tensor([n], dtype=torch.int32, device=dev)
+                got = im.trace_instanced(rays, count, soup, any_hit)
+                want = im.trace_instanced_ref(rays, count, soup, any_hit)
+                check(torch.equal(got.view(torch.int32),
+                                  want.view(torch.int32)),
+                      f"phase 37 {name}: K7 {'any' if any_hit else 'closest'}"
+                      f" differs from its plain version (count {n})")
+            count = torch.tensor([r], dtype=torch.int32, device=dev)
+            ms = cuda_ms([functools.partial(im.trace_instanced, rays, count,
+                                            soup, any_hit)] * 10)
+            plain_ms = cuda_ms([functools.partial(
+                im.trace_instanced_ref, rays, count, soup, any_hit)])
+            res[any_hit] = (ms, plain_ms, *bound(*k7_work(
+                rays, count, soup, any_hit)[::-1]))
+        h = k_closest(g["o"], g["d"], 1e-2, 1e16)
+        occ = k_any(g["o"], g["d"], 1e-3, g["t_any"])
+        bad = [int((h.prim != g["brute"].prim).sum()),
+               int((h.inst != g["brute"].inst).sum()),
+               int((occ != g["occ"]).sum())]
+        check(max(bad) == 0, f"phase 37 {name}: {bad} prim, instance and "
+              "occlusion mismatches vs brute")
+        print(f"phase 37 K7 gate, {name} ({g['scene'].num_instances} "
+              f"instances, {soup.tris.shape[0]} mesh tiles): {GATE_RAYS} "
+              f"rays, closest and any bit-equal to the plain version (count "
+              f"R and R - 1000), {bad[0]} prim, {bad[1]} instance and "
+              f"{bad[2]} occlusion mismatches vs brute (hit share "
+              f"{float((h.prim >= 0).float().mean()):.3f}, occluded "
+              f"{float(occ.float().mean()):.3f}); closest {res[False][0]:.4f}"
+              f" ms (plain {res[False][1]:.3f}, bound {res[False][2]:.4f} by "
+              f"{res[False][3]}), any {res[True][0]:.4f} ms (plain "
+              f"{res[True][1]:.3f}, bound {res[True][2]:.4f} by "
+              f"{res[True][3]}); {time.perf_counter() - t0:.1f} s")
+        out[name] = (g["scene"], soup)
+    return out
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def k7_path(scene, camera, dev, smi, timed=2, phase=38):
+    """Phase 38: multi_instance_tracetime (bench.py:576-584: 15 instances,
+    1920 effective faces) through the reference's distributed route at
+    bench's config (MAIN, untuned: prepare_tracer_factory applies no
+    tune_config): an NCCL process group of world size 1 (init_multihost
+    at a free localhost port), make_mesh(1, 1), prepare_tracer_factory
+    (kind="pallas": K7's pair under the general pool) and
+    make_render_fn_dist. The warm-up subframe records the inputs of every
+    K7_RECORD_EVERY-th closest and shadow call and must be bit-equal to
+    one subframe of make_render_fn over the same pair; then `timed`
+    subframes with the launch counters zeroed just before and read just
+    after (K7 closest and any must launch), Mray/s, every pixel finite,
+    the band of phase 5 (NARROW_BAND) against the plain K7, and one
+    profiled subframe (both K7 instantiations must show). Returns
+    {launches, calls, pair, scene}."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as tdist
+
+    from rendertoy3c_tpu_torch.film.film import film_create
+    from rendertoy3c_tpu_torch.integrate.config import RenderConfig
+    from rendertoy3c_tpu_torch.integrate.path import make_render_fn
+    from rendertoy3c_tpu_torch.parallel.dist import (film_create_sharded,
+                                                     make_mesh,
+                                                     make_render_fn_dist,
+                                                     prepare_tracer_factory)
+    from rendertoy3c_tpu_torch.parallel.multihost import init_multihost
+    from rendertoy3c_tpu_torch.trace import instanced_mt as im
+
+    name = "multi_instance_tracetime (K7, 1 x 1 mesh)"
+    cfg = RenderConfig(**MAIN)
+    init_multihost(f"localhost:{_free_port()}", 1, 0, device=dev)
+    try:
+        check(tdist.get_backend() == "nccl" and tdist.get_world_size() == 1,
+              f"{name}: process group {tdist.get_backend()}, world "
+              f"{tdist.get_world_size()}")
+        mesh = make_mesh(1, 1, device=dev)
+        ordered, factory = prepare_tracer_factory(scene, cfg, kind="pallas",
+                                                  device=mesh.device)
+        pair = factory(ordered, None, cfg)
+        check(isinstance(pair, tuple) and hasattr(pair[0], "soup"),
+              f"{name}: prepare_tracer_factory gave {type(pair).__name__}")
+        rec = dict(on=True, n=[0, 0], calls=([], []))
+
+        def recorder(k):
+            def call(o, d, tmin, tmax, time=None, count=None):
+                if rec["on"] and rec["n"][k] % K7_RECORD_EVERY == 0:
+                    rec["calls"][k].append(tuple(
+                        x.clone() if isinstance(x, torch.Tensor) else x
+                        for x in (o, d, tmin, tmax, count)))
+                rec["n"][k] += 1
+                return pair[k](o, d, tmin, tmax, time, count=count)
+            return call
+
+        step, _ = make_render_fn_dist(
+            ordered, cfg, mesh,
+            tracer_factory=lambda *_: (recorder(0), recorder(1)))
+        cam = camera.params()
+        film = film_create_sharded(cfg, mesh)
+        t0 = time.perf_counter()
+        film, _ = step(cam, film)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        rec["on"] = False
+        warm = film.accum.clone()
+        ref = make_render_fn(ordered, cfg, tracer=pair, device=dev)(
+            cam, film_create(cfg.height, cfg.width, device=dev))[0]
+        check(torch.equal(warm.view(torch.int32),
+                          ref.accum.view(torch.int32)),
+              f"{name}: the 1 x 1 mesh's subframe differs from "
+              "make_render_fn's")
+        check(min(len(c) for c in rec["calls"]) >= 4,
+              f"{name}: {rec['n']} calls, too few to record")
+        im.trace_instanced.launches = im.trace_instanced.any_launches = 0
+        rates, secs = [], []
+        for _ in range(timed):
+            t0 = time.perf_counter()
+            film, stats = step(cam, film)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            rates.append((int(stats.radiance_rays) + int(stats.shadow_rays))
+                         / dt / 1e6)
+            secs.append(dt)
+        launches = {"instanced_mt": im.trace_instanced.launches,
+                    "instanced_mt_any": im.trace_instanced.any_launches}
+        check(min(launches.values()) > 0,
+              f"{name}: the main path launched K7 no time: {launches}")
+        img = film.accum
+        check(bool(torch.isfinite(img).all())
+              and tuple(img.shape) == (cfg.height, cfg.width, 3),
+              f"{name}: image not finite or of shape {tuple(img.shape)}")
+        print(f"phase {phase} {name} 768^2 8spp depth 16 pool "
+              f"{cfg.ray_block} ({ordered.num_faces} stored faces, "
+              f"{ordered.num_instances} instances) on {smi}: warm-up "
+              f"{warm_s:.3f} s, bit-equal to make_render_fn's "
+              f"subframe\n  Mray/s per subframe {rates}, median "
+              f"{float(np.median(rates)):.6g}; s {secs}; per subframe "
+              f"{launches['instanced_mt'] / timed:.1f} K7 closest and "
+              f"{launches['instanced_mt_any'] / timed:.1f} K7 any launches;"
+              f" image mean {float(img.mean()):.6f}")
+        plain = im.make_instanced_mt_tracer(ordered, dev, plain=True)
+        band_pair(name, ordered, camera, dataclasses.asdict(cfg), dev,
+                  NARROW_BAND, tracers=(pair, plain))
+        idle = profile_subframe(step, film, camera, float(np.median(secs)),
+                                phase, ("instanced_mt_kernel",),
+                                variants=("<false>", "<true>"))
+        PATHS[name] = (float(np.median(rates)), idle)
+    finally:
+        tdist.destroy_process_group()
+    return dict(launches=launches, calls=rec["calls"], pair=pair,
+                scene=ordered)
+
+
+def phase_k7_timed(dev, path, phase=39):
+    """Phase 39: K7 closest and any on the inputs of 4 closest and 4
+    shadow calls of the K7 path's warm-up: bit for bit against the plain
+    version, device time per launch (device_ms), the plain version's, the
+    bound (k7_work). Returns {name: result}."""
+    import torch
+
+    from rendertoy3c_tpu_torch.trace import instanced_mt as im
+    from rendertoy3c_tpu_torch.trace.mt import _count_tensor, pack_rays
+
+    soup = path["pair"][0].soup
+    out = {}
+    for k, name in enumerate(("instanced_mt", "instanced_mt_any")):
+        any_hit = k == 1
+        # the calls of at least half a pool of live lanes (the subframe's
+        # tail traces few), 4 of them spread over the warm-up
+        calls = [c for c in path["calls"][k]
+                 if int(c[4]) >= c[0].shape[0] // 2]
+        check(len(calls) >= 4, f"phase {phase} {name}: {len(calls)} "
+              "recorded calls of half a pool")
+        picks = [calls[int(j)] for j in
+                 np.linspace(0, len(calls) - 1, 4).round()]
+        launches, costs, lanes = [], [], []
+        for o, d, tmin, tmax, count in picks:
+            rays, r = pack_rays(o, d, tmin, tmax)
+            c = _count_tensor(count, r, rays.device)
+            got = im.trace_instanced(rays, c, soup, any_hit)
+            want = im.trace_instanced_ref(rays, c, soup, any_hit)
+            check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                  f"phase {phase} {name}: differs from its plain version on "
+                  "a recorded call")
+            launches.append((rays, c, soup, any_hit))
+            costs.append(k7_work(rays, c, soup, any_hit)[::-1])
+            lanes.append(int(c))
+        ms = device_ms([functools.partial(im.trace_instanced, *a)
+                        for a in launches] * 4)
+        plain_ms = cuda_ms([functools.partial(im.trace_instanced_ref, *a)
+                            for a in launches])
+        bound_ms, bound_by = mean_bound(costs)
+        out[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by)
+        print(f"phase {phase} {name} on 4 recorded calls of the K7 path's "
+              f"warm-up (live counts {lanes} of "
+              f"{launches[0][0].shape[0]}): bit-equal to the plain version;"
+              f" device time {ms:.4f} ms per launch vs plain {plain_ms:.4f} "
+              f"ms; bound {bound_ms:.4f} ms by {bound_by} "
+              f"({100 * bound_ms / ms:.2f}% of the kernel's time)")
+    return out
+
+
+def phase_decompositions(dev, path, camera, phase=40):
+    """Phase 40: the (2, 1) and (1, 2) meshes of the K7 path at 192^2, by
+    the per-rank function in one process (render_mesh_in_process, each
+    rank's render_shard and the collectives' arithmetic) over the path's
+    K7 pair: the tile decomposition bit-equal to one subframe of
+    make_render_fn with the same ray counts; the spp decomposition by the
+    reference's test_tile_spp_mesh_statistics rule (finite, rays counted,
+    the mean within 5% of one device's)."""
+    import torch
+
+    from rendertoy3c_tpu_torch.film.film import film_create
+    from rendertoy3c_tpu_torch.integrate.config import RenderConfig
+    from rendertoy3c_tpu_torch.integrate.path import make_render_fn
+    from rendertoy3c_tpu_torch.parallel.dist import render_mesh_in_process
+
+    cfg = RenderConfig(**dict(MAIN, width=192, height=192))
+    cam = camera.params()
+    scene, pair = path["scene"], path["pair"]
+    one, stats = make_render_fn(scene, cfg, tracer=pair, device=dev)(
+        cam, film_create(cfg.height, cfg.width, device=dev))
+    one = one.accum
+    rgb, _, rad, shad, _ = render_mesh_in_process(scene, cfg, 2, 1, pair,
+                                                  cam, 0, dev)
+    check(torch.equal(rgb.view(torch.int32), one.view(torch.int32))
+          and rad == int(stats.radiance_rays)
+          and shad == int(stats.shadow_rays),
+          f"phase {phase}: the (2, 1) mesh differs from one device "
+          f"({rad} vs {int(stats.radiance_rays)} radiance rays)")
+    spp, _, rad2, shad2, _ = render_mesh_in_process(scene, cfg, 1, 2, pair,
+                                                    cam, 0, dev)
+    a, b = float(spp.mean()), float(one.mean())
+    check(bool(torch.isfinite(spp).all()) and rad2 > 0 and shad2 > 0
+          and abs(a - b) < 0.05 * max(b, 1e-6),
+          f"phase {phase}: the (1, 2) mesh's mean {a} vs one device's {b}")
+    print(f"phase {phase} K7 path at 192^2 by the per-rank function: (2, 1)"
+          f" bit-equal to one device, {rad} radiance and {shad} shadow rays "
+          f"as one device's; (1, 2) mean {a:.6f} vs {b:.6f} (rel "
+          f"{abs(a - b) / b:.4f}), {rad2} radiance rays")
+
+
+def k7_band(dev, smi, t_start, field_in, scenes):
+    """Phases 37-40 on K7. Returns the entries of the "kernels" line: K7
+    closest and any."""
+    phase_k7_gate(dev, field_in, scenes)
+    print(f"phase 37 done; {time.perf_counter() - t_start:.1f} s since the "
+          "start")
+    scene, camera = scenes["multi_instance_tracetime"]
+    path = k7_path(scene, camera, dev, smi)
+    res = phase_k7_timed(dev, path)
+    phase_decompositions(dev, path, camera)
+    print(f"phases 37-40 done; {time.perf_counter() - t_start:.1f} s since "
+          "the start")
+    return [dict(name=n, route="cuda", source=K7_SRC, replaces=K7_REPLACES,
+                 launches=path["launches"][n], **res[n], library_ms=None)
+            for n in ("instanced_mt", "instanced_mt_any")]
+
+
 def main() -> int:
     import torch
 
@@ -3070,11 +3629,13 @@ def main() -> int:
         k4m = phase_k4(dev, m_scene, m_camera, 11, "K4 motion")
 
         # ---- phase 12: K5 static and motion on their paths' inputs
-        k5 = phase_k5(dev, {
-            "K5 (Cornell sorted)": k5_states(scene, camera, dev, SORTED),
-            "K5 motion (2-key Cornell sample-major)": k5_states(
-                m_scene, m_camera, dev, SAMPLE_MAJOR)})
-        k5s, k5m = k5.values()
+        # (their recorded subframes are phase 14's warm-ups)
+        k5_runs = [k5_states(scene, camera, dev, SORTED),
+                   k5_states(m_scene, m_camera, dev, SAMPLE_MAJOR)]
+        k5s, k5m = phase_k5(dev, dict(zip(
+            ("K5 (Cornell sorted)", "K5 motion (2-key Cornell sample-major)"),
+            k5_runs))).values()
+        split = phase_split_paths(dev, scene, camera, m_scene, m_camera)
 
         # ---- phase 13: the gates of the new schedules
         gate(m_scene, m_camera, dev, "2-key Cornell", 13)
@@ -3093,11 +3654,11 @@ def main() -> int:
         launches_k5 = full_size(
             "cornell sorted", scene, camera, dev, smi, 14,
             {"trace_shade": shade.trace_shade}, ("trace_shade_kernel",),
-            SORTED)[1]
+            SORTED, warm=k5_runs[0][4])[1]
         launches_k5m = full_size(
             "2-key cornell sample-major", m_scene, m_camera, dev, smi, 14,
             {"trace_shade": shade.trace_shade}, ("trace_shade_kernel",),
-            SAMPLE_MAJOR)[1]
+            SAMPLE_MAJOR, warm=k5_runs[1][4])[1]
         print(f"phase 14 done; {time.perf_counter() - t_start:.1f} s since "
               "the start")
 
@@ -3108,12 +3669,13 @@ def main() -> int:
               "textured quad: not textured or not 2-key")
         k4t = phase_k4(dev, tq, tq_cam, 15, "K4 textured")
         k4mt = phase_k4(dev, tqm, tqm_cam, 15, "K4 motion textured")
-        k5t, k5mt = phase_k5(dev, {
-            "K5 textured (textured quad sorted)": k5_states(
-                tq, tq_cam, dev, SORTED, QUAD_SNAPSHOTS),
-            "K5 motion textured (2-key textured quad sample-major)":
-                k5_states(tqm, tqm_cam, dev, SAMPLE_MAJOR, QUAD_SNAPSHOTS)},
-            15).values()
+        k5t_runs = [k5_states(tq, tq_cam, dev, SORTED, QUAD_SNAPSHOTS),
+                    k5_states(tqm, tqm_cam, dev, SAMPLE_MAJOR,
+                              QUAD_SNAPSHOTS)]
+        k5t, k5mt = phase_k5(dev, dict(zip(
+            ("K5 textured (textured quad sorted)",
+             "K5 motion textured (2-key textured quad sample-major)"),
+            k5t_runs)), 15).values()
         for variant in ("repeat", "clamp_mirror", "uv_transform",
                         "normal_map"):
             gate(*textured_quad(variant), dev, f"textured quad {variant}", 16)
@@ -3128,11 +3690,11 @@ def main() -> int:
         launches_k5t = full_size(
             "textured quad sorted", tq, tq_cam, dev, smi, 17,
             {"trace_shade": shade.trace_shade}, ("trace_shade_kernel",),
-            SORTED)[1]
+            SORTED, warm=k5t_runs[0][4])[1]
         launches_k5mt = full_size(
             "2-key textured quad sample-major", tqm, tqm_cam, dev, smi, 17,
             {"trace_shade": shade.trace_shade}, ("trace_shade_kernel",),
-            SAMPLE_MAJOR)[1]
+            SAMPLE_MAJOR, warm=k5t_runs[1][4])[1]
         print(f"phase 17 (textured quad) done; "
               f"{time.perf_counter() - t_start:.1f} s since the start")
 
@@ -3148,9 +3710,10 @@ def main() -> int:
         k4d = phase_k4(dev, mc, mc_cam, 18, "K4 dispatch")
         k4md = phase_k4(dev, mcm, mcm_cam, 18, "K4 motion dispatch")
         k4td = phase_k4(dev, pq, pq_cam, 18, "K4 textured dispatch")
+        k5d_run = k5_states(mc, mc_cam, dev, SORTED_POWER)
         k5d, = phase_k5(dev, {
-            "K5 dispatch, power (material Cornell sorted, power)": k5_states(
-                mc, mc_cam, dev, SORTED_POWER)}, 18).values()
+            "K5 dispatch, power (material Cornell sorted, power)": k5d_run},
+            18).values()
         gate(mc, mc_cam, dev, "material Cornell", 19)
         gate(mc, mc_cam, dev, "material Cornell, power", 19, **POWER)
         gate(mcm, mcm_cam, dev, "2-key material Cornell sample-major", 19,
@@ -3163,7 +3726,7 @@ def main() -> int:
         launches_k5d = full_size(
             "material cornell sorted power", mc, mc_cam, dev, smi, 20,
             {"trace_shade": shade.trace_shade}, ("trace_shade_kernel",),
-            SORTED_POWER)[1]
+            SORTED_POWER, warm=k5d_run[4])[1]
         launches_k4md = full_size(
             "2-key material cornell", mcm, mcm_cam, dev, smi, 20,
             {"trace_shade_refill": shade.trace_shade_refill},
@@ -3257,14 +3820,14 @@ def main() -> int:
             {"mt_closest": mt.mt_closest, "mt_any": mt.mt_any,
              "external_shade": shade.external_shade},
             ("mt_kernel", "external_shade_kernel"),
-            timed=TOWN_TIMED)[1]
+            timed=TOWN_TIMED, warm=states[False])[1]
         launches_m = full_size(
             "2-key town", *towns[True], dev, smi, 10,
             {"mt_closest_motion": mt.mt_closest_motion,
              "mt_any_motion": mt.mt_any_motion,
              "external_shade": shade.external_shade},
             ("mt_motion_kernel", "external_shade_kernel"),
-            timed=TOWN_TIMED)[1]
+            timed=TOWN_TIMED, warm=states[True])[1]
         print(f"phase 10 done; {time.perf_counter() - t_start:.1f} s since "
               "the start")
 
@@ -3278,14 +3841,14 @@ def main() -> int:
             {"mt_closest": mt.mt_closest, "mt_any": mt.mt_any,
              "external_shade": shade.external_shade},
             ("mt_kernel", "external_shade_kernel"),
-            timed=TOWN_TIMED)[1]
+            timed=TOWN_TIMED, warm=tex_states[False])[1]
         launches_mt = full_size(
             "textured 2-key town", *tex_towns[True], dev, smi, 17,
             {"mt_closest_motion": mt.mt_closest_motion,
              "mt_any_motion": mt.mt_any_motion,
              "external_shade": shade.external_shade},
             ("mt_motion_kernel", "external_shade_kernel"),
-            timed=TOWN_TIMED)[1]
+            timed=TOWN_TIMED, warm=tex_states[True])[1]
         print(f"phase 17 done; {time.perf_counter() - t_start:.1f} s since "
               "the start")
 
@@ -3324,11 +3887,11 @@ def main() -> int:
         launches_ptt = full_size(
             "principled town", *p_towns[TEX_PT], dev, smi, 20, town_kernels,
             ("mt_kernel", "external_shade_kernel"), SORTED_POWER,
-            timed=TOWN_TIMED)[1]
+            timed=TOWN_TIMED, warm=p_states[TEX_PT])[1]
         launches_pt = full_size(
             "untextured principled town", *p_towns[PT], dev, smi, 20,
             town_kernels, ("mt_kernel", "external_shade_kernel"),
-            SORTED_POWER, timed=TOWN_TIMED)[1]
+            SORTED_POWER, timed=TOWN_TIMED, warm=p_states[PT])[1]
         print(f"phase 20 done; {time.perf_counter() - t_start:.1f} s since "
               "the start")
 
@@ -3352,10 +3915,13 @@ def main() -> int:
         walk_entries = walk_band(dev, smi, t_start)
 
         # ---- phases 28-31: trace-time instancing
-        inst_entries = inst_band(dev, smi, t_start)
+        inst_entries, field_in, i_scenes = inst_band(dev, smi, t_start)
 
         # ---- phases 32-35: the resident-table walk (K8)
         rw_entries = resident_band(dev, smi, t_start)
+
+        # ---- phases 37-40: K7 through the distributed route
+        k7_entries = k7_band(dev, smi, t_start, field_in, i_scenes)
 
     except PhaseFailed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
@@ -3433,6 +3999,17 @@ def main() -> int:
     kernels += walk_entries
     kernels += inst_entries
     kernels += rw_entries
+    kernels += k7_entries
+    # the non-merged K5 (phase 36): its launches on the split paths
+    kernels += [kernel_entry(n, K4_SRC, 1230, split[path][0],
+                             NON_MERGED[label])
+                for n, path, label in (
+                    ("trace_shade_hit", SPLIT_PATHS[0][0],
+                     "K5 (Cornell sorted)"),
+                    ("trace_shade_hit_motion", SPLIT_PATHS[1][0],
+                     "K5 motion (2-key Cornell sample-major)"))]
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -33,6 +33,21 @@ writes the image in the format its extension names, as the reference's
 CLI does (:467-520): linear float OpenEXR for .exr, binary PPM for .ppm,
 PNG otherwise. With --aov the guides go beside it as
 <stem>.albedo<ext> and <stem>.normal<ext>.
+
+`--mesh-shape TILExSPP` renders over the (tile, spp) mesh of
+parallel/dist.py (the reference CLI's :361-377). The port runs one process
+per GPU, so the mesh counts processes: launch one copy of the CLI per GPU
+with `--num-hosts N` (N = TILE x SPP processes in all), `--host-id 0..N-1`
+and the same `--coordinator host:port` (the process group's rendezvous,
+where process 0 listens), e.g. on one host with two GPUs:
+
+  python -m rendertoy3c_tpu_torch.app.cli --scene cornell --mesh-shape 2x1 \
+      --num-hosts 2 --host-id 0 --coordinator localhost:29511 -o out.png &
+  python -m rendertoy3c_tpu_torch.app.cli --scene cornell --mesh-shape 2x1 \
+      --num-hosts 2 --host-id 1 --coordinator localhost:29511 -o out.png
+
+Each process renders its band of rows on its GPU (NCCL; gloo with
+`--device cpu`); process 0 gathers the bands and writes the image.
 """
 from __future__ import annotations
 
@@ -44,7 +59,7 @@ import time
 import torch
 
 from ..film.denoise import atrous_denoise
-from ..film.film import film_create
+from ..film.film import Film, film_create
 from ..film.image import write_exr, write_png, write_ppm
 from ..film.tonemap import make_color
 from ..integrate.config import RenderConfig
@@ -104,6 +119,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="also accumulate first-hit albedo/normal AOVs; "
                         "written as <output>.albedo/.normal and used as "
                         "denoiser guides")
+    p.add_argument("--mesh-shape", default=None,
+                   help="TILExSPP process mesh, e.g. 2x2 (default: one "
+                        "process); one process per GPU, TILE x SPP "
+                        "processes in all (--num-hosts)")
+    p.add_argument("--num-hosts", type=int, default=1,
+                   help="the job's process count, one process per GPU: "
+                        "launch one copy of this CLI per GPU with "
+                        "--host-id 0..N-1")
+    p.add_argument("--host-id", type=int, default=0,
+                   help="this process's id (rank) in the job")
+    p.add_argument("--coordinator", default="localhost:29511",
+                   help="host:port of the process group's rendezvous "
+                        "(process 0 listens there)")
     return p
 
 
@@ -213,6 +241,38 @@ def main(argv=None) -> int:
         print("--device cuda: no CUDA device is available", file=sys.stderr)
         return 2
     device = torch.device(args.device)
+    mesh = None
+    if args.mesh_shape:
+        from ..parallel.dist import make_mesh
+
+        try:
+            n_tile, n_spp = (int(x) for x in
+                             args.mesh_shape.lower().split("x"))
+        except ValueError:
+            print(f"bad --mesh-shape {args.mesh_shape!r}, expected TILExSPP",
+                  file=sys.stderr)
+            return 2
+        if n_tile * n_spp != args.num_hosts:
+            print(f"--mesh-shape {args.mesh_shape} needs {n_tile * n_spp} "
+                  f"processes (--num-hosts), one per GPU; got "
+                  f"{args.num_hosts}", file=sys.stderr)
+            return 2
+        if args.num_hosts > 1:
+            from ..parallel.multihost import init_multihost
+
+            init_multihost(args.coordinator, args.num_hosts, args.host_id,
+                           device=device)
+        mesh = make_mesh(n_tile, n_spp, device=device)
+        device = mesh.device
+    try:
+        return _render(args, w, h, device, mesh)
+    finally:
+        if mesh is not None and mesh.world > 1:
+            torch.distributed.destroy_process_group()
+
+
+def _render(args, w: int, h: int, device, mesh) -> int:
+    """Load, render and save, on one device or as one rank of `mesh`."""
     cfg = RenderConfig(width=w, height=h, samples_per_launch=args.spp,
                        max_depth=args.max_depth, seed=args.seed,
                        ray_block=args.ray_block, integrator=args.integrator,
@@ -228,22 +288,48 @@ def main(argv=None) -> int:
         camera.fov_y = args.fov
     camera.aspect_ratio = w / h
     scene = build_scene(meshes, textures=textures or None)
+    tracer = None
     if args.tracer == "auto":
         # the walk band's pool width and cadence on the card (as the
         # reference's CLI applies them on its accelerator), then the ladder
         cfg = tune_config(scene, cfg, device)
-        step = make_render_fn(scene, cfg, device=device)
     else:
         scene, tracer = pick_tracer(args.tracer, scene, cfg, device)
-        step = make_render_fn(scene, cfg, tracer=tracer, device=device)
     cam = camera.params()
-    film = film_create(h, w, device=device, aov=cfg.aov)
+    if mesh is not None:
+        from ..parallel.dist import (film_create_sharded, make_render_fn_dist,
+                                     prepare_tracer_factory)
+
+        if tracer is None:
+            # the ladder, with each spp rank's pipeline at its share
+            scene, factory = prepare_tracer_factory(scene, cfg,
+                                                    device=device)
+        else:
+            factory = lambda *_: tracer  # noqa: E731
+        step, _ = make_render_fn_dist(scene, cfg, mesh,
+                                      tracer_factory=factory)
+        film = film_create_sharded(cfg, mesh)
+    else:
+        step = (make_render_fn(scene, cfg, device=device) if tracer is None
+                else make_render_fn(scene, cfg, tracer=tracer, device=device))
+        film = film_create(h, w, device=device, aov=cfg.aov)
     rays = 0
     t0 = time.perf_counter()
     for _ in range(args.subframes):
         film, stats = step(cam, film)
         rays += int(stats.radiance_rays) + int(stats.shadow_rays)
     dt = time.perf_counter() - t0
+    if mesh is not None:
+        from ..parallel.multihost import assemble_film
+
+        # every rank takes part in the gathers; process 0 writes
+        film = Film(accum=assemble_film(film.accum, mesh),
+                    subframe_index=film.subframe_index,
+                    **{k: assemble_film(getattr(film, k), mesh)
+                       for k in ("albedo", "normal")
+                       if getattr(film, k) is not None})
+        if mesh.rank != 0:
+            return 0
     save(args.output, denoised(film, args.denoise), film)
     print(f"wrote {args.output}: {w}x{h}, {args.subframes * args.spp} spp, "
           f"{rays / 1e6:.1f} Mrays in {dt:.2f}s on {args.device}")

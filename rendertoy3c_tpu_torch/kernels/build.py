@@ -26,7 +26,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 SOURCES = ("mt_kernels.cu", "megakernel.cu", "megakernel_aov.cu",
-           "external.cu", "walk.cu", "resident_walk.cu")
+           "external.cu", "walk.cu", "resident_walk.cu", "instanced_mt.cu")
 HEADERS = ("mt.cuh", "shade.cuh", "megakernel.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
@@ -195,8 +195,8 @@ def library() -> ctypes.CDLL:
         vp, vp, vp, vp, vp, tex, vp]
     lib.rt3c_trace_shade_refill.restype = ci
     lib.rt3c_trace_shade.argtypes = [
-        ci, ctypes.POINTER(TraceShadeParams), vp, vp, vp, ci, vp, vp, vp, vp,
-        vp, vp, vp, vp, vp, tex, vp]
+        ci, ctypes.POINTER(TraceShadeParams), vp, vp, vp, vp, ci, vp, vp, vp,
+        vp, vp, vp, vp, vp, vp, tex, vp]
     lib.rt3c_trace_shade.restype = ci
     lib.rt3c_mt_trace_motion.argtypes = [ci, ci, vp, vp, ci, vp, vp, vp, vp,
                                          vp, ci, ci, vp, vp]
@@ -210,6 +210,9 @@ def library() -> ctypes.CDLL:
     lib.rt3c_resident_walk.argtypes = [ci, ci, vp, vp, vp, vp, ci, vp, vp,
                                        ci, ci, vp, vp, vp]
     lib.rt3c_resident_walk.restype = ci
+    lib.rt3c_instanced_mt.argtypes = [ci, ci, vp, ci, vp, vp, vp, vp, ci, vp,
+                                      vp]
+    lib.rt3c_instanced_mt.restype = ci
     return lib
 
 

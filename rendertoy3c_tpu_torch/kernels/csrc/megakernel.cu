@@ -46,10 +46,13 @@ extern "C" int rt3c_trace_shade_refill(
                                     lights_t, jump, tex, s);
 }
 
+// hit4 [P, 4]: the closest hits of the non-merged K5, null for the merged
+// one (which sweeps them in the kernel; a motion launch then needs time).
 extern "C" int rt3c_trace_shade(int device, const rt3c::TraceShadeParams* p,
                                 const float* rays, const float* misc,
-                                const float* time, int n_lanes,
-                                const int* count, const float* tris,
+                                const float* time, const float* hit4,
+                                int n_lanes, const int* count,
+                                const float* tris,
                                 const float* tris1, const float* aabb,
                                 const float* super_aabb, const float* attr_t,
                                 const float* lights_t, float* rays_out,
@@ -57,7 +60,8 @@ extern "C" int rt3c_trace_shade(int device, const rt3c::TraceShadeParams* p,
                                 void* stream) {
   if (n_lanes <= 0 || n_lanes % rt3c::RAY_TILE != 0 || p->ct > rt3c::MAX_CT ||
       p->n_tiles < 1 || p->num_lights < 1 || p->params_base < 0 ||
-      (p->motion && (tris1 == nullptr || time == nullptr)) ||
+      (p->motion &&
+       (tris1 == nullptr || (time == nullptr && hit4 == nullptr))) ||
       (tex && (tex->texels == nullptr || tex->meta == nullptr)))
     return (int)cudaErrorInvalidValue;
   const cudaError_t dev_err = cudaSetDevice(device);
@@ -65,10 +69,10 @@ extern "C" int rt3c_trace_shade(int device, const rt3c::TraceShadeParams* p,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const rt3c::Soup soup{tris, aabb, super_aabb, p->n_tiles, p->ct};
   if (p->aov)
-    return rt3c::launch_trace_shade_aov(p, rays, misc, time, n_lanes, count,
-                                        soup, tris1, attr_t, lights_t,
+    return rt3c::launch_trace_shade_aov(p, rays, misc, time, hit4, n_lanes,
+                                        count, soup, tris1, attr_t, lights_t,
                                         rays_out, misc_out, tex, s);
-  return rt3c::launch_trace_shade<false>(p, rays, misc, time, n_lanes, count,
-                                         soup, tris1, attr_t, lights_t,
+  return rt3c::launch_trace_shade<false>(p, rays, misc, time, hit4, n_lanes,
+                                         count, soup, tris1, attr_t, lights_t,
                                          rays_out, misc_out, tex, s);
 }

@@ -377,13 +377,18 @@ __global__ void __launch_bounds__(RAY_TILE)
 // K5: one pool iteration without the refill. Reads rays [P, 8], misc
 // [P, 16|24] (and time [P] for motion), writes the next rays (the bounce
 // ray on surviving lanes, tmin/tmax passed on) and the next misc: the state
-// of pallas_shade.py :893-932 with pixel and sample passed on.
+// of pallas_shade.py :893-932 with pixel and sample passed on. A non-null
+// hit4 [P, 4] (t, prim, u, v) is the non-merged K5
+// (make_fused_shader(merged=False)): the closest hit comes from it instead
+// of the in-kernel sweep, and `time` is not read (the shadow rays' time is
+// the seed's peek either way).
 template <bool kMotion, bool kTex, bool kDispatch, bool kAov>
 __global__ void __launch_bounds__(RAY_TILE)
     trace_shade_kernel(const TraceShadeParams p,
                        const float* __restrict__ rays,
                        const float* __restrict__ misc,
                        const float* __restrict__ time,
+                       const float* __restrict__ hit4,
                        const int* __restrict__ count, const Soup soup,
                        const float* __restrict__ tris1,
                        const float* __restrict__ attr_t,
@@ -397,11 +402,15 @@ __global__ void __launch_bounds__(RAY_TILE)
   const Ray r = load_ray(rays, lane);
   float m[MW];
   load_misc<MW>(misc, lane, m);
-  float tm = 0.0f;
-  if constexpr (kMotion) tm = time[lane];
-
-  const ClosestHit h = sweep_closest_at<kMotion>(soup, tris1, tiles, r, tm,
-                                                 live);
+  ClosestHit h;
+  if (hit4 != nullptr) {  // grid-uniform: no block skips a sweep's votes
+    const float4 g = reinterpret_cast<const float4*>(hit4)[lane];
+    h = ClosestHit{g.x, g.y, g.z, g.w};
+  } else {
+    float tm = 0.0f;
+    if constexpr (kMotion) tm = time[lane];
+    h = sweep_closest_at<kMotion>(soup, tris1, tiles, r, tm, live);
+  }
   const ShadeConsts sc{p.max_depth, p.num_lights, p.light_stride,
                        p.power, p.params_base, p.shadow_tmin, p.shadow_eps,
                        p.pick_pdf, {p.bg[0], p.bg[1], p.bg[2]}};
@@ -474,7 +483,8 @@ int launch_refill(const RefillParams* p, float* rays, float* misc,
 
 template <bool kAov>
 int launch_trace_shade(const TraceShadeParams* p, const float* rays,
-                       const float* misc, const float* time, int n_lanes,
+                       const float* misc, const float* time,
+                       const float* hit4, int n_lanes,
                        const int* count, const Soup& soup, const float* tris1,
                        const float* attr_t, const float* lights_t,
                        float* rays_out, float* misc_out, const TexParams* tex,
@@ -485,8 +495,9 @@ int launch_trace_shade(const TraceShadeParams* p, const float* rays,
                             const TexParams& t) {
     trace_shade_kernel<decltype(kMotion)::value, decltype(kTex)::value,
                        decltype(kDispatch)::value, kAov>
-        <<<grid, RAY_TILE, 0, s>>>(*p, rays, misc, time, count, soup, tris1,
-                                   attr_t, lights_t, rays_out, misc_out, t);
+        <<<grid, RAY_TILE, 0, s>>>(*p, rays, misc, time, hit4, count, soup,
+                                   tris1, attr_t, lights_t, rays_out,
+                                   misc_out, t);
   });
 }
 
@@ -498,11 +509,11 @@ int launch_refill_aov(const RefillParams* p, float* rays, float* misc,
                       const float* lights_t, const unsigned int* jump,
                       const TexParams* tex, cudaStream_t s);
 int launch_trace_shade_aov(const TraceShadeParams* p, const float* rays,
-                           const float* misc, const float* time, int n_lanes,
-                           const int* count, const Soup& soup,
-                           const float* tris1, const float* attr_t,
-                           const float* lights_t, float* rays_out,
-                           float* misc_out, const TexParams* tex,
-                           cudaStream_t s);
+                           const float* misc, const float* time,
+                           const float* hit4, int n_lanes, const int* count,
+                           const Soup& soup, const float* tris1,
+                           const float* attr_t, const float* lights_t,
+                           float* rays_out, float* misc_out,
+                           const TexParams* tex, cudaStream_t s);
 
 }  // namespace rt3c

@@ -18,15 +18,15 @@ int launch_refill_aov(const RefillParams* p, float* rays, float* misc,
 }
 
 int launch_trace_shade_aov(const TraceShadeParams* p, const float* rays,
-                           const float* misc, const float* time, int n_lanes,
-                           const int* count, const Soup& soup,
-                           const float* tris1, const float* attr_t,
-                           const float* lights_t, float* rays_out,
-                           float* misc_out, const TexParams* tex,
-                           cudaStream_t s) {
-  return launch_trace_shade<true>(p, rays, misc, time, n_lanes, count, soup,
-                                  tris1, attr_t, lights_t, rays_out, misc_out,
-                                  tex, s);
+                           const float* misc, const float* time,
+                           const float* hit4, int n_lanes, const int* count,
+                           const Soup& soup, const float* tris1,
+                           const float* attr_t, const float* lights_t,
+                           float* rays_out, float* misc_out,
+                           const TexParams* tex, cudaStream_t s) {
+  return launch_trace_shade<true>(p, rays, misc, time, hit4, n_lanes, count,
+                                  soup, tris1, attr_t, lights_t, rays_out,
+                                  misc_out, tex, s);
 }
 
 }  // namespace rt3c

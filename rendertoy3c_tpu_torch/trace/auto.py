@@ -37,7 +37,7 @@ and roughness textures, normal maps without images, the physical
 throughput model, scenes without lights. 2-key scenes of the MT band keep
 their face order, as in the reference. What stays out raises
 NotImplementedError naming the ROADMAP item that adds it: more than 2
-keys (A5; for instances, K7: C1) and the walk pool's XLA shade stage
+keys (A5; for instances, C1) and the walk pool's XLA shade stage
 (A22). Returns (scene, tracer): always render the returned scene, whose
 face order matches the tracer's tables.
 """
@@ -142,8 +142,10 @@ def _choose_instanced(iscene, cfg, device):
     """The instanced branch of choose_tracer (auto.py:117-150)."""
     if iscene.num_keys > 2:
         raise NotImplementedError(
-            "instanced scenes of more than 2 transform keys take the "
-            "unrolled instanced kernels (K7), not ported yet (ROADMAP C1)")
+            "instanced scenes of more than 2 transform keys are refused: "
+            "the reference sends them to the two-level kernels (K7, "
+            "trace/instanced_mt.py), which take static scenes only "
+            "(ROADMAP C1)")
     iscene = split_order_instanced(iscene)
     if _pipeline_ok(cfg) and _eff_faces(iscene) > LEAFWALK_MIN_FACES:
         return iscene, make_inst_walkpool_pipeline(iscene, cfg, device)

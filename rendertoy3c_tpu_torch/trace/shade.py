@@ -13,8 +13,11 @@ sampler (:710-720, :742-745), without or with the first-hit AOV rows
 reference's `_fused_texture_state`, :1101, without its TPU atlas limits);
 `fused_unsupported` (the narrowing of `fused_shade_eligible`, :1116),
 `FusedPipeline` (:1379) with `trace_shade` (K5, the merged megakernel of
-`make_fused_shader`, :1224-1275, :1371-1375) and `refill_shader` (:1437)
-over the wrapper of K4, for static or 2-key scenes of up to 2048 faces;
+`make_fused_shader`, :1224-1275, :1371-1375), `closest_raw` (:1431, K1
+or K3's raw output) and `refill_shader` (:1437) over the wrapper of K4,
+for static or 2-key scenes of up to 2048 faces; `make_fused_shader`
+(:1131) with merged=False, the non-merged K5 (the same kernel with the
+closest hit hit4 [P, 4] given);
 and `external_unsupported` (the narrowing of `external_shade_eligible`,
 :1459), `ExternalPipeline` (:1820) and the wrapper of K6
 (`make_external_shader`, :1678), for static or 2-key scenes of up to
@@ -37,7 +40,8 @@ Per-lane state layout (pallas_shade.py:32-36):
 K4 updates rays, misc, stash (and time) in place. K5 reads rays, misc (and
 time) and returns new rays and misc. Both sweep their rays in 256-ray
 tiles, static or motion, and skip the sweeps of tiles at or past the live
-count.
+count. The non-merged K5 reads rays, hit4 and misc: no time, since the
+shadow rays' time is a peek of the seed in both forms (:756-760).
 
 K6 reads rays, the closest hit hit4 [R, 4] (t, prim_f, u, v) and misc
 [R, W] (W = 16, or 24 with AOV), and writes new arrays: rays_out [R, 8],
@@ -76,7 +80,7 @@ from ..scene.texture import TextureAtlas, atlas_to, sample_texture_bilinear
 from .bsdf import dispatch_sample, material_lanes, nee_bsdf
 from .mt import (RAY_TILE, MotionSoup, TriSoup, any_motion_ref, any_ref,
                  build_tri_soup, closest_motion_ref, closest_ref,
-                 motion_union_aabbs)
+                 motion_union_aabbs, mt_closest, mt_closest_motion)
 
 _INV_PI = 1.0 / math.pi
 MAX_FACES = 2048  # the fused path's face limit (pallas_shade.py:59)
@@ -633,26 +637,41 @@ def trace_shade_ref(rays, misc, count, tables: ShadeTables, sc: ShadeConfig,
     return rays_out, torch.stack(cols, dim=1)
 
 
-def trace_shade(rays, misc, count, tables: ShadeTables, sc: ShadeConfig,
-                time=None):
-    """K5 wrapper: the CUDA kernel for CUDA tensors
-    (kernels/csrc/megakernel.cuh `trace_shade_kernel`), `trace_shade_ref` on
-    the CPU."""
-    if rays.device.type == "cpu":
-        return trace_shade_ref(rays, misc, count, tables, sc, time)
+def trace_shade_hit_ref(rays, hit4, misc, count, tables: ShadeTables,
+                        sc: ShadeConfig):
+    """Plain version of the non-merged K5 (make_fused_shader(merged=False),
+    pallas_shade.py :1213-1275): trace_shade_ref with the closest hit
+    hit4 [P, 4] (t, prim_f, u, v) given; the shadow sweep runs in place."""
+    _, occluded = _plain_sweeps(tables, count, None)
+    a = tables.attr_t[:, torch.clamp(hit4[:, 1], min=0.0).to(torch.int64)]
+    r = _shade_lanes(rays, hit4, misc, a, tables.lights_t, sc, occluded,
+                     tables.tex, tables.params_base)
+    rays_out, cols = _next_state(rays, misc, r)
+    return rays_out, torch.stack(cols, dim=1)
+
+
+def _launch_trace_shade(rays, misc, count, tables: ShadeTables,
+                        sc: ShadeConfig, time, hit4, name: str):
+    """One launch of trace_shade_kernel: the merged K5 (hit4 None) or the
+    non-merged one."""
     tris, tris1, aabb, super_aabb = tables.sweep_tables()
     motion = tris1 is not None
-    kbuild.require_cuda("trace_shade", rays, misc, tris, aabb, super_aabb,
+    sweep_time = motion and hit4 is None
+    kbuild.require_cuda(name, rays, misc, tris, aabb, super_aabb,
                         tables.attr_t, tables.lights_t,
-                        *((tris1, time) if motion else ()))
-    kbuild.require_cuda("trace_shade", count, dtype=torch.int32)
-    tex = _tex_params("trace_shade", tables.tex)
+                        *((tris1,) if motion else ()),
+                        *((time,) if sweep_time else ()),
+                        *((hit4,) if hit4 is not None else ()))
+    kbuild.require_cuda(name, count, dtype=torch.int32)
+    tex = _tex_params(name, tables.tex)
     pool = rays.shape[0]
     mw = misc_width(sc.aov)
     if (rays.shape != (pool, 8) or misc.shape != (pool, mw)
-            or pool % RAY_TILE or (motion and time.shape != (pool,))):
-        raise ValueError(f"trace_shade: rays [P, 8], misc [P, {mw}] (and "
-                         "time [P] for motion) with P a multiple of 256")
+            or pool % RAY_TILE or (sweep_time and time.shape != (pool,))
+            or (hit4 is not None and hit4.shape != (pool, 4))):
+        raise ValueError(f"{name}: rays [P, 8], misc [P, {mw}] (and time "
+                         "[P] for the merged motion kernel, hit4 [P, 4] for "
+                         "the non-merged one) with P a multiple of 256")
     f32 = dict(dtype=torch.float32, device=rays.device)
     rays_out = torch.empty((pool, 8), **f32)
     misc_out = torch.empty((pool, mw), **f32)
@@ -668,17 +687,44 @@ def trace_shade(rays, misc, count, tables: ShadeTables, sc: ShadeConfig,
     index, stream = kbuild.launch_target(rays.device)
     err = kbuild.library().rt3c_trace_shade(
         index, p, rays.data_ptr(), misc.data_ptr(),
-        time.data_ptr() if motion else None, pool, count.data_ptr(),
-        tris.data_ptr(), tris1.data_ptr() if motion else None,
-        aabb.data_ptr(), super_aabb.data_ptr(), tables.attr_t.data_ptr(),
+        time.data_ptr() if sweep_time else None,
+        hit4.data_ptr() if hit4 is not None else None, pool,
+        count.data_ptr(), tris.data_ptr(),
+        tris1.data_ptr() if motion else None, aabb.data_ptr(),
+        super_aabb.data_ptr(), tables.attr_t.data_ptr(),
         tables.lights_t.data_ptr(), rays_out.data_ptr(), misc_out.data_ptr(),
         tex, stream)
-    kbuild.check(err, "trace_shade")
-    trace_shade.launches += 1
+    kbuild.check(err, name)
     return rays_out, misc_out
 
 
+def trace_shade(rays, misc, count, tables: ShadeTables, sc: ShadeConfig,
+                time=None):
+    """K5 wrapper: the CUDA kernel for CUDA tensors
+    (kernels/csrc/megakernel.cuh `trace_shade_kernel`), `trace_shade_ref` on
+    the CPU."""
+    if rays.device.type == "cpu":
+        return trace_shade_ref(rays, misc, count, tables, sc, time)
+    out = _launch_trace_shade(rays, misc, count, tables, sc, time, None,
+                              "trace_shade")
+    trace_shade.launches += 1
+    return out
+
+
+def trace_shade_hit(rays, hit4, misc, count, tables: ShadeTables,
+                    sc: ShadeConfig):
+    """Non-merged K5 wrapper: `trace_shade_kernel` with hit4 given for
+    CUDA tensors, `trace_shade_hit_ref` on the CPU."""
+    if rays.device.type == "cpu":
+        return trace_shade_hit_ref(rays, hit4, misc, count, tables, sc)
+    out = _launch_trace_shade(rays, misc, count, tables, sc, None, hit4,
+                              "trace_shade_hit")
+    trace_shade_hit.launches += 1
+    return out
+
+
 trace_shade.launches = 0
+trace_shade_hit.launches = 0  # the non-merged K5
 
 
 def trace_shade_refill_ref(rays, misc, stash, stats_in, stats_out,
@@ -836,6 +882,56 @@ def trace_shade_refill(rays, misc, stash, stats_in, stats_out,
 trace_shade_refill.launches = 0
 
 
+def _fused_tables(scene, cfg, device, soup: TriSoup, soup1=None):
+    """(ShadeTables, ShadeConfig) of the megakernels over `soup` (and the
+    key-1 `soup1` of a 2-key scene, with the union cull boxes)."""
+    # deferred: integrate.path imports this module
+    from ..integrate.path import _lcg_advance_table
+
+    msoup = None
+    if soup1 is not None:
+        aabb, super_aabb = motion_union_aabbs(soup, soup1)
+        msoup = MotionSoup(tris0=soup.tris, tris1=soup1.tris,
+                           num_faces=scene.num_faces,
+                           aabb=aabb.contiguous(),
+                           super_aabb=super_aabb.contiguous())
+    f_limit = soup.tris.shape[0] * soup.tris.shape[2]
+    attr_t, lights_t, tex, params_base = shade_tables_for(scene, device,
+                                                          f_limit)
+    jump = _lcg_advance_table(cfg.samples_per_launch).astype(np.int64)
+    tables = ShadeTables(
+        soup=soup,
+        attr_t=torch.as_tensor(attr_t, device=device),
+        lights_t=torch.as_tensor(lights_t, device=device),
+        jump=torch.as_tensor(jump, device=device),
+        jump_u32=torch.as_tensor(jump.astype(np.uint32).view(np.int32),
+                                 device=device),
+        msoup=msoup, tex=tex, params_base=params_base)
+    config = ShadeConfig(
+        max_depth=cfg.max_depth, num_lights=scene.num_lights,
+        shadow_tmin=cfg.shadow_tmin, shadow_eps=cfg.shadow_tmax_eps,
+        bg=tuple(float(b) for b in cfg.bg_radiance),
+        motion=soup1 is not None, power=cfg.light_sampler == "power",
+        aov=cfg.aov)
+    return tables, config
+
+
+def make_fused_shader(scene, cfg, soup: TriSoup, soup1: TriSoup | None = None):
+    """The reference's make_fused_shader(merged=False) (pallas_shade.py
+    :1131-1275) over `soup` (the key-1 `soup1` for a 2-key scene), on the
+    soup's device: shade(rays, hit4, misc, count) -> (rays, misc), the
+    non-merged K5, whose closest hit hit4 [P, 4] (t, prim_f, u, v) comes
+    from outside (FusedPipeline.closest_raw). The merged form is
+    FusedPipeline.trace_shade. The wrapper runs the kernel for CUDA
+    tensors and the plain version on the CPU."""
+    reason = fused_unsupported(scene, cfg)
+    if reason is not None:
+        raise NotImplementedError(reason)
+    tables, config = _fused_tables(scene, cfg, soup.tris.device, soup, soup1)
+    return lambda rays, hit4, misc, count: trace_shade_hit(
+        rays, hit4, misc, count, tables, config)
+
+
 class FusedPipeline:
     """The megakernel pipeline of the pool integrator, on one device, for
     static and 2-key scenes (`motion`).
@@ -850,9 +946,6 @@ class FusedPipeline:
 
     def __init__(self, scene, cfg, device, refill_fn=trace_shade_refill,
                  shade_fn=trace_shade):
-        # deferred: integrate.path imports this module
-        from ..integrate.path import _lcg_advance_table
-
         reason = fused_unsupported(scene, cfg)
         if reason is not None:
             raise NotImplementedError(reason)
@@ -863,34 +956,23 @@ class FusedPipeline:
         self.merged = True  # the closest sweep runs inside the megakernel
         self.soup = build_tri_soup(scene.geom, self.device,
                                    num_faces=scene.num_faces)
-        msoup = None
-        if self.motion:
-            soup1 = build_tri_soup(scene.geom, self.device, key=1,
-                                   num_faces=scene.num_faces)
-            aabb, super_aabb = motion_union_aabbs(self.soup, soup1)
-            msoup = MotionSoup(tris0=self.soup.tris, tris1=soup1.tris,
-                               num_faces=scene.num_faces,
-                               aabb=aabb.contiguous(),
-                               super_aabb=super_aabb.contiguous())
-        f_limit = self.soup.tris.shape[0] * self.soup.tris.shape[2]
-        attr_t, lights_t, tex, params_base = shade_tables_for(
-            scene, self.device, f_limit)
-        jump = _lcg_advance_table(cfg.samples_per_launch).astype(np.int64)
-        self.tables = ShadeTables(
-            soup=self.soup,
-            attr_t=torch.as_tensor(attr_t, device=self.device),
-            lights_t=torch.as_tensor(lights_t, device=self.device),
-            jump=torch.as_tensor(jump, device=self.device),
-            jump_u32=torch.as_tensor(jump.astype(np.uint32).view(np.int32),
-                                     device=self.device),
-            msoup=msoup, tex=tex, params_base=params_base)
-        self.config = ShadeConfig(
-            max_depth=cfg.max_depth, num_lights=scene.num_lights,
-            shadow_tmin=cfg.shadow_tmin, shadow_eps=cfg.shadow_tmax_eps,
-            bg=tuple(float(b) for b in cfg.bg_radiance), motion=self.motion,
-            power=cfg.light_sampler == "power", aov=cfg.aov)
+        soup1 = (build_tri_soup(scene.geom, self.device, key=1,
+                                num_faces=scene.num_faces)
+                 if self.motion else None)
+        self.tables, self.config = _fused_tables(scene, cfg, self.device,
+                                                 self.soup, soup1)
         self.refill_fn = refill_fn
         self.shade_fn = shade_fn
+
+    def closest_raw(self, rays_padded, count, time_col=None):
+        """The raw closest hits [P, 4] (t, prim_f, u, v; miss (tmax, -1,
+        0, 0)) of packed rays [P, 8]: K1, or K3 at the per-ray times
+        time_col ([P] or [P, 1]) of a 2-key scene (pallas_mt.py :727-745,
+        pallas_shade.py :1431-1435)."""
+        if self.motion:
+            return mt_closest_motion(rays_padded, time_col.reshape(-1),
+                                     count, self.tables.msoup)
+        return mt_closest(rays_padded, count, self.soup)
 
     def trace_shade(self, rays, misc, count, time=None):
         """One pool iteration through K5: closest sweep, shading, shadow

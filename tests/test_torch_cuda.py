@@ -1294,3 +1294,120 @@ def test_resident_walk_kernels_match_plain_versions(dev, case):
     assert torch.equal(rw.trace_any_walk(tab, ot, dt, 1e-3, tmax,
                                          t_rounds=t_rounds),
                        trace_any_bruteforce(scene, ot, dt, 1e-3, tmax))
+
+
+def _wide_lanes(scene, cam, seed, dev, aov):
+    """_lane_state of 4096 lanes, misc widened to 24 columns with AOV."""
+    rays, misc = _lane_state(scene, cam, 4096, seed, dev)
+    if aov:
+        misc = torch.cat([misc, torch.zeros((4096, 8), device=dev)], dim=1)
+    return rays, misc
+
+
+@pytest.mark.parametrize("case", ["cornell", "motion", "dispatch_power",
+                                  "aov"])
+def test_non_merged_trace_shade_kernel_matches_plain_version(dev, case):
+    """The non-merged K5 (trace_shade_hit: hit4 from closest_raw, K1 or
+    K3) teacher-forced for 8 iterations from the plain version's states:
+    every output bit for bit; at the full count also bit-equal to the
+    merged K5 on the same inputs; and a sorted 96^2 render through
+    SplitPipeline bit-equal to the merged pipeline's."""
+    from split_util import SplitPipeline
+
+    motion = case == "motion"
+    if case == "dispatch_power":
+        scene, cam = _dispatch_scene("material", False)
+    else:
+        scene, cam = (_moving_cornell() if motion
+                      else (build_scene(cornell_box()[0]), cornell_box()[1]))
+    cfg = RenderConfig(width=64, height=64, samples_per_launch=2,
+                       max_depth=8, ray_block=4096, integrator="pool",
+                       pool_pixel_major=False, aov=case == "aov",
+                       light_sampler=("power" if case == "dispatch_power"
+                                      else "uniform"))
+    pipe = shade.FusedPipeline(scene, cfg, dev)
+    rays, misc = _wide_lanes(scene, cam, 61, dev, cfg.aov)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    before = shade.trace_shade_hit.launches
+    for it in range(8):
+        n = 4096 if it % 2 == 0 else 3000
+        count = torch.tensor([n], dtype=torch.int32, device=dev)
+        time = torch.rand(4096, device=dev, generator=gen) if motion else None
+        hit4 = pipe.closest_raw(rays, count, time)
+        got = shade.trace_shade_hit(rays, hit4, misc, count, pipe.tables,
+                                    pipe.config)
+        want = shade.trace_shade_hit_ref(rays, hit4, misc, count,
+                                         pipe.tables, pipe.config)
+        for g, w in zip(got, want):
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+        if n == 4096:
+            merged = shade.trace_shade(rays, misc, count, pipe.tables,
+                                       pipe.config, time)
+            for g, w in zip(got, merged):
+                assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+        rays, misc = want
+        fr, fm = _wide_lanes(scene, cam, 70 + it, dev, cfg.aov)
+        dead = misc[:, 9] <= 0
+        rays = torch.where(dead[:, None], fr, rays)
+        misc = torch.where(dead[:, None], fm, misc)
+    assert shade.trace_shade_hit.launches == before + 8
+    gcfg = RenderConfig(width=96, height=96, samples_per_launch=2,
+                        max_depth=6, ray_block=4096, integrator="pool",
+                        sort_rays=True, aov=cfg.aov,
+                        light_sampler=cfg.light_sampler)
+    images = [render_frame(scene, cam.params(), gcfg, device=dev,
+                           tracer=make(scene, gcfg, dev))[0].accum
+              for make in (shade.FusedPipeline, SplitPipeline)]
+    assert torch.equal(images[0].view(torch.int32),
+                       images[1].view(torch.int32))
+
+
+def _inst_field_scene(grid=4):
+    from rendertoy3c_tpu_torch.scene.builtin import instance_field
+    from rendertoy3c_tpu_torch.scene.instanced import build_instanced_scene
+
+    meshes, inst, cam = instance_field(False, grid)
+    return build_instanced_scene(meshes, inst), cam
+
+
+@pytest.mark.parametrize("case", ["field", "tracetime_cornell"])
+def test_instanced_mt_kernel_matches_plain_version(dev, case):
+    """K7 closest and any (trace_instanced) against trace_instanced_ref on
+    seeded rays with a live count inside a tile: every output bit for bit;
+    the tracer pair's prims, instances and occlusion against the brute
+    instanced tracer."""
+    from rendertoy3c_tpu_torch.scene.builtin import multi_instance_cornell
+    from rendertoy3c_tpu_torch.scene.instanced import build_instanced_scene
+    from rendertoy3c_tpu_torch.trace import instanced_mt as im
+    from rendertoy3c_tpu_torch.trace.instanced import make_instanced_tracer
+
+    if case == "field":
+        scene, _ = _inst_field_scene()
+        o, d = _rays(5000, 12, [-1, 0.5, -1], [5, 6, 5], down=True)
+    else:
+        meshes, inst, _ = multi_instance_cornell()
+        scene = build_instanced_scene(meshes, inst)
+        o, d = _rays(5000, 13, [-0.9, 0.05, -0.9], [0.9, 1.9, 0.9])
+    soup = im.build_instanced_soup(scene, dev)
+    ot = torch.as_tensor(o, device=dev)
+    dt = torch.as_tensor(d, device=dev)
+    tmax = torch.linspace(0.2, 8.0, 5000, device=dev)
+    for any_hit in (False, True):
+        rays, r = mt.pack_rays(ot, dt, 1e-3, tmax if any_hit else 1e16)
+        for n in (r, 3001):
+            count = torch.tensor([n], dtype=torch.int32, device=dev)
+            before = (im.trace_instanced.any_launches if any_hit
+                      else im.trace_instanced.launches)
+            got = im.trace_instanced(rays, count, soup, any_hit)
+            want = im.trace_instanced_ref(rays, count, soup, any_hit)
+            assert _bits(got, want)
+            after = (im.trace_instanced.any_launches if any_hit
+                     else im.trace_instanced.launches)
+            assert after == before + 1
+    closest, any_hit = im.make_instanced_mt_tracer(scene, dev)
+    b_closest, b_any = make_instanced_tracer(scene, dev)
+    h, bh = closest(ot, dt, 1e-2, 1e16), b_closest(ot, dt, 1e-2, 1e16)
+    assert torch.equal(h.prim, bh.prim) and torch.equal(h.inst, bh.inst)
+    assert 0.2 < float((h.prim >= 0).float().mean())
+    assert torch.equal(any_hit(ot, dt, 1e-3, tmax),
+                       b_any(ot, dt, 1e-3, tmax))

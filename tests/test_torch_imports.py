@@ -36,7 +36,11 @@ MODULES = [
     "rendertoy3c_tpu_torch.trace.hier_instanced",
     "rendertoy3c_tpu_torch.trace.leafwalk",
     "rendertoy3c_tpu_torch.trace.residentwalk",
+    "rendertoy3c_tpu_torch.trace.instanced_mt",
+    "rendertoy3c_tpu_torch.parallel", "rendertoy3c_tpu_torch.parallel.dist",
+    "rendertoy3c_tpu_torch.parallel.multihost",
     "rendertoy3c_tpu_torch.tools",
+    "rendertoy3c_tpu_torch.tools.mesh_check",
     "rendertoy3c_tpu_torch.tools.sweep_ab",
 ]
 
