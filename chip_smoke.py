@@ -13,8 +13,9 @@ a JSON summary. Phases:
 
   1. card, power limit, torch/CUDA versions, kernel build time;
   2. K1/K2 (mt_closest, mt_any) against their plain versions and the brute
-     tracer on 131072 Cornell rays: prims and occlusion exact, t/u/v
-     within 1e-6, the live-count skip;
+     tracer on 131072 Cornell rays: bit for bit against the plain versions,
+     prims exact and t/u/v within 1e-6 against the brute tracer, the
+     live-count skip;
   3. K4 (trace_shade_refill) against its plain version: teacher-forced for
      8 launches on one 256-lane block (deterministic claims), then one
      launch at the main path's pool width from a mid-render state (claims
@@ -36,10 +37,13 @@ a JSON summary. Phases:
   7. K1/K2 on the static and K3 (mt_closest_motion, mt_any_motion) on the
      2-key 16054-face town, against their plain versions and the brute
      tracer on 131072 rays (camera rays and one cosine bounce, uniform
-     random times): prims and occlusion exact, t/u/v within 1e-6, the
+     random times): bit for bit against the plain versions, prims and
+     occlusion exact and t/u/v within 1e-6 against the brute tracer, the
      count skip on 128-ray tiles for K3; then against their plain versions
-     again, timed and bounded, on the main path's own inputs: those of
-     pool iterations 32, 128, 224 and 320 of one subframe of each town
+     again, bit for bit, timed and bounded, with the binned tiles per live
+     ray (mt_bin, checked against bin_ref), on the main path's own inputs:
+     those of pool iterations 32, 128, 224 and 320 of one subframe of each
+     town
      (that subframe is phase 10's warm-up, as the subframes recorded in
      phases 12, 15 and 18 are the warm-ups of their paths in phases 14,
      17 and 20);
@@ -258,6 +262,8 @@ TOWN_FACES = 16000  # generate_town gives 16054 faces (16384 padded)
 TOWN_TIMED = 2
 GATE_TOWN_FACES = 4000  # 4294 faces
 MT_SRC = "rendertoy3c_tpu_torch/kernels/csrc/mt_kernels.cu"
+# the three launches of one K1/K2/K3 sweep (mt_kernels.cu)
+MT_SYMBOLS = ("mt_bin_kernel", "mt_test_kernel", "mt_epilogue_kernel")
 K4_SRC = "rendertoy3c_tpu_torch/kernels/csrc/megakernel.cuh"
 K6_SRC = "rendertoy3c_tpu_torch/kernels/csrc/external.cu"
 MEM_BPS = 3.35e12  # H100 SXM HBM3 bytes/s
@@ -335,6 +341,13 @@ def cuda_ms(calls) -> float:
     return a.elapsed_time(b) / len(calls)
 
 
+def bit_equal(a, b) -> bool:
+    """Two float32 tensors equal bit for bit."""
+    import torch
+
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 def bound(n_bytes: float, ops: float):
     """(least time in ms, what bounds it) on one H100 SXM."""
     t_bytes = n_bytes / MEM_BPS * 1e3
@@ -347,14 +360,15 @@ def mt_work(rays, count, table, any_hit: bool, time=None, want=None,
     """(operations, table bytes read) that one K1/K2/K3 sweep over these
     rays needs, counted ray by ray in tile order: a ray tests the boxes of
     the super-tiles, and of the tiles of each super-tile whose box it hits
-    itself, and the triangles of each tile whose box it hits itself (the
-    kernel's block vote lets a ray into every tile that any ray of its
-    block hits, which this count does not charge). A closest ray's bound
-    shrinks with its best hit so far; an any-hit ray stops at its first
-    hit; rays past the live count (in ray tiles of `tile`, by default the
-    MT kernel's), outside `want` (a megakernel's lanes without a shadow
-    ray) or with tmax <= tmin need nothing. A tile's bytes count once if
-    any ray tests it."""
+    itself, and the triangles of each tile whose box it hits itself (K4,
+    K5 and K7's block vote lets a ray into every tile that any ray of its
+    block hits, and K1-K3 bin a ray into each tile its padded box admits
+    at its tmax, unbounded by its hits: this count charges neither). A
+    closest ray's bound shrinks with its best hit so far; an any-hit ray
+    stops at its first hit; rays past the live count (in ray tiles of
+    `tile`, by default the MT kernel's), outside `want` (a megakernel's
+    lanes without a shadow ray) or with tmax <= tmin need nothing. A
+    tile's bytes count once if any ray tests it."""
     import torch
 
     from rendertoy3c_tpu_torch.trace import mt
@@ -525,14 +539,9 @@ def phase_mt(dev, scene, camera):
             got = kern(rays, c, soup)
             want = ref(rays, c, soup)
             torch.cuda.synchronize()
-            exact_col = 1 if name == "mt_closest" else 0  # prim / occluded
-            check(torch.equal(got[:, exact_col], want[:, exact_col]),
-                  f"{name}: prim/occlusion differs from the plain version")
-            diff = (got - want).abs()
-            check(bool((diff <= 1e-6 + 1e-6 * want.abs()).all()),
-                  f"{name}: t/u/v differ from the plain version by "
-                  f"{diff.max().item()}")
-            err = max(err, diff.max().item())
+            check(bit_equal(got, want),
+                  f"{name}: not bit-equal to the plain version")
+            err = max(err, (got - want).abs().max().item())
             if count < r:  # whole tiles past the count write the miss row
                 tail = -(-count // 256) * 256
                 miss = torch.zeros_like(got[tail:])
@@ -925,7 +934,8 @@ def gate(scene, camera, dev, what: str, phase: int, tracers=(None, None),
 
 def kernel_symbol(key: str):
     """The port's kernel name in a profiler key ('void
-    rt3c::mt_kernel<false>(...)' -> 'mt_kernel'), else None."""
+    rt3c::mt_test_kernel<false, false>(...)' -> 'mt_test_kernel'), else
+    None."""
     m = re.search(r"rt3c::(?:\w+::)*(\w+)", key)
     return m.group(1) if m else None
 
@@ -1185,34 +1195,38 @@ def main_path_states(scene, camera, dev, change=None, snapshots=SNAPSHOTS):
 
 def time_on_states(kern, ref, table, inputs, any_hit, motion):
     """An MT kernel on the main path's inputs [(o, d, tmin, tmax, time,
-    count)], packed as the tracer packs them: checked against its plain
-    version (prim/occlusion exact, t/u/v within 1e-6), then (ms, plain ms,
-    bound ms, bound by) of the mean launch and the largest difference."""
+    count)], packed as the tracer packs them: checked bit for bit against
+    its plain version, and its binning (mt_bin) against bin_ref's; then
+    (ms, plain ms, bound ms, bound by) of the mean launch, the largest
+    difference and the binned (ray, tile) pairs per live ray."""
     import torch
 
     from rendertoy3c_tpu_torch.trace import mt
 
     tile = mt.MOTION_RAY_TILE if motion else mt.RAY_TILE
-    launches, err = [], 0.0
+    launches, err, pairs, live = [], 0.0, 0, 0
     for o, d, tmin, tmax, tm, count in inputs:
         rays, r = mt.pack_rays(o, d, tmin, tmax, tile)
         check(r == rays.shape[0], "a pool of whole ray tiles")
         a = (rays, *((tm.contiguous(),) if motion else ()), count.reshape(1),
              table)
         got, want = kern(*a), ref(*a)
-        col = 0 if any_hit else 1
-        diff = (got - want).abs()
-        check(torch.equal(got[:, col], want[:, col])
-              and bool((diff <= 1e-6 + 1e-6 * want.abs()).all()),
+        check(bit_equal(got, want),
               f"{kern.__name__} differs from its plain version on the main "
               "path's inputs")
-        err = max(err, diff.max().item())
+        err = max(err, (got - want).abs().max().item())
+        lists = mt.mt_bin(rays, a[-2], table)
+        check(torch.equal(lists, mt.bin_ref(rays, a[-2], table).sum(
+            dim=0, dtype=torch.int32)),
+            f"{kern.__name__}: the binning differs from bin_ref's")
+        pairs += int(lists.sum())
+        live += int(mt.live_rows(r, a[-2], tile).sum())
         launches.append(a)
     ms = cuda_ms([functools.partial(kern, *a) for a in launches] * 12)
     plain_ms = cuda_ms([functools.partial(ref, *a) for a in launches])
     costs = [mt_cost(a[0], a[-2], table, any_hit, a[1] if motion else None)
              for a in launches]
-    return (ms, plain_ms, *mean_bound(costs), err)
+    return (ms, plain_ms, *mean_bound(costs), err, pairs / max(live, 1))
 
 
 def phase_town_mt(dev, towns, states):
@@ -1264,14 +1278,9 @@ def phase_town_mt(dev, towns, states):
                 got = kern(rays, *args, c, table)
                 want = ref(rays, *args, c, table)
                 torch.cuda.synchronize()
-                col = 0 if any_hit else 1
-                check(torch.equal(got[:, col], want[:, col]),
-                      f"{name}: prim/occlusion differs from the plain version")
-                diff = (got - want).abs()
-                check(bool((diff <= 1e-6 + 1e-6 * want.abs()).all()),
-                      f"{name}: t/u/v differ from the plain version by "
-                      f"{diff.max().item()}")
-                err = max(err, diff.max().item())
+                check(bit_equal(got, want),
+                      f"{name}: not bit-equal to the plain version")
+                err = max(err, (got - want).abs().max().item())
                 if c_val < n_total:  # whole ray tiles past the count miss
                     tail = -(-c_val // tile) * tile
                     miss = torch.zeros_like(got[tail:])
@@ -1298,7 +1307,7 @@ def phase_town_mt(dev, towns, states):
                     check(bool(((x - y).abs() <= 1e-6 + 1e-6 * y.abs())
                                .all()), f"{name}: t/u/v differ from brute")
                 frac = float((h.prim >= 0).float().mean())
-            ms, plain_ms, bound_ms, bound_by, e = time_on_states(
+            ms, plain_ms, bound_ms, bound_by, e, pairs = time_on_states(
                 kern, ref, table, states[motion]["any" if any_hit
                                                  else "closest"],
                 any_hit, motion)
@@ -1311,7 +1320,8 @@ def phase_town_mt(dev, towns, states):
                   f"plain on the main path's inputs at iterations "
                   f"{SNAPSHOTS}; max|d| {err:.3g}; there {ms:.4f} ms vs plain "
                   f"{plain_ms:.4f} ms per {pool}-ray launch; bound "
-                  f"{bound_ms:.4f} ms by {bound_by}")
+                  f"{bound_ms:.4f} ms by {bound_by}; binned {pairs:.3f} "
+                  "tiles per live ray")
     return results
 
 
@@ -3819,14 +3829,14 @@ def main() -> int:
             "static town", *towns[False], dev, smi, 10,
             {"mt_closest": mt.mt_closest, "mt_any": mt.mt_any,
              "external_shade": shade.external_shade},
-            ("mt_kernel", "external_shade_kernel"),
+            (*MT_SYMBOLS, "external_shade_kernel"),
             timed=TOWN_TIMED, warm=states[False])[1]
         launches_m = full_size(
             "2-key town", *towns[True], dev, smi, 10,
             {"mt_closest_motion": mt.mt_closest_motion,
              "mt_any_motion": mt.mt_any_motion,
              "external_shade": shade.external_shade},
-            ("mt_motion_kernel", "external_shade_kernel"),
+            (*MT_SYMBOLS, "external_shade_kernel"),
             timed=TOWN_TIMED, warm=states[True])[1]
         print(f"phase 10 done; {time.perf_counter() - t_start:.1f} s since "
               "the start")
@@ -3840,14 +3850,14 @@ def main() -> int:
             "textured static town", *tex_towns[False], dev, smi, 17,
             {"mt_closest": mt.mt_closest, "mt_any": mt.mt_any,
              "external_shade": shade.external_shade},
-            ("mt_kernel", "external_shade_kernel"),
+            (*MT_SYMBOLS, "external_shade_kernel"),
             timed=TOWN_TIMED, warm=tex_states[False])[1]
         launches_mt = full_size(
             "textured 2-key town", *tex_towns[True], dev, smi, 17,
             {"mt_closest_motion": mt.mt_closest_motion,
              "mt_any_motion": mt.mt_any_motion,
              "external_shade": shade.external_shade},
-            ("mt_motion_kernel", "external_shade_kernel"),
+            (*MT_SYMBOLS, "external_shade_kernel"),
             timed=TOWN_TIMED, warm=tex_states[True])[1]
         print(f"phase 17 done; {time.perf_counter() - t_start:.1f} s since "
               "the start")
@@ -3886,11 +3896,11 @@ def main() -> int:
                         "external_shade": shade.external_shade}
         launches_ptt = full_size(
             "principled town", *p_towns[TEX_PT], dev, smi, 20, town_kernels,
-            ("mt_kernel", "external_shade_kernel"), SORTED_POWER,
+            (*MT_SYMBOLS, "external_shade_kernel"), SORTED_POWER,
             timed=TOWN_TIMED, warm=p_states[TEX_PT])[1]
         launches_pt = full_size(
             "untextured principled town", *p_towns[PT], dev, smi, 20,
-            town_kernels, ("mt_kernel", "external_shade_kernel"),
+            town_kernels, (*MT_SYMBOLS, "external_shade_kernel"),
             SORTED_POWER, timed=TOWN_TIMED, warm=p_states[PT])[1]
         print(f"phase 20 done; {time.perf_counter() - t_start:.1f} s since "
               "the start")
@@ -3905,7 +3915,7 @@ def main() -> int:
              22, **SORTED, **AOV)
         launches_ta = full_size(
             "textured town aov", *tex_towns[False], dev, smi, 23,
-            town_kernels, ("mt_kernel", "external_shade_kernel"), AOV,
+            town_kernels, (*MT_SYMBOLS, "external_shade_kernel"), AOV,
             plain=False, timed=TOWN_TIMED)[1]
         aov_path_report("textured town aov", "textured static town")
         print(f"phases 21-23 (towns) done in {time.perf_counter() - t0:.1f} "

@@ -186,9 +186,9 @@ def library() -> ctypes.CDLL:
     path, _ = build()
     lib = ctypes.CDLL(str(path))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.rt3c_mt_trace.argtypes = [ci, ci, vp, ci, vp, vp, vp, vp, ci, ci,
-                                  vp, vp]
-    lib.rt3c_mt_trace.restype = ci
+    lib.rt3c_mt_sweep.argtypes = [ci, ci, vp, vp, ci, ci, vp, vp, vp, vp,
+                                  vp, ci, ci, vp, vp, vp]
+    lib.rt3c_mt_sweep.restype = ci
     tex = ctypes.POINTER(TexParams)
     lib.rt3c_trace_shade_refill.argtypes = [
         ci, ctypes.POINTER(RefillParams), vp, vp, vp, vp, ci, vp, vp, vp, vp,
@@ -198,9 +198,6 @@ def library() -> ctypes.CDLL:
         ci, ctypes.POINTER(TraceShadeParams), vp, vp, vp, vp, ci, vp, vp, vp,
         vp, vp, vp, vp, vp, vp, tex, vp]
     lib.rt3c_trace_shade.restype = ci
-    lib.rt3c_mt_trace_motion.argtypes = [ci, ci, vp, vp, ci, vp, vp, vp, vp,
-                                         vp, ci, ci, vp, vp]
-    lib.rt3c_mt_trace_motion.restype = ci
     lib.rt3c_external_shade.argtypes = [
         ci, ctypes.POINTER(ExternalParams), vp, vp, vp, vp, ci, vp, ci, vp,
         vp, vp, tex, vp, vp, vp]

@@ -1,15 +1,17 @@
-// Moller-Trumbore tests and the two-level tile-culled sweep, shared by the
-// MT kernels (mt_kernels.cu: K1/K2 static, K3 motion) and the refill
-// megakernel (megakernel.cu).
+// Moller-Trumbore tests and the two-level tile-culled sweep. The test
+// (mt_test_tri) serves every MT kernel; the in-block sweep (culled_sweep,
+// stage_tile, mt_test, box_hit) serves the megakernels (megakernel.cuh:
+// K4/K5) and K7 (instanced_mt.cu), whose soups are a few tiles. K1/K2 and
+// K3 (mt_kernels.cu) bin rays by tile instead.
 //
 // Replaces the Pallas helpers of rendertoy3c_tpu/trace/pallas_mt.py:
 // _mt_test_cols (:119), _mt_test_motion (:502), _tile_box_hits (:175),
-// _culled_sweep (:195) and _inv_cols (:247). One thread carries one ray; a
-// block is one ray tile (RAY_TILE = 256 static, MOTION_RAY_TILE = 128
-// motion), and the block walks the triangle tiles in order, staging each
-// [9, CT] tile (both keys' tiles for motion) in shared memory so every
-// thread reads the same triangle at the same time (a broadcast, no bank
-// conflicts).
+// _culled_sweep (:195) and _inv_cols (:247). In the sweep one thread
+// carries one ray; a block is one ray tile (RAY_TILE = 256 static,
+// MOTION_RAY_TILE = 128 motion), and the block walks the triangle tiles in
+// order, staging each [9, CT] tile (both keys' tiles for motion) in shared
+// memory so every thread reads the same triangle at the same time (a
+// broadcast, no bank conflicts).
 //
 // Float order: every expression keeps the left-to-right order of the JAX
 // code, and the build passes --fmad=false, so no a*b+c is contracted.

@@ -102,11 +102,13 @@ def rank_device(device) -> torch.device:
 
 
 def make_mesh(n_tile: Optional[int] = None, n_spp: int = 1,
-              device="cpu") -> Mesh:
+              device="cuda") -> Mesh:
     """This rank's (tile, spp) mesh over the process group's ranks (one
-    rank without a group). n_tile defaults to world // n_spp (pure tile
-    parallelism, the reference's default). Every rank calls it with the
-    same arguments: the spp groups are made collectively."""
+    rank without a group), on this rank's GPU unless `device` says
+    otherwise (rank_device raises where there is none). n_tile defaults to
+    world // n_spp (pure tile parallelism, the reference's default). Every
+    rank calls it with the same arguments: the spp groups are made
+    collectively."""
     rank, world = _world()
     if n_tile is None:
         n_tile = world // n_spp

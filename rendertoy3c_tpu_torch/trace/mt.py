@@ -11,7 +11,7 @@ static closest/any kernels `_closest_kernel` (:256) and `_any_kernel`
 
 `mt_closest` / `mt_any` take packed rays [R, 8] (o, d, tmin, tmax; R a
 multiple of 256) and a live-ray `count` (int32 [1] on the rays' device) and
-return [R, 4]. On a CUDA tensor they launch the hand-written kernel
+return [R, 4]. On a CUDA tensor they launch the hand-written kernels
 (kernels/csrc/mt_kernels.cu); on a CPU tensor they run `closest_ref` /
 `any_ref`, the plain PyTorch versions of the same function. Ray tiles of
 256 at or past `count` skip the sweep and write the miss row.
@@ -20,15 +20,18 @@ return [R, 4]. On a CUDA tensor they launch the hand-written kernel
 per-ray time [R] in [0, 1] and lerp each triangle between the key-0 and
 key-1 soups, `r0 + (r1 - r0) * time`; they cull by the union of both keys'
 boxes and skip ray tiles of 128 (MOTION_RAY_TILE) at or past `count`
-(kernels/csrc/mt_kernels.cu; plain versions `closest_motion_ref` /
-`any_motion_ref`).
+(plain versions `closest_motion_ref` / `any_motion_ref`).
 
-The kernels cull tiles by their boxes, per block of rays. The plain
-versions cull per ray: each ray tests the tiles whose boxes, padded by
-BOX_PAD of their size, its own slab test lets in (bounded by its best hit
-so far, or, any-hit, until its first hit). Culling only skips tiles a ray
-cannot hit, so both return the hits of a dense sweep of every tile, bit
-for bit (each ray's arithmetic is the same whichever rays share a batch).
+Both the kernels and the plain versions cull ray by ray: each ray tests
+the tiles whose boxes, padded by BOX_PAD of their size, its own slab test
+lets in. The plain versions bound that test by the ray's best hit so far
+(or, any-hit, stop at its first hit); the kernels bin each ray into the
+lists of the tiles it enters at its tmax (`bin_ref` is that step's plain
+version, `mt_bin` runs it alone), then test each tile's list densely and
+merge the hits per ray in (t, prim) order. Culling only skips
+tiles a ray cannot hit, so both return the hits of a dense sweep of every
+tile, bit for bit (each ray's arithmetic is the same whichever rays share a
+batch).
 """
 from __future__ import annotations
 
@@ -186,6 +189,25 @@ def live_rows(n: int, count: torch.Tensor,
     return tile_start < count.reshape(()).to(torch.int64)
 
 
+def _slabs(rays, boxes):
+    """(entered [R, B], tn [R, B], pad [B]): each ray's own slab test of
+    every box padded by `pad` (an empty tile's inverted box enters no ray),
+    before the bound by the ray's current t."""
+    o, d, tmin = rays[:, 0:3], rays[:, 3:6], rays[:, 6]
+    inv = torch.where(d.abs() > 1e-20, 1.0 / d, torch.full_like(d, _BIG))
+    lo, hi = boxes[:, 0:3], boxes[:, 3:6]
+    pad = BOX_PAD * (1.0 + torch.maximum(hi - lo, torch.maximum(
+        lo.abs(), hi.abs())).amax(dim=1, keepdim=True))
+    t0 = ((lo - pad)[None] - o[:, None]) * inv[:, None]
+    t1 = ((hi + pad)[None] - o[:, None]) * inv[:, None]
+    tn = torch.minimum(t0, t1).amax(dim=2)
+    tf = torch.maximum(t0, t1).amin(dim=2)
+    pad = pad[:, 0]
+    entered = ((lo <= hi).all(dim=1)[None] & (tn <= tf)
+               & (tf >= tmin[:, None] - pad[None]))
+    return entered, tn, pad
+
+
 def _culled_sweep(rays, count, tile, n_tiles, aabb, super_aabb, test,
                   any_hit: bool):
     """The plain sweep of a tiled soup, culled ray by ray: live rays (in
@@ -202,29 +224,12 @@ def _culled_sweep(rays, count, tile, n_tiles, aabb, super_aabb, test,
     launch makes a few operations per tile beside the triangle tests."""
     r = rays.shape[0]
     dev = rays.device
-    o, d, tmin = rays[:, 0:3], rays[:, 3:6], rays[:, 6]
-    inv = torch.where(d.abs() > 1e-20, 1.0 / d, torch.full_like(d, _BIG))
+    tmin = rays[:, 6]
     todo = live_rows(r, count, tile) & (rays[:, 7] > tmin)
     best_t = rays[:, 7].clone()
     best = torch.zeros((r, 3), dtype=torch.float32, device=dev)
     best[:, 0] = -1.0  # prim_f, u, v
     occ = torch.zeros(r, dtype=torch.bool, device=dev)
-
-    def slabs(boxes):
-        """(entered [R, B], tn [R, B], pad [B]): each ray's own slab test
-        of every box padded by `pad` (an empty tile's inverted box enters
-        no ray), before the bound by the ray's current t."""
-        lo, hi = boxes[:, 0:3], boxes[:, 3:6]
-        pad = BOX_PAD * (1.0 + torch.maximum(hi - lo, torch.maximum(
-            lo.abs(), hi.abs())).amax(dim=1, keepdim=True))
-        t0 = ((lo - pad)[None] - o[:, None]) * inv[:, None]
-        t1 = ((hi + pad)[None] - o[:, None]) * inv[:, None]
-        tn = torch.minimum(t0, t1).amax(dim=2)
-        tf = torch.maximum(t0, t1).amin(dim=2)
-        pad = pad[:, 0]
-        entered = ((lo <= hi).all(dim=1)[None] & (tn <= tf)
-                   & (tf >= tmin[:, None] - pad[None]))
-        return entered, tn, pad
 
     def own(box, k, among):
         """Rays of `among` that box k's slab test, bounded by their current
@@ -251,7 +256,7 @@ def _culled_sweep(rays, count, tile, n_tiles, aabb, super_aabb, test,
                            torch.gather(v, 1, j[:, None])[:, 0]], dim=1)
         best[idx] = torch.where(better[:, None], got, best[idx])
 
-    tiles, supers = slabs(aabb[:n_tiles]), slabs(super_aabb)
+    tiles, supers = _slabs(rays, aabb[:n_tiles]), _slabs(rays, super_aabb)
     for ks in range(-(-n_tiles // SUPER_TILE)):
         ms = own(supers, ks, todo & ~occ)
         if not bool(ms.any()):
@@ -326,85 +331,132 @@ def any_motion_ref(rays: torch.Tensor, time: torch.Tensor,
     return _any_out(occ, live_rows(rays.shape[0], count, tile))
 
 
-def _launch_mt(any_hit: bool, rays, count, soup: TriSoup) -> torch.Tensor:
-    kbuild.require_cuda("mt", rays, soup.tris, soup.aabb, soup.super_aabb)
-    kbuild.require_cuda("mt", count, dtype=torch.int32)
+def _tiles(table) -> torch.Tensor:
+    """The [n_tiles, 9, CT] triangle tiles of a TriSoup, key 0's of a
+    MotionSoup."""
+    return table.tris0 if isinstance(table, MotionSoup) else table.tris
+
+
+def bin_ref(rays: torch.Tensor, count: torch.Tensor, table) -> torch.Tensor:
+    """Plain version of the kernels' binning: [R, n_tiles] bool, the tiles
+    whose lists ray i enters. A live ray (in a ray tile before `count`,
+    with tmax > tmin) enters tile k when its own padded slab test, bounded
+    by its tmax, lets it into k's supertile and into k (`_culled_sweep`'s
+    test, unbounded by any hit)."""
+    n_tiles = _tiles(table).shape[0]
+    tile = MOTION_RAY_TILE if isinstance(table, MotionSoup) else RAY_TILE
+    tmax = rays[:, 7:8]
+    live = live_rows(rays.shape[0], count, tile) & (rays[:, 7] > rays[:, 6])
+    (te, tn, tp), (se, sn, sp) = (_slabs(rays, table.aabb[:n_tiles]),
+                                  _slabs(rays, table.super_aabb))
+    tiles = te & (tn <= tmax + tp[None])
+    supers = se & (sn <= tmax + sp[None])
+    k = torch.arange(n_tiles, device=rays.device)
+    return live[:, None] & supers[:, k // SUPER_TILE] & tiles
+
+
+def workspace_words(r: int, n_tiles: int) -> int:
+    """int32 words of a kernel sweep's workspace (laid out in
+    kernels/csrc/mt_kernels.cu): R 64-bit hit keys, n_tiles list lengths
+    and each tile's list of up to R ray indices (a ray enters a tile's list
+    at most once)."""
+    return 2 * r + n_tiles + n_tiles * r
+
+
+_CLOSEST, _ANY, _BIN = 0, 1, 2  # rt3c_mt_sweep's modes
+
+
+def _launch_sweep(mode: int, rays, count, table, time=None):
+    """The kernels' sweep (or, mode _BIN, the binning alone) -> (out [R, 4],
+    workspace). `table` is a TriSoup (K1/K2) or a MotionSoup (K3, with
+    `time` unless binning)."""
+    motion = isinstance(table, MotionSoup)
+    name = "mt_motion" if motion else "mt"
+    tris0 = _tiles(table)
+    tris1 = table.tris1 if motion else None
+    kbuild.require_cuda(name, rays, tris0, table.aabb, table.super_aabb,
+                        *(t for t in (tris1, time) if t is not None))
+    kbuild.require_cuda(name, count, dtype=torch.int32)
     r = rays.shape[0]
-    if rays.ndim != 2 or rays.shape[1] != 8 or r % RAY_TILE:
-        raise ValueError("mt: rays must be [R, 8] with R a multiple of 256")
+    tile = MOTION_RAY_TILE if motion else RAY_TILE
+    if (rays.ndim != 2 or rays.shape[1] != 8 or r % tile
+            or (time is not None and time.shape != (r,))
+            or (motion and time is None and mode != _BIN)):
+        raise ValueError(f"{name}: rays [R, 8] with R a multiple of {tile}"
+                         + (" and time [R]" if motion else ""))
+    n_tiles, _, ct = tris0.shape
     out = torch.empty((r, 4), dtype=torch.float32, device=rays.device)
+    ws = torch.empty(workspace_words(r, n_tiles), dtype=torch.int32,
+                     device=rays.device)
     index, stream = kbuild.launch_target(rays.device)
-    err = kbuild.library().rt3c_mt_trace(
-        index, int(any_hit), rays.data_ptr(), r, count.data_ptr(),
-        soup.tris.data_ptr(), soup.aabb.data_ptr(), soup.super_aabb.data_ptr(),
-        soup.tris.shape[0], soup.tris.shape[2], out.data_ptr(), stream)
-    kbuild.check(err, "mt_any" if any_hit else "mt_closest")
-    return out
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    err = kbuild.library().rt3c_mt_sweep(
+        index, mode, rays.data_ptr(), ptr(time), r, tile, count.data_ptr(),
+        tris0.data_ptr(), ptr(tris1), table.aabb.data_ptr(),
+        table.super_aabb.data_ptr(), n_tiles, ct, ws.data_ptr(),
+        out.data_ptr(), stream)
+    kbuild.check(err, name + ("_closest", "_any", "_bin")[mode])
+    return out, ws
+
+
+def mt_bin(rays: torch.Tensor, count: torch.Tensor, table) -> torch.Tensor:
+    """The kernels' binning alone: [n_tiles] int32, the length of each
+    tile's ray list. The CUDA kernel for CUDA rays, `bin_ref` on the CPU."""
+    if rays.device.type == "cpu":
+        return bin_ref(rays, count, table).sum(dim=0, dtype=torch.int32)
+    n_tiles = _tiles(table).shape[0]
+    r = rays.shape[0]
+    ws = _launch_sweep(_BIN, rays, count, table)[1]
+    mt_bin.launches += 1
+    return ws[2 * r:2 * r + n_tiles]
 
 
 def mt_closest(rays: torch.Tensor, count: torch.Tensor,
                soup: TriSoup) -> torch.Tensor:
-    """K1 wrapper: the CUDA kernel for CUDA rays, `closest_ref` on the CPU."""
+    """K1 wrapper: the CUDA kernels for CUDA rays, `closest_ref` on the CPU."""
     if rays.device.type == "cpu":
         return closest_ref(rays, count, soup)
-    out = _launch_mt(False, rays, count, soup)
+    out = _launch_sweep(_CLOSEST, rays, count, soup)[0]
     mt_closest.launches += 1
     return out
 
 
 def mt_any(rays: torch.Tensor, count: torch.Tensor,
            soup: TriSoup) -> torch.Tensor:
-    """K2 wrapper: the CUDA kernel for CUDA rays, `any_ref` on the CPU."""
+    """K2 wrapper: the CUDA kernels for CUDA rays, `any_ref` on the CPU."""
     if rays.device.type == "cpu":
         return any_ref(rays, count, soup)
-    out = _launch_mt(True, rays, count, soup)
+    out = _launch_sweep(_ANY, rays, count, soup)[0]
     mt_any.launches += 1
-    return out
-
-
-def _launch_mt_motion(any_hit: bool, rays, time, count,
-                      msoup: MotionSoup) -> torch.Tensor:
-    kbuild.require_cuda("mt_motion", rays, time, msoup.tris0, msoup.tris1,
-                        msoup.aabb, msoup.super_aabb)
-    kbuild.require_cuda("mt_motion", count, dtype=torch.int32)
-    r = rays.shape[0]
-    if (rays.ndim != 2 or rays.shape[1] != 8 or r % MOTION_RAY_TILE
-            or time.shape != (r,)):
-        raise ValueError("mt_motion: rays [R, 8] and time [R] with R a "
-                         "multiple of 128")
-    out = torch.empty((r, 4), dtype=torch.float32, device=rays.device)
-    index, stream = kbuild.launch_target(rays.device)
-    err = kbuild.library().rt3c_mt_trace_motion(
-        index, int(any_hit), rays.data_ptr(), time.data_ptr(), r,
-        count.data_ptr(), msoup.tris0.data_ptr(), msoup.tris1.data_ptr(),
-        msoup.aabb.data_ptr(), msoup.super_aabb.data_ptr(),
-        msoup.tris0.shape[0], msoup.tris0.shape[2], out.data_ptr(), stream)
-    kbuild.check(err, "mt_any_motion" if any_hit else "mt_closest_motion")
     return out
 
 
 def mt_closest_motion(rays: torch.Tensor, time: torch.Tensor,
                       count: torch.Tensor, msoup: MotionSoup) -> torch.Tensor:
-    """K3 closest wrapper: the CUDA kernel for CUDA rays,
+    """K3 closest wrapper: the CUDA kernels for CUDA rays,
     `closest_motion_ref` on the CPU."""
     if rays.device.type == "cpu":
         return closest_motion_ref(rays, time, count, msoup)
-    out = _launch_mt_motion(False, rays, time, count, msoup)
+    out = _launch_sweep(_CLOSEST, rays, count, msoup, time)[0]
     mt_closest_motion.launches += 1
     return out
 
 
 def mt_any_motion(rays: torch.Tensor, time: torch.Tensor,
                   count: torch.Tensor, msoup: MotionSoup) -> torch.Tensor:
-    """K3 any-hit wrapper: the CUDA kernel for CUDA rays, `any_motion_ref`
+    """K3 any-hit wrapper: the CUDA kernels for CUDA rays, `any_motion_ref`
     on the CPU."""
     if rays.device.type == "cpu":
         return any_motion_ref(rays, time, count, msoup)
-    out = _launch_mt_motion(True, rays, time, count, msoup)
+    out = _launch_sweep(_ANY, rays, count, msoup, time)[0]
     mt_any_motion.launches += 1
     return out
 
 
+mt_bin.launches = 0
 mt_closest.launches = 0
 mt_any.launches = 0
 mt_closest_motion.launches = 0

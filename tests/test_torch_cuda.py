@@ -17,7 +17,11 @@ from rendertoy3c_tpu_torch.scene.material import Material
 from rendertoy3c_tpu_torch.scene.mesh import Mesh
 from rendertoy3c_tpu_torch.scene.scene import build_scene
 from rendertoy3c_tpu_torch.trace import mt, shade
+from mt_bin_util import SOUP_SIZES, TIE_HIGH, TIE_LOW
+from mt_bin_util import case as mt_bin_case
+from mt_bin_util import counts as mt_bin_counts
 
+MT_BIN_CASES = ["ties"] + [name for name, _ in SOUP_SIZES]
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=1e-6, atol=1e-6)
 
@@ -54,26 +58,63 @@ def _rays(n, seed, lo, hi, down=False):
     return o, d
 
 
-@pytest.mark.parametrize("scene_name", ["cornell", "box_grid"])
+def _assert_bits_equal(got, want):
+    """[R, 4] kernel output against its plain version, bit for bit."""
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _assert_sweeps_bit_equal(rays, counts, table, time=None):
+    """The MT kernels against their plain versions at every live count:
+    every output bit for bit, the binning's list lengths equal to
+    bin_ref's; ray tiles past the count miss."""
+    motion = time is not None
+    pairs = ((mt.mt_closest_motion, mt.closest_motion_ref, 1),
+             (mt.mt_any_motion, mt.any_motion_ref, 0)) if motion else (
+        (mt.mt_closest, mt.closest_ref, 1), (mt.mt_any, mt.any_ref, 0))
+    tile = mt.MOTION_RAY_TILE if motion else mt.RAY_TILE
+    for count in counts:
+        c = torch.tensor([count], dtype=torch.int32, device=rays.device)
+        args = (time,) if motion else ()
+        for kern, ref, col in pairs:
+            got = kern(rays, *args, c, table)
+            _assert_bits_equal(got, ref(rays, *args, c, table))
+            tail = -(-count // tile) * tile
+            assert (got[tail:, 1] == (-1.0 if col == 1 else 0.0)).all()
+        assert torch.equal(mt.mt_bin(rays, c, table),
+                           mt.bin_ref(rays, c, table).sum(
+                               dim=0, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("scene_name", ["cornell", "box_grid",
+                                        *MT_BIN_CASES])
 def test_mt_kernels_match_plain_versions(dev, scene_name):
-    """Cornell: one 128-wide tile; box grid: two 512-wide tiles, culled."""
-    if scene_name == "cornell":
-        scene = build_scene(cornell_box()[0])
-        o, d = _rays(8192, 0, (-0.9, 0.05, -0.9), (0.9, 1.9, 0.9))
+    """Cornell: one 128-wide tile; box grid: two 512-wide tiles, culled;
+    the synthetic soups of tests/mt_bin_util.py: a face of tile 1 copied
+    into tile 20 of 21 (the lower prim wins the tie), one tile of ct 384
+    or 512, 9 and 18 tiles. Every output bit for bit at live counts 0,
+    R - 1000 (R - 300 too on Cornell and the box grid) and R."""
+    if scene_name in MT_BIN_CASES:
+        geom, n_faces, o, d, _, _ = mt_bin_case(scene_name, 1, 8192)
+        soup = mt.build_tri_soup(geom, dev, num_faces=n_faces)
+        tmax = 1e16
     else:
-        scene = _box_grid_scene()
-        o, d = _rays(8192, 3, (0, 3, 0), (8, 6, 8), down=True)
-    soup = mt.build_tri_soup(scene.geom, dev, num_faces=scene.num_faces)
+        if scene_name == "cornell":
+            scene = build_scene(cornell_box()[0])
+            o, d = _rays(8192, 0, (-0.9, 0.05, -0.9), (0.9, 1.9, 0.9))
+        else:
+            scene = _box_grid_scene()
+            o, d = _rays(8192, 3, (0, 3, 0), (8, 6, 8), down=True)
+        soup = mt.build_tri_soup(scene.geom, dev, num_faces=scene.num_faces)
+        tmax = 2.5
     rays, r = mt.pack_rays(torch.as_tensor(o, device=dev),
-                           torch.as_tensor(d, device=dev), 0.01, 2.5)
-    for count in (r, r - 300):
-        c = torch.tensor([count], dtype=torch.int32, device=dev)
-        for kern, ref, col in ((mt.mt_closest, mt.closest_ref, 1),
-                               (mt.mt_any, mt.any_ref, 0)):
-            got = kern(rays, c, soup).cpu().numpy()
-            want = ref(rays, c, soup).cpu().numpy()
-            np.testing.assert_array_equal(got[:, col], want[:, col])
-            np.testing.assert_allclose(got, want, **TOL)
+                           torch.as_tensor(d, device=dev), 0.01, tmax)
+    extra = () if scene_name in MT_BIN_CASES else (r - 300,)
+    _assert_sweeps_bit_equal(rays, (*mt_bin_counts(r), *extra), soup)
+    if scene_name == "ties":
+        got = mt.mt_closest(rays, torch.tensor([r], dtype=torch.int32,
+                                                device=dev), soup)
+        assert (got[:, 1] == TIE_LOW).sum() > 1000
+        assert not (got[:, 1] == TIE_HIGH).any()
 
 
 def test_refill_kernel_matches_plain_version_on_one_block(dev):
@@ -147,27 +188,37 @@ def _town_rays(n, seed):
     return o, d, rng.uniform(0, 1, n).astype(np.float32)
 
 
-def test_motion_kernels_match_plain_versions_and_brute(dev, towns):
-    """K3 on the 2-key town: exact prims and occlusion, t/u/v within 1e-6,
-    and the count skip at 128-ray granularity."""
+@pytest.mark.parametrize("scene_name", ["town", *MT_BIN_CASES])
+def test_motion_kernels_match_plain_versions_and_brute(dev, request,
+                                                       scene_name):
+    """K3 on the 2-key town: every output bit for bit against the plain
+    versions at live counts 0, R - 1000, R - 200 and R (128- and 256-ray
+    tiles end apart), prims and occlusion exact and t within 1e-6 against
+    the brute tracer; and bit for bit on tests/mt_bin_util.py's 2-key
+    soups (the tie across tiles 1 and 20, 1 tile of ct 384 or 512, 9 and
+    18 tiles) at 0, R - 1000 and R."""
     from rendertoy3c_tpu_torch.trace.intersect import (
         trace_any_bruteforce, trace_closest_bruteforce)
 
-    scene = towns[1][0]
+    if scene_name != "town":
+        geom, n_faces, o, d, tm, _ = mt_bin_case(scene_name, 2, 8192)
+        msoup = mt.build_motion_soup(geom, dev, num_faces=n_faces)
+        rays, r = mt.pack_rays(torch.as_tensor(o, device=dev),
+                               torch.as_tensor(d, device=dev), 0.01, 1e16,
+                               mt.MOTION_RAY_TILE)
+        tm = torch.as_tensor(tm, device=dev)
+        _assert_sweeps_bit_equal(rays, mt_bin_counts(r), msoup, tm)
+        if scene_name == "ties":
+            got = mt.mt_closest_motion(rays, tm, torch.tensor(
+                [r], dtype=torch.int32, device=dev), msoup)
+            assert (got[:, 1] == TIE_LOW).sum() > 1000
+            assert not (got[:, 1] == TIE_HIGH).any()
+        return
+    scene = request.getfixturevalue("towns")[1][0]
     msoup = mt.build_motion_soup(scene.geom, dev, num_faces=scene.num_faces)
     o, d, tm = (torch.as_tensor(x, device=dev) for x in _town_rays(8192, 4))
     rays, r = mt.pack_rays(o, d, 0.01, 30.0, mt.MOTION_RAY_TILE)
-    for count in (r, r - 200):  # 128- and 256-ray tiles end apart
-        c = torch.tensor([count], dtype=torch.int32, device=dev)
-        for kern, ref, col in ((mt.mt_closest_motion, mt.closest_motion_ref,
-                                1),
-                               (mt.mt_any_motion, mt.any_motion_ref, 0)):
-            got = kern(rays, tm, c, msoup).cpu().numpy()
-            want = ref(rays, tm, c, msoup).cpu().numpy()
-            np.testing.assert_array_equal(got[:, col], want[:, col])
-            np.testing.assert_allclose(got, want, **TOL)
-            tail = -(-count // 128) * 128
-            assert (got[tail:, 1] == (-1.0 if col == 1 else 0.0)).all()
+    _assert_sweeps_bit_equal(rays, (*mt_bin_counts(r), r - 200), msoup, tm)
     hit = mt.trace_closest_mt_motion(msoup, o, d, 0.01, 30.0, tm)
     brute = trace_closest_bruteforce(scene, o, d, 0.01, 30.0, tm)
     assert torch.equal(hit.prim, brute.prim)

@@ -180,7 +180,8 @@ def test_mesh_shape_validation(cornell):
             dist.Mesh(n_tile=4, n_spp=2, world=8))
     with pytest.raises(ValueError, match="needs 8 ranks"):
         dist.make_render_fn_dist(ts, RenderConfig(**_cfg()),
-                                 dist.make_mesh(n_tile=8, n_spp=1))
+                                 dist.make_mesh(n_tile=8, n_spp=1,
+                                                device="cpu"))
 
 
 def test_one_process_mesh_renders_as_make_render_fn(cornell):
@@ -213,6 +214,20 @@ def test_cpu_mesh_does_not_need_a_gpu():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="GPU"):
             dist.make_mesh(device="cuda")
+
+
+def test_default_mesh_is_the_gpu(cornell):
+    """make_mesh() and render_distributed(mesh=None) run on the card: with
+    no GPU they raise, and nothing renders on the CPU."""
+    _, ts, _, tcam = cornell
+    if torch.cuda.is_available():
+        assert dist.make_mesh().device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="GPU"):
+        dist.make_mesh()
+    with pytest.raises(RuntimeError, match="GPU"):
+        dist.render_distributed(ts, tcam.params(), RenderConfig(**_cfg()),
+                                tracer_factory=lambda *a: None)
 
 
 @pytest.mark.parametrize("shape", [(1, 2), (2, 2)])
