@@ -32,7 +32,10 @@ a JSON summary. Phases:
      every main path below that has plain versions does the same, the
      trace-time instanced path on rows 376-392); then a profile of one
      more subframe (every main path profiles one subframe after its timed
-     ones, with any input recording off);
+     ones, with any input recording off, but for nine whose kernels and
+     pool a sibling path profiles: the textured quad sorted and its 2-key
+     sample-major, the material Cornell sorted power, the textured 2-key
+     and both principled MT towns, walk configs 2, 4 and 5);
   6. the PNG of the kernel render;
   7. K1/K2 on the static and K3 (mt_closest_motion, mt_any_motion) on the
      2-key 16054-face town, against their plain versions and the brute
@@ -173,10 +176,12 @@ a JSON summary. Phases:
      their plain versions, timed and bounded as phases 24-25;
  32. the resident-table walk (K8: walk_closest, walk_any) on bench's 49k
      box field split-ordered at 256-face runs: 131072 camera rays from
-     (0, 20, 45) and one cosine bounce from each hit, the first launch
-     (output and cursor rows) and the pass loops bit-equal to the plain
-     versions, 0 prim and 0 occlusion mismatches against the brute
-     tracer; the same with a forced multi-pass walk (t_rounds = 4);
+     (0, 20, 45) and one cosine bounce from each hit, the single-pass
+     form (output and cursor rows) bit-equal to one reference launch
+     (walk_*_ref), the one-launch walk's hits and occlusion bit-equal to
+     the reference's pass loop (plain=True), 0 prim and 0 occlusion
+     mismatches against the brute tracer; the same with a forced
+     multi-pass walk (t_rounds = 4);
  33. the gates of phase 4 on the general pool: K8 against the plain walk
      (sorted), the wave integrator against the pool over K8, and an
      emissive- and roughness-textured quad (the A22 scene) on the bare MT
@@ -184,12 +189,17 @@ a JSON summary. Phases:
  34. `--tracer residentwalk`'s main path: the split-ordered box field
      through make_render_fn over make_walk_tracer at bench's cfg_sorted
      (768^2, 8 spp, depth 16, ray_block 32768, pixel-major, sorted): 1
-     warm-up and 2 timed subframes, Mray/s, K8 launches and passes per
-     subframe, every pixel finite, the band of phase 5 against the plain
-     walk, the idle share of one profiled subframe;
+     warm-up and 2 timed subframes, Mray/s, K8 launches per walk (1),
+     rounds per block (mean and largest) and the share of blocks done in
+     their first pass, every pixel finite, the band of phase 5 against
+     the plain walk, the idle share of one profiled subframe;
  35. K8 closest and any on the inputs of 4 closest and 4 shadow calls of
-     that path's warm-up: bit for bit, timed (device_ms) and bounded by
-     the slab and MT operations and the bytes moved (k8_work);
+     that path's warm-up: the whole walk (one launch) bit for bit against
+     its plain twin (rows, cursor rows, per-block counts) and its hits
+     and occlusion against the reference's pass loop, the single-pass
+     form against walk_*_ref; timed (device_ms) beside the twin and
+     bounded by the slab and MT operations of every pass each block ran
+     and the bytes moved (k8_work);
  36. the non-merged K5 (make_fused_shader(merged=False): trace_shade_hit,
      the K5 kernel with the closest hits given): within phases 12, 15, 18
      and 21, on the recorded inputs of every K5 variant, closest_raw (K1
@@ -1084,7 +1094,7 @@ def band_pair(name, scene, camera, cfg_kw, dev, rows=BAND_ROWS,
 
 
 def full_size(name, scene, camera, dev, smi, phase: int, counters, symbols,
-              change=None, plain=True, timed=2, warm=None):
+              change=None, plain=True, timed=2, warm=None, profile=True):
     """One main path at full size (MAIN with `change` applied): kernels (1
     warm-up and `timed` timed subframes) with the launch counters zeroed
     before the warm-up and read after the timed subframes (`warm`: the
@@ -1092,8 +1102,10 @@ def full_size(name, scene, camera, dev, smi, phase: int, counters, symbols,
     its launches are added), then
     (plain=True) the kernels held to the plain versions on a band of the
     image (band_pair), and a profile of one more subframe that must see
-    each CUDA kernel of `symbols`. plain=False: the path's kernels and gate are
-    held elsewhere. Records (median Mray/s, idle share) in PATHS[name];
+    each CUDA kernel of `symbols` (profile=False: a path whose kernels
+    and pool a profiled sibling path runs, idle share None). plain=False:
+    the path's kernels and gate are held elsewhere. Records (median
+    Mray/s, idle share) in PATHS[name];
     returns (kernel film, launches by kernel)."""
     import torch
 
@@ -1125,8 +1137,9 @@ def full_size(name, scene, camera, dev, smi, phase: int, counters, symbols,
     print(f"  image mean {img_k.mean():.6f}; launches {launches}"
           + (f"; albedo mean {float(film_k.albedo.mean()):.6f}"
              if film_k.albedo is not None else ""))
-    idle = profile_subframe(step_k, film_k, camera, float(np.median(secs_k)),
-                            phase, symbols)
+    idle = (profile_subframe(step_k, film_k, camera,
+                             float(np.median(secs_k)), phase, symbols)
+            if profile else None)
     PATHS[name] = (float(np.median(rates_k)), idle)
     return film_k, launches
 
@@ -2111,13 +2124,14 @@ def launch_counters():
 
 
 def walk_path(name, scene, camera, dev, smi, change, timed=2, phase=27,
-              need=("walk_rounds", "external_shade")):
+              need=("walk_rounds", "external_shade"), profile=True):
     """A walk-band main path through make_render_fn over choose_tracer's
     pipeline (with tune_config): 1 warm-up subframe, during which K9's
     (K9-inst's) states and K6's inputs at WALK_SNAPSHOTS boundaries are
     recorded, then `timed` subframes with the launch counters zeroed just
     before, then one profiled subframe (timed=0: the warm-up subframe
-    only, its launches counted). Fails unless every
+    only, its launches counted; profile=False: no profile, as full_size).
+    Fails unless every
     counter of `need` (WALK_COUNTERS' names) is above 0. Returns
     {launches, states, shade, pipe, film}."""
     import dataclasses
@@ -2216,7 +2230,7 @@ def walk_path(name, scene, camera, dev, smi, change, timed=2, phase=27,
     if timed:
         idle = profile_subframe(
             step, film, camera, float(np.median(secs)), phase,
-            ("walk_kernel", "external_shade_kernel"))
+            ("walk_kernel", "external_shade_kernel")) if profile else None
         PATHS[name] = (float(np.median(rates)), idle)
     return dict(launches=launches, states=rec["states"], shade=rec["shade"],
                 pipe=dataclasses.replace(pipe, walk_fn=walkpool.walk_rounds,
@@ -2424,13 +2438,13 @@ def walk_band(dev, smi, t_start):
             "config 1 town 1080p", *scenes["town"], dev, smi, CONFIG1),
         "config 2 textured town": walk_path(
             "config 2 textured town", *scenes["textured town"], dev, smi,
-            SORTED),
+            SORTED, profile=False),
         "config 4 2-key textured town": walk_path(
             "config 4 2-key textured town", *scenes["2-key textured town"],
-            dev, smi, SORTED),
+            dev, smi, SORTED, profile=False),
         "config 5 principled town": walk_path(
             "config 5 principled town", *scenes["principled town"], dev,
-            smi, SORTED_POWER),
+            smi, SORTED_POWER, profile=False),
         "49k box field": walk_path(
             "49k box field", *scenes["box field"], dev, smi, SORTED),
     }
@@ -2785,8 +2799,8 @@ def resident_scene():
 
 def resident_tracers(scene, dev):
     """(K8's tracer, its plain twin), each over its own walk table; the
-    first records each walk's pass count in the lists `kern[0].passes`
-    (closest, any)."""
+    first records each walk's per-block (passes, rounds) counts in the
+    lists `kern[0].passes` (closest, any)."""
     from rendertoy3c_tpu_torch.trace import residentwalk as rw
 
     passes = ([], [])
@@ -2806,11 +2820,12 @@ def _bits_equal(a, b) -> bool:
 def phase_k8_gate(dev, scene, camera, tab):
     """Phase 32: the K8 gate. 131072 rays on the 49k field: camera rays
     from (0, 20, 45) (the 768^2 grid's first 65536 pixels) and one cosine
-    bounce from each hit, filled with random rays. The first launch of
-    K8 closest and any (output rows and cursor rows) and the pass loops'
-    hits and occlusion bit-equal to the plain versions; 0 prim and 0
-    occlusion mismatches against the brute tracer; a forced multi-pass
-    walk (t_rounds = 4) likewise."""
+    bounce from each hit, filled with random rays. K8's single-pass form
+    (output rows and cursor rows) bit-equal to one reference launch
+    (walk_*_ref); the one-launch walk's hits and occlusion bit-equal to
+    the reference's pass loop (plain=True); 0 prim and 0 occlusion
+    mismatches against the brute tracer; a forced multi-pass walk
+    (t_rounds = 4) likewise."""
     import torch
 
     from rendertoy3c_tpu_torch.trace import residentwalk as rw
@@ -2835,7 +2850,7 @@ def phase_k8_gate(dev, scene, camera, tab):
                                     rw.walk_closest_ref, rays),
                                    ("any", rw.walk_any, rw.walk_any_ref,
                                     rays_a)):
-            out_k, cur_k = kern(count, er, ir, r, tab, rw.RT, t_rounds)
+            out_k, cur_k, _ = kern(count, er, ir, r, tab, rw.RT, t_rounds)
             out_p, cur_p = ref(count, er, ir, r, tab, rw.RT, t_rounds)
             check(_bits_equal(out_k, out_p) and _bits_equal(cur_k, cur_p),
                   f"phase 32: K8 {name} (T = {t_rounds}) differs from its "
@@ -2859,15 +2874,17 @@ def phase_k8_gate(dev, scene, camera, tab):
         bad_o = int((occ_b != occ).sum())
         check(bad == 0 and bad_o == 0, f"phase 32: T = {t_rounds}: {bad} "
               f"prim and {bad_o} occlusion mismatches vs brute")
-        check(t_rounds == rw.T_ROUNDS or passes[0] > 1,
-              f"phase 32: the forced walk ran {passes} passes")
-        lines.append(f"T = {t_rounds}: passes closest {passes[0]}, any "
-                     f"{passes[1]}")
+        most = [int(c[:, 0].max()) for c in passes]
+        check(t_rounds == rw.T_ROUNDS or most[0] > 1,
+              f"phase 32: the forced walk ran {most} passes at most")
+        lines.append(f"T = {t_rounds}: passes of a block at most: closest "
+                     f"{most[0]}, any {most[1]}")
     print(f"phase 32 K8 gate, box field ({scene.num_faces} faces, "
           f"{tab.n_leaves} leaves of 128, rows "
           f"{tab.rows.numel() * 4 / 1e6:.2f} MB): {GATE_RAYS} rays, K8 "
-          f"closest and any bit-equal to the plain versions (first pass: "
-          f"output and cursor rows; every pass's hits and occlusion), 0 "
+          f"closest and any bit-equal to the plain versions (single "
+          f"pass: output and cursor rows; the one-launch walk's hits and "
+          f"occlusion against the pass loop), 0 "
           f"prim and 0 occlusion mismatches vs brute (hit share "
           f"{float((got.prim >= 0).float().mean()):.3f}, occluded "
           f"{float(occ.float().mean()):.3f}); {'; '.join(lines)}; "
@@ -2923,10 +2940,12 @@ def resident_path(scene, camera, dev, smi, tracers, timed=2, phase=34):
     walk's inputs of every RW_RECORD_EVERY-th closest and shadow call are
     recorded by a wrapper around make_walk_tracer's pair, then `timed`
     subframes of the pair itself with K8's counters zeroed just before
-    and read just after; Mray/s, K8 launches and passes per
-    subframe, every pixel finite; the band of phase 5 against the plain
-    walk; the idle share of one profiled subframe. Returns {launches,
-    closest, any} (the recorded inputs: (rays, count) each)."""
+    and read just after; Mray/s, K8 launches per walk (one), the rounds
+    per block (mean and largest, over the blocks that ran one) and the
+    share of those done in their first pass, from the per-block counts
+    the kernel writes; every pixel finite; the band of phase 5 against
+    the plain walk; the idle share of one profiled subframe. Returns
+    {launches, closest, any} (the recorded inputs: (rays, count) each)."""
     import torch
 
     from rendertoy3c_tpu_torch.film.film import film_create
@@ -2987,7 +3006,20 @@ def resident_path(scene, camera, dev, smi, tracers, timed=2, phase=34):
           and tuple(img.shape) == (cfg.height, cfg.width, 3),
           f"{name}: image not finite or of shape {tuple(img.shape)}")
     walks = [len(p) for p in passes]
-    per_walk = [sum(p) / max(len(p), 1) for p in passes]
+    check(launches["resident_walk_closest"] == walks[0]
+          and launches["resident_walk_any"] == walks[1],
+          f"{name}: {launches} K8 launches for {walks} walks")
+    blocks = []
+    for kind, p in zip(("closest", "any"), passes):
+        cnt = torch.cat(p)
+        ran = cnt[cnt[:, 1] > 0]
+        blocks.append(
+            f"{kind}: rounds per block mean "
+            f"{float(ran[:, 1].float().mean()):.3f}, largest "
+            f"{int(ran[:, 1].max())}, done in pass 1 "
+            f"{float((ran[:, 0] == 1).float().mean()):.4f} of the "
+            f"{ran.shape[0] / len(p):.1f} blocks per walk that ran a round "
+            f"(passes at most {int(ran[:, 0].max())})")
     print(f"phase {phase} {name} ({scene.num_faces} faces, "
           f"{tab.n_leaves} leaves) {cfg.width}x{cfg.height} "
           f"{cfg.samples_per_launch}spp depth {cfg.max_depth} pool "
@@ -2999,9 +3031,9 @@ def resident_path(scene, camera, dev, smi, tracers, timed=2, phase=34):
           f"launches {launches['resident_walk_closest'] / timed:.1f} closest"
           f" + {launches['resident_walk_any'] / timed:.1f} any over "
           f"{walks[0] / timed:.1f} closest and {walks[1] / timed:.1f} shadow "
-          f"walks ({per_walk[0]:.3f} and {per_walk[1]:.3f} passes per "
-          f"walk); image mean {float(img.mean()):.6f}; launches "
-          f"{launches}")
+          f"walks (1 launch per walk); image mean {float(img.mean()):.6f}; "
+          f"launches {launches}")
+    print(f"  K8 blocks per walk, {'; '.join(blocks)}")
     band_pair(name, scene, camera, cfg_kw, dev, tracers=tracers)
     idle = profile_subframe(step, film, camera, float(np.median(secs)),
                             phase, ("resident_walk_kernel",))
@@ -3010,65 +3042,96 @@ def resident_path(scene, camera, dev, smi, tracers, timed=2, phase=34):
                 table=tab)
 
 
-def k8_work(stats, rays, count, tab):
-    """(bytes, operations) of one K8 launch from the first cursor: the
-    slab tests of the live blocks' rays against every leaf box, the MT
-    tests the launch needs (the plain version's count in `stats`: closest,
-    every ray of a block against every face of each round it ran; any,
-    each ray unoccluded when a round starts against the faces up to its
-    first hit), the rays, leaf rows and boxes read once, the output and
-    cursor rows written once."""
+def k8_work(stats, counts, rays, count, tab):
+    """(bytes, operations) of one K8 walk from the first cursor: the slab
+    tests of each live block's rays against every leaf box, once for each
+    pass the block ran (counts [B, 2]: passes, rounds), the MT tests the
+    walk needs (the plain twin's count in `stats`: closest, every ray of a
+    block against every face of each round it ran; any, each ray
+    unoccluded when a round starts against the faces up to its first
+    hit), the rays, leaf rows and boxes read once, the output, cursor and
+    count rows written once."""
     from rendertoy3c_tpu_torch.trace import residentwalk as rw
 
     b = rays.shape[0] // rw.RT
     live_blocks = min(b, -(-int(count[0]) // rw.RT))
-    ops = (live_blocks * rw.RT * tab.n_leaves * RW_SLAB_OPS
+    block_passes = int(counts[:live_blocks, 0].sum())
+    ops = (block_passes * rw.RT * tab.n_leaves * RW_SLAB_OPS
            + int(stats[0]) * RW_MT_OPS)
     n_bytes = (rays.numel() * 4 + tab.rows.numel() * 4
                + tab.aabb_lanes.numel() * 4 + b * 8 + rays.shape[0] * 16
-               + b * 32)
+               + b * 32 + b * 8)
     return n_bytes, ops
 
 
 def phase_k8_timed(dev, path, phase=35):
     """Phase 35: K8 closest and any on the main path's recorded inputs (4
-    calls spread over the warm-up subframe, the first pass of each), bit
-    for bit against their plain versions, the kernel timed behind a spin
-    kernel (device_ms), the plain version by CUDA events; bounded by
-    k8_work. Returns {walk name: result fields}."""
+    calls spread over the warm-up subframe): the whole walk (one launch
+    with the pass cap) bit for bit against its plain twin
+    (walk_*_blocks_ref: output rows, cursor rows, per-block counts), its
+    hits and occlusion against the reference's pass loop (plain=True),
+    the single-pass form against walk_*_ref; the walk timed behind a spin
+    kernel (device_ms), the twin by CUDA events; bounded by k8_work.
+    Returns {walk name: result fields}."""
+    import torch
+
     from rendertoy3c_tpu_torch.trace import residentwalk as rw
 
     tab = path["table"]
+    cap = rw.pass_cap(tab, rw.T_ROUNDS)
     out = {}
-    for name, kern, ref in (("closest", rw.walk_closest, rw.walk_closest_ref),
-                            ("any", rw.walk_any, rw.walk_any_ref)):
+    for name, kern, twin, ref, trace in (
+            ("closest", rw.walk_closest, rw.walk_closest_blocks_ref,
+             rw.walk_closest_ref, rw.trace_closest_walk),
+            ("any", rw.walk_any, rw.walk_any_blocks_ref, rw.walk_any_ref,
+             rw.trace_any_walk)):
         # 4 calls spread over those with a live lane
         recs = [r for r in path[name] if int(r[1][0]) > 0]
         check(len(recs) >= 4, f"phase {phase}: {len(recs)} recorded {name} "
               "calls with a live lane")
         pick = [recs[int(i)] for i in np.linspace(0, len(recs) - 1, 4)]
-        calls_k, calls_p, works = [], [], []
+        calls_k, calls_p, works, rounds = [], [], [], []
         for rays, count in pick:
             er, ir = rw._start(rays, rw.RT)
-            out_k, cur_k = kern(count, er, ir, rays, tab)
+            a = (count, er, ir, rays, tab, rw.RT, rw.T_ROUNDS, cap)
+            got = kern(*a)
             stats = []
-            out_p, cur_p = ref(count, er, ir, rays, tab, stats=stats)
-            check(_bits_equal(out_k, out_p) and _bits_equal(cur_k, cur_p),
-                  f"phase {phase}: K8 {name} differs from its plain version "
-                  "on the main path's inputs")
-            works.append(k8_work(stats, rays, count, tab))
-            calls_k.append(lambda k=kern, a=(count, er, ir, rays, tab): k(*a))
-            calls_p.append(lambda r=ref, a=(count, er, ir, rays, tab): r(*a))
+            want = twin(*a, stats=stats)
+            check(all(_bits_equal(g, w) for g, w in zip(got, want)),
+                  f"phase {phase}: K8 {name}'s walk differs from its plain "
+                  "twin on the main path's inputs")
+            one_k = kern(*a[:7])
+            one_p = ref(*a[:7])
+            check(_bits_equal(one_k[0], one_p[0])
+                  and _bits_equal(one_k[1], one_p[1]),
+                  f"phase {phase}: K8 {name}'s single pass differs from "
+                  f"walk_{name}_ref on the main path's inputs")
+            g, w = (trace(tab, rays[:, 0:3], rays[:, 3:6], rays[:, 6],
+                          rays[:, 7], count=count, plain=p)
+                    for p in (False, True))
+            pairs = zip(g[:4], w[:4]) if name == "closest" else [(g, w)]
+            check(all(_bits_equal(x.float(), y.float()) for x, y in pairs),
+                  f"phase {phase}: K8 {name}'s hits differ from the "
+                  "reference's pass loop on the main path's inputs")
+            works.append(k8_work(stats, got[2], rays, count, tab))
+            rounds.append(got[2][:, 1])
+            calls_k.append(lambda k=kern, a=a: k(*a))
+            calls_p.append(lambda r=twin, a=a: r(*a))
         ms = device_ms(calls_k)
         plain_ms = cuda_ms(calls_p)
         bound_ms, bound_by = bound(
             float(np.mean([w[0] for w in works])),
             float(np.mean([w[1] for w in works])))
+        r_all = torch.cat(rounds)
         print(f"phase {phase} K8 {name} on the main path's inputs ("
               f"{[int(c[1][0]) for c in pick]} live of "
-              f"{pick[0][0].shape[0]} rays): bit-equal to the plain version;"
-              f" {ms:.4f} ms per launch (plain {plain_ms:.3f} ms), bound "
-              f"{bound_ms:.4f} ms by {bound_by} ({bound_ms / ms:.1%})")
+              f"{pick[0][0].shape[0]} rays): the walk bit-equal to its "
+              f"plain twin and to the pass loop, the single pass to "
+              f"walk_{name}_ref; {ms:.4f} ms per walk, one launch (twin "
+              f"{plain_ms:.3f} ms), bound {bound_ms:.4f} ms by {bound_by} "
+              f"({bound_ms / ms:.1%}); rounds per block mean "
+              f"{float(r_all.float().mean()):.3f}, largest "
+              f"{int(r_all.max())}")
         out[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_by=bound_by)
     return out
@@ -3700,11 +3763,11 @@ def main() -> int:
         launches_k5t = full_size(
             "textured quad sorted", tq, tq_cam, dev, smi, 17,
             {"trace_shade": shade.trace_shade}, ("trace_shade_kernel",),
-            SORTED, warm=k5t_runs[0][4])[1]
+            SORTED, warm=k5t_runs[0][4], profile=False)[1]
         launches_k5mt = full_size(
             "2-key textured quad sample-major", tqm, tqm_cam, dev, smi, 17,
             {"trace_shade": shade.trace_shade}, ("trace_shade_kernel",),
-            SAMPLE_MAJOR, warm=k5t_runs[1][4])[1]
+            SAMPLE_MAJOR, warm=k5t_runs[1][4], profile=False)[1]
         print(f"phase 17 (textured quad) done; "
               f"{time.perf_counter() - t_start:.1f} s since the start")
 
@@ -3736,7 +3799,7 @@ def main() -> int:
         launches_k5d = full_size(
             "material cornell sorted power", mc, mc_cam, dev, smi, 20,
             {"trace_shade": shade.trace_shade}, ("trace_shade_kernel",),
-            SORTED_POWER, warm=k5d_run[4])[1]
+            SORTED_POWER, warm=k5d_run[4], profile=False)[1]
         launches_k4md = full_size(
             "2-key material cornell", mcm, mcm_cam, dev, smi, 20,
             {"trace_shade_refill": shade.trace_shade_refill},
@@ -3858,7 +3921,7 @@ def main() -> int:
              "mt_any_motion": mt.mt_any_motion,
              "external_shade": shade.external_shade},
             (*MT_SYMBOLS, "external_shade_kernel"),
-            timed=TOWN_TIMED, warm=tex_states[True])[1]
+            timed=TOWN_TIMED, warm=tex_states[True], profile=False)[1]
         print(f"phase 17 done; {time.perf_counter() - t_start:.1f} s since "
               "the start")
 
@@ -3897,11 +3960,12 @@ def main() -> int:
         launches_ptt = full_size(
             "principled town", *p_towns[TEX_PT], dev, smi, 20, town_kernels,
             (*MT_SYMBOLS, "external_shade_kernel"), SORTED_POWER,
-            timed=TOWN_TIMED, warm=p_states[TEX_PT])[1]
+            timed=TOWN_TIMED, warm=p_states[TEX_PT], profile=False)[1]
         launches_pt = full_size(
             "untextured principled town", *p_towns[PT], dev, smi, 20,
             town_kernels, (*MT_SYMBOLS, "external_shade_kernel"),
-            SORTED_POWER, timed=TOWN_TIMED, warm=p_states[PT])[1]
+            SORTED_POWER, timed=TOWN_TIMED, warm=p_states[PT],
+            profile=False)[1]
         print(f"phase 20 done; {time.perf_counter() - t_start:.1f} s since "
               "the start")
 

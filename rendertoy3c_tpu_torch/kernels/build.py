@@ -204,8 +204,8 @@ def library() -> ctypes.CDLL:
     lib.rt3c_external_shade.restype = ci
     lib.rt3c_walk_rounds.argtypes = [ci, ctypes.POINTER(WalkParams), vp, vp]
     lib.rt3c_walk_rounds.restype = ci
-    lib.rt3c_resident_walk.argtypes = [ci, ci, vp, vp, vp, vp, ci, vp, vp,
-                                       ci, ci, vp, vp, vp]
+    lib.rt3c_resident_walk.argtypes = [ci, ci, vp, vp, vp, vp, ci, vp, ci,
+                                       vp, ci, ci, ci, vp, vp, vp, vp]
     lib.rt3c_resident_walk.restype = ci
     lib.rt3c_instanced_mt.argtypes = [ci, ci, vp, ci, vp, vp, vp, vp, ci, vp,
                                       vp]

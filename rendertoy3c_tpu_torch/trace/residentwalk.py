@@ -6,12 +6,15 @@ Port of rendertoy3c_tpu/trace/pallas_walk.py: `WalkTable` (:56),
 (:196) and `_any_kernel` (:271) behind `_walk_call` (:331, pallas_call
 :338), the pass loops of `trace_closest_walk` and `trace_any_walk`
 (:391, :441), `max_walk_faces` and `make_walk_tracer` (:478). On a CUDA
-device the walk is kernels/csrc/resident_walk.cu (`walk_closest`,
-`walk_any`); `walk_closest_ref` and `walk_any_ref` are their plain
+device a walk is one launch of kernels/csrc/resident_walk.cu
+(`walk_closest`, `walk_any`), in which every block runs its own passes;
+`walk_closest_blocks_ref` and `walk_any_blocks_ref` are their plain
 versions, vectorised over the blocks, which the wrappers run for tensors
-on the CPU.
+on the CPU. `walk_closest_ref` and `walk_any_ref` are one pass of every
+block, the reference's launch, and `plain=True` runs the reference's
+pass loop over them.
 
-Per block of RT rays (the warp on the card; lane = ray) a launch:
+A pass of a block of RT rays:
   1. slab pass: each ray's entry into every leaf box (BIG on a miss),
      reduced to the block's row emin [Lp], the minimum over its RT rays;
      a dead block (its first ray at or past `count`) takes a row of BIG;
@@ -29,11 +32,13 @@ below BIG and a ray of the block is unoccluded.
 
 Every ray of a live block enters its row and its largest best t, rays
 past `count` and zero padding rows included, as in the reference:
-gating is per block in the walk and per ray after it. A pass loop runs
-the walk until every block is done, at most ceil(n_leaves / T) + 1
-passes after the first; the closest loop feeds each ray's best t back as
-its tmax and keeps the rows that improved. A walk cut at the pass cap
-returns what it found, as the reference's does.
+gating is per block in the walk and per ray after it. A walk runs each
+block's passes until its own done flag, at most ceil(n_leaves / T) + 1
+after the first; a closest pass takes each ray's best t as its tmax, an
+any-hit pass the occlusion so far. The reference's loop relaunches every
+block while any is open and starts each any-hit pass unoccluded; its
+results are the same (kernels/csrc/resident_walk.cu says why). A walk
+cut at the pass cap returns what it found, as the reference's does.
 
 The grid step's G blocks of the reference (`_pick_g`) amortise TPU grid
 overhead and are not copied: results depend on the block alone.
@@ -128,15 +133,15 @@ def _slab_emin(rays, aabb, tmin, tmax):
     return ent.amin(dim=1)
 
 
-def _block_emin(count, er, ir, rays, aabb, tmin, tmax):
+def _block_emin(live, er, ir, rays, aabb, tmin, tmax):
     """The masked block rows [B, Lp] (pallas_walk.py `_block_emin`): BIG
-    for dead blocks and for leaves at or below the resume cursor."""
-    b, rt = rays.shape[:2]
+    for dead blocks (live [B] false) and for leaves at or below the resume
+    cursor."""
+    b = rays.shape[0]
     emin = torch.cat([_slab_emin(rays[i:i + _SLAB_CHUNK], aabb,
                                  tmin[i:i + _SLAB_CHUNK],
                                  tmax[i:i + _SLAB_CHUNK])
                       for i in range(0, b, _SLAB_CHUNK)])
-    live = torch.arange(b, device=rays.device) * rt < count[0]
     big = torch.full_like(emin, _BIG)
     emin = torch.where(live[:, None], emin, big)
     lanes = torch.arange(emin.shape[1], device=rays.device)
@@ -192,26 +197,17 @@ def _cursor(done, ce, ci):
     return cur
 
 
-def walk_closest_ref(count, er, ir, rays, tab: WalkTable, rt: int = RT,
-                     t_rounds: int = T_ROUNDS, stats=None):
-    """Plain version of one closest launch (pallas_walk.py
-    `_closest_kernel`). count int32 [1]; er [B] f32 and ir [B] int32, the
-    cursor; rays [B * rt, 8] (tmax = each ray's best t so far). Returns
-    (out [B * rt, 4]: t (tmax where nothing was hit), prim (-1.0 where
-    nothing was hit), u, v; cursor [B, 8]). stats: a list that receives
-    the ray-triangle tests the launch needs (an int: every ray of a block
-    against all LEAF faces of each round it ran)."""
-    dev = rays.device
-    b = rays.shape[0] // rt
-    r = rays.reshape(b, rt, 8)
+def _closest_pass(live, er, ir, r, tab: WalkTable, t_rounds: int, best_t,
+                  prim, bu, bv):
+    """One closest pass of S blocks (pallas_walk.py `_closest_kernel`) from
+    their cursors (er, ir): rays r [S, rt, 8], whose tmax is each ray's
+    best t best_t [S, rt]; best_t, prim, bu and bv are updated in place.
+    Returns (done [S], cursor entry, cursor id, rounds [S] int32)."""
+    dev = r.device
     tmin = r[..., 6]
-    best_t = r[..., 7].clone()
-    emin = _block_emin(count, er, ir, r, tab.aabb_lanes, tmin, best_t)
-    prim = torch.full((b, rt), -1.0, device=dev)
-    bu = torch.zeros((b, rt), device=dev)
-    bv = torch.zeros((b, rt), device=dev)
+    emin = _block_emin(live, er, ir, r, tab.aabb_lanes, tmin, best_t)
     ce, ci = er.clone(), ir.clone()
-    rounds = 0
+    rounds = torch.zeros(r.shape[0], dtype=torch.int32, device=dev)
     lanes = torch.arange(tab.leaf, device=dev)
     for _ in range(t_rounds):
         m, lid = _argmin_lane(emin)
@@ -240,28 +236,25 @@ def walk_closest_ref(count, er, ir, rays, tab: WalkTable, rt: int = RT,
         emin[sub, lid_s] = _BIG
         ce[sub] = m[sub]
         ci[sub] = lid_s.to(ci.dtype)
-        rounds += sub.numel()
+        rounds[sub] += 1
     done = torch.where(emin.amin(dim=1) < best_t.amax(dim=1), 0.0, 1.0)
-    if stats is not None:
-        stats.append(rounds * rt * tab.leaf)
-    out = torch.stack([best_t, prim, bu, bv], dim=2).reshape(b * rt, 4)
-    return out, _cursor(done, ce, ci)
+    return done, ce, ci, rounds
 
 
-def walk_any_ref(count, er, ir, rays, tab: WalkTable, rt: int = RT,
-                 t_rounds: int = T_ROUNDS, stats=None):
-    """Plain version of one any-hit launch (pallas_walk.py `_any_kernel`):
-    (out [B * rt, 4]: occlusion 0.0 or 1.0 in column 0, zeros; cursor
-    [B, 8]). Arguments as walk_closest_ref; stats receives the tests the
-    launch needs: each ray unoccluded when a round starts against the
-    leaf's faces up to its first hit (all LEAF where none is hit)."""
-    dev = rays.device
-    b = rays.shape[0] // rt
-    r = rays.reshape(b, rt, 8)
+def _any_pass(live, er, ir, r, tab: WalkTable, t_rounds: int, occ,
+              count_tests: bool):
+    """One any-hit pass of S blocks (pallas_walk.py `_any_kernel`) from
+    their cursors: rays r [S, rt, 8]; occ [S, rt] (0.0 or 1.0), the
+    occlusion the pass starts from, is updated in place (an occluded ray
+    tests with tmax = tmin: it cannot hit). Returns (done [S], cursor
+    entry, cursor id, rounds [S] int32, tests: with count_tests, each ray
+    unoccluded when a round starts against the leaf's faces up to its
+    first hit, all LEAF where none is hit; else 0)."""
+    dev = r.device
     tmin, tmax = r[..., 6], r[..., 7]
-    emin = _block_emin(count, er, ir, r, tab.aabb_lanes, tmin, tmax)
-    occ = torch.zeros((b, rt), device=dev)
+    emin = _block_emin(live, er, ir, r, tab.aabb_lanes, tmin, tmax)
     ce, ci = er.clone(), ir.clone()
+    rounds = torch.zeros(r.shape[0], dtype=torch.int32, device=dev)
     tests = 0
     for _ in range(t_rounds):
         m, lid = _argmin_lane(emin)
@@ -279,22 +272,121 @@ def walk_any_ref(count, er, ir, rays, tab: WalkTable, rt: int = RT,
         emin[sub, lid_s] = _BIG
         ce[sub] = m[sub]
         ci[sub] = lid_s.to(ci.dtype)
-        if stats is not None:
+        rounds[sub] += 1
+        if count_tests:
             # argmax of a bool row: its first True
             upto = torch.where(hit_any, hit.to(torch.int32).argmax(dim=2)
                                + 1, tab.leaf)
             tests += int(torch.where(occ_s == 0.0, upto, 0).sum())
     open_ = (emin.amin(dim=1) < _BIG) & (occ.amin(dim=1) < 1.0)
+    return torch.where(open_, 0.0, 1.0), ce, ci, rounds, tests
+
+
+def _walk_blocks_ref(any_hit: bool, count, er, ir, rays, tab: WalkTable,
+                     rt: int, t_rounds: int, max_passes: int, stats):
+    """The plain version of K8: every block runs its own passes from its
+    cursor until its own done flag, at most max_passes, its state (best
+    t, prim, u, v; or occlusion) kept across them. Returns (out, cursor
+    [B, 8], counts [B, 2] int32: the passes and rounds each block ran)."""
+    dev = rays.device
+    b = rays.shape[0] // rt
+    r = rays.reshape(b, rt, 8)
+    live = torch.arange(b, device=dev) * rt < count[0]
+    done = torch.ones(b, device=dev)
+    ce, ci = er.clone(), ir.clone()
+    counts = torch.zeros((b, 2), dtype=torch.int32, device=dev)
+    if any_hit:
+        occ = torch.zeros((b, rt), device=dev)
+    else:
+        best = [r[..., 7].clone(), torch.full((b, rt), -1.0, device=dev),
+                torch.zeros((b, rt), device=dev),
+                torch.zeros((b, rt), device=dev)]
+    tests = 0
+    sub = torch.arange(b, device=dev)
+    for _ in range(max_passes):
+        if any_hit:
+            occ_s = occ[sub]
+            d, ce_s, ci_s, rounds, n = _any_pass(
+                live[sub], ce[sub], ci[sub], r[sub], tab, t_rounds, occ_s,
+                stats is not None)
+            occ[sub] = occ_s
+        else:
+            state = [x[sub] for x in best]
+            d, ce_s, ci_s, rounds = _closest_pass(
+                live[sub], ce[sub], ci[sub], r[sub], tab, t_rounds, *state)
+            n = int(rounds.sum()) * rt * tab.leaf if stats is not None else 0
+            for x, y in zip(best, state):
+                x[sub] = y
+        done[sub] = d
+        ce[sub] = ce_s
+        ci[sub] = ci_s
+        counts[sub, 0] += 1
+        counts[sub, 1] += rounds
+        tests += n
+        sub = sub[d == 0.0]
+        if sub.numel() == 0:
+            break
     if stats is not None:
         stats.append(tests)
-    out = torch.zeros((b * rt, 4), device=dev)
-    out[:, 0] = occ.reshape(-1)
-    return out, _cursor(torch.where(open_, 0.0, 1.0), ce, ci)
+    if any_hit:
+        out = torch.zeros((b * rt, 4), device=dev)
+        out[:, 0] = occ.reshape(-1)
+    else:
+        out = torch.stack(best, dim=2).reshape(b * rt, 4)
+    return out, _cursor(done, ce, ci), counts
+
+
+def walk_closest_blocks_ref(count, er, ir, rays, tab: WalkTable,
+                            rt: int = RT, t_rounds: int = T_ROUNDS,
+                            max_passes: int = 1, stats=None):
+    """Plain version of K8 closest, vectorised over blocks. count int32
+    [1]; er [B] f32 and ir [B] int32, the cursor; rays [B * rt, 8]. Each
+    block runs passes from its cursor (pallas_walk.py `_closest_kernel`,
+    each ray's tmax its best t so far) until its own done flag, at most
+    max_passes. Returns (out [B * rt, 4]: t (tmax where nothing was hit),
+    prim (-1.0 where nothing was hit), u, v; cursor [B, 8]; counts [B, 2]
+    int32: passes and rounds per block). stats: a list that receives the
+    ray-triangle tests the walk needs (every ray of a block against all
+    LEAF faces of each round it ran)."""
+    return _walk_blocks_ref(False, count, er, ir, rays, tab, rt, t_rounds,
+                            max_passes, stats)
+
+
+def walk_any_blocks_ref(count, er, ir, rays, tab: WalkTable, rt: int = RT,
+                        t_rounds: int = T_ROUNDS, max_passes: int = 1,
+                        stats=None):
+    """Plain version of K8 any (pallas_walk.py `_any_kernel`), arguments
+    and counts as walk_closest_blocks_ref; occlusion persists across a
+    block's passes. out [B * rt, 4]: occlusion 0.0 or 1.0 in column 0,
+    zeros. stats receives the tests the walk needs: each ray unoccluded
+    when a round starts against the leaf's faces up to its first hit (all
+    LEAF where none is hit)."""
+    return _walk_blocks_ref(True, count, er, ir, rays, tab, rt, t_rounds,
+                            max_passes, stats)
+
+
+def walk_closest_ref(count, er, ir, rays, tab: WalkTable, rt: int = RT,
+                     t_rounds: int = T_ROUNDS, stats=None):
+    """Plain version of one closest launch of the reference
+    (pallas_walk.py `_closest_kernel`): one pass of every block from its
+    cursor, rays' tmax each ray's best t so far. Returns (out, cursor) as
+    walk_closest_blocks_ref."""
+    return walk_closest_blocks_ref(count, er, ir, rays, tab, rt, t_rounds,
+                                   1, stats)[:2]
+
+
+def walk_any_ref(count, er, ir, rays, tab: WalkTable, rt: int = RT,
+                 t_rounds: int = T_ROUNDS, stats=None):
+    """Plain version of one any-hit launch of the reference
+    (pallas_walk.py `_any_kernel`): one pass of every block, every ray
+    unoccluded at its start. Returns (out, cursor) as walk_any_blocks_ref."""
+    return walk_any_blocks_ref(count, er, ir, rays, tab, rt, t_rounds, 1,
+                               stats)[:2]
 
 
 # ------------------------------------------------------ the kernel wrappers
 def _launch(any_hit: bool, count, er, ir, rays, tab: WalkTable,
-            t_rounds: int):
+            t_rounds: int, max_passes: int):
     kbuild.require_cuda("resident_walk", er, rays, tab.rows, tab.aabb_lanes)
     kbuild.require_cuda("resident_walk", count, ir, dtype=torch.int32)
     r = rays.shape[0]
@@ -307,38 +399,44 @@ def _launch(any_hit: bool, count, er, ir, rays, tab: WalkTable,
     b = r // RT
     out = torch.empty((r, 4), dtype=torch.float32, device=rays.device)
     cur = torch.empty((b, 8), dtype=torch.float32, device=rays.device)
+    counts = torch.empty((b, 2), dtype=torch.int32, device=rays.device)
     index, stream = kbuild.launch_target(rays.device)
     err = kbuild.library().rt3c_resident_walk(
         index, int(any_hit), count.data_ptr(), er.data_ptr(), ir.data_ptr(),
-        rays.data_ptr(), b, tab.rows.data_ptr(), tab.aabb_lanes.data_ptr(),
-        tab.aabb_lanes.shape[1], t_rounds, out.data_ptr(), cur.data_ptr(),
+        rays.data_ptr(), b, tab.rows.data_ptr(), tab.rows.shape[0],
+        tab.aabb_lanes.data_ptr(), tab.aabb_lanes.shape[1], t_rounds,
+        max_passes, out.data_ptr(), cur.data_ptr(), counts.data_ptr(),
         stream)
     kbuild.check(err, "walk_any" if any_hit else "walk_closest")
-    return out, cur
+    return out, cur, counts
 
 
 def walk_closest(count, er, ir, rays, tab: WalkTable, rt: int = RT,
-                 t_rounds: int = T_ROUNDS):
-    """K8 closest: the CUDA kernel for CUDA rays (rt must be 32, the
-    warp), `walk_closest_ref` on the CPU."""
+                 t_rounds: int = T_ROUNDS, max_passes: int = 1):
+    """K8 closest: the CUDA kernel for CUDA rays (rt must be 32),
+    `walk_closest_blocks_ref` on the CPU. max_passes = 1 is one pass of
+    every block (the reference's launch); a walk passes its cap. Returns
+    (out, cursor, counts)."""
     if rays.device.type == "cpu":
-        return walk_closest_ref(count, er, ir, rays, tab, rt, t_rounds)
+        return walk_closest_blocks_ref(count, er, ir, rays, tab, rt,
+                                       t_rounds, max_passes)
     if rt != RT:
         raise ValueError(f"walk_closest: the kernel's block is {RT} rays")
-    res = _launch(False, count, er, ir, rays, tab, t_rounds)
+    res = _launch(False, count, er, ir, rays, tab, t_rounds, max_passes)
     walk_closest.launches += 1
     return res
 
 
 def walk_any(count, er, ir, rays, tab: WalkTable, rt: int = RT,
-             t_rounds: int = T_ROUNDS):
+             t_rounds: int = T_ROUNDS, max_passes: int = 1):
     """K8 any: the CUDA kernel for CUDA rays (rt must be 32),
-    `walk_any_ref` on the CPU."""
+    `walk_any_blocks_ref` on the CPU; as walk_closest."""
     if rays.device.type == "cpu":
-        return walk_any_ref(count, er, ir, rays, tab, rt, t_rounds)
+        return walk_any_blocks_ref(count, er, ir, rays, tab, rt, t_rounds,
+                                   max_passes)
     if rt != RT:
         raise ValueError(f"walk_any: the kernel's block is {RT} rays")
-    res = _launch(True, count, er, ir, rays, tab, t_rounds)
+    res = _launch(True, count, er, ir, rays, tab, t_rounds, max_passes)
     walk_any.launches += 1
     return res
 
@@ -375,51 +473,67 @@ def _start(rays, rt: int):
             torch.full((b,), -1, dtype=torch.int32, device=rays.device))
 
 
-def _passes(launch, tab: WalkTable, t_rounds: int, first, combine):
-    """The pass loop: `first` is the first pass's (state, cursor); each
-    further pass launches from the cursor while a block is not done, at
-    most ceil(n_leaves / T) + 1 times, and combine(state, out) folds its
-    output in. Reads every cursor's done flag once per pass (one host
-    synchronisation). Returns (state, passes)."""
+def pass_cap(tab: WalkTable, t_rounds: int) -> int:
+    """The passes a walk may take: the first and ceil(n_leaves / T) more
+    (the reference's pass cap, pallas_walk.py:385)."""
+    return -(-tab.n_leaves // t_rounds) + 2
+
+
+def _reference_passes(launch, tab: WalkTable, t_rounds: int, first,
+                      combine):
+    """The reference's pass loop (the plain=True walk): `first` is the
+    first pass's (state, cursor); each further pass launches every block
+    from its cursor while any block is not done, up to the pass cap, and
+    combine(state, out) folds its output in. Reads the done flags once per
+    pass (one host synchronisation). Returns the state."""
     state, cur = first
-    max_pass = -(-tab.n_leaves // t_rounds) + 1
-    it = 0
-    while it < max_pass and bool((cur[:, 0] == 0.0).any()):
+    for _ in range(pass_cap(tab, t_rounds) - 1):
+        if not bool((cur[:, 0] == 0.0).any()):
+            break
         out, cur = launch(state, cur[:, 1].contiguous(),
                           cur[:, 2].to(torch.int32))
         state = combine(state, out)
-        it += 1
-    return state, it + 1
+    return state
+
+
+def _no_passes(plain: bool, passes) -> None:
+    if plain and passes is not None:
+        raise ValueError("passes: the plain pass loop records no counts")
 
 
 def trace_closest_walk(tab: WalkTable, o, d, tmin, tmax, *, count=None,
                        rt: int = RT, t_rounds: int = T_ROUNDS,
                        plain: bool = False, passes=None) -> Hit:
     """Closest hit by the resident-table walk; only the first `count`
-    rays are live (an int or an int tensor, read on the device). plain:
-    run walk_closest_ref on any device. passes: a list that receives the
-    pass count."""
-    fn = walk_closest_ref if plain else walk_closest
+    rays are live (an int or an int tensor, read on the device). The walk
+    is one walk_closest of every block's own passes (K8 on a CUDA device,
+    no host read). plain: the reference's pass loop over
+    walk_closest_ref, on any device. passes: a list that receives the
+    walk's per-block counts [B, 2] int32 (passes, rounds), on its device."""
+    _no_passes(plain, passes)
     rays, r = _pack(o, d, tmin, tmax, rt)
     c = _count(count, r, o.device)
     er, ir = _start(rays, rt)
+    if plain:
+        def launch(best, er, ir):
+            rays_p = torch.cat([rays[:, 0:7], best[:, 0:1]], dim=1)
+            return walk_closest_ref(c, er, ir, rays_p, tab, rt, t_rounds)
 
-    def launch(best, er, ir):
-        rays_p = torch.cat([rays[:, 0:7], best[:, 0:1]], dim=1)
-        return fn(c, er, ir, rays_p, tab, rt, t_rounds)
+        def combine(best, out):
+            return torch.where((out[:, 1] >= 0.0)[:, None], out, best)
 
-    def combine(best, out):
-        return torch.where((out[:, 1] >= 0.0)[:, None], out, best)
-
-    best0 = torch.zeros((rays.shape[0], 4), dtype=torch.float32,
-                        device=o.device)
-    best0[:, 0] = rays[:, 7]
-    best0[:, 1] = -1.0
-    out, cur = launch(best0, er, ir)
-    best, n = _passes(launch, tab, t_rounds,
-                      (combine(best0, out), cur), combine)
-    if passes is not None:
-        passes.append(n)
+        best0 = torch.zeros((rays.shape[0], 4), dtype=torch.float32,
+                            device=o.device)
+        best0[:, 0] = rays[:, 7]
+        best0[:, 1] = -1.0
+        out, cur = launch(best0, er, ir)
+        best = _reference_passes(launch, tab, t_rounds,
+                                 (combine(best0, out), cur), combine)
+    else:
+        best, _, counts = walk_closest(c, er, ir, rays, tab, rt, t_rounds,
+                                       pass_cap(tab, t_rounds))
+        if passes is not None:
+            passes.append(counts)
     best = best[:r]
     t, prim_f = best[:, 0], best[:, 1]
     # the strict per-ray gate (the walk gates whole blocks)
@@ -437,23 +551,29 @@ def trace_any_walk(tab: WalkTable, o, d, tmin, tmax, *, count=None,
                    rt: int = RT, t_rounds: int = T_ROUNDS,
                    plain: bool = False, passes=None) -> torch.Tensor:
     """Occlusion [R] bool by the resident-table walk; arguments as
-    trace_closest_walk. Every pass starts each ray unoccluded and the
-    passes combine by the maximum, as the reference's."""
-    fn = walk_any_ref if plain else walk_any
+    trace_closest_walk. The walk keeps a ray's occlusion across its
+    block's passes; the reference's pass loop (plain) starts every pass
+    with each ray unoccluded and combines the passes by the maximum."""
+    _no_passes(plain, passes)
     rays, r = _pack(o, d, tmin, tmax, rt)
     c = _count(count, r, o.device)
     er, ir = _start(rays, rt)
+    if plain:
+        def launch(_occ, er, ir):
+            return walk_any_ref(c, er, ir, rays, tab, rt, t_rounds)
 
-    def launch(_occ, er, ir):
-        return fn(c, er, ir, rays, tab, rt, t_rounds)
+        def combine(occ, out):
+            return torch.maximum(occ, out[:, 0])
 
-    def combine(occ, out):
-        return torch.maximum(occ, out[:, 0])
-
-    out, cur = launch(None, er, ir)
-    occ, n = _passes(launch, tab, t_rounds, (out[:, 0], cur), combine)
-    if passes is not None:
-        passes.append(n)
+        out, cur = launch(None, er, ir)
+        occ = _reference_passes(launch, tab, t_rounds, (out[:, 0], cur),
+                                combine)
+    else:
+        out, _, counts = walk_any(c, er, ir, rays, tab, rt, t_rounds,
+                                  pass_cap(tab, t_rounds))
+        occ = out[:, 0]
+        if passes is not None:
+            passes.append(counts)
     live = torch.arange(r, device=o.device) < c[0]
     return (occ[:r] > 0.0) & live
 
@@ -465,10 +585,11 @@ def make_walk_tracer(scene, device, rt: int = RT, leaf: int = LEAF,
     each f(o, d, tmin, tmax, time, count=None) (time is ignored). Order
     the scene with accel.lbvh.split_order_scene first so that leaves are
     tight; rays sorted by the pool's sort_rays share leaves within a
-    block. The walk is K8 on a CUDA device, its plain version on the CPU
-    or with `plain`. passes: None, or a pair of lists that receive the
-    pass count of each closest and each any-hit walk. A motion scene
-    raises ValueError."""
+    block. The walk is K8 on a CUDA device, its plain version on the CPU,
+    the reference's pass loop with `plain`. passes: None, or a pair of
+    lists that receive the per-block counts [B, 2] (passes, rounds) of
+    each closest and each any-hit walk. A motion scene raises
+    ValueError."""
     if scene.num_keys != 1:
         raise ValueError("walk tracer supports static scenes only")
     tab = build_walk_table(scene.geom, scene.num_faces, leaf=leaf,

@@ -1320,7 +1320,8 @@ def test_resident_walk_kernels_match_plain_versions(dev, case):
                       (rw.walk_any, rw.walk_any_ref)):
         c_er, c_ir = er, ir
         for _ in range(3):
-            out_k, cur_k = kern(count, c_er, c_ir, rays, tab, rw.RT, t_rounds)
+            out_k, cur_k, _ = kern(count, c_er, c_ir, rays, tab, rw.RT,
+                                   t_rounds)
             out_p, cur_p = ref(count, c_er, c_ir, rays, tab, rw.RT, t_rounds)
             assert _bits(out_k, out_p) and _bits(cur_k, cur_p)
             c_er = cur_k[:, 1].contiguous()
@@ -1345,6 +1346,66 @@ def test_resident_walk_kernels_match_plain_versions(dev, case):
     assert torch.equal(rw.trace_any_walk(tab, ot, dt, 1e-3, tmax,
                                          t_rounds=t_rounds),
                        trace_any_bruteforce(scene, ot, dt, 1e-3, tmax))
+
+
+@pytest.mark.parametrize("t_rounds", [24, 2])
+def test_resident_walk_one_launch_matches_plain_loop_and_twin(dev,
+                                                              t_rounds):
+    """The one-launch walk (walk_closest / walk_any with the pass cap):
+    one launch per walk; its hits and occlusion bit-equal to the
+    reference's pass loop (plain=True); its output rows, cursor rows and
+    per-block (passes, rounds) equal to the plain twin's
+    (walk_*_blocks_ref); the single-pass form (max_passes = 1) equal to
+    walk_*_ref from the first cursor and from the cursor a pass leaves;
+    the live count inside a block (3001 of 4000 rays); closest rays with
+    tmax = inf too (the rounds past the ranked leaves, at BIG)."""
+    from rendertoy3c_tpu_torch.accel.lbvh import split_order_scene
+    from rendertoy3c_tpu_torch.trace import residentwalk as rw
+
+    scene = split_order_scene(_box_grid_scene(16))
+    o, d = _rays(4000, 5, [-1, 0.1, -1], [17, 2.5, 17])
+    ot = torch.as_tensor(o, device=dev)
+    dt = torch.as_tensor(d, device=dev)
+    tab = rw.build_walk_table(scene.geom, scene.num_faces, device=dev)
+    tmax = torch.linspace(0.5, 30.0, ot.shape[0], device=dev)
+    count = torch.tensor([3001], dtype=torch.int32, device=dev)
+    cap = rw.pass_cap(tab, t_rounds)
+    closest = (rw.walk_closest, rw.walk_closest_blocks_ref,
+               rw.walk_closest_ref, rw.trace_closest_walk)
+    for kern, twin, ref, trace, t_hi in (
+            closest + (1e16,), closest + (float("inf"),),
+            (rw.walk_any, rw.walk_any_blocks_ref, rw.walk_any_ref,
+             rw.trace_any_walk, tmax)):
+        t_lo = 0.01 if kern is rw.walk_closest else 1e-3
+        before = kern.launches
+        counts = []
+        got = trace(tab, ot, dt, t_lo, t_hi, count=count, t_rounds=t_rounds,
+                    passes=counts)
+        assert kern.launches == before + 1
+        want = trace(tab, ot, dt, t_lo, t_hi, count=count, t_rounds=t_rounds,
+                     plain=True)
+        pairs = (zip(got[:4], want[:4]) if isinstance(got, tuple)
+                 else [(got, want)])
+        for a, b in pairs:
+            assert _bits(a.float(), b.float())
+        rays, _ = rw._pack(ot, dt, t_lo, t_hi, rw.RT)
+        er, ir = rw._start(rays, rw.RT)
+        out_k, cur_k, cnt_k = kern(count, er, ir, rays, tab, rw.RT, t_rounds,
+                                   cap)
+        out_p, cur_p, cnt_p = twin(count, er, ir, rays, tab, rw.RT, t_rounds,
+                                   cap)
+        assert _bits(out_k, out_p) and _bits(cur_k, cur_p)
+        assert torch.equal(cnt_k, cnt_p) and torch.equal(counts[0], cnt_p)
+        assert int(cnt_k[:, 0].max()) > 1 or t_rounds == 24
+        c_er, c_ir = er, ir
+        for _ in range(2):  # the first cursor, then the one a pass leaves
+            out_k, cur_k, cnt_k = kern(count, c_er, c_ir, rays, tab, rw.RT,
+                                       t_rounds)
+            out_p, cur_p = ref(count, c_er, c_ir, rays, tab, rw.RT, t_rounds)
+            assert _bits(out_k, out_p) and _bits(cur_k, cur_p)
+            assert (cnt_k[:, 0] == 1).all()
+            c_er = cur_k[:, 1].contiguous()
+            c_ir = cur_k[:, 2].to(torch.int32)
 
 
 def _wide_lanes(scene, cam, seed, dev, aov):

@@ -41,7 +41,7 @@ MODULES = [
     "rendertoy3c_tpu_torch.parallel.multihost",
     "rendertoy3c_tpu_torch.tools",
     "rendertoy3c_tpu_torch.tools.mesh_check",
-    "rendertoy3c_tpu_torch.tools.sweep_ab",
+    "rendertoy3c_tpu_torch.tools.ab",
 ]
 
 

@@ -112,4 +112,4 @@ def test_closest_matches_reference(case, cornell, field):
                                      torch.as_tensor(d), 0.01, 1e16)
     check_closest(got, want, brute)
     if case == "field_forced_passes":
-        assert passes[0] > 1  # the residual passes ran
+        assert int(passes[0][:, 0].max()) > 1  # the residual passes ran
