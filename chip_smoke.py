@@ -170,10 +170,12 @@ a JSON summary. Phases:
      as phase 27; each with Mray/s, launches per subframe (K9-inst, K9 and
      K6 with instance rows must launch), every pixel finite, the idle
      share of one profiled subframe;
- 31. K9-inst on the 2-key field's recorded states and K9 on the baked
-     field's, and K6 with instance rows on the fields' (C-major) and the
-     trace-time path's (row-major) recorded inputs: bit for bit against
-     their plain versions, timed and bounded as phases 24-25;
+ 31. K9-inst on the 2-key field's recorded states, K9-inst under the
+     trace-time walk drivers on the states of 4 of their launches in
+     multi_instance_tracetime's warm-up, and K9 on the baked field's, and
+     K6 with instance rows on the fields' (C-major) and the trace-time
+     path's (row-major) recorded inputs: bit for bit against their plain
+     versions, timed and bounded as phases 24-25;
  32. the resident-table walk (K8: walk_closest, walk_any) on bench's 49k
      box field split-ordered at 256-face runs: 131072 camera rays from
      (0, 20, 45) and one cosine bounce from each hit, the single-pass
@@ -2241,11 +2243,15 @@ def walk_path(name, scene, camera, dev, smi, change, timed=2, phase=27,
 def k9_work(s, pipe, rounds):
     """(bytes, operations, rows) of one K9 or K9-inst launch of `rounds`
     rounds from state s, counted round by round on a clone run by the
-    plain version: the rows the walking lanes gather (512 B each), their
-    leaf tests (MT, with the 2-key lerp of a flat table's leaves), slab
-    tests (with the bf16 unpack at fanout 32) or instance-row space
-    switches, every lane's pop over its pending entries and the round's
-    own operations; plus the state read and written once."""
+    plain version. Operations: the walking lanes' leaf tests (MT, with the
+    2-key lerp of a flat table's leaves), slab tests (with the bf16 unpack
+    at fanout 32) or instance-row space switches, every lane's pop over
+    its pending entries and the round's own operations. Bytes: each table
+    row the launch reaches read once (512 B; the lane-rounds that gather
+    the same row again are served by L2, which holds the whole table),
+    and the state read and written once. rows: the walking lane-rounds."""
+    import torch
+
     from rendertoy3c_tpu_torch.integrate import walkpool
     from rendertoy3c_tpu_torch.trace.hier_instanced import InstHierTable
     from rendertoy3c_tpu_torch.trace.hierwalk import _L_TYPE
@@ -2260,12 +2266,15 @@ def k9_work(s, pipe, rounds):
     inst_ops = INST_ROW_MOTION_OPS if pipe.motion else INST_ROW_OPS
     w = s.cur.shape[0]
     rows = leaves = insts = 0
+    reached = torch.zeros(tab.table.shape[0], dtype=torch.bool,
+                          device=s.cur.device)
     for _ in range(rounds):
         walkpool._launch_ref(s, inst)
         walking = s.cur >= 0
         typ = tab.table[s.cur.clamp(min=0).long(), _L_TYPE]
         is_inst = walking & (typ > 1.5)
         rows += int(walking.sum())
+        reached[s.cur[walking].long()] = True
         leaves += int((walking & (typ > 0.5) & ~is_inst).sum())
         insts += int(is_inst.sum())
         if inst:
@@ -2278,7 +2287,7 @@ def k9_work(s, pipe, rounds):
            + rounds * w * (WALK_ROUND_OPS
                            + tab.n_levels * tab.fanout * WALK_POP_OPS))
     state = sum(t.numel() * t.element_size() for _, t in s.tensors())
-    return rows * ROW_BYTES + 2 * state, ops, rows
+    return int(reached.sum()) * ROW_BYTES + 2 * state, ops, rows
 
 
 def phase_k9(dev, paths, label="K9", phase=24):
@@ -2336,10 +2345,63 @@ def phase_k9(dev, paths, label="K9", phase=24):
     print(f"phase {phase} {label} on the main paths' states: device time "
           f"{res['ms']:.4f} ms per launch vs plain {res['plain_ms']:.4f} ms; "
           f"walking lanes per round {np.mean(walking):.1f} of {pool}; bound "
-          f"{res['bound_ms']:.4f} ms by {res['bound_by']} (rows gathered x "
-          f"{ROW_BYTES} B over 3.35 TB/s against the slab, MT and space "
-          f"switch operations over 67 TFLOP/s; the tables, {mb} MB, sit in "
-          "the 50 MB L2)")
+          f"{res['bound_ms']:.4f} ms by {res['bound_by']} "
+          f"({k9_bound_terms(costs)}; the tables, {mb} MB)")
+    return res
+
+
+def k9_bound_terms(costs):
+    """The two terms of K9's bound for the phase lines."""
+    n_bytes = float(np.mean([c[0] for c in costs]))
+    ops = float(np.mean([c[1] for c in costs]))
+    return (f"the reached rows and the state, {n_bytes / 1e6:.3f} MB, over "
+            f"3.35 TB/s: {n_bytes / MEM_BPS * 1e3:.4f} ms; the slab, MT, "
+            f"space switch and pop operations, {ops / 1e6:.2f} M, over 67 "
+            f"TFLOP/s: {ops / FP32_OPS * 1e3:.4f} ms")
+
+
+def phase_k9_drivers(dev, walks, phase=31):
+    """Phase 31: K9-inst under the trace-time walk drivers
+    (trace_closest_inst_hier / trace_any_inst_hier, bare walks of 16
+    rounds a launch under multi_instance_tracetime's external pipeline) on
+    the states recorded at DRIVER_SNAPSHOTS launches: each launch bit-equal
+    to its plain version, then its device time, the plain version's, the
+    walking lanes and the bound of these launches' own rows and
+    operations (k9_work)."""
+    import types
+
+    import torch
+
+    from rendertoy3c_tpu_torch.integrate import walkpool
+
+    calls, plain_calls, costs, walking = [], [], [], []
+    for s, tab, motion, k in walks:
+        got, want = s.clone(), s.clone()
+        walkpool.walk_rounds(got, tab, motion, k)
+        walkpool.walk_rounds(want, tab, motion, k, plain=True)
+        for (col, a), (_, b) in zip(got.tensors(), want.tensors()):
+            check(torch.equal(a.reshape(-1).view(torch.uint8),
+                              b.reshape(-1).view(torch.uint8)),
+                  f"phase {phase} K9-inst (trace-time drivers): state "
+                  f"column {col} differs from the plain version")
+        n_bytes, ops, rows = k9_work(
+            s, types.SimpleNamespace(table=tab, motion=motion), k)
+        costs.append((n_bytes, ops))
+        walking.append(rows / k)
+        calls += [functools.partial(walkpool.walk_rounds, s.clone(), tab,
+                                    motion, k) for _ in range(6)]
+        plain_calls.append(functools.partial(
+            walkpool.walk_rounds, s.clone(), tab, motion, k, plain=True))
+    res = dict(max_abs_err=0.0, ms=device_ms(calls),
+               plain_ms=cuda_ms(plain_calls))
+    res["bound_ms"], res["bound_by"] = mean_bound(costs)
+    print(f"phase {phase} K9-inst (trace-time drivers) on the states of "
+          f"launches {DRIVER_SNAPSHOTS} of the warm-up, every state column "
+          f"bit-equal to the plain version: device time {res['ms']:.4f} ms "
+          f"per {walks[0][3]}-round launch of {walks[0][0].cur.shape[0]} "
+          f"lanes vs plain {res['plain_ms']:.4f} ms; walking lanes per "
+          f"round {np.mean(walking):.1f}; bound {res['bound_ms']:.4f} ms "
+          f"by {res['bound_by']} ({k9_bound_terms(costs)})")
     return res
 
 
@@ -2496,6 +2558,10 @@ INST_REPLACES = "rendertoy3c_tpu/integrate/walkpool.py:456"
 # pool iterations of the trace-time path's warm-up subframe whose K6
 # inputs are recorded
 EXT_SNAPSHOTS = (32, 200, 600, 1000)
+# K9-inst launches of the trace-time walk drivers (hier_instanced.py
+# trace_closest_inst_hier / trace_any_inst_hier, ~2 a pool iteration) in
+# that warm-up whose states are recorded
+DRIVER_SNAPSHOTS = (40, 400, 1200, 2400)
 
 
 def inst_scenes():
@@ -2625,27 +2691,37 @@ def tracetime_path(name, scene, camera, dev, smi, timed=TOWN_TIMED,
                    phase=30):
     """multi_instance_tracetime through make_render_fn over choose_tracer's
     external pipeline (with tune_config): 1 warm-up subframe, during which
-    K6's inputs at EXT_SNAPSHOTS pool iterations are recorded, `timed`
+    K6's inputs at EXT_SNAPSHOTS pool iterations and the walk drivers'
+    K9-inst states at DRIVER_SNAPSHOTS launches are recorded, `timed`
     subframes with the launch counters zeroed just before (K9-inst and K6
     with instance rows must launch), then the band of phase 5
     (NARROW_BAND) against the plain versions and one profiled subframe
-    (the idle share). Returns {launches, shade, tables, config,
+    (the idle share). Returns {launches, shade, walks, tables, config,
     row_major}."""
     import dataclasses
 
     import torch
 
     from rendertoy3c_tpu_torch.film.film import film_create
+    from rendertoy3c_tpu_torch.integrate import walkpool
     from rendertoy3c_tpu_torch.integrate.config import RenderConfig
     from rendertoy3c_tpu_torch.integrate.path import make_render_fn
     from rendertoy3c_tpu_torch.trace import shade
     from rendertoy3c_tpu_torch.trace.auto import choose_tracer, tune_config
+    from rendertoy3c_tpu_torch.trace.hier_instanced import \
+        make_inst_hierwalk_tracer
 
     cfg = tune_config(scene, RenderConfig(**MAIN), dev)
-    ordered, pipe = choose_tracer(scene, cfg, dev)
-    check(isinstance(pipe, shade.ExternalPipeline) and pipe.instanced,
-          f"{name}: choose_tracer gave {type(pipe).__name__}")
-    rec = dict(on=True, it=0, shade=[])
+    ordered, chosen = choose_tracer(scene, cfg, dev)
+    check(isinstance(chosen, shade.ExternalPipeline) and chosen.instanced,
+          f"{name}: choose_tracer gave {type(chosen).__name__}")
+    rec = dict(on=True, it=0, shade=[], walk_it=0, walks=[])
+
+    def walk_fn(s, tab, motion, rounds, plain=False):
+        if rec["on"] and rec["walk_it"] in DRIVER_SNAPSHOTS:
+            rec["walks"].append((s.clone(), tab, motion, rounds))
+        rec["walk_it"] += 1
+        walkpool.walk_rounds(s, tab, motion, rounds, plain=plain)
 
     def shade_fn(rays, hit4, misc, tables, config, inst=None):
         if rec["on"] and rec["it"] in EXT_SNAPSHOTS:
@@ -2655,7 +2731,12 @@ def tracetime_path(name, scene, camera, dev, smi, timed=TOWN_TIMED,
         return shade.external_shade(rays, hit4, misc, tables, config,
                                     inst=inst)
 
-    pipe.shade_fn = shade_fn
+    # choose_tracer's pipeline, its drivers' launches and K6's routed
+    # through the recording functions
+    pipe = shade.ExternalPipeline(
+        ordered, cfg, make_inst_hierwalk_tracer(ordered, dev,
+                                                walk_fn=walk_fn),
+        dev, shade_fn=shade_fn)
     step = make_render_fn(ordered, cfg, tracer=pipe, device=dev)
     cam = camera.params()
     film = film_create(cfg.height, cfg.width, device=dev)
@@ -2667,6 +2748,9 @@ def tracetime_path(name, scene, camera, dev, smi, timed=TOWN_TIMED,
     rec["on"] = False
     check(len(rec["shade"]) == len(EXT_SNAPSHOTS),
           f"{name}: {rec['it']} pool iterations, too few for the snapshots")
+    check(len(rec["walks"]) == len(DRIVER_SNAPSHOTS),
+          f"{name}: {rec['walk_it']} walk launches, too few for the "
+          "snapshots")
     for fn, attr in counters.values():
         setattr(fn, attr, 0)
     rates, secs, iters = [], [], []
@@ -2699,8 +2783,8 @@ def tracetime_path(name, scene, camera, dev, smi, timed=TOWN_TIMED,
     idle = profile_subframe(step, film, camera, float(np.median(secs)),
                             phase, ("walk_kernel", "external_shade_kernel"))
     PATHS[name] = (float(np.median(rates)), idle)
-    return dict(launches=launches, shade=rec["shade"], tables=pipe.tables,
-                config=pipe.config, row_major=True)
+    return dict(launches=launches, shade=rec["shade"], walks=rec["walks"],
+                tables=pipe.tables, config=pipe.config, row_major=True)
 
 
 def inst_band(dev, smi, t_start):
@@ -2744,13 +2828,20 @@ def inst_band(dev, smi, t_start):
     # ---- phase 31: the kernels on the main paths' recorded inputs
     k9i = phase_k9(dev, {"multi_instance_motion":
                          paths["multi_instance_motion"]}, "K9-inst", 31)
+    drivers = phase_k9_drivers(dev, paths["multi_instance_tracetime"]["walks"])
     phase_k9(dev, {"multi_instance_large": paths["multi_instance_large"]},
              "K9 (baked world table)", 31)
+    tracetime = paths["multi_instance_tracetime"]["launches"]
     entries = [dict(name="walk_rounds_inst", route="cuda", source=WALK_SRC,
                     replaces=INST_REPLACES,
                     launches=sum(p["launches"]["walk_rounds_inst"]
-                                 for p in paths.values()),
-                    **k9i, library_ms=None)]
+                                 for k, p in paths.items()
+                                 if k != "multi_instance_tracetime"),
+                    **k9i, library_ms=None),
+               dict(name="walk_rounds_inst_tracetime", route="cuda",
+                    source=WALK_SRC, replaces=INST_REPLACES,
+                    launches=tracetime["walk_rounds_inst"], **drivers,
+                    library_ms=None)]
     fields = {k: dict(v, tables=v["pipe"].shade_tables,
                       config=v["pipe"].shade_config)
               for k, v in paths.items() if k != "multi_instance_tracetime"}

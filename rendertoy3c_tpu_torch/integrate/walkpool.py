@@ -17,7 +17,7 @@ walks, retires and refills paths; every `flush_every` boundaries the
 retire stash flushes into the image.
 
 K9 (kernels/csrc/walk.cu) runs the K rounds between two boundaries in one
-launch, one thread per lane; `_pipe_rounds_ref` is its plain version
+launch, a group of threads per lane; `_pipe_rounds_ref` is its plain version
 (`_launch_ref`, `_walk_round`, `_stash_and_gate_ref`). Per-pixel results
 do not depend on the schedule: every draw is keyed by pixel and sample
 and one lane runs all samples of its pixel, so P, K and the cadence

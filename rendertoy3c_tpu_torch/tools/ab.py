@@ -21,12 +21,26 @@ Workloads:
                  cfg_sorted) through make_walk_tracer's pair, recording
                  the inputs of every 10th closest and shadow call; then 4
                  of each, spread over the subframe, each walk
-                 (trace_closest_walk / trace_any_walk) run 3 times under
-                 torch.profiler: device ms per walk (the K8 kernels' time
-                 summed), K8 launches per walk, and the host ms per walk
-                 between two synchronizes; the outputs agree when every
-                 walk's output bits hash alike.
+                 (trace_closest_walk / trace_any_walk) run 3 times: K8
+                 launches per walk and the host ms per walk between two
+                 synchronizes; and its K8 launch (walk_closest / walk_any
+                 on the walk's packed rays, to the pass cap) run 3 times
+                 as walk-round's: device ms per walk; the outputs agree
+                 when every walk's output bits hash alike.
+  walk-round     the walk pool's rounds (K9, K9-inst): the pool states at
+                 boundaries 8, 40, 100 and 200 of one 768^2 8-spp
+                 depth-16 subframe of the 50000-face town (K9) and of the
+                 2-key 578-instance field (`multi_instance_motion`,
+                 K9-inst), each with tune_config's pool; then each
+                 recorded launch (16 and 20 rounds) run 3 times, each from
+                 a clone of its state: device ms per launch (`_queued_ms`:
+                 CUDA events around the 3 launches queued behind a spin
+                 kernel), the
+                 walking lane-rounds per launch (the `rows` count) and the
+                 host ms per launch between two synchronizes; the outputs
+                 agree when every state column's bits hash alike.
 """
+import functools
 import hashlib
 import json
 import os
@@ -103,21 +117,31 @@ def _digest(tensors) -> str:
     return h.hexdigest()[:16]
 
 
-def _device_us(run) -> float:
-    """Device microseconds of the resident-walk kernels that run()
-    launches, from torch.profiler's raw events."""
+def _queued_ms(calls) -> float:
+    """Mean device ms per call of `calls` (a list of fresh calls each
+    time), queued behind a spin kernel between two CUDA events so that the
+    events time the kernels back to back and not the host's launch work
+    (chip_smoke.py's device_ms); the spin lengthens until it outlasts the
+    queueing."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run()
+    cycles = int(0.05 * 2e9)  # the spin counts SM clock cycles, ~2 GHz
+    for _ in range(4):
+        queue = calls()
         torch.cuda.synchronize()
-    return sum(e.duration_ns() / 1e3
-               for e in prof.profiler.kineto_results.events()
-               if e.device_type() == DeviceType.CUDA
-               and "resident_walk" in e.name())
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        a.record()
+        for call in queue:
+            call()
+        held = not a.query()
+        b.record()
+        b.synchronize()
+        if held:
+            return a.elapsed_time(b) / len(queue)
+        cycles *= 4
+    raise RuntimeError("the spin kernel never outlasted the queueing")
 
 
 def resident_walk() -> dict:
@@ -171,20 +195,23 @@ def resident_walk() -> dict:
         pick = [live[int(i)] for i in np.linspace(0, len(live) - 1, PICKS)]
         rows = []
         for o, d, tmin, tmax, count in pick:
-            def run(o=o, d=d, tmin=tmin, tmax=tmax, count=count):
-                return trace(tab, o, d, tmin, tmax, count=count)
-            res = run()
+            res = trace(tab, o, d, tmin, tmax, count=count)
             bits = _digest(list(res) if kind == "closest" else [res])
             before = counter.launches
-            us = _device_us(lambda: [run() for _ in range(REPEATS)])
-            launches = (counter.launches - before) / REPEATS
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(REPEATS):
-                run()
+                trace(tab, o, d, tmin, tmax, count=count)
             torch.cuda.synchronize()
             host_ms = (time.perf_counter() - t0) * 1e3 / REPEATS
-            rows.append(dict(count=int(count), device_ms=us / 1e3 / REPEATS,
+            launches = (counter.launches - before) / REPEATS
+            rays, r = rw._pack(o, d, tmin, tmax, rw.RT)
+            er, ir = rw._start(rays, rw.RT)
+            a = (rw._count(count, r, dev), er, ir, rays, tab, rw.RT,
+                 rw.T_ROUNDS, rw.pass_cap(tab, rw.T_ROUNDS))
+            ms = _queued_ms(lambda: [functools.partial(counter, *a)
+                                     for _ in range(REPEATS)])
+            rows.append(dict(count=int(count), device_ms=ms,
                              launches=launches, host_ms=host_ms, bits=bits))
         out[kind] = dict(
             walks=rows,
@@ -198,9 +225,103 @@ def resident_walk() -> dict:
     return out
 
 
+WALK_FACES = 50000  # bench's _town_scene(50000)
+WALK_SNAPSHOTS = (8, 40, 100, 200)
+
+
+def _walk_states(scene, camera, dev):
+    """(pipeline, pool states at WALK_SNAPSHOTS boundaries, accum sum,
+    seconds) of one tune_config subframe of the walk pool on `scene`."""
+    import dataclasses
+
+    import torch
+
+    from rendertoy3c_tpu_torch.film.film import film_create
+    from rendertoy3c_tpu_torch.integrate import walkpool
+    from rendertoy3c_tpu_torch.integrate.config import RenderConfig
+    from rendertoy3c_tpu_torch.integrate.path import make_render_fn
+    from rendertoy3c_tpu_torch.trace.auto import choose_tracer, tune_config
+
+    cfg = tune_config(scene, RenderConfig(**MAIN), dev)
+    scene, pipe = choose_tracer(scene, cfg, dev)
+    states, seen = [], [0]
+
+    def walk_fn(s, tab, motion, k):
+        if seen[0] in WALK_SNAPSHOTS:
+            states.append(s.clone())
+        seen[0] += 1
+        walkpool.walk_rounds(s, tab, motion, k)
+
+    step = make_render_fn(scene, cfg, tracer=dataclasses.replace(
+        pipe, walk_fn=walk_fn), device=dev)
+    film = film_create(cfg.height, cfg.width, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    film, _ = step(camera.params(), film)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if len(states) != len(WALK_SNAPSHOTS):
+        raise RuntimeError(f"{seen[0]} boundaries, too few for the "
+                           "snapshots")
+    return pipe, states, float(film.accum.double().sum()), secs
+
+
+def walk_round() -> dict:
+    """The recorded K9 and K9-inst launches, each timed 3 times."""
+    import torch
+
+    from rendertoy3c_tpu_torch.integrate import walkpool
+    from rendertoy3c_tpu_torch.integrate.config import RenderConfig
+    from rendertoy3c_tpu_torch.scene.builtin import instance_field
+    from rendertoy3c_tpu_torch.scene.instanced import build_instanced_scene
+    from rendertoy3c_tpu_torch.scene.town import town_scene
+
+    dev = torch.device("cuda")
+    field = instance_field(True)
+    scenes = {"k9": town_scene(WALK_FACES),
+              "k9_inst": (build_instanced_scene(*field[:2]), field[2])}
+    out = dict(identity=[], accum_sum={}, means={}, subframe_s=0.0)
+    for kind, (scene, camera) in scenes.items():
+        pipe, states, out["accum_sum"][kind], secs = _walk_states(
+            scene, camera, dev)
+        out["subframe_s"] += secs
+        k = walkpool.phase_rounds(
+            RenderConfig(), pipe.n_levels,
+            spacewalk=pipe.instanced and not pipe.inst_stride)
+        launches = []
+        for s in states:
+            done = []
+
+            def calls(s=s):
+                done[:] = [s.clone() for _ in range(REPEATS)]
+                return [functools.partial(walkpool.walk_rounds, c,
+                                          pipe.table, pipe.motion, k)
+                        for c in done]
+
+            ms = _queued_ms(calls)
+            out["identity"].append(_digest(t for _, t in done[0].tensors()))
+            rows = int(done[0].rows) - int(s.rows)
+            clones = [s.clone() for _ in range(REPEATS)]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for c in clones:
+                walkpool.walk_rounds(c, pipe.table, pipe.motion, k)
+            torch.cuda.synchronize()
+            launches.append(dict(
+                device_ms=ms, rows=rows,
+                host_ms=(time.perf_counter() - t1) * 1e3 / REPEATS))
+        out[kind] = dict(rounds=k, pool=states[0].cur.shape[0],
+                         launches=launches)
+        for m in ("device_ms", "rows", "host_ms"):
+            out["means"][f"{kind}_{m}"] = statistics.fmean(
+                x[m] for x in launches)
+    return out
+
+
 # each returns its turn's numbers: "means" (averaged per checkout),
 # "subframe_s", and "identity" (equal across checkouts whose outputs agree)
-WORKLOADS = {"mt-sweep": mt_sweep, "resident-walk": resident_walk}
+WORKLOADS = {"mt-sweep": mt_sweep, "resident-walk": resident_walk,
+             "walk-round": walk_round}
 
 
 def turn(workload: str, root: str) -> dict:

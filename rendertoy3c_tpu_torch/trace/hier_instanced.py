@@ -372,14 +372,15 @@ def _inst_times(tab: InstHierTable, time, r: int, device):
 
 
 def trace_closest_inst_hier(tab: InstHierTable, o, d, tmin, tmax,
-                            count=None, time=None,
-                            plain: bool = False) -> Hit:
+                            count=None, time=None, plain: bool = False,
+                            walk_fn=None) -> Hit:
     """Closest hit and its instance by the instanced walk (only the first
-    `count` rays are live)."""
+    `count` rays are live). walk_fn replaces integrate/walkpool.py
+    `walk_rounds` (same signature)."""
     from .hierwalk import _walk
 
     s = _walk(tab, o, d, tmin, tmax, count, False,
-              _inst_times(tab, time, o.shape[0], o.device), plain)
+              _inst_times(tab, time, o.shape[0], o.device), plain, walk_fn)
     valid = (s.wb_prim >= 0) & (s.wb_prim < tab.num_faces)
     zero = torch.zeros_like(s.wb_u)
     return Hit(t=torch.where(valid, s.wb_t, s.ray[:, 7]),
@@ -390,19 +391,25 @@ def trace_closest_inst_hier(tab: InstHierTable, o, d, tmin, tmax,
 
 
 def trace_any_inst_hier(tab: InstHierTable, o, d, tmin, tmax, count=None,
-                        time=None, plain: bool = False) -> torch.Tensor:
-    """Occlusion [R] bool by the instanced walk."""
+                        time=None, plain: bool = False,
+                        walk_fn=None) -> torch.Tensor:
+    """Occlusion [R] bool by the instanced walk; walk_fn as
+    trace_closest_inst_hier."""
     from .hierwalk import _walk
 
     return _walk(tab, o, d, tmin, tmax, count, True,
-                 _inst_times(tab, time, o.shape[0], o.device), plain).wfound
+                 _inst_times(tab, time, o.shape[0], o.device), plain,
+                 walk_fn).wfound
 
 
-def make_inst_hierwalk_tracer(iscene, device, plain: bool = False):
+def make_inst_hierwalk_tracer(iscene, device, plain: bool = False,
+                              walk_fn=None):
     """(closest, any_hit) over the instanced walk of a static or 2-key
     scene (order it with split_order_instanced first), each f(o, d,
     tmin, tmax, time, count). The walk is K9-inst on a CUDA device, its
-    plain version on the CPU or with `plain`."""
+    plain version on the CPU or with `plain`; walk_fn, if given, replaces
+    integrate/walkpool.py `walk_rounds` (same signature) in every launch,
+    as the walk pool's walk_fn does."""
     if iscene.num_keys > 2:
         raise ValueError("the instanced walk takes at most 2 transform keys "
                          "(ROADMAP C1)")
@@ -410,10 +417,11 @@ def make_inst_hierwalk_tracer(iscene, device, plain: bool = False):
 
     def closest(o, d, tmin, tmax, time=None, count=None):
         return trace_closest_inst_hier(tab, o, d, tmin, tmax, count, time,
-                                       plain)
+                                       plain, walk_fn)
 
     def any_hit(o, d, tmin, tmax, time=None, count=None):
-        return trace_any_inst_hier(tab, o, d, tmin, tmax, count, time, plain)
+        return trace_any_inst_hier(tab, o, d, tmin, tmax, count, time, plain,
+                                   walk_fn)
 
     return closest, any_hit
 

@@ -383,11 +383,23 @@ def _dir_entries(rows, o, inv, tmin, tcur, fanout: int = FANOUT):
         ic = inv[:, c:c + 1]
         t0 = (lo - oc) * ic
         t1 = (hi - oc) * ic
-        tn = torch.maximum(tn, torch.minimum(t0, t1))
-        tf = torch.minimum(tf, torch.maximum(t0, t1))
+        tn = _max0(tn, _min0(t0, t1))
+        tf = _min0(tf, _max0(t0, t1))
     ok = (tn <= tf) & (tf > tmin) & (tn < tcur)
-    return torch.where(ok, torch.maximum(tn, tmin),
-                       torch.full_like(tn, _BIG))
+    return torch.where(ok, _max0(tn, tmin), torch.full_like(tn, _BIG))
+
+
+def _min0(a, b):
+    """torch.minimum with -0 below +0, as the reference's jnp.minimum
+    orders the two zeros (torch keeps one operand when they tie)."""
+    return torch.where(a == b, torch.where(torch.signbit(a), a, b),
+                       torch.minimum(a, b))
+
+
+def _max0(a, b):
+    """torch.maximum with +0 above -0, as the reference's jnp.maximum."""
+    return torch.where(a == b, torch.where(torch.signbit(a), b, a),
+                       torch.maximum(a, b))
 
 
 def _safe_inv(d):
@@ -407,12 +419,15 @@ def _prune_cut(best_t):
 
 # ------------------------------------------------------ the walk tracers
 def _walk(tab, o, d, tmin, tmax, count, any_mode: bool, time=None,
-          plain: bool = False):
+          plain: bool = False, walk_fn=None):
     """Run the walk round (integrate/walkpool.py `walk_rounds`: K9 on a
     CUDA device, its plain version on the CPU or with `plain`; K9-inst
     for an instanced table) to completion over a ray batch, 16 rounds per
-    launch. Returns the final walk state."""
+    launch. walk_fn replaces walk_rounds (same signature). Returns the
+    final walk state."""
     from ..integrate.walkpool import new_walk_state, walk_rounds
+
+    walk_fn = walk_fn or walk_rounds
 
     r = o.shape[0]
     dev = o.device
@@ -433,7 +448,7 @@ def _walk(tab, o, d, tmin, tmax, count, any_mode: bool, time=None,
     s.wb_t.copy_(tmax)
     motion = time is not None
     while bool((s.cur >= 0).any()):
-        walk_rounds(s, tab, motion, 16, plain=plain)
+        walk_fn(s, tab, motion, 16, plain=plain)
     return s
 
 

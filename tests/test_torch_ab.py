@@ -1,6 +1,8 @@
 """tools/ab.py's summary: the mean of each turn number per checkout, and
-the agreement of the checkouts' outputs. The turns themselves need a
-CUDA card."""
+the agreement of the checkouts' outputs; its workloads' usage and
+argument check. The turns themselves need a CUDA card."""
+import sys
+
 import pytest
 
 from rendertoy3c_tpu_torch.tools import ab
@@ -27,3 +29,15 @@ def test_summary_means_per_checkout_and_agreement(identity_b, same):
 def test_every_workload_is_listed_in_the_usage():
     for name in ab.WORKLOADS:
         assert name in ab.__doc__
+
+
+@pytest.mark.parametrize("argv", [["walk-round"], ["walk-rounds", "."]],
+                         ids=["no_root", "unknown_workload"])
+def test_walk_round_is_listed_and_its_arguments_checked(argv, monkeypatch,
+                                                        capsys):
+    """Without a root, or with a workload's name misspelt, the tool
+    prints the usage, which lists `walk-round`, and exits 2 before it
+    looks for a card."""
+    monkeypatch.setattr(sys, "argv", ["ab.py", *argv])
+    assert ab.main() == 2
+    assert "walk-round" in capsys.readouterr().err

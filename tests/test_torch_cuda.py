@@ -1191,6 +1191,178 @@ def test_inst_walk_kernel_matches_plain_version(dev, case):
     assert (walkpool.walk_rounds.inst_launches > before) == (case != "baked")
 
 
+def _deepen(tab, levels):
+    """A flat table walked as before under `levels` - n_levels more
+    directory levels of one child each: the same hits at up to 8 levels,
+    where K9 holds its entries for 8."""
+    from rendertoy3c_tpu_torch.trace.hierwalk import HierTable
+
+    extra, f = levels - tab.n_levels, tab.fanout
+    t = tab.table.cpu().numpy().copy()
+    lo = t[0, :3 * f].reshape(3, f)
+    hi = t[0, 3 * f:6 * f].reshape(3, f)
+    real = lo[0] < 1e29
+    top = np.zeros((extra, 128), np.float32)
+    top[:, :6 * f] = 1e30
+    top[:, 0:3 * f:f] = lo[:, real].min(axis=1)
+    top[:, 3 * f:6 * f:f] = hi[:, real].max(axis=1)
+    top[:, 126] = np.arange(1, extra + 1)
+    dirs = t[:, 127] < 0.5
+    t[dirs, 126] += extra
+    return HierTable(
+        table=torch.as_tensor(np.concatenate([top, t]),
+                              device=tab.table.device),
+        level_starts=tuple(range(extra)) + tuple(
+            s + extra for s in tab.level_starts),
+        leaf_start=tab.leaf_start + extra, num_faces=tab.num_faces,
+        fanout=f)
+
+
+def _corner_table(case, dev):
+    """(table, motion) of a corner case: tests/walk_tie_util.py's flat
+    table (duplicated faces in a leaf, duplicated leaves in a directory)
+    at fanout 16 or 20, static or with 2-key leaves, and at 8 levels
+    (`deep`), or its instanced table (duplicated instances) at fanout 16,
+    20 or 32 with static or 2-key instance rows, or bench's 2-key
+    578-instance field at fanout 20 (5 levels: `field`)."""
+    from rendertoy3c_tpu_torch.scene.builtin import instance_field
+    from rendertoy3c_tpu_torch.scene.instanced import build_instanced_scene
+    from rendertoy3c_tpu_torch.scene.mesh import Mesh
+    from rendertoy3c_tpu_torch.scene.scene import Instance
+    from rendertoy3c_tpu_torch.trace import hier_instanced, hierwalk
+    from walk_tie_util import flat_geom, inst_parts
+
+    kind, motion, fanout = case.split("_")
+    motion, fanout = motion == "2key", int(fanout[1:])
+    if kind in ("flat", "deep"):
+        g = flat_geom(motion)
+        tab = hierwalk.build_hier_table(g, g.v0.shape[1],
+                                        num_keys=1 + motion, fanout=fanout,
+                                        device=dev)
+        return (_deepen(tab, 8) if kind == "deep" else tab), motion
+    if kind == "field":
+        meshes, inst, _ = instance_field(motion)
+        scene = hier_instanced.split_order_instanced(
+            build_instanced_scene(meshes, inst))
+        return hier_instanced.build_inst_hier_table(scene, fanout=fanout,
+                                                    device=dev), motion
+    verts, idx, xforms = inst_parts(motion)
+    scene = build_instanced_scene(
+        [Mesh(vertices=verts[None], indices=idx)],
+        [Instance(mesh_index=0, transforms=t) for t in xforms])
+    return hier_instanced.build_inst_hier_table(scene, fanout=fanout,
+                                                device=dev), motion
+
+
+def _corner_state(tab, w, seed, dev, inst):
+    """A pool of w lanes and 2 paths over walk_tie_util's dyadic rays: 40%
+    shadow walks (tmax 0.5-8, so some find an occluder within a launch),
+    the first path pending on 90% of the lanes and the second on 50%,
+    bounce rays and NEE terms for the gate, and on the lanes with nothing
+    pending stale entries (quarters in [0, 8]) against a best t of 4,
+    occluded on a third of them; those stay idle (their entries would
+    send a new walk to rows that do not exist). Returns (state, the idle
+    lanes)."""
+    from rendertoy3c_tpu_torch.integrate import walkpool
+    from walk_tie_util import rays
+
+    rng = np.random.default_rng(seed)
+    lo, hi = (-5, 11) if inst else (-1, 13)
+    s = walkpool.new_walk_state(w, tab.n_levels, tab.fanout, 2, 16, "cpu")
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32))
+
+    for p in range(2):
+        o, d, tmin, tmax, time = rays(w, seed + 10 + p, False, lo, hi)
+        s.nrays[p] = t(np.concatenate([o, d, tmin[:, None], tmax[:, None]],
+                                      1))
+        s.btime[p] = t(time)
+        s.mc[p, 9] = t(rng.choice([-1.0, 1.0], w))
+        s.mc[p, 10:13] = t(rng.uniform(0, 1, (3, w)))
+        s.nee[p] = t(rng.uniform(0, 1, (3, w)))
+    _pend(s, rng, seed, lo, hi, torch.ones(w, dtype=torch.bool))
+    idle = ~s.pvalid.any(dim=0)
+    stale = t(rng.integers(0, 33, s.ents.shape) / 4)
+    keep = torch.as_tensor(rng.uniform(size=s.ents.shape) < 0.5)
+    s.ents.copy_(torch.where(idle & keep, stale, s.ents))
+    s.wb_t.copy_(torch.where(idle, 4.0, s.wb_t))
+    s.wfound.copy_(idle & torch.as_tensor(rng.uniform(size=w) < 1 / 3))
+    return (walkpool.WalkState(**{n: x.to(dev) for n, x in s.tensors()}),
+            idle.to(dev))
+
+
+def _pend(s, rng, seed, lo, hi, lanes, share=(0.9, 0.5)):
+    """Pend new walks as a boundary does: path p on a share of `lanes`
+    where it has none pending, 40% of them shadow walks."""
+    from walk_tie_util import rays
+
+    w, dev = s.cur.shape[0], s.cur.device
+    for p in range(2):
+        o, d, tmin, tmax, time = rays(w, seed + p, True, lo, hi)
+        shadow = rng.uniform(size=w) < 0.4
+        tmax = np.where(shadow, tmax, np.float32(1e16))
+        new = torch.as_tensor(rng.uniform(size=w) < share[p],
+                              device=dev) & lanes & ~s.pvalid[p]
+        ray8 = torch.as_tensor(np.concatenate(
+            [o, d, tmin[:, None], tmax[:, None]], 1), device=dev)
+        s.pray[p] = torch.where(new[:, None], ray8, s.pray[p])
+        s.ptime[p] = torch.where(new, torch.as_tensor(time, device=dev),
+                                 s.ptime[p])
+        s.pmode[p] = torch.where(new, torch.as_tensor(shadow, device=dev),
+                                 s.pmode[p])
+        s.pvalid[p] |= new
+
+
+CORNERS = [(c, 4096) for c in ("flat_static_f16", "flat_static_f20",
+                               "flat_2key_f20", "deep_static_f16",
+                               "inst_static_f16", "inst_static_f32",
+                               "inst_2key_f20", "inst_2key_f32",
+                               "field_2key_f20")]
+CORNERS += [(c, w) for c in ("flat_static_f20", "inst_2key_f32")
+            for w in (1, 5, 8192, 16384)]
+
+
+@pytest.mark.parametrize("case, w", CORNERS,
+                         ids=[f"{c}-w{w}" for c, w in CORNERS])
+def test_walk_kernel_group_corners_match_plain_version(dev, case, w):
+    """K9 and K9-inst's group reductions at their corners, against
+    walk_rounds(plain=True): walk_tie_util's tables (equal t on two lanes
+    of a leaf, equal entries in a level; rays through vertices and edges,
+    from a face with a negative tmin: t, u, v of +-0), levels whose
+    entries are all _BIG, idle lanes with stale entries, shadow walks
+    that find an occluder within a launch, relaunches through the gate;
+    fanouts 16, 20 and 32, static and 2-key leaves and instance rows, 2
+    to 8 levels; W = 1, 5 (a CTA's 4 lanes and one more), 4096, 8192 and
+    16384. After 3
+    plain rounds, launches of 5, K, 3 and K rounds (new walks pended
+    before each as at a boundary), each from the plain version's state:
+    every state column bit for bit."""
+    from rendertoy3c_tpu_torch.integrate import walkpool
+    from rendertoy3c_tpu_torch.trace.hier_instanced import InstHierTable
+
+    tab, motion = _corner_table(case, dev)
+    inst = isinstance(tab, InstHierTable)
+    k = 20 if inst else 16
+    s, idle = _corner_state(tab, w, 7 + w, dev, inst)
+    walkpool.walk_rounds(s, tab, motion, 3, plain=True)
+    rng = np.random.default_rng(w)
+    walked = 0
+    for i, rounds in enumerate((5, k, 3, k)):
+        if i:  # a boundary's new walks; 5 and 3 rounds stop walks midway
+            _pend(s, rng, 100 * i + w, *((-5, 11) if inst else (-1, 13)),
+                  ~idle, share=(0.3, 0.3))
+        got, want = s.clone(), s.clone()
+        walkpool.walk_rounds(got, tab, motion, rounds)
+        walkpool.walk_rounds(want, tab, motion, rounds, plain=True)
+        for (name, a), (_, b) in zip(got.tensors(), want.tensors()):
+            assert torch.equal(a.view(torch.uint8), b.view(torch.uint8)), name
+        walked += int(want.rows) - int(s.rows)
+        s = want
+    assert walked > 0
+    assert bool(s.hvalid.any()) or w < 17
+
+
 @pytest.mark.parametrize("motion", [False, True])
 def test_inst_hier_tracers_match_plain_versions(dev, motion):
     """trace_closest_inst_hier / trace_any_inst_hier on K9-inst against

@@ -160,6 +160,33 @@ def test_inst_tracers_match_brute_tracers(fields, motion):
                                   h.prim[:N // 8].numpy())
 
 
+@pytest.mark.parametrize("motion", [False, True], ids=["static", "2key"])
+def test_inst_tracer_routes_every_launch_through_walk_fn(fields, motion):
+    """make_inst_hierwalk_tracer's walk_fn takes every launch of both
+    drivers in place of walk_rounds, and the hits and occlusion stay
+    those of the default tracer bit for bit."""
+    _, _, ts, _ = fields[motion]
+    o, d, tmax, time = (torch.as_tensor(x) for x in _rays(41, True, 256))
+    t = time if motion else None
+    seen = []
+
+    def walk_fn(s, tab, motion_, rounds, plain=False):
+        seen.append((s.cur.shape[0], motion_, rounds))
+        tw.walk_rounds(s, tab, motion_, rounds, plain=plain)
+
+    mine = hi.make_inst_hierwalk_tracer(ts, "cpu", walk_fn=walk_fn)
+    base = hi.make_inst_hierwalk_tracer(ts, "cpu")
+    hit = mine[0](o, d, 1e-3, 1e16, t)
+    n_closest = len(seen)
+    got = hit, mine[1](o, d, 1e-3, tmax, t)
+    want = base[0](o, d, 1e-3, 1e16, t), base[1](o, d, 1e-3, tmax, t)
+    assert 0 < n_closest < len(seen)
+    assert set(seen) == {(256, motion, 16)}
+    for a, b in zip(got[0], want[0]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert torch.equal(got[1], want[1])
+
+
 @pytest.mark.parametrize("tv", [0.0, 1.0])
 def test_matrix_motion_time_extremes(fields, tv):
     """At t = 0 and t = 1 the walk reproduces the key transforms: prims
