@@ -24,18 +24,23 @@ a JSON summary. Phases:
   4. the gate (bench.py:115-116) of kernels against plain versions at 96^2,
      2 spp, max_depth 6, ray_block 4096;
   5. the Cornell main path: 768^2, 8 spp, max_depth 16, ray_block 32768,
-     pixel-major pool; 1 warm-up and 2 timed subframes with the kernels;
+     pixel-major pool; 1 warm-up and 1 timed subframe with the kernels
+     (TIMED, as for every main path below);
      Mray/s counted as radiance + shadow rays; every pixel finite; the
      kernels held to the plain versions on the middle sixteenth of the
      image (rows 360-408: one subframe each through render_pixels, means
      within 1%, the gate, with AOV the albedo and normal bands bit-equal;
      every main path below that has plain versions does the same, the
      trace-time instanced path on rows 376-392); then a profile of one
-     more subframe (every main path profiles one subframe after its timed
-     ones, with any input recording off, but for nine whose kernels and
-     pool a sibling path profiles: the textured quad sorted and its 2-key
-     sample-major, the material Cornell sorted power, the textured 2-key
-     and both principled MT towns, walk configs 2, 4 and 5);
+     more subframe (the idle share, against the untraced timed subframe;
+     a phase fails if its profile shows no device time or misses one of
+     its kernels). One main path per pool and kernel family is profiled:
+     Cornell and every K4 path, Cornell sorted (K5), the static MT town,
+     the 49k box field (walk pool), multi_instance_tracetime (the
+     trace-time walk drivers), `--tracer residentwalk` (K8) and K7's path;
+     the paths of phases 27, 30, 34 and 38 profile their warm-up subframe
+     instead of one more. A traced subframe lasts ~3 untraced ones on the
+     host-bound paths;
   6. the PNG of the kernel render;
   7. K1/K2 on the static and K3 (mt_closest_motion, mt_any_motion) on the
      2-key 16054-face town, against their plain versions and the brute
@@ -58,11 +63,10 @@ a JSON summary. Phases:
   9. the gate of phase 4 on the external path, the 4294-face town, static
      and 2-key;
  10. both 16054-face towns at the main path's config: 1 warm-up (phase
-     7's recorded subframe) and 2 timed subframes with the kernels (TOWN_TIMED, as for every MT town
-     path of phases 17, 20 and 23), the band of phase 5 against the
-     plain versions; Mray/s, launches per subframe, every pixel finite, and
-     the device idle share of one profiled subframe (a phase fails if its
-     profile shows no device time or misses one of its kernels);
+     7's recorded subframe) and 1 timed subframe with the kernels, the
+     band of phase 5 against the plain versions; Mray/s, launches per
+     subframe, every pixel finite, and (the static town) the device idle
+     share of one profiled subframe;
  11. K4's motion variant against its plain version on the 2-key Cornell
      box (the last block given a second key at +0.1 in x), as phase 3:
      stats and the time buffer exact over 8 launches of one block, then
@@ -144,10 +148,10 @@ a JSON summary. Phases:
      1920x1080), configs 2, 4 and 5 (the textured town, its 2-key form,
      the principled town with the power pick; sort_rays, which the walk
      pool ignores) and the 49k box field at 768^2, 8 spp, depth 16: 1
-     warm-up and 2 timed subframes each (bench.py's timed_c=2), Mray/s,
-     boundaries, K9 launches and walk rounds per subframe, rows gathered
-     per ray, every pixel finite, the idle share of one profiled subframe;
-     and one textured AOV subframe. No plain subframe runs at these sizes:
+     warm-up and 1 timed subframe each, Mray/s, boundaries, K9 launches
+     and walk rounds per subframe, rows gathered per ray, every pixel
+     finite, the idle share of the 49k field's profiled warm-up; and one
+     textured AOV subframe. No plain subframe runs at these sizes:
      the plain walk runs ~150 small torch ops per round, so the images are
      held to the plain versions by phases 24-26;
  28. trace-time instancing: bench.py's instanced gate (:192-220) on
@@ -163,13 +167,15 @@ a JSON summary. Phases:
      and the 578-instance 2-key field (K9-inst at fanout 32);
  30. bench's instanced main paths with tune_config's pool (bench.py
      :537-584): BASELINE config 3 `multi_instance_tlas` (baked by
-     build_scene, K4) as phase 5; `multi_instance_tracetime` (1 warm-up, 2
-     timed subframes, the band against the plain versions); the 578-
+     build_scene, K4) as phase 5; `multi_instance_tracetime` (1 warm-up, 1
+     timed subframe, the band against the plain versions); the 578-
      instance fields `multi_instance_large` (baked world table, K9, 16384
      lanes) and `multi_instance_motion` (K9-inst, fanout 32, 8192 lanes)
      as phase 27; each with Mray/s, launches per subframe (K9-inst, K9 and
-     K6 with instance rows must launch), every pixel finite, the idle
-     share of one profiled subframe;
+     K6 with instance rows must launch), every pixel finite, and
+     `multi_instance_tracetime`'s idle share (the fields' kernels, K9,
+     K9-inst and K6, are profiled by the 49k field's walk path and by
+     `multi_instance_tracetime`'s drivers);
  31. K9-inst on the 2-key field's recorded states, K9-inst under the
      trace-time walk drivers on the states of 4 of their launches in
      multi_instance_tracetime's warm-up, and K9 on the baked field's, and
@@ -191,10 +197,10 @@ a JSON summary. Phases:
  34. `--tracer residentwalk`'s main path: the split-ordered box field
      through make_render_fn over make_walk_tracer at bench's cfg_sorted
      (768^2, 8 spp, depth 16, ray_block 32768, pixel-major, sorted): 1
-     warm-up and 2 timed subframes, Mray/s, K8 launches per walk (1),
+     warm-up and 1 timed subframe, Mray/s, K8 launches per walk (1),
      rounds per block (mean and largest) and the share of blocks done in
      their first pass, every pixel finite, the band of phase 5 against
-     the plain walk, the idle share of one profiled subframe;
+     the plain walk, the idle share of the profiled warm-up;
  35. K8 closest and any on the inputs of 4 closest and 4 shadow calls of
      that path's warm-up: the whole walk (one launch) bit for bit against
      its plain twin (rows, cursor rows, per-block counts) and its hits
@@ -216,16 +222,19 @@ a JSON summary. Phases:
      grid-8 field (its brute hits reused) and on 131072 camera rays of the
      trace-time Cornell, at the full count and a count inside a tile; 0
      prim, 0 instance and 0 occlusion mismatches against the brute
-     instanced tracer; timed and bounded (k7_work);
+     instanced tracer; timed (device_ms) and bounded (k7_work, both
+     terms printed); the (ray, instance) pairs the reference's 256-ray
+     vote and the per-ray cull admit and the real-face share of the
+     tested mesh tiles;
  38. K7's path: multi_instance_tracetime (bench.py:576-584) through
      prepare_tracer_factory(kind="pallas") and make_render_fn_dist on a
      1 x 1 NCCL mesh at MAIN: the warm-up subframe bit-equal to
-     make_render_fn's over the same pair; 2 timed subframes, Mray/s, K7
+     make_render_fn's over the same pair; 1 timed subframe, Mray/s, K7
      launches, every pixel finite, the band of rows 376-392 against the
-     plain K7, the idle share of one profiled subframe (both K7
+     plain K7, the idle share of the profiled warm-up (both K7
      instantiations must show);
  39. K7 closest and any on 4 recorded calls each of that path's warm-up:
-     bit for bit, timed (device_ms) and bounded;
+     bit for bit, timed (device_ms) and bounded (both terms printed);
  40. the (2, 1) and (1, 2) meshes of that path at 192^2 by the per-rank
      function in one process: tile bit-equal to one device, spp by the
      reference's test_tile_spp_mesh_statistics rule.
@@ -268,10 +277,9 @@ MAIN = dict(width=768, height=768, samples_per_launch=8, max_depth=16,
 GATE = dict(width=96, height=96, samples_per_launch=2, max_depth=6,
             ray_block=4096, integrator="pool", pool_pixel_major=True)
 TOWN_FACES = 16000  # generate_town gives 16054 faces (16384 padded)
-# timed subframes of the MT towns' paths (phases 10, 17, 20, 23) and of
-# the trace-time instanced path (phase 30): 2, as bench.py's timed_c, to
-# keep the script inside its time limit
-TOWN_TIMED = 2
+# timed subframes of every main path: 1 (bench.py's timed_c is 2) to keep
+# the script inside its time limit on a slow host
+TIMED = 1
 GATE_TOWN_FACES = 4000  # 4294 faces
 MT_SRC = "rendertoy3c_tpu_torch/kernels/csrc/mt_kernels.cu"
 # the three launches of one K1/K2/K3 sweep (mt_kernels.cu)
@@ -372,8 +380,8 @@ def mt_work(rays, count, table, any_hit: bool, time=None, want=None,
     """(operations, table bytes read) that one K1/K2/K3 sweep over these
     rays needs, counted ray by ray in tile order: a ray tests the boxes of
     the super-tiles, and of the tiles of each super-tile whose box it hits
-    itself, and the triangles of each tile whose box it hits itself (K4,
-    K5 and K7's block vote lets a ray into every tile that any ray of its
+    itself, and the triangles of each tile whose box it hits itself (K4
+    and K5's block vote lets a ray into every tile that any ray of its
     block hits, and K1-K3 bin a ray into each tile its padded box admits
     at its tmax, unbounded by its hits: this count charges neither). A
     closest ray's bound shrinks with its best hit so far; an any-hit ray
@@ -953,9 +961,9 @@ def kernel_symbol(key: str):
 
 
 def device_rows(run):
-    """[(device us, kernel name, launches)] of the CUDA kernels that
-    run() launches, from torch.profiler (CUDA activity only), largest
-    first. The device events are summed by name straight from the
+    """(run()'s result, [(device us, kernel name, launches)] of the CUDA
+    kernels that run() launches, from torch.profiler (CUDA activity only),
+    largest first). The device events are summed by name straight from the
     profiler's raw results: key_averages() builds an event tree in Python,
     which took ~9 s per 1e5 events and made a traced town subframe last
     ~26 s; its sums are the same."""
@@ -965,7 +973,7 @@ def device_rows(run):
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run()
+        out = run()
         torch.cuda.synchronize()
     sums = {}
     for e in prof.profiler.kineto_results.events():
@@ -974,8 +982,8 @@ def device_rows(run):
         row = sums.setdefault(e.name(), [0.0, 0])
         row[0] += e.duration_ns() / 1e3
         row[1] += 1
-    return sorted(((us, key, n) for key, (us, n) in sums.items()),
-                  reverse=True)
+    return out, sorted(((us, key, n) for key, (us, n) in sums.items()),
+                       reverse=True)
 
 
 def device_ms(calls, warmup=None) -> float:
@@ -1013,19 +1021,42 @@ def device_ms(calls, warmup=None) -> float:
 
 def profile_subframe(step, film, camera, untraced_s: float, phase: int,
                      kernels, variants=()):
-    """Device time by kernel over one more subframe. The idle share is
-    taken against the median untraced subframe, since tracing slows the
-    host. Fails unless the profiler saw each of `kernels` (CUDA symbol
-    names) launched, and each of `variants` (template arguments, e.g.
-    "<true>") of them. Returns the idle share."""
+    """Device time by kernel over one more subframe (profile_report).
+    Returns the idle share."""
     cam = camera.params()
     t0 = time.perf_counter()
-    rows = device_rows(lambda: step(cam, film))
-    wall = time.perf_counter() - t0
+    rows = device_rows(lambda: step(cam, film))[1]
+    return profile_report(rows, time.perf_counter() - t0, untraced_s, phase,
+                          kernels, variants)
+
+
+def warm_up(run, traced: bool):
+    """(run()'s result, seconds, device rows or None) of a main path's
+    warm-up subframe, under torch.profiler if `traced` (device_rows; its
+    rows go to profile_report once the timed subframes have run)."""
+    import torch
+
+    t0 = time.perf_counter()
+    if traced:
+        out, rows = device_rows(run)
+    else:
+        out, rows = run(), None
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, rows
+
+
+def profile_report(rows, wall: float, untraced_s: float, phase: int,
+                   kernels, variants=(), what="one subframe"):
+    """Prints the device time by kernel of a profiled subframe (`rows` of
+    device_rows, `wall` its traced seconds). The idle share is taken
+    against the median untraced subframe, since tracing slows the host.
+    Fails unless the profiler saw each of `kernels` (CUDA symbol names)
+    launched, and each of `variants` (template arguments, e.g. "<true>")
+    of them. Returns the idle share."""
     busy = sum(r[0] for r in rows) / 1e6
     check(busy > 0, f"phase {phase} profile: no device time recorded")
     idle = max(0.0, 1 - busy / untraced_s)
-    print(f"phase {phase} profile of one subframe: device busy {busy:.4f} "
+    print(f"phase {phase} profile of {what}: device busy {busy:.4f} "
           f"s; traced wall {wall:.4f} s; untraced median {untraced_s:.4f} "
           f"s; idle share {idle:.3f} of untraced")
     for dt, key, cnt in rows[:10]:
@@ -1096,7 +1127,8 @@ def band_pair(name, scene, camera, cfg_kw, dev, rows=BAND_ROWS,
 
 
 def full_size(name, scene, camera, dev, smi, phase: int, counters, symbols,
-              change=None, plain=True, timed=2, warm=None, profile=True):
+              change=None, plain=True, timed=TIMED, warm=None,
+              profile=True):
     """One main path at full size (MAIN with `change` applied): kernels (1
     warm-up and `timed` timed subframes) with the launch counters zeroed
     before the warm-up and read after the timed subframes (`warm`: the
@@ -1931,9 +1963,13 @@ def aov_path_report(name, base):
     """Phase 23's line of one AOV path beside the same path without AOV
     from this run."""
     (rate, idle), (rate0, idle0) = PATHS[name], PATHS[base]
-    print(f"phase 23 {name}: {rate:.6g} Mray/s (idle {idle:.3f}) vs "
-          f"{base} without AOV {rate0:.6g} Mray/s (idle {idle0:.3f}): "
+    print(f"phase 23 {name}: {rate:.6g} Mray/s (idle {_share(idle)}) vs "
+          f"{base} without AOV {rate0:.6g} Mray/s (idle {_share(idle0)}): "
           f"{rate / rate0:.4f}x")
+
+
+def _share(idle) -> str:
+    return "not profiled" if idle is None else f"{idle:.3f}"
 
 
 # ---------------------------------------------------------------- phase 24+
@@ -2125,14 +2161,15 @@ def launch_counters():
     return {n: (fns[f], a) for n, f, a in WALK_COUNTERS}
 
 
-def walk_path(name, scene, camera, dev, smi, change, timed=2, phase=27,
+def walk_path(name, scene, camera, dev, smi, change, timed=TIMED, phase=27,
               need=("walk_rounds", "external_shade"), profile=True):
     """A walk-band main path through make_render_fn over choose_tracer's
     pipeline (with tune_config): 1 warm-up subframe, during which K9's
     (K9-inst's) states and K6's inputs at WALK_SNAPSHOTS boundaries are
-    recorded, then `timed` subframes with the launch counters zeroed just
-    before, then one profiled subframe (timed=0: the warm-up subframe
-    only, its launches counted; profile=False: no profile, as full_size).
+    recorded, profiled (its idle share against the untraced timed
+    subframes), then `timed` subframes with the launch counters zeroed
+    just before (timed=0: the warm-up subframe only, its launches
+    counted, no profile; profile=False: no profile, as full_size).
     Fails unless every
     counter of `need` (WALK_COUNTERS' names) is above 0. Returns
     {launches, states, shade, pipe, film}."""
@@ -2182,10 +2219,8 @@ def walk_path(name, scene, camera, dev, smi, change, timed=2, phase=27,
         return {n: getattr(fn, attr) for n, (fn, attr) in counters.items()}
 
     zero()
-    t0 = time.perf_counter()
-    film, stats = step(cam, film)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
+    (film, stats), warm_s, prof = warm_up(lambda: step(cam, film),
+                                          profile and timed > 0)
     rec["on"] = False
     check(len(rec["states"]) == len(WALK_SNAPSHOTS),
           f"{name}: {rec['boundary']} boundaries, too few for the snapshots")
@@ -2194,7 +2229,8 @@ def walk_path(name, scene, camera, dev, smi, change, timed=2, phase=27,
              f"pool {cfg.ray_block} flush {cfg.flush_every} "
              f"({scene.num_faces} faces in split order, {pipe.n_levels} "
              f"levels, fanout {pipe.fanout}; ordered and tabled in "
-             f"{order_s:.2f} s) on {smi}: warm-up {warm_s:.3f} s"]
+             f"{order_s:.2f} s) on {smi}: warm-up {warm_s:.3f} s"
+             + (" (traced)" if prof else "")]
     if timed:
         zero()
         rates, secs, per = [], [], []
@@ -2230,9 +2266,10 @@ def walk_path(name, scene, camera, dev, smi, change, timed=2, phase=27,
                  f"{launches}")
     print("\n".join(lines))
     if timed:
-        idle = profile_subframe(
-            step, film, camera, float(np.median(secs)), phase,
-            ("walk_kernel", "external_shade_kernel")) if profile else None
+        idle = profile_report(
+            prof, warm_s, float(np.median(secs)), phase,
+            ("walk_kernel", "external_shade_kernel"),
+            what="the warm-up subframe") if profile else None
         PATHS[name] = (float(np.median(rates)), idle)
     return dict(launches=launches, states=rec["states"], shade=rec["shade"],
                 pipe=dataclasses.replace(pipe, walk_fn=walkpool.walk_rounds,
@@ -2497,7 +2534,8 @@ def walk_band(dev, smi, t_start):
     # ---- phase 27: the main paths
     paths = {
         "config 1 town 1080p": walk_path(
-            "config 1 town 1080p", *scenes["town"], dev, smi, CONFIG1),
+            "config 1 town 1080p", *scenes["town"], dev, smi, CONFIG1,
+            profile=False),
         "config 2 textured town": walk_path(
             "config 2 textured town", *scenes["textured town"], dev, smi,
             SORTED, profile=False),
@@ -2687,17 +2725,17 @@ def inst_gates(dev, scenes):
          tracers=(pipe, plain_walk_pipe(pipe)))
 
 
-def tracetime_path(name, scene, camera, dev, smi, timed=TOWN_TIMED,
+def tracetime_path(name, scene, camera, dev, smi, timed=TIMED,
                    phase=30):
     """multi_instance_tracetime through make_render_fn over choose_tracer's
-    external pipeline (with tune_config): 1 warm-up subframe, during which
-    K6's inputs at EXT_SNAPSHOTS pool iterations and the walk drivers'
-    K9-inst states at DRIVER_SNAPSHOTS launches are recorded, `timed`
-    subframes with the launch counters zeroed just before (K9-inst and K6
-    with instance rows must launch), then the band of phase 5
-    (NARROW_BAND) against the plain versions and one profiled subframe
-    (the idle share). Returns {launches, shade, walks, tables, config,
-    row_major}."""
+    external pipeline (with tune_config): 1 warm-up subframe, profiled,
+    during which K6's inputs at EXT_SNAPSHOTS pool iterations and the
+    walk drivers' K9-inst states at DRIVER_SNAPSHOTS launches are
+    recorded, `timed` subframes with the launch counters zeroed just
+    before (K9-inst and K6 with instance rows must launch), the warm-up's
+    idle share against them, then the band of phase 5 (NARROW_BAND)
+    against the plain versions. Returns {launches, shade, walks, tables,
+    config, row_major}."""
     import dataclasses
 
     import torch
@@ -2741,10 +2779,7 @@ def tracetime_path(name, scene, camera, dev, smi, timed=TOWN_TIMED,
     cam = camera.params()
     film = film_create(cfg.height, cfg.width, device=dev)
     counters = launch_counters()
-    t0 = time.perf_counter()
-    film, _ = step(cam, film)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
+    (film, _), warm_s, prof = warm_up(lambda: step(cam, film), True)
     rec["on"] = False
     check(len(rec["shade"]) == len(EXT_SNAPSHOTS),
           f"{name}: {rec['it']} pool iterations, too few for the snapshots")
@@ -2773,15 +2808,17 @@ def tracetime_path(name, scene, camera, dev, smi, timed=TOWN_TIMED,
     print(f"phase {phase} {name} 768^2 8spp depth 16 pool {cfg.ray_block} "
           f"flush {cfg.flush_every} sort {cfg.sort_rays} ({ordered.num_faces}"
           f" stored faces, {ordered.num_instances} instances) on {smi}: "
-          f"warm-up {warm_s:.3f} s\n  Mray/s per subframe {rates}, median "
-          f"{float(np.median(rates)):.6g}; s {secs}; pool iterations "
-          f"{iters}; per subframe {launches['walk_rounds_inst'] / timed:.1f}"
+          f"warm-up {warm_s:.3f} s (traced)\n  Mray/s per subframe "
+          f"{rates}, median {float(np.median(rates)):.6g}; s {secs}; pool "
+          f"iterations {iters}; per subframe "
+          f"{launches['walk_rounds_inst'] / timed:.1f}"
           f" K9-inst and {launches['external_shade_inst'] / timed:.1f} K6 "
           f"launches; image mean {float(img.mean()):.6f}; launches "
           f"{launches}")
+    idle = profile_report(prof, warm_s, float(np.median(secs)), phase,
+                          ("walk_kernel", "external_shade_kernel"),
+                          what="the warm-up subframe")
     band_pair(name, scene, camera, dataclasses.asdict(cfg), dev, NARROW_BAND)
-    idle = profile_subframe(step, film, camera, float(np.median(secs)),
-                            phase, ("walk_kernel", "external_shade_kernel"))
     PATHS[name] = (float(np.median(rates)), idle)
     return dict(launches=launches, shade=rec["shade"], walks=rec["walks"],
                 tables=pipe.tables, config=pipe.config, row_major=True)
@@ -2816,11 +2853,13 @@ def inst_band(dev, smi, t_start):
             dev, smi),
         "multi_instance_large": walk_path(
             "multi_instance_large", *scenes["multi_instance_large"], dev,
-            smi, {}, phase=30, need=("walk_rounds", "external_shade_inst")),
+            smi, {}, phase=30, need=("walk_rounds", "external_shade_inst"),
+            profile=False),
         "multi_instance_motion": walk_path(
             "multi_instance_motion", *scenes["multi_instance_motion"], dev,
             smi, {}, phase=30,
-            need=("walk_rounds_inst", "external_shade_inst")),
+            need=("walk_rounds_inst", "external_shade_inst"),
+            profile=False),
     }
     print(f"phase 30 done; {time.perf_counter() - t_start:.1f} s since the "
           "start")
@@ -3025,7 +3064,8 @@ def phase_resident_gates(dev, scene, camera, tracers):
          tracers=(tracer, make_mt_tracer(ordered, dev, plain=True)))
 
 
-def resident_path(scene, camera, dev, smi, tracers, timed=2, phase=34):
+def resident_path(scene, camera, dev, smi, tracers, timed=TIMED,
+                  phase=34):
     """Phase 34: `--tracer residentwalk` on the 49k field through
     make_render_fn at cfg_sorted: 1 warm-up subframe, during which the
     walk's inputs of every RW_RECORD_EVERY-th closest and shadow call are
@@ -3035,8 +3075,9 @@ def resident_path(scene, camera, dev, smi, tracers, timed=2, phase=34):
     per block (mean and largest, over the blocks that ran one) and the
     share of those done in their first pass, from the per-block counts
     the kernel writes; every pixel finite; the band of phase 5 against
-    the plain walk; the idle share of one profiled subframe. Returns
-    {launches, closest, any} (the recorded inputs: (rays, count) each)."""
+    the plain walk; the idle share of the warm-up subframe, profiled.
+    Returns {launches, closest, any} (the recorded inputs: (rays, count)
+    each)."""
     import torch
 
     from rendertoy3c_tpu_torch.film.film import film_create
@@ -3068,10 +3109,7 @@ def resident_path(scene, camera, dev, smi, tracers, timed=2, phase=34):
     step = make_render_fn(scene, cfg, tracer=kern, device=dev)
     cam = camera.params()
     film = film_create(cfg.height, cfg.width, device=dev)
-    t0 = time.perf_counter()
-    film, _ = warm(cam, film)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
+    (film, _), warm_s, prof = warm_up(lambda: warm(cam, film), True)
     warm_calls = list(rec["calls"])
     check(len(rec["closest"]) >= 4 and len(rec["any"]) >= 4,
           f"{name}: {warm_calls} calls, too few to record")
@@ -3114,7 +3152,8 @@ def resident_path(scene, camera, dev, smi, tracers, timed=2, phase=34):
     print(f"phase {phase} {name} ({scene.num_faces} faces, "
           f"{tab.n_leaves} leaves) {cfg.width}x{cfg.height} "
           f"{cfg.samples_per_launch}spp depth {cfg.max_depth} pool "
-          f"{cfg.ray_block} sorted on {smi}: warm-up {warm_s:.3f} s, "
+          f"{cfg.ray_block} sorted on {smi}: warm-up {warm_s:.3f} s "
+          f"(traced), "
           f"{warm_calls[0]} closest and "
           f"{warm_calls[1]} shadow calls")
     print(f"  Mray/s per subframe {rates}, median "
@@ -3125,9 +3164,10 @@ def resident_path(scene, camera, dev, smi, tracers, timed=2, phase=34):
           f"walks (1 launch per walk); image mean {float(img.mean()):.6f}; "
           f"launches {launches}")
     print(f"  K8 blocks per walk, {'; '.join(blocks)}")
+    idle = profile_report(prof, warm_s, float(np.median(secs)), phase,
+                          ("resident_walk_kernel",),
+                          what="the warm-up subframe")
     band_pair(name, scene, camera, cfg_kw, dev, tracers=tracers)
-    idle = profile_subframe(step, film, camera, float(np.median(secs)),
-                            phase, ("resident_walk_kernel",))
     PATHS[name] = (float(np.median(rates)), idle)
     return dict(launches=launches, closest=rec["closest"], any=rec["any"],
                 table=tab)
@@ -3333,9 +3373,9 @@ K7_SRC = "rendertoy3c_tpu_torch/kernels/csrc/instanced_mt.cu"
 K7_REPLACES = "rendertoy3c_tpu/trace/pallas_instanced.py:244"
 # K7's operations, counted from instanced_mt.cu as the constants above: a
 # slab test of one (ray, instance box) pair (6 subtractions, 6 products,
-# 10 min/max, 3 comparisons, the vote), the object-space transform of one
-# ray (15 products and 12 sums), one Moller-Trumbore test with the tile
-# minimum's compare and selects
+# 10 min/max, 4 comparisons; the box's padding is not needed work), the
+# object-space transform of one ray (15 products and 12 sums), one
+# Moller-Trumbore test with the best hit's compare and selects
 K7_BOX_OPS = 26
 K7_XFORM_OPS = 27
 K7_MT_OPS = MT_TEST_OPS + 3
@@ -3345,69 +3385,46 @@ K7_RECORD_EVERY = 100
 
 
 def k7_work(rays, count, soup, any_hit: bool):
-    """(operations, bytes) that one K7 launch on these rays needs, counted
-    ray by ray: every live ray tests every instance box; a ray whose own
-    box test admits an instance (bounded by its best t so far, closest,
-    or its tmax, any-hit) is transformed and tests the instance's mesh
-    tiles (closest: all 128 faces of each; any-hit: up to its first hit,
-    and no tile once occluded). The kernel's tile vote lets a ray into
-    every instance any ray of its tile enters, which this count does not
-    charge. The rays and the outputs count once, the instance table once,
-    each mesh tile once if any ray tests it."""
-    import torch
-
+    """(operations, bytes, stats) that one K7 launch on these rays needs,
+    counted ray by ray by the plain version (trace_instanced_ref's
+    `stats`): every live ray tests every instance box; a ray that its
+    padded box test admits (bounded by its best t so far, closest, or its
+    tmax, any-hit) is transformed and tests the instance's mesh tiles up
+    to each tile's real faces (closest: every real face; any-hit: up to
+    its first hit). The rays and the outputs count once, the instance
+    table, the padded boxes and the tile face counts once, each real face
+    of a tile once if any ray tests it."""
     from rendertoy3c_tpu_torch.trace import instanced_mt as im
-    from rendertoy3c_tpu_torch.trace.mt import live_rows, mt_test
 
-    r = rays.shape[0]
-    o, d, tmin, tmax = rays[:, 0:3], rays[:, 3:6], rays[:, 6], rays[:, 7]
-    inv = torch.where(d.abs() > 1e-20, 1.0 / d, torch.full_like(d, 1e30))
-    tab = soup.table
-    t0 = (tab[None, :, 12:15] - o[:, None]) * inv[:, None]
-    t1 = (tab[None, :, 15:18] - o[:, None]) * inv[:, None]
-    tn = torch.minimum(t0, t1).amax(dim=2)
-    tf = torch.maximum(t0, t1).amin(dim=2)
-    ok = (tn <= tf) & (tf >= tmin[:, None])
-    live = live_rows(r, count)
-    best_t = tmax.clone()
-    occ = torch.zeros(r, dtype=torch.bool, device=rays.device)
-    xforms, tests, tiles = 0, 0, set()
-    for i, (start, n_tiles) in enumerate(soup.inst_tiles.tolist()):
-        tcur = tmax if any_hit else best_t
-        own = live & ok[:, i] & (tn[:, i] <= tcur) & ~occ
-        idx = own.nonzero()[:, 0]
-        if idx.numel() == 0:
-            continue
-        xforms += idx.numel()
-        m = tab[i, 0:12]
-        ob, db = o[idx], d[idx]
-        cols = tuple(
-            (m[4 * a] * ob[:, 0:1] + m[4 * a + 1] * ob[:, 1:2]
-             + m[4 * a + 2] * ob[:, 2:3] + m[4 * a + 3]) for a in range(3)
-        ) + tuple(
-            (m[4 * a] * db[:, 0:1] + m[4 * a + 1] * db[:, 1:2]
-             + m[4 * a + 2] * db[:, 2:3]) for a in range(3))
-        for k in range(start, start + n_tiles):
-            tiles.add(k)
-            bound = (tmax if any_hit else best_t)[idx, None]
-            t, _, _, hit, _ = mt_test(cols + (tmin[idx, None], bound),
-                                      soup.tris[k], k * im.ITILE)
-            if any_hit:
-                todo = ~occ[idx]
-                first = torch.where(hit.any(dim=1),
-                                    hit.int().argmax(dim=1) + 1, im.ITILE)
-                tests += int(first[todo].sum())
-                occ[idx] |= hit.any(dim=1)
-            else:
-                tests += idx.numel() * im.ITILE
-                t_c = torch.where(hit, t, 1e30).amin(dim=1)
-                best_t[idx] = torch.minimum(best_t[idx], t_c)
-    n_live = int(live.sum())
-    ops = (n_live * tab.shape[0] * K7_BOX_OPS + xforms * K7_XFORM_OPS
-           + tests * K7_MT_OPS)
-    n_bytes = (r * 64 + 4 + tab.numel() * 4 + soup.inst_tiles.numel() * 4
-               + len(tiles) * 9 * im.ITILE * 4)
-    return ops, n_bytes
+    st = {}
+    im.trace_instanced_ref(rays, count, soup, any_hit, st)
+    ops = (st["live"] * soup.table.shape[0] * K7_BOX_OPS
+           + st["pairs"] * K7_XFORM_OPS + st["tests"] * K7_MT_OPS)
+    n_bytes = (rays.shape[0] * 64 + 4 + 4 * (soup.table.numel()
+                                            + soup.cull.numel()
+                                            + soup.inst_tiles.numel()
+                                            + soup.tile_faces.numel())
+               + st["faces_read"] * 9 * 4)
+    return ops, n_bytes, st
+
+
+def k7_terms(costs) -> str:
+    """Both terms of the bound of the mean launch of (bytes, operations)
+    pairs."""
+    n_bytes = sum(c[0] for c in costs) / len(costs)
+    ops = sum(c[1] for c in costs) / len(costs)
+    return (f"{n_bytes / 1e6:.4f} MB, {n_bytes / MEM_BPS * 1e3:.5f} ms; "
+            f"{ops / 1e6:.3f} M operations, {ops / FP32_OPS * 1e3:.5f} ms")
+
+
+def k7_cull_line(st) -> str:
+    """The (ray, instance) pairs the reference's 256-ray vote and the
+    per-ray cull admit, and the real-face share of the tested tiles."""
+    return (f"pairs: vote {st['vote_pairs']}, cull {st['pairs']} "
+            f"({st['vote_pairs'] / max(st['live'], 1):.3f} and "
+            f"{st['pairs'] / max(st['live'], 1):.3f} per live ray); real "
+            f"faces {100 * st['real_faces'] / max(128 * st['visits'], 1):.2f}"
+            f"% of the tested tiles' stored faces")
 
 
 def phase_k7_gate(dev, field_in, scenes):
@@ -3419,8 +3436,10 @@ def phase_k7_gate(dev, field_in, scenes):
     Cornell (15 instances) with random tmax in [0.1, 4] for the shadow
     test; raw outputs bit-equal at the full count and at a count inside a
     ray tile, 0 prim, 0 instance and 0 occlusion mismatches; K7's time on
-    these rays (cuda_ms), the plain version's and the bound (k7_work).
-    Returns {scene name: (scene, soup)}."""
+    these rays (device_ms), the plain version's, the bound (k7_work) with
+    both terms, the (ray, instance) pairs the vote and the cull admit and
+    the real-face share of the tested tiles. Returns {scene name: (scene,
+    soup)}."""
     import torch
 
     from rendertoy3c_tpu_torch.scene.camera import camera_ray_dir
@@ -3462,12 +3481,15 @@ def phase_k7_gate(dev, field_in, scenes):
                       f"phase 37 {name}: K7 {'any' if any_hit else 'closest'}"
                       f" differs from its plain version (count {n})")
             count = torch.tensor([r], dtype=torch.int32, device=dev)
-            ms = cuda_ms([functools.partial(im.trace_instanced, rays, count,
-                                            soup, any_hit)] * 10)
+            ms = device_ms([functools.partial(im.trace_instanced, rays,
+                                              count, soup, any_hit)] * 10)
             plain_ms = cuda_ms([functools.partial(
                 im.trace_instanced_ref, rays, count, soup, any_hit)])
-            res[any_hit] = (ms, plain_ms, *bound(*k7_work(
-                rays, count, soup, any_hit)[::-1]))
+            ops, n_bytes, st = k7_work(rays, count, soup, any_hit)
+            res[any_hit] = (ms, plain_ms, *bound(n_bytes, ops))
+            print(f"phase 37 {name}, K7 {'any' if any_hit else 'closest'}: "
+                  f"{k7_cull_line(st)}; bound terms "
+                  f"{k7_terms([(n_bytes, ops)])}")
         h = k_closest(g["o"], g["d"], 1e-2, 1e16)
         occ = k_any(g["o"], g["d"], 1e-3, g["t_any"])
         bad = [int((h.prim != g["brute"].prim).sum()),
@@ -3498,7 +3520,7 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def k7_path(scene, camera, dev, smi, timed=2, phase=38):
+def k7_path(scene, camera, dev, smi, timed=TIMED, phase=38):
     """Phase 38: multi_instance_tracetime (bench.py:576-584: 15 instances,
     1920 effective faces) through the reference's distributed route at
     bench's config (MAIN, untuned: prepare_tracer_factory applies no
@@ -3507,11 +3529,12 @@ def k7_path(scene, camera, dev, smi, timed=2, phase=38):
     (kind="pallas": K7's pair under the general pool) and
     make_render_fn_dist. The warm-up subframe records the inputs of every
     K7_RECORD_EVERY-th closest and shadow call and must be bit-equal to
-    one subframe of make_render_fn over the same pair; then `timed`
-    subframes with the launch counters zeroed just before and read just
-    after (K7 closest and any must launch), Mray/s, every pixel finite,
-    the band of phase 5 (NARROW_BAND) against the plain K7, and one
-    profiled subframe (both K7 instantiations must show). Returns
+    one subframe of make_render_fn over the same pair; it is profiled
+    (both K7 instantiations must show; its idle share against the timed
+    subframes); then `timed` subframes with the launch counters zeroed
+    just before and read just after (K7 closest and any must launch),
+    Mray/s, every pixel finite, the band of phase 5 (NARROW_BAND) against
+    the plain K7. Returns
     {launches, calls, pair, scene}."""
     import dataclasses
 
@@ -3558,10 +3581,7 @@ def k7_path(scene, camera, dev, smi, timed=2, phase=38):
             tracer_factory=lambda *_: (recorder(0), recorder(1)))
         cam = camera.params()
         film = film_create_sharded(cfg, mesh)
-        t0 = time.perf_counter()
-        film, _ = step(cam, film)
-        torch.cuda.synchronize()
-        warm_s = time.perf_counter() - t0
+        (film, _), warm_s, prof = warm_up(lambda: step(cam, film), True)
         rec["on"] = False
         warm = film.accum.clone()
         ref = make_render_fn(ordered, cfg, tracer=pair, device=dev)(
@@ -3593,18 +3613,19 @@ def k7_path(scene, camera, dev, smi, timed=2, phase=38):
         print(f"phase {phase} {name} 768^2 8spp depth 16 pool "
               f"{cfg.ray_block} ({ordered.num_faces} stored faces, "
               f"{ordered.num_instances} instances) on {smi}: warm-up "
-              f"{warm_s:.3f} s, bit-equal to make_render_fn's "
+              f"{warm_s:.3f} s (traced), bit-equal to make_render_fn's "
               f"subframe\n  Mray/s per subframe {rates}, median "
               f"{float(np.median(rates)):.6g}; s {secs}; per subframe "
               f"{launches['instanced_mt'] / timed:.1f} K7 closest and "
               f"{launches['instanced_mt_any'] / timed:.1f} K7 any launches;"
               f" image mean {float(img.mean()):.6f}")
+        idle = profile_report(prof, warm_s, float(np.median(secs)), phase,
+                              ("instanced_mt_kernel",),
+                              variants=("<false>", "<true>"),
+                              what="the warm-up subframe")
         plain = im.make_instanced_mt_tracer(ordered, dev, plain=True)
         band_pair(name, ordered, camera, dataclasses.asdict(cfg), dev,
                   NARROW_BAND, tracers=(pair, plain))
-        idle = profile_subframe(step, film, camera, float(np.median(secs)),
-                                phase, ("instanced_mt_kernel",),
-                                variants=("<false>", "<true>"))
         PATHS[name] = (float(np.median(rates)), idle)
     finally:
         tdist.destroy_process_group()
@@ -3644,7 +3665,8 @@ def phase_k7_timed(dev, path, phase=39):
                   f"phase {phase} {name}: differs from its plain version on "
                   "a recorded call")
             launches.append((rays, c, soup, any_hit))
-            costs.append(k7_work(rays, c, soup, any_hit)[::-1])
+            ops, n_bytes, st = k7_work(rays, c, soup, any_hit)
+            costs.append((n_bytes, ops))
             lanes.append(int(c))
         ms = device_ms([functools.partial(im.trace_instanced, *a)
                         for a in launches] * 4)
@@ -3658,7 +3680,8 @@ def phase_k7_timed(dev, path, phase=39):
               f"{launches[0][0].shape[0]}): bit-equal to the plain version;"
               f" device time {ms:.4f} ms per launch vs plain {plain_ms:.4f} "
               f"ms; bound {bound_ms:.4f} ms by {bound_by} "
-              f"({100 * bound_ms / ms:.2f}% of the kernel's time)")
+              f"({100 * bound_ms / ms:.2f}% of the kernel's time; terms "
+              f"{k7_terms(costs)}); the last call's {k7_cull_line(st)}")
     return out
 
 
@@ -3822,7 +3845,7 @@ def main() -> int:
         launches_k5m = full_size(
             "2-key cornell sample-major", m_scene, m_camera, dev, smi, 14,
             {"trace_shade": shade.trace_shade}, ("trace_shade_kernel",),
-            SAMPLE_MAJOR, warm=k5_runs[1][4])[1]
+            SAMPLE_MAJOR, warm=k5_runs[1][4], profile=False)[1]
         print(f"phase 14 done; {time.perf_counter() - t_start:.1f} s since "
               "the start")
 
@@ -3921,7 +3944,7 @@ def main() -> int:
         launches_k5a = full_size(
             "cornell sorted aov", scene, camera, dev, smi, 23,
             {"trace_shade": shade.trace_shade}, ("trace_shade_kernel",),
-            dict(SORTED, **AOV))[1]
+            dict(SORTED, **AOV), profile=False)[1]
         aov_path_report("cornell aov", "cornell")
         aov_path_report("cornell sorted aov", "cornell sorted")
         aov_pairs(dev, "cornell", scene, camera, {}, 4)
@@ -3984,14 +4007,14 @@ def main() -> int:
             {"mt_closest": mt.mt_closest, "mt_any": mt.mt_any,
              "external_shade": shade.external_shade},
             (*MT_SYMBOLS, "external_shade_kernel"),
-            timed=TOWN_TIMED, warm=states[False])[1]
+            warm=states[False])[1]
         launches_m = full_size(
             "2-key town", *towns[True], dev, smi, 10,
             {"mt_closest_motion": mt.mt_closest_motion,
              "mt_any_motion": mt.mt_any_motion,
              "external_shade": shade.external_shade},
             (*MT_SYMBOLS, "external_shade_kernel"),
-            timed=TOWN_TIMED, warm=states[True])[1]
+            warm=states[True], profile=False)[1]
         print(f"phase 10 done; {time.perf_counter() - t_start:.1f} s since "
               "the start")
 
@@ -4005,14 +4028,14 @@ def main() -> int:
             {"mt_closest": mt.mt_closest, "mt_any": mt.mt_any,
              "external_shade": shade.external_shade},
             (*MT_SYMBOLS, "external_shade_kernel"),
-            timed=TOWN_TIMED, warm=tex_states[False])[1]
+            warm=tex_states[False], profile=False)[1]
         launches_mt = full_size(
             "textured 2-key town", *tex_towns[True], dev, smi, 17,
             {"mt_closest_motion": mt.mt_closest_motion,
              "mt_any_motion": mt.mt_any_motion,
              "external_shade": shade.external_shade},
             (*MT_SYMBOLS, "external_shade_kernel"),
-            timed=TOWN_TIMED, warm=tex_states[True], profile=False)[1]
+            warm=tex_states[True], profile=False)[1]
         print(f"phase 17 done; {time.perf_counter() - t_start:.1f} s since "
               "the start")
 
@@ -4051,11 +4074,11 @@ def main() -> int:
         launches_ptt = full_size(
             "principled town", *p_towns[TEX_PT], dev, smi, 20, town_kernels,
             (*MT_SYMBOLS, "external_shade_kernel"), SORTED_POWER,
-            timed=TOWN_TIMED, warm=p_states[TEX_PT], profile=False)[1]
+            warm=p_states[TEX_PT], profile=False)[1]
         launches_pt = full_size(
             "untextured principled town", *p_towns[PT], dev, smi, 20,
             town_kernels, (*MT_SYMBOLS, "external_shade_kernel"),
-            SORTED_POWER, timed=TOWN_TIMED, warm=p_states[PT],
+            SORTED_POWER, warm=p_states[PT],
             profile=False)[1]
         print(f"phase 20 done; {time.perf_counter() - t_start:.1f} s since "
               "the start")
@@ -4071,7 +4094,7 @@ def main() -> int:
         launches_ta = full_size(
             "textured town aov", *tex_towns[False], dev, smi, 23,
             town_kernels, (*MT_SYMBOLS, "external_shade_kernel"), AOV,
-            plain=False, timed=TOWN_TIMED)[1]
+            plain=False, profile=False)[1]
         aov_path_report("textured town aov", "textured static town")
         print(f"phases 21-23 (towns) done in {time.perf_counter() - t0:.1f} "
               f"s; {time.perf_counter() - t_start:.1f} s since the start")

@@ -207,8 +207,8 @@ def library() -> ctypes.CDLL:
     lib.rt3c_resident_walk.argtypes = [ci, ci, vp, vp, vp, vp, ci, vp, ci,
                                        vp, ci, ci, ci, vp, vp, vp, vp]
     lib.rt3c_resident_walk.restype = ci
-    lib.rt3c_instanced_mt.argtypes = [ci, ci, vp, ci, vp, vp, vp, vp, ci, vp,
-                                      vp]
+    lib.rt3c_instanced_mt.argtypes = [ci, ci, vp, ci, vp, vp, vp, vp, vp,
+                                      vp, ci, vp, vp]
     lib.rt3c_instanced_mt.restype = ci
     return lib
 

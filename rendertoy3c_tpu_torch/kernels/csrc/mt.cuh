@@ -1,8 +1,9 @@
 // Moller-Trumbore tests and the two-level tile-culled sweep. The test
 // (mt_test_tri) serves every MT kernel; the in-block sweep (culled_sweep,
 // stage_tile, mt_test, box_hit) serves the megakernels (megakernel.cuh:
-// K4/K5) and K7 (instanced_mt.cu), whose soups are a few tiles. K1/K2 and
-// K3 (mt_kernels.cu) bin rays by tile instead.
+// K4/K5), whose soups are a few tiles. K1/K2 and K3 (mt_kernels.cu) bin
+// rays by tile instead, and K7 (instanced_mt.cu) culls instances ray by
+// ray: both test padded boxes, ray by ray, where a block's vote was.
 //
 // Replaces the Pallas helpers of rendertoy3c_tpu/trace/pallas_mt.py:
 // _mt_test_cols (:119), _mt_test_motion (:502), _tile_box_hits (:175),

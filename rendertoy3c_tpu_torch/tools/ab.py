@@ -39,6 +39,26 @@ Workloads:
                  walking lane-rounds per launch (the `rows` count) and the
                  host ms per launch between two synchronizes; the outputs
                  agree when every state column's bits hash alike.
+  instanced-mt   K7 (`trace_instanced`, closest and any) on the K7 path's
+                 inputs: one 768^2 8-spp depth-16 subframe (pool 32768)
+                 of the trace-time Cornell (`multi_instance_tracetime`)
+                 through make_instanced_mt_tracer's pair under the general
+                 pool, recording every 100th closest and shadow call, 4 of
+                 each with at least half a pool live, spread over the
+                 subframe; and 131072 camera rays of the 768^2 image of
+                 the static instance field at grid 8, split-ordered
+                 (closest at tmax 1e16, any at seeded tmax in [0.5, 60]):
+                 `field` the first 131072 pixels, phase 37's rays (the
+                 image's bottom rows, every ray on the floor), and
+                 `field_spread` pixels spread over the image, which enter
+                 the 972-face towers.
+                 Each launch run 3 times: device ms per launch
+                 (`_queued_ms`); the outputs agree when every launch's
+                 output bits hash alike on its rays that start within
+                 FAR of the origin (the shadow rays of lanes that missed
+                 start at o + 1e16 d; the pool reads none of their
+                 occlusion, and there the vote's answer and the per-ray
+                 cull's differ: instanced_mt.cu's source note).
 """
 import functools
 import hashlib
@@ -318,10 +338,122 @@ def walk_round() -> dict:
     return out
 
 
+K7_RECORD_EVERY = 100  # chip_smoke.py's
+FIELD_RAYS = 131072  # chip_smoke.py's GATE_RAYS
+FIELD_GRID = 8  # chip_smoke.py's INST_GATE_GRID
+FAR = 1e6  # rays starting farther from the origin are not compared
+
+
+def _k7_inputs(dev, cfg_kw=MAIN, field_rays=FIELD_RAYS,
+               every=K7_RECORD_EVERY):
+    """({(where, kind): [(rays, count)]}, {where: soup}, the subframe's
+    accum sum, its seconds): PICKS of the K7 path's recorded calls of each
+    kind (one subframe at `cfg_kw`, every `every`-th call recorded) and
+    the grid-8 field's `field_rays` camera rays, with each scene's soup."""
+    import numpy as np
+    import torch
+
+    from rendertoy3c_tpu_torch.film.film import film_create
+    from rendertoy3c_tpu_torch.integrate.config import RenderConfig
+    from rendertoy3c_tpu_torch.integrate.path import make_render_fn
+    from rendertoy3c_tpu_torch.scene.builtin import (instance_field,
+                                                      multi_instance_cornell)
+    from rendertoy3c_tpu_torch.scene.camera import camera_ray_dir
+    from rendertoy3c_tpu_torch.scene.instanced import build_instanced_scene
+    from rendertoy3c_tpu_torch.trace import instanced_mt as im
+    from rendertoy3c_tpu_torch.trace.hier_instanced import \
+        split_order_instanced
+    from rendertoy3c_tpu_torch.trace.mt import _count_tensor, pack_rays
+
+    meshes, inst, camera = multi_instance_cornell()
+    scene = build_instanced_scene(meshes, inst)
+    pair = im.make_instanced_mt_tracer(scene, dev)
+    rec = {"closest": [], "any": []}
+    seen = {"closest": 0, "any": 0}
+
+    def recording(kind, fn):
+        def call(o, d, tmin, tmax, time=None, count=None):
+            if seen[kind] % every == 0:
+                rays, r = pack_rays(o, d, tmin, tmax)
+                rec[kind].append((rays, _count_tensor(count, r, dev)))
+            seen[kind] += 1
+            return fn(o, d, tmin, tmax, time, count=count)
+        return call
+
+    cfg = RenderConfig(**cfg_kw)
+    step = make_render_fn(scene, cfg, tracer=(
+        recording("closest", pair[0]), recording("any", pair[1])),
+        device=dev)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    film = film_create(cfg.height, cfg.width, device=dev)
+    sync()
+    t0 = time.perf_counter()
+    film, _ = step(camera.params(), film)
+    sync()
+    secs = time.perf_counter() - t0
+    out = {}
+    for kind, calls in rec.items():
+        calls = [c for c in calls if int(c[1]) >= c[0].shape[0] // 2]
+        out[("path", kind)] = [calls[int(j)] for j in np.linspace(
+            0, len(calls) - 1, PICKS).round()]
+    meshes, inst, cam = instance_field(False, FIELD_GRID)
+    field = split_order_instanced(build_instanced_scene(meshes, inst))
+    scf = tuple(float(x) for x in np.concatenate(
+        list(cam.params())).astype(np.float32))
+    zero = torch.zeros(field_rays, device=dev)
+    o = torch.as_tensor(scf[:3], device=dev).expand(field_rays, 3)
+    t_any = torch.as_tensor(np.random.default_rng(28).uniform(
+        0.5, 60.0, field_rays).astype(np.float32), device=dev)
+    # the first pixels (phase 37's rays: the image's bottom rows, all on
+    # the floor) and pixels spread over the image (the towers too)
+    ramp = torch.arange(field_rays, device=dev)
+    for where, pix in (("field", ramp % (768 * 768)),
+                       ("field_spread", ramp * (768 * 768) // field_rays)):
+        d = torch.stack(camera_ray_dir(scf, pix, 768, 768, zero, zero), 1)
+        for kind, tmin, tmax in (("closest", 1e-2, 1e16),
+                                 ("any", 1e-3, t_any)):
+            rays, r = pack_rays(o.contiguous(), d, tmin, tmax)
+            out[(where, kind)] = [(rays, _count_tensor(None, r, dev))]
+    field_soup = im.build_instanced_soup(field, dev)
+    soups = {"path": pair[0].soup, "field": field_soup,
+             "field_spread": field_soup}
+    return out, soups, float(film.accum.double().sum()), secs
+
+
+def instanced_mt() -> dict:
+    """The recorded K7 launches and the field's, each timed 3 times."""
+    import torch
+
+    from rendertoy3c_tpu_torch.trace import instanced_mt as im
+
+    dev = torch.device("cuda")
+    inputs, soups, accum, secs = _k7_inputs(dev)
+    out = dict(identity=[], means={}, subframe_s=secs, accum_sum=accum)
+    for (where, kind), launches in inputs.items():
+        rows = []
+        for rays, count in launches:
+            args = (rays, count, soups[where], kind == "any")
+            done = []
+
+            def calls(args=args):
+                return [functools.partial(
+                    lambda *a: done.append(im.trace_instanced(*a)), *args)
+                    for _ in range(REPEATS)]
+
+            near = rays[:, 0:3].abs().amax(dim=1) < FAR
+            rows.append(dict(count=int(count), device_ms=_queued_ms(calls),
+                             far=int((~near).sum())))
+            out["identity"].append(_digest([done[-1][near]]))
+        out[f"{where}_{kind}"] = rows
+        out["means"][f"{where}_{kind}_device_ms"] = statistics.fmean(
+            x["device_ms"] for x in rows)
+    return out
+
+
 # each returns its turn's numbers: "means" (averaged per checkout),
 # "subframe_s", and "identity" (equal across checkouts whose outputs agree)
 WORKLOADS = {"mt-sweep": mt_sweep, "resident-walk": resident_walk,
-             "walk-round": walk_round}
+             "walk-round": walk_round, "instanced-mt": instanced_mt}
 
 
 def turn(workload: str, root: str) -> dict:

@@ -1,6 +1,7 @@
 """tools/ab.py's summary: the mean of each turn number per checkout, and
 the agreement of the checkouts' outputs; its workloads' usage and
-argument check. The turns themselves need a CUDA card."""
+argument check; the inputs of `instanced-mt` gathered on the CPU at a
+small size. The turns themselves need a CUDA card."""
 import sys
 
 import pytest
@@ -41,3 +42,38 @@ def test_walk_round_is_listed_and_its_arguments_checked(argv, monkeypatch,
     monkeypatch.setattr(sys, "argv", ["ab.py", *argv])
     assert ab.main() == 2
     assert "walk-round" in capsys.readouterr().err
+
+
+def test_instanced_mt_inputs():
+    """`instanced-mt`'s inputs at 32^2, 1 spp, depth 3, a pool of 512
+    and 2048 field rays on the CPU: PICKS recorded calls of each kind,
+    each with at least half a pool live, and the field's rays, each
+    traced by K7's plain version to a hit somewhere; the spread field
+    rays enter the towers, the first pixels' only the floor."""
+    import torch
+
+    from rendertoy3c_tpu_torch.trace import instanced_mt as im
+
+    cfg = dict(width=32, height=32, samples_per_launch=1, max_depth=3,
+               ray_block=512, integrator="pool", pool_pixel_major=True)
+    inputs, soups, accum, _ = ab._k7_inputs(torch.device("cpu"), cfg,
+                                            field_rays=2048, every=2)
+    assert accum > 0.0
+    assert sorted(inputs) == [("field", "any"), ("field", "closest"),
+                              ("field_spread", "any"),
+                              ("field_spread", "closest"),
+                              ("path", "any"), ("path", "closest")]
+    for (where, kind), launches in inputs.items():
+        assert len(launches) == (ab.PICKS if where == "path" else 1)
+        for rays, count in launches:
+            assert rays.shape == ((512, 8) if where == "path" else (2048, 8))
+            assert int(count) >= rays.shape[0] // 2
+            out = im.trace_instanced(rays, count, soups[where],
+                                     kind == "any")
+            assert bool((out[:, 0 if kind == "any" else 1] > 0).any())
+            if kind == "closest" and where != "path":
+                inst = out[:, 4].long()
+                hit = inst >= 0
+                # the tower mesh is the one of more than one tile
+                tiles = soups[where].inst_tiles[inst[hit], 1]
+                assert bool((tiles > 1).any()) == (where == "field_spread")

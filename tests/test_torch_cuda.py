@@ -1695,3 +1695,60 @@ def test_instanced_mt_kernel_matches_plain_version(dev, case):
     assert 0.2 < float((h.prim >= 0).float().mean())
     assert torch.equal(any_hit(ot, dt, 1e-3, tmax),
                        b_any(ot, dt, 1e-3, tmax))
+
+
+def _cull_case(case):
+    """(scene, rays) of tests/test_torch_instanced_cull.py's inputs, built
+    with this package (inst_cull_util)."""
+    import inst_cull_util as icu
+    from rendertoy3c_tpu_torch.scene import builtin
+    from rendertoy3c_tpu_torch.scene.instanced import build_instanced_scene
+    from rendertoy3c_tpu_torch.scene.scene import Instance
+
+    if case == "three_instances":
+        parts = icu.three_instances_parts(builtin, Material, Mesh, Instance)
+        return build_instanced_scene(*parts), icu.three_rays(
+            np.random.default_rng(41))
+    if case == "ties":
+        parts = icu.ties_parts(Material, Mesh, Instance)
+        return build_instanced_scene(*parts), icu.ties_rays(
+            np.random.default_rng(41))
+    meshes, inst, _ = builtin.multi_instance_cornell()
+    rays = (icu.cornell_rays(np.random.default_rng(41))
+            if case == "cornell_edges"
+            else icu.wall_rays(np.random.default_rng(47)))
+    return build_instanced_scene(meshes, inst), rays
+
+
+@pytest.mark.parametrize("case", ["three_instances", "cornell_edges",
+                                  "cornell_walls", "ties"])
+def test_instanced_mt_kernel_on_the_cull_cases(dev, case):
+    """K7 closest and any against trace_instanced_ref on
+    the scenes and rays of tests/test_torch_instanced_cull.py (rays in
+    the planes of zero-thickness boxes and along their edges, zero
+    direction components, tmax <= tmin, two identical instances, a face
+    repeated across tiles, degenerate faces), and on shadow rays from
+    1e16 away toward the scene (the pool's unread shadow rays of lanes
+    that missed): every output bit for bit at the full count and at a
+    count inside a ray tile."""
+    from rendertoy3c_tpu_torch.trace import instanced_mt as im
+
+    scene, (o, d, tmax) = _cull_case(case)
+    soup = im.build_instanced_soup(scene, dev)
+    far = torch.as_tensor(o, device=dev) + 1e16 * torch.as_tensor(
+        d, device=dev)
+    to = torch.as_tensor(o, device=dev) - far
+    dist = to.norm(dim=1)
+    for near, ro, rd, rt in ((True, torch.as_tensor(o, device=dev),
+                              torch.as_tensor(d, device=dev),
+                              torch.as_tensor(tmax, device=dev)),
+                             (False, far, to / dist[:, None], dist - 1e-3)):
+        rays, r = mt.pack_rays(ro, rd, 1e-3, rt)
+        for any_hit in (False, True):
+            for n in (r, r - 150):
+                count = torch.tensor([n], dtype=torch.int32, device=dev)
+                got = im.trace_instanced(rays, count, soup, any_hit)
+                want = im.trace_instanced_ref(rays, count, soup, any_hit)
+                assert _bits(got, want)
+            hits = got[:r, 0] > 0 if any_hit else got[:r, 1] >= 0
+            assert bool(hits.any()) or not near
