@@ -237,7 +237,14 @@ a JSON summary. Phases:
      bit for bit, timed (device_ms) and bounded (both terms printed);
  40. the (2, 1) and (1, 2) meshes of that path at 192^2 by the per-rank
      function in one process: tile bit-equal to one device, spp by the
-     reference's test_tile_spp_mesh_statistics rule.
+     reference's test_tile_spp_mesh_statistics rule;
+ 41. K4 and K5 on the multi-tile fused scene (the Cornell box, the
+     textured quad or the material Cornell box with a 10 x 10 grid of
+     small boxes on the floor: 1204-1236 faces, three 512-face tiles, so
+     that the megakernels' sweeps vote on tile boxes), static, 2-key,
+     textured, dispatch and AOV, against their plain versions: K4 as
+     phase 3, K5 teacher-forced for 4 iterations at the pool width, bit
+     for bit.
 
 Each kernel's bound is the larger of the bytes it must move over 3.35 TB/s
 and the operations its inputs need over the 67 TFLOP/s fp32 peak outside
@@ -246,7 +253,8 @@ box tests and the triangle tests of the tiles whose boxes it hits itself
 (closest rays bounded by their best hit so far, any-hit rays stopping at
 their first hit), replayed with the plain per-tile results; for the
 shading, its body per lane, with the texture work, the material dispatch
-and the power pick where the variant runs them.
+and the power pick where the variant runs them. A tile's test counts only
+its real faces (the megakernels and K7 test no padding).
 
 Phases 11-14, on the Cornell box, and the textured quad's, the material
 Cornell box's and the principled quad's parts of phases 15-20 run after
@@ -254,7 +262,8 @@ phase 6 and before the towns, the textured towns' phase 15 right after
 phase 8, their phases 16-17 after phase 10, the principled towns' phases
 18-20 and the towns' phases 21-23 after them, then phases 24-27 (24's
 gate, 26, 27, then 24's and 25's checks on 27's states), phases 28-31,
-phases 32-35, and phases 37-40 last (phase 36's paths run after phase 12).
+phases 32-35, and phases 37-40 last (phase 36's paths run after phase 12,
+phase 41 after phase 14).
 Any failed phase exits non-zero. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -380,15 +389,16 @@ def mt_work(rays, count, table, any_hit: bool, time=None, want=None,
     """(operations, table bytes read) that one K1/K2/K3 sweep over these
     rays needs, counted ray by ray in tile order: a ray tests the boxes of
     the super-tiles, and of the tiles of each super-tile whose box it hits
-    itself, and the triangles of each tile whose box it hits itself (K4
+    itself, and the real faces of each tile whose box it hits itself (K4
     and K5's block vote lets a ray into every tile that any ray of its
-    block hits, and K1-K3 bin a ray into each tile its padded box admits
-    at its tmax, unbounded by its hits: this count charges neither). A
-    closest ray's bound shrinks with its best hit so far; an any-hit ray
-    stops at its first hit; rays past the live count (in ray tiles of
-    `tile`, by default the MT kernel's), outside `want` (a megakernel's
-    lanes without a shadow ray) or with tmax <= tmin need nothing. A
-    tile's bytes count once if any ray tests it."""
+    block hits, K1-K3 bin a ray into each tile its padded box admits at
+    its tmax, unbounded by its hits, and test a tile's padding columns:
+    this count charges none of it). A closest ray's bound shrinks with its
+    best hit so far; an any-hit ray stops at its first hit; rays past the
+    live count (in ray tiles of `tile`, by default the MT kernel's),
+    outside `want` (a megakernel's lanes without a shadow ray) or with
+    tmax <= tmin need nothing. A tile's real faces count their bytes once
+    if any ray tests them."""
     import torch
 
     from rendertoy3c_tpu_torch.trace import mt
@@ -426,16 +436,17 @@ def mt_work(rays, count, table, any_hit: bool, time=None, want=None,
         idx = (m & ~done).nonzero()[:, 0]
         if idx.numel() == 0:
             return
-        staged += 1
+        nf = min(ct, table.num_faces - k * ct)  # the tile's real faces
+        staged += nf
         sub = tuple(c[idx] for c in cols)
-        extra = (table.tris1[k], time[idx, None]) if motion else ()
-        t, _, _, hit, _ = mt.mt_test(sub, tris[k], k * ct, *extra)
+        extra = (table.tris1[k][:, :nf], time[idx, None]) if motion else ()
+        t, _, _, hit, _ = mt.mt_test(sub, tris[k][:, :nf], k * ct, *extra)
         if any_hit:
             anyh = hit.any(dim=1)
-            tests[idx] += torch.where(anyh, hit.int().argmax(dim=1) + 1, ct)
+            tests[idx] += torch.where(anyh, hit.int().argmax(dim=1) + 1, nf)
             done[idx] = anyh
         else:
-            tests[idx] += ct
+            tests[idx] += nf
             tc = torch.where(hit, t, torch.full_like(t, 1e30)).amin(dim=1)
             best[idx] = torch.minimum(best[idx], tc)
 
@@ -453,7 +464,7 @@ def mt_work(rays, count, table, any_hit: bool, time=None, want=None,
                     visit(k, own(table.aabb[k], ms))
     ops = (int(tests.sum()) * (MT_TEST_OPS + (LERP_OPS if motion else 0))
            + int(boxes.sum()) * BOX_OPS)
-    table_bytes = (staged * 9 * ct * 4 * (2 if motion else 1)
+    table_bytes = (staged * 9 * 4 * (2 if motion else 1)
                    + 4 * (table.aabb.numel() + table.super_aabb.numel()))
     return ops, table_bytes
 
@@ -1714,6 +1725,104 @@ def phase_k5(dev, runs, phase=12):
               f"device time {h_ms:.4f} ms per launch vs plain {h_plain:.4f} "
               f"ms; bound {h_bound:.4f} ms by {h_by}")
     return results
+
+
+# ---------------------------------------------------------------- phase 41
+MULTITILE_GRID = 10  # boxes a side: 1200 faces more, three 512-face tiles
+MULTITILE_FORMS = ("static", "motion", "textured", "dispatch", "aov")
+
+
+def multitile_scene(form):
+    """(scene, camera) of the multi-tile fused scene in a form of
+    MULTITILE_FORMS (tests/megakernel_util.py's `multitile`): the Cornell
+    box (its 2-key form for "motion"; the normal-mapped textured quad for
+    "textured"; the material Cornell box for "dispatch") with a 10 x 10
+    grid of small boxes of seeded heights on its floor."""
+    import dataclasses
+
+    from rendertoy3c_tpu_torch.scene.builtin import box_mesh
+    from rendertoy3c_tpu_torch.scene.material import Material
+    from rendertoy3c_tpu_torch.scene.mesh import Mesh
+    from rendertoy3c_tpu_torch.scene.scene import build_scene
+
+    if form == "textured":
+        from rendertoy3c_tpu_torch.scene.builtin import textured_quad_variant
+
+        meshes, textures, camera = textured_quad_variant("normal_map")
+    elif form == "dispatch":
+        from rendertoy3c_tpu_torch.scene.builtin import material_cornell_box
+
+        (meshes, camera), textures = material_cornell_box(False), None
+    else:
+        from rendertoy3c_tpu_torch.scene.builtin import cornell_box
+
+        (meshes, camera), textures = cornell_box(), None
+    meshes = list(meshes)
+    if form == "motion":
+        v = meshes[-1].vertices
+        meshes[-1] = dataclasses.replace(meshes[-1], vertices=np.concatenate(
+            [v[:1], v[:1] + np.float32([0.1, 0, 0])]))
+    rng = np.random.default_rng(5)
+    step = 1.6 / MULTITILE_GRID
+    verts, faces = [], []
+    for i in range(MULTITILE_GRID):
+        for k in range(MULTITILE_GRID):
+            x0, z0 = -0.8 + i * step, -0.8 + k * step
+            m = box_mesh([x0, 0.0, z0], [x0 + 0.6 * step,
+                                        rng.uniform(0.05, 0.4),
+                                        z0 + 0.6 * step], None)
+            faces.append(m.indices + 8 * len(verts))
+            verts.append(m.vertices[0])
+    meshes.append(Mesh(vertices=np.concatenate(verts)[None],
+                       indices=np.concatenate(faces).astype(np.int32),
+                       material=Material(diffuse=(0.6, 0.6, 0.55))))
+    kw = {} if textures is None else dict(textures=textures)
+    return build_scene(meshes, **kw), camera
+
+
+def phase_multitile(dev, phase=41):
+    """K4 and K5 on the multi-tile fused scene, in each form, against
+    their plain versions: K4 as phase 3 (one block teacher-forced for 8
+    launches, then the pool width from launch 12, claims as a set; timed
+    and bounded), K5 teacher-forced for 4 iterations at the pool width
+    from camera-ray states, the live count the pool and 30000 in turn,
+    every output bit for bit."""
+    import torch
+
+    from rendertoy3c_tpu_torch.integrate.config import RenderConfig
+    from rendertoy3c_tpu_torch.trace import shade
+
+    pool = MAIN["ray_block"]
+    for form in MULTITILE_FORMS:
+        scene, camera = multitile_scene(form)
+        change = AOV if form == "aov" else {}
+        cfg = RenderConfig(**dict(MAIN, pool_pixel_major=False, **change))
+        pipe = shade.FusedPipeline(scene, cfg, dev)
+        check(pipe.tables.soup.tris.shape[0] == 3
+              and pipe.motion == (form == "motion"),
+              f"multi-tile {form}: {pipe.tables.soup.tris.shape[0]} tiles")
+        phase_k4(dev, scene, camera, phase, f"K4 multi-tile {form}", change)
+        rng = np.random.default_rng(SEED + 41)
+        gen = torch.Generator(device=dev).manual_seed(41)
+        rays, misc = _fresh_lanes(camera, pool, rng, dev)
+        if cfg.aov:
+            misc = torch.cat([misc, torch.zeros((pool, 8), device=dev)], 1)
+        n_diff = 0
+        for it in range(4):
+            count = torch.tensor([pool if it % 2 == 0 else 30000],
+                                 dtype=torch.int32, device=dev)
+            tm = (torch.rand(pool, device=dev, generator=gen) if pipe.motion
+                  else None)
+            a = (rays, misc, count, pipe.tables, pipe.config, tm)
+            got, want = shade.trace_shade(*a), shade.trace_shade_ref(*a)
+            n_diff += sum(int((g.view(torch.int32) != w.view(torch.int32))
+                              .any(dim=1).sum()) for g, w in zip(got, want))
+            rays, misc = want
+        check(n_diff == 0, f"K5 multi-tile {form}: {n_diff} lanes differ "
+              "from the plain version")
+        print(f"phase {phase} K5 multi-tile {form} ({scene.num_faces} faces, "
+              f"3 tiles): 4 iterations at {pool} lanes, bit-equal to the "
+              "plain version")
 
 
 # ---------------------------------------------------------------- phase 21+
@@ -3849,6 +3958,11 @@ def main() -> int:
         print(f"phase 14 done; {time.perf_counter() - t_start:.1f} s since "
               "the start")
 
+        # ---- phase 41: K4 and K5 on the multi-tile fused scene
+        t0 = time.perf_counter()
+        phase_multitile(dev)
+        print(f"phase 41 done in {time.perf_counter() - t0:.1f} s")
+
         # ---- phases 15-17 on the textured quad, static and 2-key
         tq, tq_cam = textured_quad()
         tqm, tqm_cam = textured_quad(motion=True)
@@ -3948,7 +4062,6 @@ def main() -> int:
         aov_path_report("cornell aov", "cornell")
         aov_path_report("cornell sorted aov", "cornell sorted")
         aov_pairs(dev, "cornell", scene, camera, {}, 4)
-        aov_pairs(dev, "cornell sorted", scene, camera, SORTED, 1)
         phase_denoise_and_cli(dev, film_aov)
         del film_aov
         print(f"phase 23 (fused) done in {time.perf_counter() - t0:.1f} s; "

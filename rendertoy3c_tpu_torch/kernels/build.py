@@ -45,7 +45,8 @@ class RefillParams(ctypes.Structure):
         ("num_lights", ctypes.c_int), ("pixel_base", ctypes.c_int),
         ("subframe_index", ctypes.c_int), ("attr_stride", ctypes.c_int),
         ("light_stride", ctypes.c_int), ("n_tiles", ctypes.c_int),
-        ("ct", ctypes.c_int), ("motion", ctypes.c_int),
+        ("ct", ctypes.c_int), ("n_faces", ctypes.c_int),
+        ("motion", ctypes.c_int),
         ("power", ctypes.c_int), ("params_base", ctypes.c_int),
         ("aov", ctypes.c_int), ("seed_rot", ctypes.c_uint32),
         ("width_f", ctypes.c_float), ("height_f", ctypes.c_float),
@@ -65,6 +66,7 @@ class TraceShadeParams(ctypes.Structure):
         ("max_depth", ctypes.c_int), ("num_lights", ctypes.c_int),
         ("attr_stride", ctypes.c_int), ("light_stride", ctypes.c_int),
         ("n_tiles", ctypes.c_int), ("ct", ctypes.c_int),
+        ("n_faces", ctypes.c_int),
         ("motion", ctypes.c_int), ("power", ctypes.c_int),
         ("params_base", ctypes.c_int), ("aov", ctypes.c_int),
         ("shadow_tmin", ctypes.c_float), ("shadow_eps", ctypes.c_float),

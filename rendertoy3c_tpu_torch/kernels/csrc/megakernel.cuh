@@ -30,20 +30,28 @@
 // per 128-ray block as K3 does. The two keys' tiles take 36 KB of static
 // shared memory, shared by the closest and the shadow sweep.
 //
-// Bound: latency. A pool of 32768 lanes is 128 blocks of 256 threads, less
+// Bound: latency. A pool of 32768 lanes is 128 blocks of 256 lanes, less
 // than one block per SM, and each lane does two sweeps of dependent loads
 // and a chain of scalar math; the per-lane state (rays 32 B, misc 64 B,
-// stash 64 B in and out) is a few MB per launch. Design: one thread per
-// lane, state updated in place (each thread reads and writes only its own
-// lane, the CUDA form of the TPU kernel's input/output aliasing), tables
-// read by plain fp32 indexed loads (no one-hot matmul, so no TF32 path).
+// stash 64 B in and out) is a few MB per launch. Design: a group of
+// LANE_GROUP = 2 threads per lane (512-thread blocks, up to 128 registers
+// a thread: 80-117, no spills), which split the closest and the shadow
+// sweep's triangle tests between them (mt.cuh) and test only the soup's
+// real faces; both threads then shade the lane alike (a warp issues the
+// same instructions whether one thread of a group or both run them) and
+// its leader alone writes it back, in place (each group reads and writes
+// only its own lane, the CUDA form of the TPU kernel's input/output
+// aliasing); the cull vote still spans the block's 256 lanes, the TPU
+// kernel's RAY_TILE. Tables are read by plain fp32 indexed loads (no
+// one-hot matmul, so no TF32 path).
 //
 // The work counter: TPU grid steps run in order and step 0 seeds an SMEM
 // counter; CUDA blocks run concurrently. Here a one-thread launch first
 // seeds stats_out = (next_work, 0, 0, 0) from the previous launch's stats
 // (stats_in, never the same buffer), and each block claims pixels for its
-// idle lanes with an in-block exclusive scan plus one compare-and-swap loop
-// that clamps the counter at n_pix. Which block gets which pixels varies
+// idle lanes with an in-block exclusive scan (each lane counted once, by
+// its leader) plus one compare-and-swap loop that clamps the counter at
+// n_pix. Which block gets which pixels varies
 // from run to run; per-pixel RNG streams are keyed by pixel id (tea), so the
 // image does not depend on it.
 //
@@ -68,7 +76,7 @@
 // (22-23 stay zero), and K4's retire moves those accs into stash columns 4-9
 // (zeroing them in misc) where it moves the radiance acc. It is a template
 // switch, not a launch-uniform flag, so that the launches without AOV run
-// exactly the code they ran before (K4 at 64 registers). Every combination
+// none of its code or registers. Every combination
 // of motion, texture, dispatch and AOV is instantiated (16 of each kernel).
 #pragma once
 
@@ -82,7 +90,7 @@ namespace rt3c {
 struct RefillParams {
   int n_pix, spp, width, max_depth;
   int num_lights, pixel_base, subframe_index, attr_stride;
-  int light_stride, n_tiles, ct, motion;
+  int light_stride, n_tiles, ct, n_faces, motion;
   int power, params_base, aov;
   unsigned int seed_rot;
   float width_f, height_f, tmin, tmax;
@@ -94,11 +102,19 @@ struct RefillParams {
 // K5's launch parameters; mirrored field for field by kernels/build.py.
 struct TraceShadeParams {
   int max_depth, num_lights, attr_stride, light_stride;
-  int n_tiles, ct, motion, power;
+  int n_tiles, ct, n_faces, motion, power;
   int params_base, aov;
   float shadow_tmin, shadow_eps, pick_pdf;
   float bg[3];
 };
+
+// The threads of a lane's group (mt.cuh's sweeps): a block is RAY_TILE
+// lanes of LANE_GROUP threads. 2 timed fastest over the paths' launches
+// (1 and 4 in turns, PERF.md); at 4 the 64-register cap of a 1024-thread
+// block spilled every instantiation.
+constexpr int LANE_GROUP = 2;
+// The lanes' leaders (thread g = 0 of each group) in a warp's ballot.
+constexpr unsigned LEADERS = FULL_MASK / ((1u << LANE_GROUP) - 1u);
 
 // The sweeps of one lane over the launch's tables: the static soup, or for
 // motion the key-0 tiles in soup.tris (with the union cull boxes) and the
@@ -110,10 +126,12 @@ __device__ __forceinline__ ClosestHit sweep_closest_at(const Soup& s,
                                                        const Ray& r,
                                                        float time, bool live) {
   if constexpr (kMotion) {
-    const MotionSoup ms{s.tris, tris1, s.aabb, s.super_aabb, s.n_tiles, s.ct};
-    return sweep_closest_motion(ms, smem, smem + 9 * MAX_CT, r, time, live);
+    const MotionSoup ms{s.tris,    tris1, s.aabb,   s.super_aabb,
+                        s.n_tiles, s.ct,  s.n_faces};
+    return sweep_closest_motion<LANE_GROUP>(ms, smem, smem + 9 * MAX_CT, r,
+                                            time, live);
   } else {
-    return sweep_closest(s, smem, r, live);
+    return sweep_closest<LANE_GROUP>(s, smem, r, live);
   }
 }
 
@@ -123,10 +141,12 @@ __device__ __forceinline__ bool sweep_any_at(const Soup& s, const float* tris1,
                                              float time, bool live,
                                              bool want) {
   if constexpr (kMotion) {
-    const MotionSoup ms{s.tris, tris1, s.aabb, s.super_aabb, s.n_tiles, s.ct};
-    return sweep_any_motion(ms, smem, smem + 9 * MAX_CT, r, time, live, want);
+    const MotionSoup ms{s.tris,    tris1, s.aabb,   s.super_aabb,
+                        s.n_tiles, s.ct,  s.n_faces};
+    return sweep_any_motion<LANE_GROUP>(ms, smem, smem + 9 * MAX_CT, r,
+                                        time, live, want);
   } else {
-    return sweep_any(s, smem, r, live, want);
+    return sweep_any<LANE_GROUP>(s, smem, r, live, want);
   }
 }
 
@@ -171,7 +191,7 @@ __device__ __forceinline__ void store_aov(float4* mp, const float* aov) {
 }
 
 template <bool kMotion, bool kTex, bool kDispatch, bool kAov>
-__global__ void __launch_bounds__(RAY_TILE)
+__global__ void __launch_bounds__(RAY_TILE * LANE_GROUP, 1)
     refill_kernel(const RefillParams p, float* __restrict__ rays,
                   float* __restrict__ misc, float* __restrict__ stash,
                   float* __restrict__ time, const int* __restrict__ stats_in,
@@ -181,10 +201,14 @@ __global__ void __launch_bounds__(RAY_TILE)
                   const float* __restrict__ lights_t,
                   const uint32_t* __restrict__ jump, const TexParams tex) {
   __shared__ float tiles[(kMotion ? 2 : 1) * 9 * MAX_CT];
-  __shared__ int warp_base[RAY_TILE / 32];
+  __shared__ int warp_base[RAY_TILE * LANE_GROUP / 32];
   __shared__ int s_base, s_max_lane, s_live;
 
-  const int lane = blockIdx.x * RAY_TILE + threadIdx.x;
+  // LANE_GROUP threads a lane: each reads the lane, sweeps its share of
+  // the faces and shades it alike; the leader (g = 0) alone writes it back
+  const int lane = blockIdx.x * RAY_TILE + threadIdx.x / LANE_GROUP;
+  const int g = threadIdx.x % LANE_GROUP;
+  const bool lead = g == 0;
   const int wid = threadIdx.x >> 5, lid = threadIdx.x & 31;
   if (threadIdx.x == 0) {
     s_max_lane = -1;
@@ -200,7 +224,7 @@ __global__ void __launch_bounds__(RAY_TILE)
 
   // --- closest sweep (the _closest_kernel body) ---
   const ClosestHit h = sweep_closest_at<kMotion>(soup, tris1, tiles, r, tm,
-                                                 live);
+                                                    live);
 
   // --- shading, with the shadow sweep (the _any_kernel body) in place ---
   const ShadeConsts sc{p.max_depth, p.num_lights, p.light_stride,
@@ -209,7 +233,8 @@ __global__ void __launch_bounds__(RAY_TILE)
   const Shaded o = shade_lane<false, kTex, kDispatch>(
       sc, r, h, m, attr_t + (int)fmaxf(h.prim, 0.0f), p.attr_stride,
       lights_t, tex, [&](const Ray& sr, bool want, float st) {
-        return sweep_any_at<kMotion>(soup, tris1, tiles, sr, st, live, want);
+        return sweep_any_at<kMotion>(soup, tris1, tiles, sr, st, live,
+                                        want);
       });
   const uint32_t seed = o.seed;
   const float px = o.px, py = o.py, pz = o.pz;
@@ -263,27 +288,29 @@ __global__ void __launch_bounds__(RAY_TILE)
     sampf = 0.0f;
   }
 
-  // pixel claim: exclusive scan of idle lanes in lane order, one CAS loop
-  // per block on the work counter, clamped at n_pix
+  // pixel claim: exclusive scan of idle lanes in lane order (each lane
+  // counted once, by its leader's bit), then one atomicAdd per block on
+  // the work counter and an atomicMin that clamps it at n_pix: every add is
+  // followed by its block's clamp, so the counter ends at min(start + idle
+  // lanes, n_pix) in any block order, and a block whose base is past
+  // n_pix takes no pixel (one compare-and-swap loop per block had the
+  // 128 blocks retry one another's swaps)
   const bool idle = deadr && (pixf < 0.0f);
-  const unsigned ballot = __ballot_sync(0xffffffffu, idle);
-  const int lane_rank = __popc(ballot & ((1u << lid) - 1u));
+  const unsigned ballot = __ballot_sync(FULL_MASK, idle) & LEADERS;
+  const int lane_rank = __popc(ballot & ((1u << (lid - g)) - 1u));
   if (lid == 0) warp_base[wid] = __popc(ballot);
   __syncthreads();
   if (threadIdx.x == 0) {
     int k = 0;
-    for (int w = 0; w < RAY_TILE / 32; ++w) {
+    for (int w = 0; w < RAY_TILE * LANE_GROUP / 32; ++w) {
       const int c = warp_base[w];
       warp_base[w] = k;
       k += c;
     }
-    int base = atomicAdd(&stats_out[0], 0);
-    while (true) {
-      const int want = min(base + k, p.n_pix);
-      if (want <= base) break;
-      const int prev = atomicCAS(&stats_out[0], base, want);
-      if (prev == base) break;
-      base = prev;
+    int base = 0;
+    if (k > 0) {
+      base = atomicAdd(&stats_out[0], k);
+      atomicMin(&stats_out[0], p.n_pix);
     }
     s_base = base;
   }
@@ -325,11 +352,13 @@ __global__ void __launch_bounds__(RAY_TILE)
   // the per-ray time draw: advances every live lane; the motion variant
   // keeps the drawn time (on every lane) for the next launch's sweeps
   const uint32_t s_adv = lcg_next(seed_u);
-  if constexpr (kMotion) time[lane] = lcg_unit(s_adv);
+  if constexpr (kMotion) {
+    if (lead) time[lane] = lcg_unit(s_adv);
+  }
   if (alive2) seed_u = s_adv;
 
   // --- write the lane back in place ---
-  {
+  if (lead) {
     float4* rp = reinterpret_cast<float4*>(rays + 8 * (size_t)lane);
     rp[0] = make_float4(take ? p.cam[0] : (survive ? px : r.ox),
                         take ? p.cam[1] : (survive ? py : r.oy),
@@ -362,9 +391,10 @@ __global__ void __launch_bounds__(RAY_TILE)
   }
 
   // --- launch stats: count_hint = last live lane + 1, n_live ---
-  const unsigned live_mask = __ballot_sync(0xffffffffu, alive2);
+  const unsigned live_mask = __ballot_sync(FULL_MASK, alive2) & LEADERS;
   if (lid == 0 && live_mask) {
-    atomicMax(&s_max_lane, wid * 32 + 31 - __clz(live_mask));
+    atomicMax(&s_max_lane,
+              (wid * 32 + 31 - __clz(live_mask)) / LANE_GROUP);
     atomicAdd(&s_live, __popc(live_mask));
   }
   __syncthreads();
@@ -383,7 +413,7 @@ __global__ void __launch_bounds__(RAY_TILE)
 // of the in-kernel sweep, and `time` is not read (the shadow rays' time is
 // the seed's peek either way).
 template <bool kMotion, bool kTex, bool kDispatch, bool kAov>
-__global__ void __launch_bounds__(RAY_TILE)
+__global__ void __launch_bounds__(RAY_TILE * LANE_GROUP, 1)
     trace_shade_kernel(const TraceShadeParams p,
                        const float* __restrict__ rays,
                        const float* __restrict__ misc,
@@ -397,7 +427,7 @@ __global__ void __launch_bounds__(RAY_TILE)
                        float* __restrict__ misc_out, const TexParams tex) {
   __shared__ float tiles[(kMotion ? 2 : 1) * 9 * MAX_CT];
   constexpr int MW = kAov ? 24 : 16;
-  const int lane = blockIdx.x * RAY_TILE + threadIdx.x;
+  const int lane = blockIdx.x * RAY_TILE + threadIdx.x / LANE_GROUP;
   const bool live = (int)blockIdx.x * RAY_TILE < *count;
   const Ray r = load_ray(rays, lane);
   float m[MW];
@@ -417,9 +447,11 @@ __global__ void __launch_bounds__(RAY_TILE)
   const Shaded o = shade_lane<false, kTex, kDispatch>(
       sc, r, h, m, attr_t + (int)fmaxf(h.prim, 0.0f), p.attr_stride,
       lights_t, tex, [&](const Ray& sr, bool want, float st) {
-        return sweep_any_at<kMotion>(soup, tris1, tiles, sr, st, live, want);
+        return sweep_any_at<kMotion>(soup, tris1, tiles, sr, st, live,
+                                        want);
       });
 
+  if (threadIdx.x % LANE_GROUP != 0) return;  // the leader writes the lane
   float4* rp = reinterpret_cast<float4*>(rays_out + 8 * (size_t)lane);
   rp[0] = make_float4(o.survive ? o.px : r.ox, o.survive ? o.py : r.oy,
                       o.survive ? o.pz : r.oz, o.survive ? o.ndx : r.dx);
@@ -475,9 +507,9 @@ int launch_refill(const RefillParams* p, float* rays, float* misc,
                             const TexParams& t) {
     refill_kernel<decltype(kMotion)::value, decltype(kTex)::value,
                   decltype(kDispatch)::value, kAov>
-        <<<grid, RAY_TILE, 0, s>>>(*p, rays, misc, stash, time, stats_in,
-                                   stats_out, soup, tris1, attr_t, lights_t,
-                                   jump, t);
+        <<<grid, RAY_TILE * LANE_GROUP, 0, s>>>(
+            *p, rays, misc, stash, time, stats_in, stats_out, soup, tris1,
+            attr_t, lights_t, jump, t);
   });
 }
 
@@ -495,9 +527,9 @@ int launch_trace_shade(const TraceShadeParams* p, const float* rays,
                             const TexParams& t) {
     trace_shade_kernel<decltype(kMotion)::value, decltype(kTex)::value,
                        decltype(kDispatch)::value, kAov>
-        <<<grid, RAY_TILE, 0, s>>>(*p, rays, misc, time, hit4, count, soup,
-                                   tris1, attr_t, lights_t, rays_out,
-                                   misc_out, t);
+        <<<grid, RAY_TILE * LANE_GROUP, 0, s>>>(
+            *p, rays, misc, time, hit4, count, soup, tris1, attr_t, lights_t,
+            rays_out, misc_out, t);
   });
 }
 

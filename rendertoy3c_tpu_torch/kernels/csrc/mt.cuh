@@ -7,12 +7,21 @@
 //
 // Replaces the Pallas helpers of rendertoy3c_tpu/trace/pallas_mt.py:
 // _mt_test_cols (:119), _mt_test_motion (:502), _tile_box_hits (:175),
-// _culled_sweep (:195) and _inv_cols (:247). In the sweep one thread
-// carries one ray; a block is one ray tile (RAY_TILE = 256 static,
-// MOTION_RAY_TILE = 128 motion), and the block walks the triangle tiles in
-// order, staging each [9, CT] tile (both keys' tiles for motion) in shared
-// memory so every thread reads the same triangle at the same time (a
-// broadcast, no bank conflicts).
+// _culled_sweep (:195) and _inv_cols (:247). In the sweep a group of G
+// threads (consecutive in a warp) carries one ray; a block is one ray
+// tile (RAY_TILE = 256 rays of G threads each), and the block walks the
+// triangle tiles in order, staging each [9, CT] tile (both keys' tiles
+// for motion) in shared memory so every thread reads the same triangle
+// at the same time (a broadcast, no bank conflicts). Only a tile's real
+// faces are staged and tested: the soup's columns past its face count are
+// all zero (checked when the megakernels' tables are built), so det = 0
+// and they never hit. Thread g of a group tests the columns j = g mod G
+// in order, bounded by its own best t; after each tile the group merges
+// its hits to the least (t, prim) with shuffles. That is the serial
+// scan's answer (min t, the lowest prim at equal t: the strict t < best
+// keeps the first), and every thread of the group carries it into the
+// next tile's cull vote, as the serial scan would. An any-hit group ORs
+// its threads' results after each tile.
 //
 // Float order: every expression keeps the left-to-right order of the JAX
 // code, and the build passes --fmad=false, so no a*b+c is contracted.
@@ -24,6 +33,7 @@
 namespace rt3c {
 
 constexpr int RAY_TILE = 256;
+constexpr unsigned FULL_MASK = 0xffffffffu;
 constexpr int MOTION_RAY_TILE = 128;
 constexpr int SUPER_TILE = 8;
 constexpr int MAX_CT = 512;
@@ -36,13 +46,15 @@ struct Ray {
 
 // Triangle soup of build_tri_soup: tris [n_tiles, 9, ct] component-major
 // (v0.xyz e1.xyz e2.xyz rows), per-tile boxes aabb [ceil8(n_tiles), 8]
-// (lo.xyz hi.xyz pad2) and supertile boxes [ceil8(n_tiles)/8, 8].
+// (lo.xyz hi.xyz pad2) and supertile boxes [ceil8(n_tiles)/8, 8];
+// n_faces real faces, the columns past them all zero.
 struct Soup {
   const float* tris;
   const float* aabb;
   const float* super_aabb;
   int n_tiles;
   int ct;
+  int n_faces;
 };
 
 // The 2-key soup of build_motion_soup: both keys tiled alike, and the
@@ -54,6 +66,7 @@ struct MotionSoup {
   const float* super_aabb;
   int n_tiles;
   int ct;
+  int n_faces;
 };
 
 __device__ __forceinline__ Ray load_ray(const float* rays, int i) {
@@ -151,14 +164,22 @@ __device__ __forceinline__ bool block_box_vote(const float* box, const Ray& r,
   return __syncthreads_or(box_hit(box, r, ix, iy, iz, tcur)) != 0;
 }
 
-// Stage tile k of a [n_tiles, 9, ct] table into shared memory (every
-// thread participates).
+// The real faces of tile k: the columns below n_faces.
+__device__ __forceinline__ int tile_faces(int n_faces, int k, int ct) {
+  return min(ct, n_faces - k * ct);
+}
+
+// Stage the real faces nf of tile k of a [n_tiles, 9, ct] table into
+// shared memory, in the tile's [9, ct] layout (every thread participates).
 __device__ __forceinline__ void stage_tile(const float* tris, int k, int ct,
-                                           float* smem) {
-  const int n = 9 * ct;
-  const float* src = tris + (size_t)k * n;
+                                           int nf, float* smem) {
+  const int n = 9 * nf;
+  const float* src = tris + (size_t)k * 9 * ct;
   __syncthreads();  // the previous tile's readers are done
-  for (int i = threadIdx.x; i < n; i += blockDim.x) smem[i] = src[i];
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int q = i / nf, j = i - q * nf;
+    smem[q * ct + j] = src[q * ct + j];
+  }
   __syncthreads();
 }
 
@@ -214,15 +235,42 @@ struct ClosestHit {
   float t, prim, u, v;
 };
 
-template <class Stage, class Test>
+// The group's least hit by (t, prim), on every thread of the group (G
+// consecutive threads of a warp; every thread of the warp takes part).
+template <int G>
+__device__ __forceinline__ void group_min(ClosestHit& b) {
+#pragma unroll
+  for (int off = 1; off < G; off <<= 1) {
+    const float t = __shfl_xor_sync(FULL_MASK, b.t, off);
+    const float p = __shfl_xor_sync(FULL_MASK, b.prim, off);
+    const float u = __shfl_xor_sync(FULL_MASK, b.u, off);
+    const float v = __shfl_xor_sync(FULL_MASK, b.v, off);
+    if (t < b.t || (t == b.t && p < b.prim)) b = ClosestHit{t, p, u, v};
+  }
+}
+
+template <int G>
+__device__ __forceinline__ bool group_any(bool x) {
+#pragma unroll
+  for (int off = 1; off < G; off <<= 1) {
+    const int o = __shfl_xor_sync(FULL_MASK, (int)x, off);
+    x = x || o != 0;
+  }
+  return x;
+}
+
+template <int G, class Stage, class Test>
 __device__ __forceinline__ ClosestHit sweep_closest_with(
     const float* aabb, const float* super_aabb, int n_tiles, int ct,
-    const Ray& r, bool live, Stage stage, Test test) {
+    int n_faces, const Ray& r, bool live, Stage stage, Test test) {
   ClosestHit best{r.tmax, -1.0f, 0.0f, 0.0f};
+  const int g = threadIdx.x % G;
   culled_sweep(
-      aabb, super_aabb, n_tiles, r, live, [&]() { return best.t; }, stage,
+      aabb, super_aabb, n_tiles, r, live, [&]() { return best.t; },
+      [&](int k) { stage(k, tile_faces(n_faces, k, ct)); },
       [&](int k) {
-        for (int j = 0; j < ct; ++j) {
+        const int nf = tile_faces(n_faces, k, ct);
+        for (int j = g; j < nf; j += G) {
           float t, u, v;
           if (test(j, best.t, t, u, v)) {
             best.t = t;
@@ -231,52 +279,60 @@ __device__ __forceinline__ ClosestHit sweep_closest_with(
             best.v = v;
           }
         }
+        group_min<G>(best);
       });
   return best;
 }
 
-// Any hit of one ray below its tmax. `want` (per thread) skips the
-// triangle tests of a ray that needs none (a lane with no shadow ray); the
-// ray still takes part in the block's cull votes, as in the JAX sweep.
-template <class Stage, class Test>
+// Any hit of one ray below its tmax. `want` (per ray) skips the triangle
+// tests of a ray that needs none (a lane with no shadow ray); the ray
+// still takes part in the block's cull votes, as in the JAX sweep.
+template <int G, class Stage, class Test>
 __device__ __forceinline__ bool sweep_any_with(const float* aabb,
                                                const float* super_aabb,
                                                int n_tiles, int ct,
-                                               const Ray& r, bool live,
-                                               bool want, Stage stage,
-                                               Test test) {
+                                               int n_faces, const Ray& r,
+                                               bool live, bool want,
+                                               Stage stage, Test test) {
   bool occ = false;
+  const int g = threadIdx.x % G;
   culled_sweep(
-      aabb, super_aabb, n_tiles, r, live, [&]() { return r.tmax; }, stage,
-      [&](int) {
-        if (!want || occ) return;
-        for (int j = 0; j < ct; ++j) {
-          float t, u, v;
-          if (test(j, r.tmax, t, u, v)) {
-            occ = true;
-            return;
+      aabb, super_aabb, n_tiles, r, live, [&]() { return r.tmax; },
+      [&](int k) { stage(k, tile_faces(n_faces, k, ct)); },
+      [&](int k) {
+        if (want && !occ) {
+          const int nf = tile_faces(n_faces, k, ct);
+          for (int j = g; j < nf; j += G) {
+            float t, u, v;
+            if (test(j, r.tmax, t, u, v)) {
+              occ = true;
+              break;
+            }
           }
         }
+        occ = group_any<G>(occ);
       });
   return occ;
 }
 
 // The static sweeps (the _closest_kernel / _any_kernel bodies).
+template <int G>
 __device__ __forceinline__ ClosestHit sweep_closest(const Soup& s, float* smem,
                                                     const Ray& r, bool live) {
-  return sweep_closest_with(
-      s.aabb, s.super_aabb, s.n_tiles, s.ct, r, live,
-      [&](int k) { stage_tile(s.tris, k, s.ct, smem); },
+  return sweep_closest_with<G>(
+      s.aabb, s.super_aabb, s.n_tiles, s.ct, s.n_faces, r, live,
+      [&](int k, int nf) { stage_tile(s.tris, k, s.ct, nf, smem); },
       [&](int j, float tmax, float& t, float& u, float& v) {
         return mt_test(r, tmax, smem, s.ct, j, t, u, v);
       });
 }
 
+template <int G>
 __device__ __forceinline__ bool sweep_any(const Soup& s, float* smem,
                                           const Ray& r, bool live, bool want) {
-  return sweep_any_with(
-      s.aabb, s.super_aabb, s.n_tiles, s.ct, r, live, want,
-      [&](int k) { stage_tile(s.tris, k, s.ct, smem); },
+  return sweep_any_with<G>(
+      s.aabb, s.super_aabb, s.n_tiles, s.ct, s.n_faces, r, live, want,
+      [&](int k, int nf) { stage_tile(s.tris, k, s.ct, nf, smem); },
       [&](int j, float tmax, float& t, float& u, float& v) {
         return mt_test(r, tmax, smem, s.ct, j, t, u, v);
       });
@@ -284,29 +340,31 @@ __device__ __forceinline__ bool sweep_any(const Soup& s, float* smem,
 
 // The motion sweeps (the _closest_kernel_motion / _any_kernel_motion
 // bodies): both keys' tiles staged, triangles lerped to `time`.
+template <int G>
 __device__ __forceinline__ ClosestHit sweep_closest_motion(
     const MotionSoup& s, float* smem0, float* smem1, const Ray& r, float time,
     bool live) {
-  return sweep_closest_with(
-      s.aabb, s.super_aabb, s.n_tiles, s.ct, r, live,
-      [&](int k) {
-        stage_tile(s.tris0, k, s.ct, smem0);
-        stage_tile(s.tris1, k, s.ct, smem1);
+  return sweep_closest_with<G>(
+      s.aabb, s.super_aabb, s.n_tiles, s.ct, s.n_faces, r, live,
+      [&](int k, int nf) {
+        stage_tile(s.tris0, k, s.ct, nf, smem0);
+        stage_tile(s.tris1, k, s.ct, nf, smem1);
       },
       [&](int j, float tmax, float& t, float& u, float& v) {
         return mt_test_motion(r, tmax, time, smem0, smem1, s.ct, j, t, u, v);
       });
 }
 
+template <int G>
 __device__ __forceinline__ bool sweep_any_motion(const MotionSoup& s,
                                                  float* smem0, float* smem1,
                                                  const Ray& r, float time,
                                                  bool live, bool want) {
-  return sweep_any_with(
-      s.aabb, s.super_aabb, s.n_tiles, s.ct, r, live, want,
-      [&](int k) {
-        stage_tile(s.tris0, k, s.ct, smem0);
-        stage_tile(s.tris1, k, s.ct, smem1);
+  return sweep_any_with<G>(
+      s.aabb, s.super_aabb, s.n_tiles, s.ct, s.n_faces, r, live, want,
+      [&](int k, int nf) {
+        stage_tile(s.tris0, k, s.ct, nf, smem0);
+        stage_tile(s.tris1, k, s.ct, nf, smem1);
       },
       [&](int j, float tmax, float& t, float& u, float& v) {
         return mt_test_motion(r, tmax, time, smem0, smem1, s.ct, j, t, u, v);

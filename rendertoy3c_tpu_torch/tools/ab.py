@@ -59,6 +59,22 @@ Workloads:
                  start at o + 1e16 d; the pool reads none of their
                  occlusion, and there the vote's answer and the per-ray
                  cull's differ: instanced_mt.cu's source note).
+  megakernel     K4 (`trace_shade_refill`) and K5 (`trace_shade`) on their
+                 paths' inputs: one 768^2 8-spp depth-16 subframe (pool
+                 32768) of each of MEGA_PATHS through choose_tracer's
+                 fused pipeline (K4: Cornell pixel-major, the 2-key
+                 Cornell box, the textured quad, the material Cornell
+                 box, Cornell with AOV; K5: Cornell sorted, the 2-key
+                 Cornell box sample-major), recording every 40th call, 4
+                 of each path with at least half the pool live (and, for
+                 K4, a pool's worth of pixels left to claim), spread over
+                 the subframe; every turn times the first turn's picks
+                 (which lane claims which pixel depends on block order,
+                 and so does the state a K4 subframe reaches). Each
+                 launch run 3 times, each from a clone of its state:
+                 device ms per launch (`_queued_ms`); the outputs agree
+                 when their digests do, K4's taken with the lanes that
+                 claimed a pixel sorted by pixel (`_k4_digest`).
 """
 import functools
 import hashlib
@@ -67,6 +83,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 MAIN = dict(width=768, height=768, samples_per_launch=8, max_depth=16,
@@ -450,16 +467,218 @@ def instanced_mt() -> dict:
     return out
 
 
+MEGA_RECORD_EVERY = 40
+# (name, scene, schedule change): the megakernel paths, K4 then K5
+MEGA_PATHS = (
+    ("k4", "cornell", {}),
+    ("k4_motion", "moving_cornell", {}),
+    ("k4_textured", "textured_quad", {}),
+    ("k4_dispatch", "material_cornell", {}),
+    ("k4_aov", "cornell", {"aov": True}),
+    ("k5", "cornell", {"sort_rays": True}),
+    ("k5_motion", "moving_cornell", {"pool_pixel_major": False}),
+)
+
+
+def _mega_scene(name):
+    """(scene, camera) of a megakernel path's scene: the Cornell box, its
+    2-key form (the last block given a second key at +0.1 in x), the
+    textured quad or the Cornell box with all four material types."""
+    import dataclasses
+
+    import numpy as np
+
+    from rendertoy3c_tpu_torch.scene.builtin import (cornell_box,
+                                                      material_cornell_box,
+                                                      textured_quad_variant)
+    from rendertoy3c_tpu_torch.scene.scene import build_scene
+
+    if name == "textured_quad":
+        meshes, textures, camera = textured_quad_variant("repeat")
+        return build_scene(meshes, textures=textures), camera
+    if name == "material_cornell":
+        meshes, camera = material_cornell_box(False)
+        return build_scene(meshes), camera
+    meshes, camera = cornell_box()
+    if name == "moving_cornell":
+        v = meshes[-1].vertices
+        meshes[-1] = dataclasses.replace(meshes[-1], vertices=np.concatenate(
+            [v, v + np.float32([0.1, 0, 0])]))
+    return build_scene(meshes), camera
+
+
+def _mega_inputs(dev, cfg_kw=MAIN, every=MEGA_RECORD_EVERY):
+    """({path: (launch, [inputs])}, {path: accum sum}, seconds): one
+    subframe at `cfg_kw` of each of MEGA_PATHS through make_render_fn with
+    choose_tracer's pipeline, every `every`-th K4 or K5 call recorded, and
+    PICKS of them spread over the subframe, each with at least half the
+    pool live (a K4 launch also with a pool's worth of pixels left to
+    claim, so that every idle lane claims one). `launch(inputs)` runs one
+    recorded call on fresh copies of its state and returns the outputs'
+    digest (`_k4_digest` for K4)."""
+    import numpy as np
+    import torch
+
+    from rendertoy3c_tpu_torch.film.film import film_create
+    from rendertoy3c_tpu_torch.integrate.config import RenderConfig
+    from rendertoy3c_tpu_torch.integrate.path import make_render_fn
+    from rendertoy3c_tpu_torch.trace import shade
+    from rendertoy3c_tpu_torch.trace.auto import choose_tracer
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    out, sums, secs = {}, {}, 0.0
+    for name, scene_name, change in MEGA_PATHS:
+        scene, camera = _mega_scene(scene_name)
+        cfg = RenderConfig(**dict(cfg_kw, **change))
+        scene, pipe = choose_tracer(scene, cfg, dev)
+        if not isinstance(pipe, shade.FusedPipeline):
+            raise RuntimeError(f"{name}: not the fused pipeline")
+        pool = cfg.ray_block
+        rec, seen = [], [0]
+        k4 = name.startswith("k4")
+        fn = pipe.refill_fn if k4 else pipe.shade_fn
+
+        def recording(*args, **kw):
+            if seen[0] % every == 0:
+                rec.append((tuple(a.clone() if isinstance(a, torch.Tensor)
+                                  else a for a in args), kw))
+            seen[0] += 1
+            return fn(*args, **kw)
+
+        if k4:
+            pipe.refill_fn = recording
+        else:
+            pipe.shade_fn = recording
+        step = make_render_fn(scene, cfg, tracer=pipe, device=dev)
+        film = film_create(cfg.height, cfg.width, device=dev, aov=cfg.aov)
+        sync()
+        t0 = time.perf_counter()
+        film, _ = step(camera.params(), film)
+        sync()
+        secs += time.perf_counter() - t0
+        sums[name] = float(film.accum.double().sum())
+        if k4:  # args: rays, misc, stash, stats_in, stats_out, ...
+            ok = [r for r in rec if int(r[0][3][2]) >= pool // 2
+                  and int(r[0][3][0]) + pool <= r[1]["rc"].n_pix]
+        else:  # args: rays, misc, count, tables, sc, time
+            ok = [r for r in rec if int(r[0][2]) >= pool // 2]
+        if len(ok) < PICKS:
+            raise RuntimeError(f"{name}: {seen[0]} calls, {len(ok)} "
+                               "recorded with half the pool live")
+        pick = [ok[int(j)] for j in np.linspace(0, len(ok) - 1,
+                                                PICKS).round()]
+        out[name] = (functools.partial(_mega_launch, fn, k4), pick)
+    return out, sums, secs
+
+
+def _mega_launch(fn, k4: bool, inputs, copies: int = 1):
+    """(calls, digest): `copies` calls of the recorded K4 or K5 call
+    `inputs`, each on its own copy of the state, and digest() of the first
+    call's outputs once it has run."""
+    import torch
+
+    args, kw = inputs
+    states = [[x.clone() if isinstance(x, torch.Tensor) else x
+               for x in args] for _ in range(copies)]
+    results = []
+    for a in states:
+        if k4:
+            a[4].zero_()  # stats_out
+
+    def run(a):
+        results.append(fn(*a, **kw))
+
+    def digest():
+        if k4:  # K4 works in place
+            return _k4_digest(args, states[0])
+        return _digest(list(results[0]))
+
+    return [functools.partial(run, a) for a in states], digest
+
+
+def _k4_digest(before, after) -> str:
+    """The digest of one K4 call's outputs that does not depend on which
+    lane claimed which pixel (chip_smoke.py's _compare_lanes with
+    claimed_as_set): the stats, each lane's stash and want_shadow (misc
+    15) in lane order, the rest of the rows of lanes that claimed no pixel
+    in lane order, and those of lanes that claimed one sorted by pixel."""
+    import torch
+
+    rays, misc, stash = after[:3]
+    time = after[8] if len(after) > 8 and after[8] is not None else None
+    rows = torch.cat([rays, misc[:, :15], misc[:, 16:]]
+                     + ([time[:, None]] if time is not None else []), dim=1)
+    pix = misc[:, 13]
+    claimed = (pix != before[1][:, 13]) & (pix >= 0)
+    order = torch.argsort(pix[claimed])
+    return _digest([after[4], stash, misc[:, 15].contiguous(),
+                    rows[~claimed], rows[claimed][order]])
+
+
+def _shared_picks(inputs, path: str):
+    """The first turn's picks: saves the state tensors of `inputs`'
+    picks to `path`, or, when the file is there, puts its tensors in
+    their place. K4's claims depend on block order, so the states that two
+    runs of a subframe reach differ, and only the same inputs give
+    outputs that can agree."""
+    import torch
+
+    if not os.path.exists(path):
+        torch.save({name: [[a if isinstance(a, torch.Tensor) else None
+                            for a in args] for args, _ in picks]
+                    for name, (_, picks) in inputs.items()}, path)
+        return inputs
+    saved = torch.load(path)
+    return {name: (launch, [
+        (tuple(a if s is None else s for a, s in zip(args, saved[name][i])),
+         kw) for i, (args, kw) in enumerate(picks)])
+        for name, (launch, picks) in inputs.items()}
+
+
+def megakernel(shared: str) -> dict:
+    """The recorded K4 and K5 launches of MEGA_PATHS, each timed 3
+    times, on the inputs of the run's first turn."""
+    import torch
+
+    dev = torch.device("cuda")
+    inputs, sums, secs = _mega_inputs(dev)
+    inputs = _shared_picks(inputs, os.path.join(shared, "megakernel.pt"))
+    out = dict(identity=[], means={}, subframe_s=secs, accum_sum=sums)
+    for name, (launch, picks) in inputs.items():
+        rows = []
+        for inp in picks:
+            digests = []
+
+            def calls(inp=inp):
+                c, d = launch(inp, REPEATS)
+                digests[:] = [d]
+                return c
+
+            ms = _queued_ms(calls)
+            out["identity"].append(digests[0]())
+            rows.append(dict(device_ms=ms))
+        out[name] = rows
+        out["means"][f"{name}_device_ms"] = statistics.fmean(
+            x["device_ms"] for x in rows)
+    return out
+
+
 # each returns its turn's numbers: "means" (averaged per checkout),
 # "subframe_s", and "identity" (equal across checkouts whose outputs agree)
 WORKLOADS = {"mt-sweep": mt_sweep, "resident-walk": resident_walk,
-             "walk-round": walk_round, "instanced-mt": instanced_mt}
+             "walk-round": walk_round, "instanced-mt": instanced_mt,
+             "megakernel": megakernel}
+# the workloads whose turns time the launch inputs the first turn recorded
+SHARED_INPUTS = {"megakernel"}
 
 
-def turn(workload: str, root: str) -> dict:
-    """One turn of `workload` with the package under `root`."""
+def turn(workload: str, root: str, shared: str) -> dict:
+    """One turn of `workload` with the package under `root`; `shared` is
+    a directory the turns of one run share."""
     sys.path.insert(0, os.path.abspath(root))
-    return dict(root=root, **WORKLOADS[workload]())
+    fn = WORKLOADS[workload]
+    return dict(root=root, **(fn(shared) if workload in SHARED_INPUTS
+                              else fn()))
 
 
 def summary(roots, runs) -> dict:
@@ -478,7 +697,7 @@ def summary(roots, runs) -> dict:
 
 def main() -> int:
     if sys.argv[1] == "--turn":
-        print(json.dumps(turn(sys.argv[2], sys.argv[3])), flush=True)
+        print(json.dumps(turn(*sys.argv[2:5])), flush=True)
         return 0
     workload, roots = sys.argv[1], sys.argv[2:]
     if workload not in WORKLOADS or not roots:
@@ -489,15 +708,16 @@ def main() -> int:
                          text=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     runs = []
-    for root in roots + roots[::-1]:
-        res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--turn", workload, root],
-                             capture_output=True, text=True, timeout=900)
-        if res.returncode:
-            sys.stderr.write(res.stderr)
-            return res.returncode
-        runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
-        print(json.dumps(runs[-1]), flush=True)
+    with tempfile.TemporaryDirectory() as shared:
+        for root in roots + roots[::-1]:
+            res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                  "--turn", workload, root, shared],
+                                 capture_output=True, text=True, timeout=900)
+            if res.returncode:
+                sys.stderr.write(res.stderr)
+                return res.returncode
+            runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
+            print(json.dumps(runs[-1]), flush=True)
     result = summary(roots, runs)
     print(json.dumps(result))
     return 0 if result["same_outputs"] else 1

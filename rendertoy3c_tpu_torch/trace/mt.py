@@ -122,6 +122,17 @@ def build_tri_soup(geom, device, key: int = 0,
                    super_aabb=torch.as_tensor(super_aabb, device=device))
 
 
+def require_zero_padding(tris: torch.Tensor, num_faces: int) -> None:
+    """Raise unless every column of the tiles tris [n_tiles, 9, CT] past
+    the first num_faces is zero: the megakernels (K4, K5) stage and test
+    only the real faces, which gives the dense sweep's hits only where
+    the padding cannot hit (det = 0)."""
+    cols = tris.permute(1, 0, 2).reshape(9, -1)
+    if bool((cols[:, num_faces:] != 0).any()):
+        raise ValueError(f"the soup's columns past its {num_faces} real "
+                         "faces are not all zero")
+
+
 def motion_union_aabbs(soup0: TriSoup, soup1: TriSoup):
     """(aabb, super_aabb) covering both motion keys: a triangle lerped to
     any time in [0, 1] stays inside the union of its endpoint boxes."""

@@ -80,7 +80,8 @@ from ..scene.texture import TextureAtlas, atlas_to, sample_texture_bilinear
 from .bsdf import dispatch_sample, material_lanes, nee_bsdf
 from .mt import (RAY_TILE, MotionSoup, TriSoup, any_motion_ref, any_ref,
                  build_tri_soup, closest_motion_ref, closest_ref,
-                 motion_union_aabbs, mt_closest, mt_closest_motion)
+                 motion_union_aabbs, mt_closest, mt_closest_motion,
+                 require_zero_padding)
 
 _INV_PI = 1.0 / math.pi
 MAX_FACES = 2048  # the fused path's face limit (pallas_shade.py:59)
@@ -679,8 +680,8 @@ def _launch_trace_shade(rays, misc, count, tables: ShadeTables,
         max_depth=sc.max_depth, num_lights=sc.num_lights,
         attr_stride=tables.attr_t.shape[1],
         light_stride=tables.lights_t.shape[1], n_tiles=tris.shape[0],
-        ct=tris.shape[2], motion=int(motion), power=int(sc.power),
-        params_base=tables.params_base, aov=int(sc.aov),
+        ct=tris.shape[2], n_faces=tables.soup.num_faces, motion=int(motion),
+        power=int(sc.power), params_base=tables.params_base, aov=int(sc.aov),
         shadow_tmin=sc.shadow_tmin,
         shadow_eps=sc.shadow_eps, pick_pdf=1.0 / float(sc.num_lights),
         bg=(sc.bg[0], sc.bg[1], sc.bg[2]))
@@ -858,8 +859,8 @@ def trace_shade_refill(rays, misc, stash, stats_in, stats_out,
         num_lights=rc.num_lights, pixel_base=pixel_base,
         subframe_index=subframe_index, attr_stride=tables.attr_t.shape[1],
         light_stride=tables.lights_t.shape[1], n_tiles=tris.shape[0],
-        ct=tris.shape[2], motion=int(motion), power=int(rc.power),
-        params_base=tables.params_base, aov=int(rc.aov),
+        ct=tris.shape[2], n_faces=tables.soup.num_faces, motion=int(motion),
+        power=int(rc.power), params_base=tables.params_base, aov=int(rc.aov),
         seed_rot=rc.seed_rot & rng.M32,
         width_f=float(rc.width), height_f=float(rc.height),
         tmin=rc.primary_tmin, tmax=rc.primary_tmax,
@@ -888,6 +889,9 @@ def _fused_tables(scene, cfg, device, soup: TriSoup, soup1=None):
     # deferred: integrate.path imports this module
     from ..integrate.path import _lcg_advance_table
 
+    for s in (soup, soup1):  # the kernels test only the real faces
+        if s is not None:
+            require_zero_padding(s.tris, s.num_faces)
     msoup = None
     if soup1 is not None:
         aabb, super_aabb = motion_union_aabbs(soup, soup1)

@@ -77,3 +77,67 @@ def test_instanced_mt_inputs():
                 # the tower mesh is the one of more than one tile
                 tiles = soups[where].inst_tiles[inst[hit], 1]
                 assert bool((tiles > 1).any()) == (where == "field_spread")
+
+
+def test_megakernel_inputs_and_digests(tmp_path):
+    """`megakernel`'s inputs at 48^2, 2 spp, depth 3 and a pool of 512 on
+    the CPU: PICKS recorded calls of each path, each with at least half
+    the pool live, each K4 call with a pool's worth of pixels left; a
+    recorded call run twice gives one digest; a later turn's picks take
+    the first turn's saved states; and K4's digest does not move when the
+    lanes that claimed pixels trade their rows."""
+    import torch
+
+    cfg = dict(width=48, height=48, samples_per_launch=2, max_depth=3,
+               ray_block=512, integrator="pool", pool_pixel_major=True)
+    inputs, sums, _ = ab._mega_inputs(torch.device("cpu"), cfg, every=1)
+    assert list(inputs) == [name for name, _, _ in ab.MEGA_PATHS]
+    assert all(s > 0.0 for s in sums.values())
+    for name, (launch, picks) in inputs.items():
+        assert len(picks) == ab.PICKS
+        for args, kw in picks:
+            if name.startswith("k4"):
+                assert int(args[3][2]) >= 256
+                assert int(args[3][0]) + 512 <= kw["rc"].n_pix
+            else:
+                assert int(args[2]) >= 256
+        digests = []
+        for _ in range(2):
+            calls, digest = launch(picks[0], 2)
+            for call in calls:
+                call()
+            digests.append(digest())
+        assert digests[0] == digests[1]
+    path = str(tmp_path / "picks.pt")
+    assert ab._shared_picks(inputs, path) is inputs
+    other = {name: (launch, [(tuple(a.clone() + 1 if isinstance(
+        a, torch.Tensor) and a.is_floating_point() else a for a in args),
+        kw) for args, kw in picks]) for name, (launch, picks) in
+        inputs.items()}
+    back = ab._shared_picks(other, path)
+    for name, (_, picks) in back.items():
+        for (args, _), (want, _) in zip(picks, inputs[name][1]):
+            for a, w in zip(args, want):  # seeds may read as NaN
+                assert a is w or torch.equal(a.view(torch.int32),
+                                             w.view(torch.int32))
+    launch, picks = inputs["k4"]
+    runs = []
+    for args, kw in picks:
+        calls, _ = launch((args, kw))
+        calls[0]()
+        after = calls[0].args[0]
+        claimed = ((after[1][:, 13] != args[1][:, 13])
+                   & (after[1][:, 13] >= 0)).nonzero()[:, 0]
+        runs.append((claimed.numel(), args, after, claimed))
+    _, args, after, claimed = max(runs, key=lambda r: r[0])
+    assert claimed.numel() > 1
+    swapped = [x.clone() if isinstance(x, torch.Tensor) else x
+               for x in after]
+    turn = claimed.roll(1)
+    swapped[0][claimed] = after[0][turn]
+    # misc but column 15 (the finished path's want_shadow) follows the pixel
+    swapped[1][claimed, :15] = after[1][turn, :15]
+    swapped[1][claimed, 16:] = after[1][turn, 16:]
+    assert ab._k4_digest(args, swapped) == ab._k4_digest(args, after)
+    swapped[0][claimed[0], 0] += 1.0
+    assert ab._k4_digest(args, swapped) != ab._k4_digest(args, after)

@@ -17,6 +17,7 @@ from rendertoy3c_tpu_torch.scene.material import Material
 from rendertoy3c_tpu_torch.scene.mesh import Mesh
 from rendertoy3c_tpu_torch.scene.scene import build_scene
 from rendertoy3c_tpu_torch.trace import mt, shade
+from megakernel_util import FORMS, KINDS, fused_scene
 from mt_bin_util import SOUP_SIZES, TIE_HIGH, TIE_LOW
 from mt_bin_util import case as mt_bin_case
 from mt_bin_util import counts as mt_bin_counts
@@ -1752,3 +1753,77 @@ def test_instanced_mt_kernel_on_the_cull_cases(dev, case):
                 assert _bits(got, want)
             hits = got[:r, 0] > 0 if any_hit else got[:r, 1] >= 0
             assert bool(hits.any()) or not near
+
+
+# ------------------------------------------------- K4 / K5 sweeps (mt.cuh)
+MK_CASES = [(kind, form) for kind in KINDS for form in FORMS]
+MK_IDS = [f"{kind}-{form}" for kind, form in MK_CASES]
+
+
+@pytest.mark.parametrize("kind, form", MK_CASES, ids=MK_IDS)
+def test_refill_kernel_on_ties_and_tiles(dev, kind, form):
+    """K4 on tests/megakernel_util.py's scenes (a face and its copy in
+    different threads of a lane's group; three 512-face tiles, culled and
+    merged tile by tile) in each form: one 256-lane block teacher-forced
+    for 8 launches, every output bit for bit, stats and the time buffer
+    exact."""
+    scene, cam, aov = fused_scene(kind, form)
+    cfg = RenderConfig(width=64, height=64, samples_per_launch=4,
+                       max_depth=8, ray_block=256, integrator="pool",
+                       pool_pixel_major=True, aov=aov)
+    pipe = shade.FusedPipeline(scene, cfg, dev)
+    assert pipe.motion == (form == "motion")
+    assert pipe.tables.soup.tris.shape[0] == (3 if kind == "multitile" else 1)
+    kern = pipe.refill_shader(4096)
+    ref = shade.FusedPipeline(scene, cfg, dev, refill_fn=shade
+                              .trace_shade_refill_ref).refill_shader(4096)
+    state = [torch.zeros((256, w), dtype=torch.float32, device=dev)
+             for w in (8, shade.misc_width(aov), 16)]
+    state[1][:, 13] = -1.0
+    state[2][:, 0] = -1.0
+    if pipe.motion:
+        state.append(torch.zeros(256, dtype=torch.float32, device=dev))
+    stats = torch.zeros(4, dtype=torch.int32, device=dev)
+    for _ in range(8):
+        outs = []
+        for fn in (kern, ref):
+            out = [x.clone() for x in state]
+            st = torch.zeros(4, dtype=torch.int32, device=dev)
+            fn(*out[:3], stats, st, 0, 2, _scf(cam), *out[3:])
+            outs.append((out, st))
+        (got, st_k), (want, st_r) = outs
+        assert torch.equal(st_k, st_r)
+        _bits_equal(got, want)
+        state, stats = want, st_r
+    assert int(stats[2]) > 0
+
+
+@pytest.mark.parametrize("kind, form", MK_CASES, ids=MK_IDS)
+def test_trace_shade_kernel_on_ties_and_tiles(dev, kind, form):
+    """K5 on the same scenes and forms at 4096 lanes, 8 iterations
+    teacher-forced from the plain version's states, the live count
+    alternating between 4096 and 3000: every output bit for bit."""
+    scene, cam, aov = fused_scene(kind, form)
+    cfg = RenderConfig(width=64, height=64, samples_per_launch=2,
+                       max_depth=8, ray_block=4096, integrator="pool",
+                       pool_pixel_major=False, aov=aov)
+    pipe = shade.FusedPipeline(scene, cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    rays, misc = _lane_state(scene, cam, 4096, 23, dev)
+    if aov:
+        misc = _widen_aov(misc, 2)
+    for it in range(8):
+        count = torch.tensor([4096 if it % 2 == 0 else 3000],
+                             dtype=torch.int32, device=dev)
+        time = (torch.rand(4096, device=dev, generator=gen) if pipe.motion
+                else None)
+        a = (rays, misc, count, pipe.tables, pipe.config, time)
+        got, want = shade.trace_shade(*a), shade.trace_shade_ref(*a)
+        _bits_equal(got, want)
+        rays, misc = want
+        fr, fm = _lane_state(scene, cam, 4096, 60 + it, dev)
+        dead = misc[:, 9] <= 0
+        rays = torch.where(dead[:, None], fr, rays)
+        misc = torch.where(dead[:, None], _widen_aov(fm, it) if aov else fm,
+                           misc)
+    assert (misc[:, 8] > 2).any()
