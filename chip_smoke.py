@@ -57,9 +57,11 @@ a JSON summary. Phases:
      17 and 20);
   8. K6 (external_shade) teacher-forced against its plain version at 32768
      lanes for 8 iterations on both towns: every output bit for bit; then
-     bit for bit again on the main paths' inputs of phase 7, and its
-     device time per launch there (device_ms: CUDA events around the
-     launches queued behind a spin kernel);
+     bit for bit again on the main paths' inputs of phase 7, and on the
+     first R - 37 and 20 of a launch's R lanes (a short last block, less
+     than one 32-lane block), and its device time per launch there
+     (device_ms: CUDA events around the launches queued behind a spin
+     kernel);
   9. the gate of phase 4 on the external path, the 4294-face town, static
      and 2-key;
  10. both 16054-face towns at the main path's config: 1 warm-up (phase
@@ -138,8 +140,8 @@ a JSON summary. Phases:
      bound (rows gathered x 512 B against the slab and MT operations);
  25. K6 on C-major misc (transposed) on the walk paths' recorded boundary
      inputs, in each variant they reach (untextured, textured, textured
-     dispatch with the power pick, textured AOV), bit for bit, timed and
-     bounded as phase 8;
+     dispatch with the power pick, textured AOV), bit for bit (with the
+     tail cases of phase 8), timed and bounded as phase 8;
  26. the gate of phase 4 on the walk pool over the 50000-face towns:
      static, 2-key, textured, principled with the power pick, and
      textured with AOV (all three buffers bit-equal);
@@ -1516,6 +1518,7 @@ def phase_k6(dev, towns, states, phase=8, label="K6", change=None,
                                         torch.cat(lives), label)
             print(f"phase {phase} {label} ({town_label(key)}): live lanes "
                   f"hit material types {seen}")
+    k6_tails(label, launches[0], phase=phase)
     res["ms"] = device_ms([functools.partial(shade.external_shade, *a)
                            for a in launches] * 6)
     res["plain_ms"] = cuda_ms([functools.partial(shade.external_shade_ref, *a)
@@ -1529,6 +1532,34 @@ def phase_k6(dev, towns, states, phase=8, label="K6", change=None,
           f"{res['plain_ms']:.4f} ms; bound {res['bound_ms']:.4f} ms by "
           f"{res['bound_by']}")
     return res
+
+
+def k6_tails(label, a, kw=None, phase=8):
+    """K6 on the first lanes of a recorded input `a` (rays, hit4, misc,
+    tables, config; misc row-major, or C-major with kw's `transposed`):
+    R - 37 lanes (not a multiple of the 32-lane block) and 20 (less than
+    one block), bit for bit against the plain version."""
+    import torch
+
+    from rendertoy3c_tpu_torch.trace import shade
+
+    kw = dict(kw or {})
+    rays, hit4, misc, tables, config = a
+    n = rays.shape[0]
+    for r in (n - 37, 20):
+        cut = dict(kw, inst=None if kw.get("inst") is None
+                   else kw["inst"][:r].contiguous())
+        m = (misc[:, :r] if kw.get("transposed") else misc[:r]).contiguous()
+        b = (rays[:r].contiguous(), hit4[:r].contiguous(), m, tables,
+             config)
+        got = shade.external_shade(*b, **cut)
+        want = shade.external_shade_ref(*b, **cut)
+        check(all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+                  for g, w in zip(got, want)),
+              f"phase {phase} {label} differs from its plain version on "
+              f"the first {r} lanes")
+    print(f"phase {phase} {label}: {n - 37} and 20 lanes (a tail block, "
+          "less than one block) bit-equal to the plain version")
 
 
 def town_label(key) -> str:
@@ -2599,6 +2630,7 @@ def phase_k6t(dev, label, paths, phase=25):
                           + 4 * tables.lights_t.numel(),
                           pool * (SHADE_OPS + (AOV_OPS if config.aov else 0))
                           + tex_ops + inst_ops))
+    k6_tails(label, *launches[0], phase=phase)
     res = dict(max_abs_err=0.0)
     res["ms"] = device_ms([functools.partial(shade.external_shade, *a, **kw)
                            for a, kw in launches] * 6)

@@ -50,10 +50,10 @@
 // seeds stats_out = (next_work, 0, 0, 0) from the previous launch's stats
 // (stats_in, never the same buffer), and each block claims pixels for its
 // idle lanes with an in-block exclusive scan (each lane counted once, by
-// its leader) plus one compare-and-swap loop that clamps the counter at
-// n_pix. Which block gets which pixels varies
-// from run to run; per-pixel RNG streams are keyed by pixel id (tea), so the
-// image does not depend on it.
+// its leader) plus one atomicAdd of its idle count on the work counter and
+// one atomicMin that clamps the counter at n_pix (the claim below). Which
+// block gets which pixels varies from run to run; per-pixel RNG streams are
+// keyed by pixel id (tea), so the image does not depend on it.
 //
 // The shading body (attribute fetch to next state) is shade_lane in
 // shade.cuh, shared with the external shade kernel K6.

@@ -41,6 +41,14 @@
 // identity where the lane hit no instance. K4 and K5 pass it off, and the
 // compiler drops the branch from them.
 //
+// K6 shades each lane with two threads in two warps (`part`, LanePart): the
+// bounce half (the BSDF sample, Russian roulette, the next state) and the
+// NEE half (the light pick and sample, the shadow ray, the NEE term). The
+// draws come first, in the reference's order, so that the NEE half can
+// pick its light and issue the light's loads (from K6's lane-major rows)
+// before the attribute row arrives. K4 and K5 shade the lane whole; their
+// arithmetic is the same operations in the same order.
+//
 // The AOV variants of the kernels (kAov, pallas_shade.py :881-893) read the
 // lane's albedo (the texel where a texture is present) and its
 // face-forwarded shading normal (after any normal map) from `Shaded`, with
@@ -160,6 +168,75 @@ struct ShadeConsts {
   float bg[3];
 };
 
+// The part of a lane's shading one call computes. K4 and K5 shade a lane
+// whole; K6 splits it over two warps of a block: the bounce half (the BSDF
+// sample, Russian roulette, the next state and the AOV rows) and the NEE
+// half (the light pick and sample, the shadow ray, the NEE term). Both
+// halves compute the shared front (the draws, the attribute row, the
+// shading normal and frame, the albedo, the material) in the same
+// operations, so either half's outputs are the whole lane's bit for bit.
+enum LanePart { LANE_WHOLE = 0, LANE_BOUNCE = 1, LANE_NEE = 2 };
+
+// The width of a lane-major light row (K6's light_rows [Lp, 20]): the 16
+// fields of lights_t's rows 0-15 (v0 v1 v2 emission normal area), the
+// pick pdf of row 16, three zeros; five float4 loads a light.
+constexpr int LIGHT_ROW_W = 20;
+
+// One light's 16 fields and its pick pdf.
+struct LightRow {
+  float f[16];
+  float pick_pdf;
+};
+
+// The uniform or power light pick of draw u, clamped to count - 1. The
+// power pick is searchsorted(cdf, u, right), the first entry above u.
+__device__ __forceinline__ int pick_light(const ShadeConsts& p,
+                                          const float* lights_t, float u) {
+  if (p.power) {
+    const float* cdf = lights_t + 17 * p.light_stride;
+    int lo = 0, hi = p.num_lights;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (cdf[mid] <= u)
+        lo = mid + 1;
+      else
+        hi = mid;
+    }
+    return min(lo, p.num_lights - 1);
+  }
+  return (int)fminf(floorf(u * (float)p.num_lights),
+                    (float)(p.num_lights - 1));
+}
+
+// Light `lidx` from the lane-major rows where given (K6), else from the
+// C-major table lights_t [24, light_stride] (K4, K5).
+__device__ __forceinline__ LightRow load_light(const ShadeConsts& p,
+                                               const float* lights_t,
+                                               const float* light_rows,
+                                               int lidx) {
+  LightRow l;
+  if (light_rows != nullptr) {
+    const float4* q = reinterpret_cast<const float4*>(
+        light_rows + LIGHT_ROW_W * (size_t)lidx);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float4 x = q[k];
+      l.f[4 * k] = x.x;
+      l.f[4 * k + 1] = x.y;
+      l.f[4 * k + 2] = x.z;
+      l.f[4 * k + 3] = x.w;
+    }
+    l.pick_pdf = p.power ? q[4].x : p.pick_pdf;
+  } else {
+    const float* c = lights_t + lidx;
+    const int ls = p.light_stride;
+#pragma unroll
+    for (int k = 0; k < 16; ++k) l.f[k] = c[k * ls];
+    l.pick_pdf = p.power ? c[16 * ls] : p.pick_pdf;
+  }
+  return l;
+}
+
 // One lane's material under kDispatch (pallas_shade.py :565-594).
 struct Mat {
   bool is_spec, is_glass, is_prin, is_diff;
@@ -244,14 +321,18 @@ struct Shaded {
 // the pick pdf and row 17 the CDF of the power pick. occluded(shadow_ray,
 // want, time) runs the shadow sweep and must be reached by every thread of
 // the block (K4, K5). inst: an instanced lane's transform rows (K6).
+// light_rows: lane-major light rows [Lp, LIGHT_ROW_W] (K6), or null. part:
+// the whole lane, or one half of it (LanePart; K6): the bounce half fills
+// seed, px-pz, nd*, new_at, new_last, accs, depth_new, alive_b,
+// pdelta_new, survive, first, albedo and ns; the NEE half px-pz, sr,
+// occl_time, want_shadow and nee; the rest of `Shaded` is left unset.
 template <bool kExternal, bool kTextured, bool kDispatch, class Occluded>
-__device__ __forceinline__ Shaded shade_lane(const ShadeConsts& p,
-                                             const Ray& r, const ClosestHit& h,
-                                             const float* m, const float* a,
-                                             int as, const float* lights_t,
-                                             const TexParams& tex,
-                                             Occluded occluded,
-                                             const InstRows& inst = {}) {
+__device__ __forceinline__ Shaded shade_lane(
+    const ShadeConsts& p, const Ray& r, const ClosestHit& h, const float* m,
+    const float* a, int as, const float* lights_t, const TexParams& tex,
+    Occluded occluded, const InstRows& inst = {},
+    const float* light_rows = nullptr, int part = LANE_WHOLE) {
+  const bool bounce = part != LANE_NEE, nee = part != LANE_BOUNCE;
   Shaded o;
   // --- unpack the lane state (misc layout, pallas_shade.py:32-36) ---
   uint32_t seed = __float_as_uint(m[0]);
@@ -263,6 +344,23 @@ __device__ __forceinline__ Shaded shade_lane(const ShadeConsts& p,
   const float acc[3] = {m[10], m[11], m[12]};
   const float emit_gate = (depth == 0.0f || prev_delta > 0.0f) ? 1.0f : 0.0f;
   const bool is_hit = h.prim >= 0.0f;
+
+  // --- the lane's draws in the reference's order: the BSDF sample's four
+  // (z1 the dispatch's lobe choice, one unused), the light sample's three.
+  // They need only the seed and adv, so the NEE half picks its light and
+  // issues the light's loads before the attribute row arrives ---
+  const bool adv = is_hit && alive;
+  o.first = adv && depth == 0.0f;
+  const float z1 = rnd_masked(seed, adv);
+  rnd_masked(seed, adv);
+  const float u1 = rnd_masked(seed, adv);
+  const float u2 = rnd_masked(seed, adv);
+  const float u_pick = rnd_masked(seed, adv);
+  const float lu = rnd_masked(seed, adv);
+  const float lv = rnd_masked(seed, adv);
+  LightRow l;
+  if (part == LANE_NEE)
+    l = load_light(p, lights_t, light_rows, pick_light(p, lights_t, u_pick));
 
   // --- shading attributes: rows n0 n1 n2 emission diffuse ---
   const float bu = h.u, bv = h.v;
@@ -352,18 +450,15 @@ __device__ __forceinline__ Shaded shade_lane(const ShadeConsts& p,
     o.albedo[c] = albedo[c];
   }
 
-  // --- BSDF sample: cosine hemisphere, reference draw order ---
-  const bool adv = is_hit && alive;
-  o.first = adv && depth == 0.0f;
-  const float z1 = rnd_masked(seed, adv);  // the dispatch's lobe choice
-  rnd_masked(seed, adv);
-  const float u1 = rnd_masked(seed, adv);
-  const float u2 = rnd_masked(seed, adv);
-  const float rad = sqrtf(u1);
-  const float phi = TWO_PI * u2;
-  float wx = rad * cosf(phi);
-  float wy = rad * sinf(phi);
-  float wz = sqrtf(fmaxf(1.0f - wx * wx - wy * wy, 0.0f));
+  // --- BSDF sample: cosine hemisphere (the bounce half) ---
+  float wx = 0.0f, wy = 0.0f, wz = 0.0f;
+  if (bounce) {
+    const float rad = sqrtf(u1);
+    const float phi = TWO_PI * u2;
+    wx = rad * cosf(phi);
+    wy = rad * sinf(phi);
+    wz = sqrtf(fmaxf(1.0f - wx * wx - wy * wy, 0.0f));
+  }
   // ONB about ns (shader_common.h:15-48, branch as a select)
   const bool use_x = fabsf(nsx) > fabsf(nsz);
   float bx0 = use_x ? -nsy : 0.0f;
@@ -373,7 +468,7 @@ __device__ __forceinline__ Shaded shade_lane(const ShadeConsts& p,
   const float txx = by0 * nsz - bz0 * nsy;
   const float txy = bz0 * nsx - bx0 * nsz;
   const float txz = bx0 * nsy - by0 * nsx;
-  float at_fac[3];
+  float at_fac[3] = {0.0f, 0.0f, 0.0f};
   Mat mat;
   float wox = 0.0f, woy = 0.0f, woz = 0.0f;
   if constexpr (kDispatch) {
@@ -392,7 +487,6 @@ __device__ __forceinline__ Shaded shade_lane(const ShadeConsts& p,
     wox = -(r.dx * txx + r.dy * txy + r.dz * txz);
     woy = -(r.dx * bx0 + r.dy * by0 + r.dz * bz0);
     woz = -(r.dx * nsx + r.dy * nsy + r.dz * nsz);
-    const float cos_o = fmaxf(woz, E7);
     const float alpha = fmaxf(rough * rough, 1e-4f);
     mat.a2 = alpha * alpha;
     const float r0 = (mat.ior - 1.0f) / (mat.ior + 1.0f);
@@ -408,8 +502,12 @@ __device__ __forceinline__ Shaded shade_lane(const ShadeConsts& p,
         (1.0f - mat.metal);
     mat.p_spec =
         fminf(fmaxf(spec_w / fmaxf(spec_w + diff_w, 1e-9f), 0.05f), 0.98f);
-
+  }
+  if (!bounce) {
+    // the NEE half draws no bounce
+  } else if constexpr (kDispatch) {
     // FRESNEL_TRANSMISSIVE: the exact dielectric Fresnel at cos_o
+    const float cos_o = fmaxf(woz, E7);
     const float ior = mat.ior;
     const float cos_ci = fminf(fmaxf(cos_o, 0.0f), 1.0f);
     const float sin2_t = (1.0f - cos_ci * cos_ci) / fmaxf(ior * ior, 1e-12f);
@@ -464,95 +562,79 @@ __device__ __forceinline__ Shaded shade_lane(const ShadeConsts& p,
     const float inv_cos = 1.0f / fmaxf(wz * INV_PI, 1e-12f) * INV_PI;
     for (int c = 0; c < 3; ++c) at_fac[c] = albedo[c] * inv_cos;
   }
-  o.ndx = wx * txx + wy * bx0 + wz * nsx;
-  o.ndy = wx * txy + wy * by0 + wz * nsy;
-  o.ndz = wx * txz + wy * bz0 + wz * nsz;
-
-  // --- NEE: uniform or power light pick, clamped to count - 1 ---
-  const float u_pick = rnd_masked(seed, adv);
-  const float lu = rnd_masked(seed, adv);
-  const float lv = rnd_masked(seed, adv);
-  const int ls = p.light_stride;
-  int lidx;
-  if (p.power) {
-    // searchsorted(cdf, u, right): the first entry above u
-    const float* cdf = lights_t + 17 * ls;
-    int lo = 0, hi = p.num_lights;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (cdf[mid] <= u_pick)
-        lo = mid + 1;
-      else
-        hi = mid;
-    }
-    lidx = min(lo, p.num_lights - 1);
-  } else {
-    lidx = (int)fminf(floorf(u_pick * (float)p.num_lights),
-                      (float)(p.num_lights - 1));
+  if (bounce) {
+    o.ndx = wx * txx + wy * bx0 + wz * nsx;
+    o.ndy = wx * txy + wy * by0 + wz * nsy;
+    o.ndz = wx * txz + wy * bz0 + wz * nsz;
   }
-  const float* l = lights_t + lidx;
-  const float pick_pdf = p.power ? l[16 * ls] : p.pick_pdf;
-  const float su = sqrtf(lu);
-  const float b0 = 1.0f - su;
-  const float b1 = lv * su;
-  const float b2 = 1.0f - b0 - b1;
-  const float lpx = b0 * l[0 * ls] + b1 * l[3 * ls] + b2 * l[6 * ls];
-  const float lpy = b0 * l[1 * ls] + b1 * l[4 * ls] + b2 * l[7 * ls];
-  const float lpz = b0 * l[2 * ls] + b1 * l[5 * ls] + b2 * l[8 * ls];
-  const float lvx = lpx - o.px, lvy = lpy - o.py, lvz = lpz - o.pz;
-  const float dist2 = lvx * lvx + lvy * lvy + lvz * lvz;
-  const float sdist2 = fmaxf(dist2, 1e-20f);
-  const float inv_d = 1.0f / sqrtf(sdist2);
-  const float ldist = sdist2 * inv_d;
-  const float ldx = lvx * inv_d, ldy = lvy * inv_d, ldz = lvz * inv_d;
-  const float cos_l =
-      fabsf(ldx * l[12 * ls] + ldy * l[13 * ls] + ldz * l[14 * ls]);
-  const float omega = cos_l * l[15 * ls] / sdist2;
-  const bool degen = (dist2 < 1e-5f) || (omega < 1e-5f);
-  float le[3];
-  for (int c = 0; c < 3; ++c) le[c] = degen ? 0.0f : l[(9 + c) * ls] * omega;
-  const float pdf_light =
-      (degen ? 1.0f : 1.0f / fmaxf(omega, 1e-20f)) * pick_pdf;
-  const float n_dl = nsx * ldx + nsy * ldy + nsz * ldz;
+
   bool is_delta = false;
   if constexpr (kDispatch) is_delta = mat.is_spec || mat.is_glass;
-  o.want_shadow = adv && (n_dl > 0.0f) && !is_delta;  // no NEE on deltas
 
-  // --- the shadow ray: swept here (K4) or handed out (K6) ---
-  o.sr = Ray{o.px, o.py, o.pz, ldx, ldy, ldz, p.shadow_tmin,
-             o.want_shadow ? ldist - p.shadow_eps : 0.0f};
-  o.occl_time = lcg_unit(lcg_next(seed));  // a peek: seed stays
-  bool lit;
-  if (kExternal) {
-    lit = o.want_shadow;
-  } else {
-    // called on every thread, outside any short circuit: the sweep's cull
-    // votes are block barriers
-    const bool occ = occluded(o.sr, o.want_shadow, o.occl_time);
-    lit = o.want_shadow && !occ;
-  }
+  // --- NEE (the NEE half): the light sample, the shadow ray, the term ---
+  float nee_w[3] = {0.0f, 0.0f, 0.0f};
+  if (nee) {
+    if (part == LANE_WHOLE)
+      l = load_light(p, lights_t, light_rows,
+                     pick_light(p, lights_t, u_pick));
+    const float su = sqrtf(lu);
+    const float b0 = 1.0f - su;
+    const float b1 = lv * su;
+    const float b2 = 1.0f - b0 - b1;
+    const float lpx = b0 * l.f[0] + b1 * l.f[3] + b2 * l.f[6];
+    const float lpy = b0 * l.f[1] + b1 * l.f[4] + b2 * l.f[7];
+    const float lpz = b0 * l.f[2] + b1 * l.f[5] + b2 * l.f[8];
+    const float lvx = lpx - o.px, lvy = lpy - o.py, lvz = lpz - o.pz;
+    const float dist2 = lvx * lvx + lvy * lvy + lvz * lvz;
+    const float sdist2 = fmaxf(dist2, 1e-20f);
+    const float inv_d = 1.0f / sqrtf(sdist2);
+    const float ldist = sdist2 * inv_d;
+    const float ldx = lvx * inv_d, ldy = lvy * inv_d, ldz = lvz * inv_d;
+    const float cos_l = fabsf(ldx * l.f[12] + ldy * l.f[13] + ldz * l.f[14]);
+    const float omega = cos_l * l.f[15] / sdist2;
+    const bool degen = (dist2 < 1e-5f) || (omega < 1e-5f);
+    float le[3];
+    for (int c = 0; c < 3; ++c) le[c] = degen ? 0.0f : l.f[9 + c] * omega;
+    const float pdf_light =
+        (degen ? 1.0f : 1.0f / fmaxf(omega, 1e-20f)) * l.pick_pdf;
+    const float n_dl = nsx * ldx + nsy * ldy + nsz * ldz;
+    o.want_shadow = adv && (n_dl > 0.0f) && !is_delta;  // no NEE on deltas
 
-  float nee_w[3];
-  if constexpr (kDispatch) {
-    // the general NEE, Le omega f(wo, wl) n.l / pick_pdf, no MIS
-    const float wlx = ldx * txx + ldy * txy + ldz * txz;
-    const float wly = ldx * bx0 + ldy * by0 + ldz * bz0;
-    const float wlz = ldx * nsx + ldy * nsy + ldz * nsz;
-    float f_l[3];
-    prin_eval(mat, wox, woy, woz, wlx, wly, wlz, f_l);
-    const float scale = n_dl / fmaxf(pick_pdf, 1e-12f);
-    for (int c = 0; c < 3; ++c) {
-      const float f_ev =
-          mat.is_prin ? f_l[c] : (mat.is_diff ? albedo[c] * INV_PI : 0.0f);
-      nee_w[c] = lit ? le[c] * f_ev * scale : 0.0f;
+    // the shadow ray: swept here (K4) or handed out (K6)
+    o.sr = Ray{o.px, o.py, o.pz, ldx, ldy, ldz, p.shadow_tmin,
+               o.want_shadow ? ldist - p.shadow_eps : 0.0f};
+    o.occl_time = lcg_unit(lcg_next(seed));  // a peek: seed stays
+    bool lit;
+    if (kExternal) {
+      lit = o.want_shadow;
+    } else {
+      // called on every thread, outside any short circuit: the sweep's
+      // cull votes are block barriers
+      const bool occ = occluded(o.sr, o.want_shadow, o.occl_time);
+      lit = o.want_shadow && !occ;
     }
-  } else {
-    // weight = albedo/pi * powerHeuristic(pdf_light, |n.l|/pi)
-    const float pdf_sc = fabsf(n_dl) * INV_PI;
-    const float ph = (pdf_light * pdf_light) /
-                     fmaxf(pdf_light * pdf_light + pdf_sc * pdf_sc, 1e-20f);
-    for (int c = 0; c < 3; ++c)
-      nee_w[c] = lit ? le[c] * albedo[c] * (ph * INV_PI) : 0.0f;
+
+    if constexpr (kDispatch) {
+      // the general NEE, Le omega f(wo, wl) n.l / pick_pdf, no MIS
+      const float wlx = ldx * txx + ldy * txy + ldz * txz;
+      const float wly = ldx * bx0 + ldy * by0 + ldz * bz0;
+      const float wlz = ldx * nsx + ldy * nsy + ldz * nsz;
+      float f_l[3];
+      prin_eval(mat, wox, woy, woz, wlx, wly, wlz, f_l);
+      const float scale = n_dl / fmaxf(l.pick_pdf, 1e-12f);
+      for (int c = 0; c < 3; ++c) {
+        const float f_ev =
+            mat.is_prin ? f_l[c] : (mat.is_diff ? albedo[c] * INV_PI : 0.0f);
+        nee_w[c] = lit ? le[c] * f_ev * scale : 0.0f;
+      }
+    } else {
+      // weight = albedo/pi * powerHeuristic(pdf_light, |n.l|/pi)
+      const float pdf_sc = fabsf(n_dl) * INV_PI;
+      const float ph = (pdf_light * pdf_light) /
+                       fmaxf(pdf_light * pdf_light + pdf_sc * pdf_sc, 1e-20f);
+      for (int c = 0; c < 3; ++c)
+        nee_w[c] = lit ? le[c] * albedo[c] * (ph * INV_PI) : 0.0f;
+    }
   }
   float contrib[3];
   for (int c = 0; c < 3; ++c) {
@@ -570,6 +652,7 @@ __device__ __forceinline__ Shaded shade_lane(const ShadeConsts& p,
     o.new_at[c] = adv ? atten[c] * at_fac[c] : atten[c];
     o.new_last[c] = alive ? o.new_at[c] : last_at[c];
   }
+  if (!bounce) return o;
 
   // --- Russian roulette (raygen.cu:62-66): drawn on hit lanes only ---
   const float p_rr =

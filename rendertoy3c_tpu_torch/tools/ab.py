@@ -75,6 +75,24 @@ Workloads:
                  device ms per launch (`_queued_ms`); the outputs agree
                  when their digests do, K4's taken with the lanes that
                  claimed a pixel sorted by pixel (`_k4_digest`).
+  external-shade K6 (`external_shade`) on its paths' inputs: one subframe
+                 of each of K6_PATHS through choose_tracer's pipeline (with
+                 tune_config), K6's inputs recorded at its pool
+                 iterations or walk boundaries as chip_smoke.py's
+                 phases 8, 15, 18, 21, 25 and 31 record them: the 16054-
+                 face MT towns (static, with AOV, textured, principled and
+                 textured principled with the power pick; row-major misc,
+                 32768 lanes), the walk pool on the 50000-face towns
+                 (config 1 at 1920x1080, the textured town sorted and
+                 with AOV, the textured principled town sorted with the
+                 power pick; C-major misc) and on the 578-instance field
+                 (`multi_instance_large`, C-major instance rows), and
+                 `multi_instance_tracetime` (row-major instance rows);
+                 every turn times the first turn's inputs and tables
+                 (saved as plain tensors, rebuilt into each checkout's
+                 own ExternalTables). Each launch run 3 times: device ms
+                 per launch (`_queued_ms`); the outputs agree when their
+                 digests do.
 """
 import functools
 import hashlib
@@ -663,13 +681,180 @@ def megakernel(shared: str) -> dict:
     return out
 
 
+# (name, scene, schedule change, pipeline kind, recorded K6 calls): K6's
+# paths; "mt" the external pipeline over K1-K3 at MAIN, "walk" the walk
+# pool and "tracetime" the instanced external pipeline, both at
+# tune_config's pool
+K6_PATHS = (
+    ("town", "town", {}, "mt", (32, 128, 224, 320)),
+    ("town_aov", "town", {"aov": True}, "mt", (32, 128, 224, 320)),
+    ("tex_town", "tex_town", {}, "mt", (32, 128, 224, 320)),
+    ("prin_town", "prin_town", {"sort_rays": True,
+                                "light_sampler": "power"}, "mt",
+     (32, 112, 192, 272)),
+    ("tex_prin_town", "tex_prin_town", {"sort_rays": True,
+                                        "light_sampler": "power"}, "mt",
+     (32, 112, 192, 272)),
+    ("walk_config1", "walk_town", {"width": 1920, "height": 1080}, "walk",
+     WALK_SNAPSHOTS),
+    ("walk_tex", "walk_tex_town", {"sort_rays": True}, "walk",
+     WALK_SNAPSHOTS),
+    ("walk_tex_prin", "walk_tex_prin_town", {"sort_rays": True,
+                                             "light_sampler": "power"},
+     "walk", WALK_SNAPSHOTS),
+    ("walk_tex_aov", "walk_tex_town", {"aov": True}, "walk", WALK_SNAPSHOTS),
+    ("inst_field", "inst_field", {}, "walk", WALK_SNAPSHOTS),
+    ("tracetime", "tracetime", {}, "tracetime", (32, 200, 600, 1000)),
+)
+
+
+def _k6_scene(name):
+    """(scene, camera) of a K6 path's scene."""
+    from rendertoy3c_tpu_torch.scene.builtin import (instance_field,
+                                                      multi_instance_cornell)
+    from rendertoy3c_tpu_torch.scene.instanced import build_instanced_scene
+    from rendertoy3c_tpu_torch.scene.town import town_scene
+
+    if name == "inst_field":
+        meshes, inst, camera = instance_field(False)
+        return build_instanced_scene(meshes, inst), camera
+    if name == "tracetime":
+        meshes, inst, camera = multi_instance_cornell()
+        return build_instanced_scene(meshes, inst), camera
+    faces = WALK_FACES if name.startswith("walk") else TOWN_FACES
+    return town_scene(faces, textured="tex" in name,
+                      principled="prin" in name)
+
+
+def _k6_record(dev, name, scene, camera, change, kind, snapshots,
+               cfg_kw=MAIN):
+    """{tables, config, transposed, picks}: one subframe of a K6 path (at
+    `cfg_kw` with `change` applied) with K6's inputs at `snapshots`
+    recorded, and its tables as plain tensors."""
+    import dataclasses
+
+    import torch
+
+    from rendertoy3c_tpu_torch.film.film import film_create
+    from rendertoy3c_tpu_torch.integrate.config import RenderConfig
+    from rendertoy3c_tpu_torch.integrate.path import make_render_fn
+    from rendertoy3c_tpu_torch.trace import shade
+    from rendertoy3c_tpu_torch.trace.auto import choose_tracer, tune_config
+
+    cfg = RenderConfig(**dict(cfg_kw, **change))
+    if kind != "mt":
+        cfg = tune_config(scene, cfg, dev)
+    scene, pipe = choose_tracer(scene, cfg, dev)
+    picks, seen = [], [0]
+
+    def record(rays, hit4, misc, tables, config, transposed=False,
+               inst=None):
+        if seen[0] in snapshots:
+            picks.append((rays.clone(), hit4.clone(), misc.clone(),
+                          None if inst is None else inst.clone()))
+        seen[0] += 1
+        return shade.external_shade(rays, hit4, misc, tables, config,
+                                    transposed=transposed, inst=inst)
+
+    if kind == "walk":
+        pipe = dataclasses.replace(pipe, shade_fn=record)
+        tables, config = pipe.shade_tables, pipe.shade_config
+    else:
+        if not isinstance(pipe, shade.ExternalPipeline):
+            raise RuntimeError(f"{name}: not the external pipeline")
+        pipe.shade_fn = record
+        tables, config = pipe.tables, pipe.config
+    step = make_render_fn(scene, cfg, tracer=pipe, device=dev)
+    film = film_create(cfg.height, cfg.width, device=dev, aov=cfg.aov)
+    step(camera.params(), film)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    if len(picks) != len(snapshots):
+        raise RuntimeError(f"{name}: {seen[0]} K6 calls, too few for the "
+                           "snapshots")
+    tex = tables.tex
+    return dict(
+        attr=tables.attr, lights_t=tables.lights_t,
+        tex=None if tex is None else (tex.atlas.data, tex.atlas.meta,
+                                      tex.uv_xform, tex.normal_maps),
+        params_base=tables.params_base, inst_rows=tables.inst_rows,
+        config=dataclasses.asdict(config), transposed=kind == "walk",
+        picks=picks)
+
+
+def _k6_inputs(dev, path: str) -> dict:
+    """{name: recorded path} of K6_PATHS, from the file `path` where a
+    turn saved them, else recorded (and saved there)."""
+    import torch
+
+    if os.path.exists(path):
+        return torch.load(path)
+    scenes, out = {}, {}
+    for name, scene_name, change, kind, snaps in K6_PATHS:
+        if scene_name not in scenes:
+            scenes = {scene_name: _k6_scene(scene_name)}  # one at a time
+        out[name] = _k6_record(dev, name, *scenes[scene_name], change, kind,
+                               snaps)
+    torch.save(out, path)
+    return out
+
+
+def _k6_tables(rec):
+    """(ExternalTables, ShadeConfig) of a recorded path, in this
+    checkout's own classes."""
+    from rendertoy3c_tpu_torch.scene.texture import TextureAtlas
+    from rendertoy3c_tpu_torch.trace import shade
+
+    tex = rec["tex"]
+    tables = shade.ExternalTables(
+        attr=rec["attr"], lights_t=rec["lights_t"],
+        tex=None if tex is None else shade.TexState(
+            TextureAtlas(data=tex[0], meta=tex[1]), tex[2], tex[3]),
+        params_base=rec["params_base"], inst_rows=rec["inst_rows"])
+    config = rec["config"]
+    return tables, shade.ShadeConfig(**dict(config, bg=tuple(config["bg"])))
+
+
+def external_shade(shared: str) -> dict:
+    """The recorded K6 launches of K6_PATHS, each timed 3 times, on the
+    inputs of the run's first turn."""
+    import torch
+
+    from rendertoy3c_tpu_torch.trace import shade
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    inputs = _k6_inputs(dev, os.path.join(shared, "external_shade.pt"))
+    out = dict(identity=[], means={}, subframe_s=time.perf_counter() - t0)
+    for name, rec in inputs.items():
+        tables, config = _k6_tables(rec)
+        rows = []
+        for rays, hit4, misc, inst in rec["picks"]:
+            kw = dict(transposed=rec["transposed"], inst=inst)
+            done = []
+
+            def calls(a=(rays, hit4, misc, tables, config), kw=kw):
+                return [functools.partial(
+                    lambda *x, **k: done.append(shade.external_shade(*x,
+                                                                     **k)),
+                    *a, **kw) for _ in range(REPEATS)]
+
+            ms = _queued_ms(calls)
+            out["identity"].append(_digest(list(done[-1])))
+            rows.append(dict(lanes=rays.shape[0], device_ms=ms))
+        out[name] = rows
+        out["means"][f"{name}_device_ms"] = statistics.fmean(
+            x["device_ms"] for x in rows)
+    return out
+
+
 # each returns its turn's numbers: "means" (averaged per checkout),
 # "subframe_s", and "identity" (equal across checkouts whose outputs agree)
 WORKLOADS = {"mt-sweep": mt_sweep, "resident-walk": resident_walk,
              "walk-round": walk_round, "instanced-mt": instanced_mt,
-             "megakernel": megakernel}
+             "megakernel": megakernel, "external-shade": external_shade}
 # the workloads whose turns time the launch inputs the first turn recorded
-SHARED_INPUTS = {"megakernel"}
+SHARED_INPUTS = {"megakernel", "external-shade"}
 
 
 def turn(workload: str, root: str, shared: str) -> dict:

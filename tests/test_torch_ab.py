@@ -1,7 +1,8 @@
 """tools/ab.py's summary: the mean of each turn number per checkout, and
 the agreement of the checkouts' outputs; its workloads' usage and
-argument check; the inputs of `instanced-mt` gathered on the CPU at a
-small size. The turns themselves need a CUDA card."""
+argument check; the inputs of `instanced-mt` and `external-shade`
+gathered on the CPU at a small size. The turns themselves need a CUDA
+card."""
 import sys
 
 import pytest
@@ -141,3 +142,42 @@ def test_megakernel_inputs_and_digests(tmp_path):
     assert ab._k4_digest(args, swapped) == ab._k4_digest(args, after)
     swapped[0][claimed[0], 0] += 1.0
     assert ab._k4_digest(args, swapped) != ab._k4_digest(args, after)
+
+
+@pytest.mark.parametrize("kind", ["mt", "walk", "tracetime"])
+def test_external_shade_inputs(kind, tmp_path):
+    """`external-shade`'s inputs at 32^2, 1 spp, depth 3 on the CPU, on a
+    town of the external pipeline's band, one of the walk pool's and the
+    trace-time instanced Cornell: K6's inputs at the recorded calls, in
+    the path's layout, and the tables saved as plain tensors and rebuilt
+    give the plain version the same outputs bit for bit."""
+    import torch
+
+    from rendertoy3c_tpu_torch.scene.builtin import multi_instance_cornell
+    from rendertoy3c_tpu_torch.scene.instanced import build_instanced_scene
+    from rendertoy3c_tpu_torch.scene.town import town_scene
+    from rendertoy3c_tpu_torch.trace import shade
+
+    dev = torch.device("cpu")
+    if kind == "tracetime":
+        meshes, inst, camera = multi_instance_cornell()
+        scene = build_instanced_scene(meshes, inst)
+    else:
+        scene, camera = town_scene(4000 if kind == "mt" else 20000)
+    cfg = dict(ab.MAIN, width=32, height=32, samples_per_launch=1,
+               max_depth=3, ray_block=1024)
+    rec = ab._k6_record(dev, kind, scene, camera, {}, kind, (0, 2), cfg)
+    torch.save(rec, tmp_path / "k6.pt")
+    tables, config = ab._k6_tables(torch.load(tmp_path / "k6.pt"))
+    assert rec["transposed"] == (kind == "walk") and len(rec["picks"]) == 2
+    mw = shade.misc_width(config.aov)
+    for rays, hit4, misc, inst in rec["picks"]:
+        n = rays.shape[0]
+        assert misc.shape == ((mw, n) if kind == "walk" else (n, mw))
+        assert (inst is not None) == (kind == "tracetime")
+        kw = dict(transposed=rec["transposed"], inst=inst)
+        got = shade.external_shade(rays, hit4, misc, tables, config, **kw)
+        want = shade.external_shade_ref(rays, hit4, misc, ab._k6_tables(
+            rec)[0], config, **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32))

@@ -17,6 +17,8 @@ from rendertoy3c_tpu_torch.scene.material import Material
 from rendertoy3c_tpu_torch.scene.mesh import Mesh
 from rendertoy3c_tpu_torch.scene.scene import build_scene
 from rendertoy3c_tpu_torch.trace import mt, shade
+from k6_split_util import VARIANTS as K6_VARIANTS
+from k6_split_util import k6_case
 from megakernel_util import FORMS, KINDS, fused_scene
 from mt_bin_util import SOUP_SIZES, TIE_HIGH, TIE_LOW
 from mt_bin_util import case as mt_bin_case
@@ -1827,3 +1829,26 @@ def test_trace_shade_kernel_on_ties_and_tiles(dev, kind, form):
         misc = torch.where(dead[:, None], _widen_aov(fm, it) if aov else fm,
                            misc)
     assert (misc[:, 8] > 2).any()
+
+
+@pytest.mark.parametrize("n", [1, 100, 8192, 8192 + 37, 16384, 32768])
+@pytest.mark.parametrize("layout", ["row_major", "c_major"])
+@pytest.mark.parametrize("variant", K6_VARIANTS)
+def test_external_shade_kernel_at_pool_sizes(dev, variant, layout, n):
+    """K6 (two warps a 32-lane block) against its plain version on the
+    card, bit for bit, at the walk and instanced pools' lane counts, a
+    count past a multiple of the block and counts below one block, in
+    both misc layouts and every variant (tests/k6_split_util.py)."""
+    rays, hit4, misc, tables, config, inst = k6_case(variant, n, seed=n,
+                                                     device=dev)
+    transposed = layout == "c_major"
+    if transposed:
+        misc = misc.T.contiguous()
+    a = (rays, hit4, misc, tables, config)
+    counter = "inst_launches" if inst is not None else "launches"
+    before = getattr(shade.external_shade, counter)
+    got = shade.external_shade(*a, transposed=transposed, inst=inst)
+    torch.cuda.synchronize()
+    assert getattr(shade.external_shade, counter) == before + 1
+    _bits_equal(got, shade.external_shade_ref(*a, transposed=transposed,
+                                              inst=inst))
