@@ -201,8 +201,8 @@ def library() -> ctypes.CDLL:
         vp, vp, vp, vp, vp, vp, tex, vp]
     lib.rt3c_trace_shade.restype = ci
     lib.rt3c_external_shade.argtypes = [
-        ci, ctypes.POINTER(ExternalParams), vp, vp, vp, vp, ci, vp, vp, ci,
-        vp, vp, vp, tex, vp, vp, vp]
+        ci, ctypes.POINTER(ExternalParams), vp, vp, vp, vp, ci, vp, ci, vp,
+        vp, vp, tex, vp, vp, vp]
     lib.rt3c_external_shade.restype = ci
     lib.rt3c_walk_rounds.argtypes = [ci, ctypes.POINTER(WalkParams), vp, vp]
     lib.rt3c_walk_rounds.restype = ci

@@ -58,19 +58,20 @@
 // halves run side by side and the NEE warp issues its light's loads right
 // after the state, since the pick needs only the seed and adv. 32 lanes a
 // block give 256 blocks of 2 warps at the trace-time pool's 8192 lanes and
-// 1024 at the walk pools' and the MT towns' 32768 (the old 128-lane blocks
-// left 68 of 132 SMs idle at 8192). The light is read from a lane-major
-// copy of the table (light_rows [Lp, 20], five float4 loads instead of 16
-// loads at the table's stride). Row-major misc and every row-major output
-// pass through shared memory, so that the block reads and writes its rows
-// as one contiguous stretch of float4s (a warp's float4 access to rows of
-// 64-128 B touched 16-32 lines, and the parent's stores took 46% of a
-// town warp's cycles); each lane's ray, hit and instance id are loaded
-// before that staging's barrier, so every load is in flight together.
-// C-major misc is read and written per column, coalesced as it is (staging
-// it too, and the rays and hits, measured 0-4% slower). Both halves
-// compute the shared front in the same operations, so the outputs are the
-// single thread's bit for bit.
+// 1024 at the walk pools' and the MT towns' 32768 (128-lane blocks of one
+// thread a lane left 68 of 132 SMs idle at 8192). Row-major misc and every
+// row-major output pass through shared memory, so that the block reads and
+// writes its rows as one contiguous stretch of float4s (a warp's float4
+// access to rows of 64-128 B touched 16-32 lines, and those stores took
+// 46% of a town warp's cycles); each lane's ray, hit and instance id are
+// loaded before that staging's barrier, so every load is in flight
+// together. C-major misc is read and written per column, coalesced as it
+// is (staging it too, and the rays and hits, measured 0-4% slower). Both
+// halves compute the shared front in the same operations, so the outputs
+// are the single thread's bit for bit. Timed against this form (PERF.md):
+// one thread a lane in the same staged blocks, 3-8% slower weighted by
+// launches and no faster than the 128-lane blocks at 8192 lanes; the
+// light read from a lane-major copy of the table, no faster.
 //
 // Bound: memory and the launch. Per lane the kernel reads 32 + 16 + 4 MW B
 // of state and a 4W-byte attribute row (and 16 B of texels per fetch) and
@@ -154,8 +155,7 @@ __global__ void __launch_bounds__(EXT_BLOCK)
                           const float* __restrict__ hit4,
                           const float* __restrict__ misc,
                           const float* __restrict__ attr, int n_faces,
-                          const float* __restrict__ lights_t,
-                          const float* __restrict__ light_rows, int n,
+                          const float* __restrict__ lights_t, int n,
                           float* __restrict__ rays_out,
                           float* __restrict__ misc_out,
                           float* __restrict__ shadow_out,
@@ -216,8 +216,7 @@ __global__ void __launch_bounds__(EXT_BLOCK)
     }
     const Shaded o = shade_lane<true, kTex, kDispatch>(
         sc, r, h, m, attr + p.attr_w * (size_t)prim, 1, lights_t, tex,
-        [](const Ray&, bool, float) { return false; }, inst, light_rows,
-        part);
+        [](const Ray&, bool, float) { return false; }, inst, part);
 
     // each half stages its columns of the lane's rows; C-major misc_out
     // is written per column, coalesced
@@ -281,7 +280,6 @@ __global__ void __launch_bounds__(EXT_BLOCK)
 
 }  // namespace rt3c
 
-// light_rows: the lane-major light rows [Lp, 20] (shade.cuh LIGHT_ROW_W);
 // tex: the atlas of a textured scene, null for an untextured one;
 // inst_rows / inst_ids: an instanced scene's rows and hit instances (p->n_inst
 // > 0), else null;
@@ -290,15 +288,13 @@ __global__ void __launch_bounds__(EXT_BLOCK)
 extern "C" int rt3c_external_shade(int device, const rt3c::ExternalParams* p,
                                    const float* rays, const float* hit4,
                                    const float* misc, const float* attr,
-                                   int n_faces, const float* lights_t,
-                                   const float* light_rows, int n,
+                                   int n_faces, const float* lights_t, int n,
                                    float* rays_out, float* misc_out,
                                    float* shadow_out,
                                    const rt3c::TexParams* tex,
                                    const float* inst_rows,
                                    const int* inst_ids, void* stream) {
   if (n < 0 || n_faces < 1 || p->num_lights < 1 || p->attr_w < 16 ||
-      light_rows == nullptr ||
       p->params_base < 0 || p->params_base + 6 > p->attr_w ||
       (tex && (tex->texels == nullptr || tex->meta == nullptr)) ||
       p->n_inst < 0 ||
@@ -316,7 +312,7 @@ extern "C" int rt3c_external_shade(int device, const rt3c::ExternalParams* p,
                                 decltype(kDispatch)::value,
                                 decltype(kAov)::value>
         <<<grid, rt3c::EXT_BLOCK, 0, s>>>(*p, rays, hit4, misc, attr, n_faces,
-                                          lights_t, light_rows, n, rays_out,
+                                          lights_t, n, rays_out,
                                           misc_out, shadow_out, t, inst_rows,
                                           inst_ids);
   };

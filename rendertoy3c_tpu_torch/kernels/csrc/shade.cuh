@@ -45,9 +45,9 @@
 // bounce half (the BSDF sample, Russian roulette, the next state) and the
 // NEE half (the light pick and sample, the shadow ray, the NEE term). The
 // draws come first, in the reference's order, so that the NEE half can
-// pick its light and issue the light's loads (from K6's lane-major rows)
-// before the attribute row arrives. K4 and K5 shade the lane whole; their
-// arithmetic is the same operations in the same order.
+// pick its light and issue the light's loads before the attribute row
+// arrives. K4 and K5 shade the lane whole; their arithmetic is the same
+// operations in the same order.
 //
 // The AOV variants of the kernels (kAov, pallas_shade.py :881-893) read the
 // lane's albedo (the texel where a texture is present) and its
@@ -177,11 +177,6 @@ struct ShadeConsts {
 // operations, so either half's outputs are the whole lane's bit for bit.
 enum LanePart { LANE_WHOLE = 0, LANE_BOUNCE = 1, LANE_NEE = 2 };
 
-// The width of a lane-major light row (K6's light_rows [Lp, 20]): the 16
-// fields of lights_t's rows 0-15 (v0 v1 v2 emission normal area), the
-// pick pdf of row 16, three zeros; five float4 loads a light.
-constexpr int LIGHT_ROW_W = 20;
-
 // One light's 16 fields and its pick pdf.
 struct LightRow {
   float f[16];
@@ -208,32 +203,16 @@ __device__ __forceinline__ int pick_light(const ShadeConsts& p,
                     (float)(p.num_lights - 1));
 }
 
-// Light `lidx` from the lane-major rows where given (K6), else from the
-// C-major table lights_t [24, light_stride] (K4, K5).
+// Light `lidx` of the C-major table lights_t [24, light_stride].
 __device__ __forceinline__ LightRow load_light(const ShadeConsts& p,
                                                const float* lights_t,
-                                               const float* light_rows,
                                                int lidx) {
   LightRow l;
-  if (light_rows != nullptr) {
-    const float4* q = reinterpret_cast<const float4*>(
-        light_rows + LIGHT_ROW_W * (size_t)lidx);
+  const float* c = lights_t + lidx;
+  const int ls = p.light_stride;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float4 x = q[k];
-      l.f[4 * k] = x.x;
-      l.f[4 * k + 1] = x.y;
-      l.f[4 * k + 2] = x.z;
-      l.f[4 * k + 3] = x.w;
-    }
-    l.pick_pdf = p.power ? q[4].x : p.pick_pdf;
-  } else {
-    const float* c = lights_t + lidx;
-    const int ls = p.light_stride;
-#pragma unroll
-    for (int k = 0; k < 16; ++k) l.f[k] = c[k * ls];
-    l.pick_pdf = p.power ? c[16 * ls] : p.pick_pdf;
-  }
+  for (int k = 0; k < 16; ++k) l.f[k] = c[k * ls];
+  l.pick_pdf = p.power ? c[16 * ls] : p.pick_pdf;
   return l;
 }
 
@@ -321,17 +300,15 @@ struct Shaded {
 // the pick pdf and row 17 the CDF of the power pick. occluded(shadow_ray,
 // want, time) runs the shadow sweep and must be reached by every thread of
 // the block (K4, K5). inst: an instanced lane's transform rows (K6).
-// light_rows: lane-major light rows [Lp, LIGHT_ROW_W] (K6), or null. part:
-// the whole lane, or one half of it (LanePart; K6): the bounce half fills
-// seed, px-pz, nd*, new_at, new_last, accs, depth_new, alive_b,
+// part: the whole lane, or one half of it (LanePart; K6): the bounce half
+// fills seed, px-pz, nd*, new_at, new_last, accs, depth_new, alive_b,
 // pdelta_new, survive, first, albedo and ns; the NEE half px-pz, sr,
 // occl_time, want_shadow and nee; the rest of `Shaded` is left unset.
 template <bool kExternal, bool kTextured, bool kDispatch, class Occluded>
 __device__ __forceinline__ Shaded shade_lane(
     const ShadeConsts& p, const Ray& r, const ClosestHit& h, const float* m,
     const float* a, int as, const float* lights_t, const TexParams& tex,
-    Occluded occluded, const InstRows& inst = {},
-    const float* light_rows = nullptr, int part = LANE_WHOLE) {
+    Occluded occluded, const InstRows& inst = {}, int part = LANE_WHOLE) {
   const bool bounce = part != LANE_NEE, nee = part != LANE_BOUNCE;
   Shaded o;
   // --- unpack the lane state (misc layout, pallas_shade.py:32-36) ---
@@ -360,7 +337,7 @@ __device__ __forceinline__ Shaded shade_lane(
   const float lv = rnd_masked(seed, adv);
   LightRow l;
   if (part == LANE_NEE)
-    l = load_light(p, lights_t, light_rows, pick_light(p, lights_t, u_pick));
+    l = load_light(p, lights_t, pick_light(p, lights_t, u_pick));
 
   // --- shading attributes: rows n0 n1 n2 emission diffuse ---
   const float bu = h.u, bv = h.v;
@@ -575,8 +552,7 @@ __device__ __forceinline__ Shaded shade_lane(
   float nee_w[3] = {0.0f, 0.0f, 0.0f};
   if (nee) {
     if (part == LANE_WHOLE)
-      l = load_light(p, lights_t, light_rows,
-                     pick_light(p, lights_t, u_pick));
+      l = load_light(p, lights_t, pick_light(p, lights_t, u_pick));
     const float su = sqrtf(lu);
     const float b0 = 1.0f - su;
     const float b1 = lv * su;

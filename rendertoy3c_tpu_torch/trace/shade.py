@@ -63,7 +63,7 @@ CDF the light table carries in row 17.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 from functools import partial
 
 import numpy as np
@@ -405,8 +405,7 @@ def _textured_normal_and_albedo(a, w0, bu, bv, ng, tex: TexState, it=None):
 
 
 def _shade_lanes(rays, hit4, misc, a, lights_t, sc, shadow_occluded=None,
-                 tex: TexState | None = None, params_base: int = 0, it=None,
-                 part: str = "whole", light_rows=None):
+                 tex: TexState | None = None, params_base: int = 0, it=None):
     """The shading body shared by K4, K5 and K6 (pallas_shade.py
     :436-880): emission at depth 0 and after delta lobes, miss ambient,
     textures (`tex`), the Lambertian draw or (params_base > 0) the
@@ -426,14 +425,10 @@ def _shade_lanes(rays, hit4, misc, a, lights_t, sc, shadow_occluded=None,
     provisional on want_shadow and leaves as `nee`, for the caller to add
     on unoccluded lanes, and the shadow rays leave with that time. sc
     carries max_depth, num_lights, shadow_tmin, shadow_eps, bg, power, aov.
-    part: "whole", or one half of K6's split (shade.cuh LanePart):
-    "bounce" skips the light sample (no shadow ray, no NEE), "nee" the BSDF
-    sample (no bounce); light_rows: the lane-major light rows
-    (lane_major_lights) the light is read from, else lights_t. Returns a
-    dict of the per-lane results; "cond" holds the intermediates that
-    decide how far a last-ulp difference carries (the sampled cosine wz,
-    cos_l, n.l, the light distance, p_rr, the draws u_rr and u_pick, the
-    light index)."""
+    Returns a dict of the per-lane results; "cond" holds the intermediates
+    that decide how far a last-ulp difference carries (the sampled cosine
+    wz, cos_l, n.l, the light distance, p_rr, the draws u_rr and u_pick,
+    the light index)."""
     t_hit, prim_f, bu, bv = hit4.unbind(1)
     ox, oy, oz, dx, dy, dz = rays[:, :6].unbind(1)
 
@@ -477,11 +472,7 @@ def _shade_lanes(rays, hit4, misc, a, lights_t, sc, shadow_occluded=None,
     seed, _ = rng.rnd_masked(seed, adv)
     seed, u1 = rng.rnd_masked(seed, adv)
     seed, u2 = rng.rnd_masked(seed, adv)
-    bounce = part != "nee"
-    wx = wy = wz = zero
-    at_fac = [zero] * 3
-    if bounce:
-        wx, wy, wz = sample_cosine_hemisphere(u1, u2)
+    wx, wy, wz = sample_cosine_hemisphere(u1, u2)
     (txx, txy, txz), (bx0, by0, bz0) = onb_from_normal(nsx, nsy, nsz)
     mat = None
     if params_base:
@@ -490,10 +481,9 @@ def _shade_lanes(rays, hit4, misc, a, lights_t, sc, shadow_occluded=None,
         wo = (-(dx * txx + dy * txy + dz * txz),
               -(dx * bx0 + dy * by0 + dz * bz0),
               -(dx * nsx + dy * nsy + dz * nsz))
-        if bounce:
-            (wx, wy, wz), at_fac = dispatch_sample(mat, wo, (wx, wy, wz),
-                                                   z1, u1, u2)
-    elif bounce:
+        (wx, wy, wz), at_fac = dispatch_sample(mat, wo, (wx, wy, wz), z1,
+                                               u1, u2)
+    else:
         # reference Lambertian: attenuation = albedo * (1/pi) / (cos/pi)
         inv_cos = 1.0 / torch.clamp(wz * _INV_PI, min=1e-12) * _INV_PI
         at_fac = [albedo[c] * inv_cos for c in range(3)]
@@ -505,21 +495,64 @@ def _shade_lanes(rays, hit4, misc, a, lights_t, sc, shadow_occluded=None,
     seed, u_pick = rng.rnd_masked(seed, adv)
     seed, lu = rng.rnd_masked(seed, adv)
     seed, lv = rng.rnd_masked(seed, adv)
-    if part == "bounce":
-        want_shadow = torch.zeros_like(alive)
-        shadow = torch.zeros_like(rays)
-        cos_l = n_dl = ldist = lidx = zero
-        radiance = [zero] * 3
+    if sc.power:
+        lidx, _ = pick_light_power(u_pick, lights_t[17], sc.num_lights)
     else:
-        (want_shadow, shadow, radiance, cos_l, n_dl, ldist,
-         lidx) = _nee_half(lights_t, light_rows, sc, u_pick, lu, lv,
-                           (px, py, pz), (nsx, nsy, nsz), albedo, mat,
-                           (txx, txy, txz), (bx0, by0, bz0),
-                           wo if mat is not None else None, adv, zero, one,
-                           seed, shadow_occluded)
+        lidx, _ = pick_light_uniform(u_pick, sc.num_lights)
+    lrow = lights_t[:, lidx.to(torch.int64)]
+    # the pick pdf: the picked light's row 16, or 1 / count (a tensor: CUDA
+    # torch multiplies by the reciprocal of a Python divisor)
+    pick_pdf = (lrow[16] if sc.power
+                else torch.full_like(u_pick, 1.0 / float(sc.num_lights)))
+    b0, b1, b2 = sample_uniform_triangle(lu, lv)
+    lpx = b0 * lrow[0] + b1 * lrow[3] + b2 * lrow[6]
+    lpy = b0 * lrow[1] + b1 * lrow[4] + b2 * lrow[7]
+    lpz = b0 * lrow[2] + b1 * lrow[5] + b2 * lrow[8]
+    lvx, lvy, lvz = lpx - px, lpy - py, lpz - pz
+    dist2 = lvx * lvx + lvy * lvy + lvz * lvz
+    sdist2 = torch.clamp(dist2, min=1e-20)
+    inv_d = 1.0 / torch.sqrt(sdist2)
+    ldist = sdist2 * inv_d
+    ldx, ldy, ldz = lvx * inv_d, lvy * inv_d, lvz * inv_d
+    cos_l = torch.abs(ldx * lrow[12] + ldy * lrow[13] + ldz * lrow[14])
+    omega = cos_l * lrow[15] / sdist2
+    degen = (dist2 < 1e-5) | (omega < 1e-5)
+    le = [torch.where(degen, zero, lrow[9 + c] * omega) for c in range(3)]
+    pdf_light = torch.where(degen, one,
+                            1.0 / torch.clamp(omega, min=1e-20)) * pick_pdf
+    n_dl = nsx * ldx + nsy * ldy + nsz * ldz
+    want_shadow = adv & (n_dl > 0.0)
+    if mat is not None:  # no NEE on delta lobes
+        want_shadow = want_shadow & ~mat.is_delta
+
+    # --- shadow rays: swept here (K4) or handed to the caller (K6) ---
+    tmax_s = torch.where(want_shadow, ldist - sc.shadow_eps, zero)
+    shadow = torch.stack([px, py, pz, ldx, ldy, ldz,
+                          torch.full_like(px, sc.shadow_tmin), tmax_s], dim=1)
     # the shadow ray's time: a peek of the post-NEE stream
     occl_time = rng.rnd(seed)[1]
     external = shadow_occluded is None
+    if external:
+        lit = want_shadow
+    else:
+        lit = want_shadow & (shadow_occluded(shadow, occl_time) < 0.5)
+
+    if mat is None:
+        # weight = albedo/pi * powerHeuristic(pdf_light, |n.l|/pi)
+        pdf_sc = torch.abs(n_dl) * _INV_PI
+        ph = (pdf_light * pdf_light) / torch.clamp(
+            pdf_light * pdf_light + pdf_sc * pdf_sc, min=1e-20)
+        radiance = [torch.where(lit, le[c] * albedo[c] * (ph * _INV_PI),
+                                zero) for c in range(3)]
+    else:
+        # the general NEE, Le omega f(wo, wl) n.l / pick_pdf, no MIS
+        wl = (ldx * txx + ldy * txy + ldz * txz,
+              ldx * bx0 + ldy * by0 + ldz * bz0,
+              ldx * nsx + ldy * nsy + ldz * nsz)
+        f_ev = nee_bsdf(mat, wo, wl)
+        scale = n_dl / torch.clamp(pick_pdf, min=1e-12)
+        radiance = [torch.where(lit, le[c] * f_ev[c] * scale, zero)
+                    for c in range(3)]
     nee = None
     if external:
         nee = [radiance[c] * last_at[c] for c in range(3)]
@@ -558,76 +591,6 @@ def _shade_lanes(rays, hit4, misc, a, lights_t, sc, shadow_occluded=None,
                 tex_uv=None if tex is None else tex_uv,
                 cond=dict(wz=wz, cos_l=cos_l, n_dl=n_dl, ldist=ldist,
                           p_rr=p_rr, u_rr=u_rr, u_pick=u_pick, lidx=lidx))
-
-
-def _nee_half(lights_t, light_rows, sc, u_pick, lu, lv, p, ns, albedo, mat,
-              t_axis, b_axis, wo, adv, zero, one, seed, shadow_occluded):
-    """The NEE half of the shading body: the light pick and area sample,
-    the shadow ray and the NEE weight (radiance before the last_at
-    scale). Returns (want_shadow, shadow rays [R, 8], radiance [3],
-    cos_l, n_dl, ldist, lidx)."""
-    px, py, pz = p
-    nsx, nsy, nsz = ns
-    txx, txy, txz = t_axis
-    bx0, by0, bz0 = b_axis
-    if sc.power:
-        lidx, _ = pick_light_power(u_pick, lights_t[17], sc.num_lights)
-    else:
-        lidx, _ = pick_light_uniform(u_pick, sc.num_lights)
-    lrow = (lights_t[:, lidx.to(torch.int64)] if light_rows is None
-            else light_rows[lidx.to(torch.int64)].T)
-    # the pick pdf: the picked light's row 16, or 1 / count (a tensor: CUDA
-    # torch multiplies by the reciprocal of a Python divisor)
-    pick_pdf = (lrow[16] if sc.power
-                else torch.full_like(u_pick, 1.0 / float(sc.num_lights)))
-    b0, b1, b2 = sample_uniform_triangle(lu, lv)
-    lpx = b0 * lrow[0] + b1 * lrow[3] + b2 * lrow[6]
-    lpy = b0 * lrow[1] + b1 * lrow[4] + b2 * lrow[7]
-    lpz = b0 * lrow[2] + b1 * lrow[5] + b2 * lrow[8]
-    lvx, lvy, lvz = lpx - px, lpy - py, lpz - pz
-    dist2 = lvx * lvx + lvy * lvy + lvz * lvz
-    sdist2 = torch.clamp(dist2, min=1e-20)
-    inv_d = 1.0 / torch.sqrt(sdist2)
-    ldist = sdist2 * inv_d
-    ldx, ldy, ldz = lvx * inv_d, lvy * inv_d, lvz * inv_d
-    cos_l = torch.abs(ldx * lrow[12] + ldy * lrow[13] + ldz * lrow[14])
-    omega = cos_l * lrow[15] / sdist2
-    degen = (dist2 < 1e-5) | (omega < 1e-5)
-    le = [torch.where(degen, zero, lrow[9 + c] * omega) for c in range(3)]
-    pdf_light = torch.where(degen, one,
-                            1.0 / torch.clamp(omega, min=1e-20)) * pick_pdf
-    n_dl = nsx * ldx + nsy * ldy + nsz * ldz
-    want_shadow = adv & (n_dl > 0.0)
-    if mat is not None:  # no NEE on delta lobes
-        want_shadow = want_shadow & ~mat.is_delta
-
-    # --- shadow rays: swept here (K4) or handed to the caller (K6) ---
-    tmax_s = torch.where(want_shadow, ldist - sc.shadow_eps, zero)
-    shadow = torch.stack([px, py, pz, ldx, ldy, ldz,
-                          torch.full_like(px, sc.shadow_tmin), tmax_s], dim=1)
-    if shadow_occluded is None:
-        lit = want_shadow
-    else:
-        # at the shadow ray's time, a peek of the post-NEE stream
-        lit = want_shadow & (shadow_occluded(shadow, rng.rnd(seed)[1]) < 0.5)
-
-    if mat is None:
-        # weight = albedo/pi * powerHeuristic(pdf_light, |n.l|/pi)
-        pdf_sc = torch.abs(n_dl) * _INV_PI
-        ph = (pdf_light * pdf_light) / torch.clamp(
-            pdf_light * pdf_light + pdf_sc * pdf_sc, min=1e-20)
-        radiance = [torch.where(lit, le[c] * albedo[c] * (ph * _INV_PI),
-                                zero) for c in range(3)]
-    else:
-        # the general NEE, Le omega f(wo, wl) n.l / pick_pdf, no MIS
-        wl = (ldx * txx + ldy * txy + ldz * txz,
-              ldx * bx0 + ldy * by0 + ldz * bz0,
-              ldx * nsx + ldy * nsy + ldz * nsz)
-        f_ev = nee_bsdf(mat, wo, wl)
-        scale = n_dl / torch.clamp(pick_pdf, min=1e-12)
-        radiance = [torch.where(lit, le[c] * f_ev[c] * scale, zero)
-                    for c in range(3)]
-    return want_shadow, shadow, radiance, cos_l, n_dl, ldist, lidx
 
 
 def _next_state(rays, misc, r):
@@ -1049,19 +1012,6 @@ class FusedPipeline:
 
 
 # ---------------------------------------------------------------- K6
-LIGHT_ROW_W = 20  # shade.cuh LIGHT_ROW_W
-
-
-def lane_major_lights(lights_t: torch.Tensor) -> torch.Tensor:
-    """[Lp, 20] f32 lane-major copy of the light table that K6 reads, one
-    light a row: rows 0-15 of lights_t (v0 v1 v2 emission normal area),
-    row 16 (the pick pdf), three zeros."""
-    rows = torch.zeros((lights_t.shape[1], LIGHT_ROW_W),
-                       dtype=lights_t.dtype, device=lights_t.device)
-    rows[:, :17] = lights_t[:17].T
-    return rows
-
-
 @dataclass(frozen=True)
 class ExternalTables:
     """Device tables K6 reads."""
@@ -1072,12 +1022,6 @@ class ExternalTables:
     params_base: int = 0  # material-parameter rows (dispatch), 0 = none
     # an instanced scene's transform rows [I, 18] (inst_transform_rows)
     inst_rows: torch.Tensor | None = None
-    # lights_t lane-major (lane_major_lights), built with the tables
-    light_rows: torch.Tensor = field(init=False, repr=False)
-
-    def __post_init__(self):
-        object.__setattr__(self, "light_rows",
-                           lane_major_lights(self.lights_t))
 
 
 _IDENTITY9 = (1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0)
@@ -1130,86 +1074,10 @@ def external_shade_ref(rays, hit4, misc, tables: ExternalTables,
     return rays_out, misc_out, shadow
 
 
-EXT_LANES = 32  # external.cu's lanes a block
-
-
-def _staged(rows, w: int, nb: int, to_shared: bool):
-    """external.cu's `stage_rows` / `store_rows` on a block's nb rows of
-    width w: the flat
-    stretch `rows` [nb * w] read into a tile [EXT_LANES, w + 1] (padded
-    rows) by its float4s, or a tile written back out as the flat
-    stretch."""
-    q = torch.arange(nb * w // 4, device=rows.device)
-    e = (4 * q)[:, None] + torch.arange(4, device=rows.device)
-    at = ((e // w) * (w + 1) + e % w).reshape(-1)
-    if to_shared:
-        tile = torch.zeros(EXT_LANES * (w + 1), dtype=rows.dtype,
-                           device=rows.device)
-        tile[at] = rows
-        return tile.view(EXT_LANES, w + 1)
-    return rows.reshape(-1)[at]
-
-
-def external_shade_split_ref(rays, hit4, misc, tables: ExternalTables,
-                             ec: ShadeConfig, transposed: bool = False,
-                             inst=None):
-    """Plain twin of K6's schedule (external.cu): the lanes in blocks of
-    EXT_LANES (the last one short), each lane's bounce half and NEE half
-    computed apart (`_shade_lanes` with `part`), the NEE half reading its
-    light from tables.light_rows; each half fills its own columns of the
-    lane's rows (the bounce half rays_out, misc columns 0-14 and the AOV
-    rows, the NEE half want_shadow, the NEE term and the shadow rays), and
-    row-major misc and the row-major outputs pass through the block's
-    padded tiles as external.cu stages them. The same outputs as
-    external_shade_ref, bit for bit."""
-    n = rays.shape[0]
-    mw = misc_width(ec.aov)
-    sw = 16 if ec.motion else 8
-
-    if transposed:
-        m = misc.T
-    else:  # each block's misc rows through its tile
-        m = torch.cat([
-            _staged(misc[i:i + EXT_LANES].reshape(-1), mw,
-                    min(EXT_LANES, n - i), True)[:min(EXT_LANES, n - i), :mw]
-            for i in range(0, n, EXT_LANES)])
-    a = tables.attr[torch.clamp(hit4[:, 1], min=0.0).to(torch.int64)].T
-    it = (None if tables.inst_rows is None
-          else gather_inst_rows(tables.inst_rows, inst))
-    half = {part: _shade_lanes(
-        rays, hit4, m, a, tables.lights_t, ec, tex=tables.tex,
-        params_base=tables.params_base, it=it, part=part,
-        light_rows=tables.light_rows if part == "nee" else None)
-        for part in ("bounce", "nee")}
-    rays_out, cols = _next_state(rays, m, half["bounce"])
-    e = half["nee"]
-    cols[15] = e["want_shadow"].to(torch.float32)
-    zero = e["zero"]
-    cols += e["nee"] + [zero] * 5
-    shadow = e["shadow"]
-    if ec.motion:
-        shadow = torch.cat([shadow, e["occl_time"][:, None],
-                            torch.zeros_like(shadow[:, :7])], dim=1)
-    misc_out = torch.stack(cols, dim=1)
-    outs = [rays_out, misc_out, shadow]
-    staged = [torch.empty_like(x) for x in outs]
-    for i in range(0, n, EXT_LANES):
-        nb = min(EXT_LANES, n - i)
-        for x, y, w in zip(outs, staged, (8, mw + 8, sw)):
-            tile = torch.zeros((EXT_LANES, w + 1), dtype=x.dtype,
-                               device=x.device)
-            tile[:nb, :w] = x[i:i + nb]
-            y[i:i + nb] = _staged(tile, w, nb, False).view(nb, w)
-    if transposed:
-        staged[1] = misc_out.T.contiguous()
-    return tuple(staged)
-
-
 def external_shade(rays, hit4, misc, tables: ExternalTables,
                    ec: ShadeConfig, transposed: bool = False, inst=None):
     """K6 wrapper: the CUDA kernel for CUDA tensors
-    (kernels/csrc/external.cu; it reads the lights from tables.light_rows),
-    `external_shade_ref` on the CPU. With
+    (kernels/csrc/external.cu), `external_shade_ref` on the CPU. With
     `transposed`, misc is C-major [W, R] and misc_out [W + 8, R]; an
     instanced scene's launch takes the hit instances `inst` [R] int32 and
     gathers their transform rows in the kernel."""
@@ -1217,7 +1085,7 @@ def external_shade(rays, hit4, misc, tables: ExternalTables,
         return external_shade_ref(rays, hit4, misc, tables, ec, transposed,
                                   inst)
     kbuild.require_cuda("external_shade", rays, hit4, misc, tables.attr,
-                        tables.lights_t, tables.light_rows)
+                        tables.lights_t)
     n_inst = 0
     if tables.inst_rows is not None:
         kbuild.require_cuda("external_shade", rays, tables.inst_rows)
@@ -1251,8 +1119,7 @@ def external_shade(rays, hit4, misc, tables: ExternalTables,
     err = kbuild.library().rt3c_external_shade(
         index, p, rays.data_ptr(), hit4.data_ptr(), misc.data_ptr(),
         tables.attr.data_ptr(), tables.attr.shape[0],
-        tables.lights_t.data_ptr(), tables.light_rows.data_ptr(), n,
-        rays_out.data_ptr(),
+        tables.lights_t.data_ptr(), n, rays_out.data_ptr(),
         misc_out.data_ptr(), shadow.data_ptr(), tex,
         tables.inst_rows.data_ptr() if n_inst else None,
         inst.data_ptr() if n_inst else None, stream)

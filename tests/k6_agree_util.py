@@ -25,15 +25,23 @@ spread, so the rule holds each lane to what the port guarantees:
   a last-ulp difference may flip them, and a flip changes the lane wholly;
 - every float of every live lane off an edge within rtol = atol = EPS x
   kappa, kappa the lane's amplification (at least 1) from the plain
-  version's own intermediates. Measured over every case of both files
-  (4 iterations, 512 lanes), with XLA's FMAs and without them
-  (`--xla_cpu_max_isa=AVX`): the worst lane reaches 0.52 of its bound (a
-  hit point of the instanced field at y = 20 - 20, half an ulp of 20),
-  every other case stays below 0.17.
+  version's own intermediates; where kappa is unbounded (a cosine of
+  exactly 0: the hit lies in the light's plane, whose sample is then
+  degenerate and its NEE term 0; at most 20 of ~500 live lanes), the
+  float is held exact. Measured over every case of both files (4
+  iterations, 512 lanes), with XLA's FMAs and without them
+  (`--xla_cpu_max_isa=AVX` or `SSE4_2`): the worst lane of the
+  instanced field's cases reaches 0.40-0.52 of its bound (a hit point at
+  y = 20 - 20, half an ulp of 20), every other case stays below 0.17.
 
 The rule cannot pass by calling every lane ill-conditioned: at most
 LOOSE_SHARE of the live lanes may have kappa above LOOSE, and at most
-EDGE_SHARE may sit on an edge."""
+EDGE_SHARE may sit on an edge.
+
+The cause (XLA's FMAs and its own sin and cos) is inferred, not
+confirmed: on the hosts where these cases were measured they pass under
+the old fixed share too, and no XLA or ATen setting tried there
+reproduced the failures seen on other hosts (PERF.md, open questions)."""
 import numpy as np
 import torch
 
@@ -43,7 +51,7 @@ INT_COLS = (0, 8, 13, 14)  # seed bits, depth, pixel, sample
 DECISION_COLS = (9, 15)  # alive after Russian roulette, want_shadow
 EPS = 1e-6  # ~8 float32 ulps of 1
 EDGE = 10.0  # a decision's margin, in amplified EPS
-LOOSE, LOOSE_SHARE = 100.0, 0.5  # measured: at most 0.34 (material Cornell)
+LOOSE, LOOSE_SHARE = 100.0, 0.4  # measured: at most 0.34 (material Cornell)
 EDGE_SHARE = 0.1  # measured: at most 0.066 (the instanced field)
 
 
@@ -135,7 +143,7 @@ def check_iteration(rays, hit4, misc, got, want, tables, config,
 
     # every float of every live lane within EPS x its column's kappa, off
     # the edge that decides the column
-    one, inf = np.ones(n), np.full(n, np.inf)
+    one = np.ones(n)
     mw = m.shape[0]
     misc_k = [(one, None)] * g1.shape[0]
     for k in (1, 2, 3):
@@ -143,7 +151,7 @@ def check_iteration(rays, hit4, misc, got, want, tables, config,
     for k in (4, 5, 6):
         misc_k[k] = (k_bsdf, None)
     for k in INT_COLS + DECISION_COLS:
-        misc_k[k] = (inf, None)  # checked above
+        misc_k[k] = (None, None)  # checked above
     for k in range(mw, mw + 3):
         misc_k[k] = (k_nee, nee_edge)
     # the bounce direction carries wz's own error, 1 / wz
@@ -160,8 +168,13 @@ def check_iteration(rays, hit4, misc, got, want, tables, config,
             err = np.where(same, 0.0, np.nan_to_num(
                 np.abs(g - w) / (1.0 + np.abs(w)), nan=np.inf))
         for col, (kappa, edge) in enumerate(ks):
+            if kappa is None:
+                continue
             on = live if edge is None else live & ~edge
-            ratio = err[col][on] / (EPS * kappa[on])
+            e, k = err[col][on], kappa[on]
+            with np.errstate(invalid="ignore"):
+                ratio = np.where(np.isinf(k), np.where(e > 0, np.inf, 0.0),
+                                 e / (EPS * k))
             bad = np.where(on)[0][ratio > 1.0]
             assert bad.size == 0, (
                 f"{name} column {col}: lanes {bad[:8]} beyond EPS x kappa "

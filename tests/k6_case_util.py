@@ -1,4 +1,4 @@
-"""K6's inputs for the tests of its schedule (tests/test_torch_k6_split.py
+"""K6's inputs for the tests of its lanes (tests/test_torch_k6_lanes.py
 on the CPU, tests/test_torch_cuda.py on the card): a second-bounce pool
 state of `n` lanes on a small scene of each variant K6 takes, with the
 tables and config the walk pool builds for that scene. Made from a seed

@@ -17,8 +17,8 @@ from rendertoy3c_tpu_torch.scene.material import Material
 from rendertoy3c_tpu_torch.scene.mesh import Mesh
 from rendertoy3c_tpu_torch.scene.scene import build_scene
 from rendertoy3c_tpu_torch.trace import mt, shade
-from k6_split_util import VARIANTS as K6_VARIANTS
-from k6_split_util import k6_case
+from k6_case_util import VARIANTS as K6_VARIANTS
+from k6_case_util import k6_case
 from megakernel_util import FORMS, KINDS, fused_scene
 from mt_bin_util import SOUP_SIZES, TIE_HIGH, TIE_LOW
 from mt_bin_util import case as mt_bin_case
@@ -1838,7 +1838,7 @@ def test_external_shade_kernel_at_pool_sizes(dev, variant, layout, n):
     """K6 (two warps a 32-lane block) against its plain version on the
     card, bit for bit, at the walk and instanced pools' lane counts, a
     count past a multiple of the block and counts below one block, in
-    both misc layouts and every variant (tests/k6_split_util.py)."""
+    both misc layouts and every variant (tests/k6_case_util.py)."""
     rays, hit4, misc, tables, config, inst = k6_case(variant, n, seed=n,
                                                      device=dev)
     transposed = layout == "c_major"
