@@ -198,7 +198,9 @@ a JSON summary. Phases:
      rung (K1/K2) against the plain MT tracer;
  34. `--tracer residentwalk`'s main path: the split-ordered box field
      through make_render_fn over make_walk_tracer at bench's cfg_sorted
-     (768^2, 8 spp, depth 16, ray_block 32768, pixel-major, sorted): 1
+     (768^2, 8 spp, ray_block 32768, pixel-major, sorted) but at depth 8
+     (RW_DEPTH, 16 before phases 42-44 came, to keep the script inside
+     its time limit): 1
      warm-up and 1 timed subframe, Mray/s, K8 launches per walk (1),
      rounds per block (mean and largest) and the share of blocks done in
      their first pass, every pixel finite, the band of phase 5 against
@@ -246,7 +248,41 @@ a JSON summary. Phases:
      that the megakernels' sweeps vote on tile boxes), static, 2-key,
      textured, dispatch and AOV, against their plain versions: K4 as
      phase 3, K5 teacher-forced for 4 iterations at the pool width, bit
-     for bit.
+     for bit;
+ 42. K9 with segment offsets (N-key motion) on the stacked segment tables
+     of the 4-key town of phase 43, on 131072 camera, bounce and random
+     rays, half at uniform random times and half at exactly 0, 1/3, 2/3
+     and 1: the K9-driven trace_closest_hier / trace_any_hier against
+     their plain versions (prims, occlusion, t, u, v bit-equal) and the
+     brute tracer (prims and occlusion exact); then every launch of those
+     walks teacher-forced (every state column bit-equal);
+ 43. the N-key main path: bench's 50000-face town (BASELINE config 4,
+     bench.py:522-526, generate_town's 58054 faces, textured) written
+     out and loaded as the keyframes k0 k1 k0 k1 through the CLI's .obj
+     route (app/cli.py load_scene), at 768^2, 8 spp, depth 16 with
+     tune_config's pool, through choose_tracer (the stacked hierwalk: K9
+     with segment offsets under the general pool) and make_render_fn: 1
+     profiled warm-up, in which every NKEY_RECORD_EVERY-th closest and
+     shadow call's inputs are recorded, and TIMED timed subframes with
+     K9's counter zeroed just before; Mray/s, every pixel finite, the
+     idle share of the warm-up; then a closest and a shadow walk of the
+     warm-up replayed, each launch teacher-forced against the plain
+     version, K9 timed (device_ms) and bounded (k9_work over the rows
+     each lane reaches in its segment) on states of those walks; and the
+     band of phase 5 against the brute tracer, box-culled (culled_brute:
+     the plain torch route of the same hits; on one H100 80GB HBM3 at
+     700 W the plain walk, in lockstep over the pool's lanes until a
+     trace's last walk ends, took 583.6 s for rows 376-392 and the
+     unculled brute tracer 86.4 s for the band);
+ 44. a .glb of the Cornell box written here (cornell_glb: PRINCIPLED
+     pbrMetallicRoughness factors, an embedded PNG base colour under a
+     MIRRORED_REPEAT sampler and KHR_texture_transform, the tall block's
+     node animated) rendered through the CLI at 768^2, 8 spp, depth 16
+     without --anim-times (K4's textured dispatch variant), with
+     --anim-times 0,1 (its motion variant) and 0,0.5,1 (3 keys: the brute
+     tracer): every pixel finite, the kernels launched where the route
+     has them, and the gate of phase 4 at 96^2 of each against the plain
+     versions.
 
 Each kernel's bound is the larger of the bytes it must move over 3.35 TB/s
 and the operations its inputs need over the 67 TFLOP/s fp32 peak outside
@@ -264,8 +300,8 @@ phase 6 and before the towns, the textured towns' phase 15 right after
 phase 8, their phases 16-17 after phase 10, the principled towns' phases
 18-20 and the towns' phases 21-23 after them, then phases 24-27 (24's
 gate, 26, 27, then 24's and 25's checks on 27's states), phases 28-31,
-phases 32-35, and phases 37-40 last (phase 36's paths run after phase 12,
-phase 41 after phase 14).
+phases 32-35, phases 37-40, and phases 42-44 last (phase 36's paths
+run after phase 12, phase 41 after phase 14).
 Any failed phase exits non-zero. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -275,6 +311,7 @@ import functools
 import json
 import os
 import re
+import struct
 import subprocess
 import sys
 import tempfile
@@ -874,6 +911,14 @@ def plain_tracer(scene, cfg, dev):
     from rendertoy3c_tpu_torch.trace.auto import choose_tracer
 
     scene, pipe = choose_tracer(scene, cfg, dev)
+    if isinstance(pipe, tuple) and scene.num_keys > 2:
+        # N keys: the stacked hierwalk past 16384 faces, else the brute
+        # tracer, which is plain torch already
+        if scene.num_faces <= walkpool.LEAFWALK_MIN_FACES:
+            return scene, pipe
+        from rendertoy3c_tpu_torch.trace.hierwalk import make_hierwalk_tracer
+
+        return scene, make_hierwalk_tracer(scene, dev, plain=True)
     if isinstance(pipe, walkpool.WalkPoolPipeline) and pipe.instanced:
         return scene, plain_walk_pipe(pipe)
     if isinstance(pipe, walkpool.WalkPoolPipeline):
@@ -1093,13 +1138,14 @@ NARROW_BAND = (376, 392)
 
 
 def band_pair(name, scene, camera, cfg_kw, dev, rows=BAND_ROWS,
-              tracers=None):
+              tracers=None, against="plain"):
     """Kernels against plain versions on a band of the image (`rows`),
     one subframe each through render_pixels over choose_tracer's pipeline
     and its plain twin (or `tracers`, a (kernel, plain) pair over the
     scene as given), on the same streams: the band's means within 1%,
     the gate on it, with AOV the albedo and normal bands bit-equal.
-    Returns (kernel mean, plain mean, seconds of each)."""
+    `against` names the second tracer in the printed line. Returns
+    (kernel mean, plain mean, seconds of each)."""
     import torch
 
     from rendertoy3c_tpu_torch.integrate.config import RenderConfig
@@ -1132,7 +1178,7 @@ def band_pair(name, scene, camera, cfg_kw, dev, rows=BAND_ROWS,
           f"{name}: the band fails the gate: mean|d| {mean_d:.3g}, {outl} "
           f"outliers, max|d| {max_d:.3g}")
     print(f"  band rows {lo}-{hi} (one subframe, kernels {secs[0]:.3f} s, "
-          f"plain {secs[1]:.3f} s): means {out[0].mean():.6f} and "
+          f"{against} {secs[1]:.3f} s): means {out[0].mean():.6f} and "
           f"{out[1].mean():.6f} (rel {rel:.3g}); mean|d| {mean_d:.3g}, "
           f"max|d| {max_d:.3g}" + (", AOV bands bit-equal" if aovs[0]
                                    else ""))
@@ -2436,6 +2482,8 @@ def k9_work(s, pipe, rounds):
     s = s.clone()
     tab = pipe.table
     inst = isinstance(tab, InstHierTable)
+    # a stacked N-key table: each lane gathers its segment's rows
+    seg = s.wseg.long() if getattr(tab, "n_seg", 1) > 1 else 0
     leaf_motion = pipe.motion and not inst
     cap = 7 if leaf_motion else 14
     leaf_ops = cap * (MT_TEST_OPS + (LERP_OPS if leaf_motion else 0))
@@ -2448,10 +2496,11 @@ def k9_work(s, pipe, rounds):
     for _ in range(rounds):
         walkpool._launch_ref(s, inst)
         walking = s.cur >= 0
-        typ = tab.table[s.cur.clamp(min=0).long(), _L_TYPE]
+        row = s.cur.clamp(min=0).long() + seg
+        typ = tab.table[row, _L_TYPE]
         is_inst = walking & (typ > 1.5)
         rows += int(walking.sum())
-        reached[s.cur[walking].long()] = True
+        reached[row[walking]] = True
         leaves += int((walking & (typ > 0.5) & ~is_inst).sum())
         insts += int(is_inst.sum())
         if inst:
@@ -2463,8 +2512,13 @@ def k9_work(s, pipe, rounds):
            + (rows - leaves - insts) * tab.fanout * box_ops
            + rounds * w * (WALK_ROUND_OPS
                            + tab.n_levels * tab.fanout * WALK_POP_OPS))
-    state = sum(t.numel() * t.element_size() for _, t in s.tensors())
-    return int(reached.sum()) * ROW_BYTES + 2 * state, ops, rows
+    # the state read and written once (the segment offsets, where the
+    # kernel reads them, read once)
+    state = sum(t.numel() * t.element_size() for n, t in s.tensors()
+                if n != "wseg")
+    seg_bytes = 4 * w if getattr(tab, "n_seg", 1) > 1 else 0
+    return (int(reached.sum()) * ROW_BYTES + 2 * state + seg_bytes, ops,
+            rows)
 
 
 def phase_k9(dev, paths, label="K9", phase=24):
@@ -3056,6 +3110,9 @@ RW_MT_OPS = 45
 # every this many closest (shadow) calls of the main path's warm-up, its
 # inputs are recorded; 4 of them, spread over the subframe, are timed
 RW_RECORD_EVERY = 10
+# the path's depth: 8 since phases 42-44 came, to keep the script inside
+# its time limit (16, bench's, before)
+RW_DEPTH = 8
 
 
 def resident_scene():
@@ -3227,7 +3284,7 @@ def resident_path(scene, camera, dev, smi, tracers, timed=TIMED,
     from rendertoy3c_tpu_torch.trace import residentwalk as rw
 
     name = "49k box field, residentwalk"
-    cfg_kw = dict(MAIN, **SORTED)
+    cfg_kw = dict(MAIN, **SORTED, max_depth=RW_DEPTH)
     cfg = RenderConfig(**cfg_kw)
     kern = tracers[0]
     tab = kern[0].table
@@ -3883,6 +3940,541 @@ def k7_band(dev, smi, t_start, field_in, scenes):
             for n in ("instanced_mt", "instanced_mt_any")]
 
 
+# ---------------------------------------------------------------- phase 42+
+# N-key vertex motion and the glTF loader: K9 with segment offsets on the
+# stacked segment tables (trace/hierwalk.py build_hier_table_nkey) of the
+# 4-key town, that town's main path on the stacked hierwalk under the
+# general pool, and a .glb of the Cornell box through the CLI
+NKEY_TIMES = (0.0, 1.0 / 3.0, 2.0 / 3.0, 1.0)
+NKEY_REPLACES = "rendertoy3c_tpu/trace/hierwalk.py:563"
+# every this many closest (shadow) calls of the N-key path's warm-up the
+# call's inputs are recorded (if half its pool is live); the states before
+# these launches of 4 of those walks are timed
+NKEY_RECORD_EVERY = 50
+NKEY_LAUNCHES = (0, 6, 24)
+NKEY_BRUTE_CHUNK = 2048
+# the glTF renders: --anim-times of each, and its route
+GLTF_RUNS = (("", "static: K4 textured dispatch"),
+             ("0,1", "2 keys: K4 motion textured dispatch"),
+             ("0,0.5,1", "3 keys: the brute tracer"))
+# the animated node of cornell_glb: the tall block's translation keys
+GLTF_ANIM = ((0.0, 0.5, 1.0), ((0.0, 0.0, 0.0), (0.15, 0.0, 0.0),
+                               (0.1, 0.12, 0.0)))
+
+
+def cornell_glb(path):
+    """Write a .glb of the Cornell box (scene/builtin.py cornell_box), one
+    node and mesh a Cornell mesh: POSITION and u32 indices, pbrMetallic-
+    Roughness factors (metallic 0, roughness 0.6, the Cornell colours;
+    the lamp's emission as emissiveFactor 1 times
+    KHR_materials_emissive_strength), the back wall with TEXCOORD_0 and
+    a 16 x 16 checker PNG base colour in the BIN chunk under a
+    MIRRORED_REPEAT / REPEAT sampler and KHR_texture_transform, the tall
+    block's node animated (GLTF_ANIM, LINEAR), and the Cornell camera as a
+    perspective camera node."""
+    import math
+
+    from rendertoy3c_tpu_torch.film.image import write_png
+    from rendertoy3c_tpu_torch.scene.builtin import cornell_box
+
+    meshes, camera = cornell_box()
+    png = path + ".checker.png"
+    cells = (np.indices((16, 16)).sum(axis=0) // 4) % 2
+    checker = np.where(cells[..., None] == 1, [230, 180, 40],
+                       [40, 90, 200]).astype(np.uint8)
+    write_png(png, checker)
+    with open(png, "rb") as f:
+        png_bytes = f.read()
+    os.remove(png)
+    blob, views, accessors = bytearray(), [], []
+
+    def put(data: bytes) -> int:
+        views.append({"buffer": 0, "byteOffset": len(blob),
+                      "byteLength": len(data)})
+        blob.extend(data + b"\0" * (-len(data) % 4))
+        return len(views) - 1
+
+    def accessor(arr, ctype, kind) -> int:
+        arr = np.ascontiguousarray(arr)
+        accessors.append({"bufferView": put(arr.tobytes()),
+                          "componentType": ctype, "count": len(arr),
+                          "type": kind})
+        return len(accessors) - 1
+
+    back, tall = 2, 6
+    gmeshes, materials, nodes = [], [], []
+    for i, m in enumerate(meshes):
+        attrs = {"POSITION": accessor(m.vertices[0].astype(np.float32),
+                                      5126, "VEC3")}
+        pbr = {"baseColorFactor": [*map(float, m.material.diffuse), 1.0],
+               "metallicFactor": 0.0, "roughnessFactor": 0.6}
+        mat = {"pbrMetallicRoughness": pbr}
+        if i == back:
+            v = m.vertices[0]
+            uv = np.stack([(v[:, 0] + 1) / 2, 1 - v[:, 1] / 2], axis=1)
+            attrs["TEXCOORD_0"] = accessor(uv.astype(np.float32), 5126,
+                                           "VEC2")
+            pbr["baseColorFactor"] = [1.0, 1.0, 1.0, 1.0]
+            pbr["baseColorTexture"] = {"index": 0, "extensions": {
+                "KHR_texture_transform": {"offset": [0.1, 0.2],
+                                          "rotation": 0.3,
+                                          "scale": [2.0, 1.5]}}}
+        strength = max(m.material.emissive)
+        if strength > 0:
+            mat["emissiveFactor"] = [c / strength
+                                     for c in m.material.emissive]
+            mat["extensions"] = {"KHR_materials_emissive_strength": {
+                "emissiveStrength": float(strength)}}
+        gmeshes.append({"primitives": [{
+            "attributes": attrs, "material": i,
+            "indices": accessor(m.indices.reshape(-1).astype(np.uint32),
+                                5125, "SCALAR")}]})
+        materials.append(mat)
+        nodes.append({"mesh": i})
+    nodes.append({"camera": 0, "translation": list(map(float, camera.eye))})
+    times, values = GLTF_ANIM
+    anim = {"samplers": [{
+        "input": accessor(np.float32(times), 5126, "SCALAR"),
+        "output": accessor(np.float32(values), 5126, "VEC3"),
+        "interpolation": "LINEAR"}],
+        "channels": [{"sampler": 0, "target": {"node": tall,
+                                               "path": "translation"}}]}
+    image = {"bufferView": put(png_bytes), "mimeType": "image/png"}
+    doc = {"asset": {"version": "2.0"}, "scene": 0,
+           "scenes": [{"nodes": list(range(len(nodes)))}], "nodes": nodes,
+           "meshes": gmeshes, "materials": materials,
+           "cameras": [{"type": "perspective", "perspective": {
+               "yfov": math.radians(camera.fov_y), "aspectRatio": 1.0,
+               "znear": 0.01}}],
+           "images": [image], "samplers": [{"wrapS": 33648,
+                                            "wrapT": 10497}],
+           "textures": [{"source": 0, "sampler": 0}],
+           "animations": [anim], "accessors": accessors,
+           "bufferViews": views, "buffers": [{"byteLength": len(blob)}],
+           "extensionsUsed": ["KHR_texture_transform",
+                              "KHR_materials_emissive_strength"]}
+    js = json.dumps(doc).encode()
+    js += b" " * (-len(js) % 4)
+    body = (struct.pack("<II", len(js), 0x4E4F534A) + js
+            + struct.pack("<II", len(blob), 0x004E4942) + bytes(blob))
+    with open(path, "wb") as f:
+        f.write(struct.pack("<III", 0x46546C67, 2, 12 + len(body)) + body)
+
+
+def nkey_town(dev):
+    """(scene, camera) of the N-key main path: generate_town's
+    WALK_FACES town (2 keys, textured) written to a temporary directory
+    and loaded as the keyframes k0 k1 k0 k1 through the CLI's .obj route
+    (app/cli.py load_scene), with the generator's camera."""
+    from rendertoy3c_tpu_torch.app import cli
+    from rendertoy3c_tpu_torch.io.genassets import generate_town
+    from rendertoy3c_tpu_torch.scene.camera import Camera
+    from rendertoy3c_tpu_torch.scene.scene import build_scene
+
+    with tempfile.TemporaryDirectory(prefix="rt3c_nkey_") as tmp:
+        paths, camkw = generate_town(tmp, faces_target=WALK_FACES,
+                                     two_key=True)
+        meshes, textures, _ = cli.load_scene([paths[0], paths[1]] * 2)
+    return build_scene(meshes, textures=textures or None), Camera(**camkw)
+
+
+def phase_k9_seg(dev, scene, camera, phase=42):
+    """Phase 42: K9 with segment offsets on the 4-key town's stacked
+    tables (see the module note): the whole walks against the plain
+    versions and the brute tracer, then each of their launches
+    teacher-forced."""
+    import torch
+
+    from rendertoy3c_tpu_torch.accel.lbvh import split_order_scene
+    from rendertoy3c_tpu_torch.integrate import walkpool
+    from rendertoy3c_tpu_torch.trace import hierwalk
+
+    t0 = time.perf_counter()
+    scene = split_order_scene(scene, leaf=hierwalk.HIER_LEAF_MOTION)
+    tab = hierwalk.build_hier_table_nkey(scene.geom, scene.num_faces,
+                                         scene.num_keys, device=dev)
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 42)
+    times = rng.uniform(0, 1, GATE_RAYS).astype(np.float32)
+    lane = np.arange(GATE_RAYS)
+    for j, v in enumerate(NKEY_TIMES):
+        times[lane % 8 == j] = v
+    o, d = camera_and_bounce_rays(scene, camera, GATE_RAYS // 2, GATE_RAYS,
+                                  dev, rng, times)
+    tm = torch.as_tensor(times, device=dev)
+    t_any = torch.as_tensor(rng.uniform(0.5, 60.0, GATE_RAYS)
+                            .astype(np.float32), device=dev)
+    walkpool.walk_rounds.seg_launches = 0
+    got = hierwalk.trace_closest_hier(tab, o, d, 1e-2, 1e16, time=tm)
+    occ = hierwalk.trace_any_hier(tab, o, d, 1e-3, t_any, time=tm)
+    launches = walkpool.walk_rounds.seg_launches
+    check(launches > 0, f"phase {phase}: the stacked walk launched K9 with "
+          "segment offsets no time")
+    want = hierwalk.trace_closest_hier(tab, o, d, 1e-2, 1e16, time=tm,
+                                       plain=True)
+    occ_p = hierwalk.trace_any_hier(tab, o, d, 1e-3, t_any, time=tm,
+                                    plain=True)
+    for what, a, b in zip(("t", "prim", "u", "v"), got, want):
+        check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+              f"phase {phase}: K9's closest {what} differs from the plain "
+              "version")
+    check(torch.equal(occ, occ_p), f"phase {phase}: K9's occlusion differs "
+          "from the plain version")
+    brute = culled_brute(scene)
+    bad = int((brute[0](o, d, 1e-2, 1e16, tm).prim != got.prim).sum())
+    check(bad == 0, f"phase {phase}: {bad} prim mismatches vs brute")
+    bad_o = int((brute[1](o, d, 1e-3, t_any, tm) != occ).sum())
+    check(bad_o == 0, f"phase {phase}: {bad_o} occlusion mismatches vs "
+          "brute")
+    print(f"phase {phase} K9 with segment offsets, 4-key town "
+          f"({scene.num_faces} faces, {tab.n_seg} segments of "
+          f"{tab.seg_rows} rows = {tab.table.numel() * 4 / 1e6:.2f} MB, "
+          f"fanout {tab.fanout}, {tab.n_levels} levels; ordered and tabled "
+          f"in {build_s:.2f} s): {GATE_RAYS} rays, half at t in "
+          f"{[round(v, 4) for v in NKEY_TIMES]}, K9 ({launches} launches) "
+          "bit-equal to the plain versions, 0 prim and 0 occlusion "
+          f"mismatches vs brute (hit share "
+          f"{float((got.prim >= 0).float().mean()):.3f}, occluded "
+          f"{float(occ.float().mean()):.3f})")
+    n = 0
+    for any_mode, tmax in ((False, 1e16), (True, t_any)):
+        n += teacher_forced_walk(
+            tab, (o, d, 1e-3 if any_mode else 1e-2, tmax, tm, None),
+            any_mode, f"phase {phase}")[0]
+    print(f"phase {phase} K9 with segment offsets: each of those walks' "
+          f"{n} launches teacher-forced, every state column bit-equal to "
+          "the plain version")
+
+
+def teacher_forced_walk(tab, call, any_mode, what, keep=()):
+    """Replay one bare walk over the stacked table `tab` (call: the
+    tracer's (o, d, tmin, tmax, time, count)) through hierwalk._walk,
+    each K9 launch held to walk_rounds(plain=True) from the same state,
+    every state column bit-equal. Returns the number of launches and the
+    states before the launches numbered in `keep` (clones)."""
+    import torch
+
+    from rendertoy3c_tpu_torch.integrate import walkpool
+    from rendertoy3c_tpu_torch.trace import hierwalk
+
+    states = []
+
+    def both(s, tab, motion, k, plain=False):
+        if both.n in keep:
+            states.append(s.clone())
+        want = s.clone()
+        walkpool.walk_rounds(s, tab, motion, k)
+        walkpool.walk_rounds(want, tab, motion, k, plain=True)
+        for (col, a), (_, b) in zip(s.tensors(), want.tensors()):
+            check(torch.equal(a.reshape(-1).view(torch.uint8),
+                              b.reshape(-1).view(torch.uint8)),
+                  f"{what} K9 with segment offsets: state column {col} "
+                  "differs from the plain version")
+        both.n += 1
+
+    both.n = 0
+    o, d, tmin, tmax, time_, count = call
+    hierwalk._walk(tab, o, d, tmin, tmax, count, any_mode, time_,
+                   walk_fn=both)
+    return both.n, states
+
+
+def nkey_path(scene, camera, dev, smi, timed=TIMED, phase=43):
+    """Phase 43: the N-key main path (see the module note). Returns the
+    kernels-line numbers of K9 with segment offsets: its launches in the
+    timed subframes; its device time per launch, its plain version's and
+    its bound on the states before launches NKEY_LAUNCHES of 2 walks the
+    warm-up recorded (a closest and a shadow one, from the middle of the
+    subframe), each launch of those walks teacher-forced."""
+    import types
+
+    import torch
+
+    from rendertoy3c_tpu_torch.film.film import film_create
+    from rendertoy3c_tpu_torch.integrate import walkpool
+    from rendertoy3c_tpu_torch.integrate.config import RenderConfig
+    from rendertoy3c_tpu_torch.integrate.path import make_render_fn
+    from rendertoy3c_tpu_torch.trace.auto import choose_tracer, tune_config
+
+    name = "4-key town"
+    cfg = tune_config(scene, RenderConfig(**MAIN), dev)
+    t0 = time.perf_counter()
+    ordered, tracer = choose_tracer(scene, cfg, dev)
+    order_s = time.perf_counter() - t0
+    check(isinstance(tracer, tuple) and ordered.num_keys == 4
+          and ordered.num_faces > walkpool.LEAFWALK_MIN_FACES,
+          f"{name}: choose_tracer gave {type(tracer).__name__} over "
+          f"{ordered.num_keys} keys")
+    rec = dict(closest=[], any=[], calls=[0, 0])
+
+    def recording(i, kind):
+        def trace(o, d, tmin, tmax, time=None, count=None):
+            rec["calls"][i] += 1
+            # a call with at least half the pool live
+            if (rec["calls"][i] % NKEY_RECORD_EVERY == 0
+                    and (count is None or 2 * int(count) >= o.shape[0])):
+                keep = [x.clone() if torch.is_tensor(x) else x
+                        for x in (o, d, tmin, tmax, time, count)]
+                rec[kind].append(keep)
+            return tracer[i](o, d, tmin, tmax, time, count=count)
+        return trace
+
+    warm = make_render_fn(ordered, cfg, tracer=(recording(0, "closest"),
+                                                recording(1, "any")),
+                          device=dev)
+    step = make_render_fn(ordered, cfg, tracer=tracer, device=dev)
+    cam = camera.params()
+    film = film_create(cfg.height, cfg.width, device=dev)
+    walkpool.walk_rounds.seg_launches = 0
+    (film, stats), warm_s, prof = warm_up(lambda: warm(cam, film), True)
+    warm_launches = walkpool.walk_rounds.seg_launches
+    check(len(rec["closest"]) >= 1 and len(rec["any"]) >= 1,
+          f"{name}: {rec['calls']} calls, too few to record")
+    walkpool.walk_rounds.seg_launches = 0
+    rates, secs = [], []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        film, stats = step(cam, film)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rays = int(stats.radiance_rays) + int(stats.shadow_rays)
+        rates.append(rays / dt / 1e6)
+        secs.append(dt)
+    launches = walkpool.walk_rounds.seg_launches
+    check(launches > 0, f"{name}: the main path launched K9 with segment "
+          "offsets no time")
+    img = film.accum
+    check(bool(torch.isfinite(img).all())
+          and tuple(img.shape) == (cfg.height, cfg.width, 3),
+          f"{name}: image not finite or of shape {tuple(img.shape)}")
+    print(f"phase {phase} {name} {cfg.width}x{cfg.height} "
+          f"{cfg.samples_per_launch}spp depth {cfg.max_depth} pool "
+          f"{cfg.ray_block} flush {cfg.flush_every} ({ordered.num_faces} "
+          f"faces in split order, 4 keys; ordered and tabled in "
+          f"{order_s:.2f} s) on {smi}: warm-up {warm_s:.3f} s (traced), "
+          f"{warm_launches} K9 launches over {rec['calls'][0]} closest and "
+          f"{rec['calls'][1]} shadow calls")
+    print(f"  Mray/s per subframe {rates}, median "
+          f"{float(np.median(rates)):.6g}; s {secs}; per subframe: "
+          f"{launches / timed:.1f} K9 launches (with segment offsets), rays "
+          f"{rays}; image mean {float(img.mean()):.6f}")
+    check(any(re.search(r"walk_kernel<false, \d, true>", r[1])
+              for r in prof),
+          f"phase {phase} profile: no launch of K9 with segment offsets "
+          "(walk_kernel<false, ML, true>)")
+    idle = profile_report(prof, warm_s, float(np.median(secs)), phase,
+                          ("walk_kernel",), what="the warm-up subframe")
+    PATHS[name] = (float(np.median(rates)), idle)
+
+    # K9 against its plain version on the path's own walks, then timed
+    tab = tracer[0].table
+    states, n = [], 0
+    for kind, any_mode in (("closest", False), ("any", True)):
+        calls = rec[kind]
+        m, kept = teacher_forced_walk(tab, calls[len(calls) // 2], any_mode,
+                                      f"phase {phase} {name}",
+                                      keep=NKEY_LAUNCHES)
+        n += m
+        states += kept
+    pipe = types.SimpleNamespace(table=tab, motion=True)
+    calls, plain_calls, costs, walking = [], [], [], []
+    for s in states:
+        n_bytes, ops, rows = k9_work(s, pipe, 16)
+        costs.append((n_bytes, ops))
+        walking.append(rows / 16)
+        calls += [functools.partial(walkpool.walk_rounds, s.clone(), tab,
+                                    True, 16) for _ in range(6)]
+        plain_calls.append(functools.partial(
+            walkpool.walk_rounds, s.clone(), tab, True, 16, plain=True))
+    res = dict(max_abs_err=0.0, ms=device_ms(calls),
+               plain_ms=cuda_ms(plain_calls))
+    res["bound_ms"], res["bound_by"] = mean_bound(costs)
+    print(f"phase {phase} K9 with segment offsets on {name}'s own walks (a "
+          f"closest and a shadow call of the warm-up, their {n} launches "
+          "teacher-forced, every state column bit-equal; timed on the "
+          f"states before their launches {NKEY_LAUNCHES}): device time "
+          f"{res['ms']:.4f} ms per 16-round launch of "
+          f"{states[0].cur.shape[0]} lanes vs plain {res['plain_ms']:.4f} "
+          f"ms; walking lanes per round {np.mean(walking):.1f}; bound "
+          f"{res['bound_ms']:.4f} ms by {res['bound_by']} "
+          f"({k9_bound_terms(costs)})")
+    # the band against the brute tracer, the plain torch route of the
+    # same hits, box-culled: on one H100 80GB HBM3 at 700 W the plain
+    # walk took 583.6 s for rows 376-392 and the unculled brute tracer
+    # 86.4 s for rows 360-408 (2048-face chunks; 112.1 s at 256)
+    band_pair(name, ordered, camera,
+              dict(MAIN, ray_block=cfg.ray_block,
+                   flush_every=cfg.flush_every), dev,
+              tracers=(tracer, culled_brute(ordered)), against="brute")
+    return dict(launches=launches, **res)
+
+
+def culled_brute(scene, chunk=NKEY_BRUTE_CHUNK):
+    """The brute tracer's (closest, any) pair (trace/intersect.py) with
+    each chunk of faces tested only by the rays whose slab test admits
+    the chunk's box over every key, padded outward: a ray the box does
+    not admit has no hit in the chunk, so the hits are the brute
+    tracer's of the same chunking, bit for bit, for a fraction of its
+    tests. `count` is ignored, as the brute tracer ignores it."""
+    import torch
+
+    from rendertoy3c_tpu_torch.trace.intersect import (Hit, _geom,
+                                                      _tri_chunk,
+                                                      ray_triangle)
+
+    geoms = {}
+
+    def setup(device):
+        if device in geoms:
+            return geoms[device]
+        geom = _geom(scene, device)
+        v0, e1, e2 = (a[:, :scene.num_faces] for a in geom)
+        pts = torch.stack([v0, v0 + e1, v0 + e2])  # [3, K, F, 3]
+        out = []
+        for start in range(0, scene.num_faces, chunk):
+            c = pts[:, :, start:start + chunk].reshape(-1, 3)
+            lo, hi = c.min(dim=0).values, c.max(dim=0).values
+            out.append((lo - lo.abs() * 1e-5 - 1e-5,
+                        hi + hi.abs() * 1e-5 + 1e-5))
+        geoms[device] = (geom, out)
+        return geoms[device]
+
+    def admitted(o, d, tmin, tmax, lo, hi):
+        inv = torch.where(d.abs() > 1e-20, 1.0 / d, torch.full_like(d, 1e30))
+        t0, t1 = (lo - o) * inv, (hi - o) * inv
+        tn = torch.minimum(t0, t1).max(dim=1).values
+        tf = torch.maximum(t0, t1).min(dim=1).values
+        return torch.nonzero((tn <= tf) & (tf >= tmin) & (tn <= tmax))[:, 0]
+
+    def inputs(o, tmin, tmax, time):
+        r, dev = o.shape[0], o.device
+        f32 = dict(dtype=torch.float32, device=dev)
+        tmin = torch.broadcast_to(torch.as_tensor(tmin, **f32), (r,))
+        tmax = torch.broadcast_to(torch.as_tensor(tmax, **f32), (r,))
+        time = (None if scene.num_keys == 1 else
+                torch.broadcast_to(torch.as_tensor(time, **f32), (r,)))
+        return tmin, tmax, time
+
+    def closest(o, d, tmin, tmax, time=None, count=None):
+        geom, bx = setup(o.device)
+        tmin, tmax, time = inputs(o, tmin, tmax, time)
+        best_t, best_u, best_v = tmax.clone(), torch.zeros_like(tmax), \
+            torch.zeros_like(tmax)
+        best_prim = torch.full_like(tmax, -1, dtype=torch.int32)
+        for k, start in enumerate(range(0, scene.num_faces, chunk)):
+            i = admitted(o, d, tmin, tmax, *bx[k])
+            stop = min(start + chunk, scene.num_faces)
+            v0, e1, e2 = _tri_chunk(geom, start, stop,
+                                    None if time is None else time[i])
+            t, u, v, hit = ray_triangle(o[i][:, None], d[i][:, None], v0, e1,
+                                        e2, tmin[i][:, None],
+                                        tmax[i][:, None])
+            t = torch.where(hit, t, torch.full_like(t, float("inf")))
+            t_c, idx = torch.min(t, dim=1)
+            u_c = torch.gather(u, 1, idx[:, None])[:, 0]
+            v_c = torch.gather(v, 1, idx[:, None])[:, 0]
+            better = (t_c < best_t[i]) & torch.isfinite(t_c)
+            best_t[i] = torch.where(better, t_c, best_t[i])
+            best_prim[i] = torch.where(better, (idx + start).to(torch.int32),
+                                       best_prim[i])
+            best_u[i] = torch.where(better, u_c, best_u[i])
+            best_v[i] = torch.where(better, v_c, best_v[i])
+        return Hit(t=best_t, prim=best_prim, u=best_u, v=best_v)
+
+    def any_hit(o, d, tmin, tmax, time=None, count=None):
+        geom, bx = setup(o.device)
+        tmin, tmax, time = inputs(o, tmin, tmax, time)
+        occluded = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
+        for k, start in enumerate(range(0, scene.num_faces, chunk)):
+            i = admitted(o, d, tmin, tmax, *bx[k])
+            stop = min(start + chunk, scene.num_faces)
+            v0, e1, e2 = _tri_chunk(geom, start, stop,
+                                    None if time is None else time[i])
+            hit = ray_triangle(o[i][:, None], d[i][:, None], v0, e1, e2,
+                               tmin[i][:, None], tmax[i][:, None])[3]
+            occluded[i] |= hit.any(dim=1)
+        return occluded
+
+    return closest, any_hit
+
+
+def gltf_paths(dev, smi, phase=44):
+    """Phase 44: cornell_glb through the CLI three ways (see the module
+    note). Returns {anim-times: (CLI seconds, launches)}."""
+    import torch
+
+    from rendertoy3c_tpu_torch.app import cli
+    from rendertoy3c_tpu_torch.integrate.config import RenderConfig
+    from rendertoy3c_tpu_torch.scene.scene import build_scene
+    from rendertoy3c_tpu_torch.trace import shade
+    from rendertoy3c_tpu_torch.trace.auto import choose_tracer
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="rt3c_gltf_") as tmp:
+        glb = os.path.join(tmp, "cornell.glb")
+        cornell_glb(glb)
+        for times, route in GLTF_RUNS:
+            meshes, textures, camera = cli.load_scene([glb], times or None)
+            scene = build_scene(meshes, textures=textures or None)
+            keys = len(times.split(",")) if times else 1
+            check(scene.num_keys == keys and len(textures) == 1
+                  and (scene.materials.mtype == 3).all(),
+                  f"phase {phase} glTF ({route}): {scene.num_keys} keys, "
+                  f"{len(textures)} textures, material types "
+                  f"{scene.materials.mtype.tolist()}")
+            _, pipe = choose_tracer(scene, RenderConfig(**MAIN), dev)
+            fused = isinstance(pipe, shade.FusedPipeline)
+            check(fused == (keys <= 2) and (not fused or (
+                pipe.tables.tex is not None and pipe.tables.params_base > 0
+                and pipe.motion == (keys == 2))),
+                f"phase {phase} glTF ({route}): choose_tracer gave "
+                f"{type(pipe).__name__}")
+            del pipe
+            captured = {}
+            save = cli.save
+
+            def keep(path, radiance, film):
+                captured["img"] = radiance.clone()
+                save(path, radiance, film)
+
+            cli.save = keep
+            shade.trace_shade_refill.launches = 0
+            png = os.path.join(tmp, f"gltf{keys}.png")
+            t0 = time.perf_counter()
+            try:
+                rc = cli.main(
+                    ["--scene", glb, "--size",
+                     f"{MAIN['width']}x{MAIN['height']}", "--spp",
+                     str(MAIN["samples_per_launch"]), "--subframes", "1",
+                     "--max-depth", str(MAIN["max_depth"]), "--ray-block",
+                     str(MAIN["ray_block"]), "-o", png]
+                    + (["--anim-times", times] if times else []))
+            finally:
+                cli.save = save
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t0
+            launches = shade.trace_shade_refill.launches
+            img = captured.get("img")
+            check(rc == 0 and img is not None and os.path.exists(png)
+                  and bool(torch.isfinite(img).all())
+                  and tuple(img.shape) == (MAIN["height"], MAIN["width"],
+                                           3),
+                  f"phase {phase} glTF ({route}): CLI exit {rc}, image not "
+                  "finite or missing")
+            check((launches > 0) == (keys <= 2),
+                  f"phase {phase} glTF ({route}): {launches} K4 launches")
+            print(f"phase {phase} glTF Cornell ({route}) through the CLI at "
+                  f"{MAIN['width']}x{MAIN['height']} "
+                  f"{MAIN['samples_per_launch']}spp depth "
+                  f"{MAIN['max_depth']} pool {MAIN['ray_block']} on {smi}: "
+                  f"{cli_s:.3f} s "
+                  f"with its tables, {launches} K4 launches, image mean "
+                  f"{float(img.mean()):.6f}")
+            gate(scene, camera, dev, f"glTF Cornell, {route}", phase)
+            out[times] = (cli_s, launches)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4256,6 +4848,24 @@ def main() -> int:
         # ---- phases 37-40: K7 through the distributed route
         k7_entries = k7_band(dev, smi, t_start, field_in, i_scenes)
 
+        # ---- phases 42-44: N-key motion and the glTF loader
+        t0 = time.perf_counter()
+        n_scene, n_camera = nkey_town(dev)
+        check(n_scene.num_keys == 4 and n_scene.num_faces > 16384,
+              f"4-key town: {n_scene.num_keys} keys, {n_scene.num_faces} "
+              "faces")
+        print(f"phase 42 4-key town generated and loaded through the CLI's "
+              f".obj route in {time.perf_counter() - t0:.2f} s: "
+              f"{n_scene.num_faces} faces")
+        phase_k9_seg(dev, n_scene, n_camera)
+        k9_seg = nkey_path(n_scene, n_camera, dev, smi)
+        del n_scene
+        print(f"phases 42-43 done; {time.perf_counter() - t_start:.1f} s "
+              "since the start")
+        gltf_paths(dev, smi)
+        print(f"phase 44 done; {time.perf_counter() - t_start:.1f} s since "
+              "the start")
+
     except PhaseFailed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -4333,6 +4943,8 @@ def main() -> int:
     kernels += inst_entries
     kernels += rw_entries
     kernels += k7_entries
+    kernels.append(dict(name="walk_rounds_seg", route="cuda", source=WALK_SRC,
+                        replaces=NKEY_REPLACES, **k9_seg, library_ms=None))
     # the non-merged K5 (phase 36): its launches on the split paths
     kernels += [kernel_entry(n, K4_SRC, 1230, split[path][0],
                              NON_MERGED[label])

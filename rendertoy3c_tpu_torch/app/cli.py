@@ -6,16 +6,31 @@ Port of the path-render subset of rendertoy3c_tpu/app/cli.py:
       --spp 8 --subframes 4 -o out.png --device cuda
   python -m rendertoy3c_tpu_torch.app.cli --scene a.obj b.obj \\
       --eye 38,26,46 --lookat 0,1.5,0 --fov 42 -o out.png --device cuda
+  python -m rendertoy3c_tpu_torch.app.cli --scene k0.obj k1.obj k0.obj \\
+      -o out.png --device cuda
+  python -m rendertoy3c_tpu_torch.app.cli --scene x.glb \\
+      --anim-times 0,0.5,1 -o out.png --device cuda
 
 `--scene` takes the builtin Cornell box, the builtin textured quad
-(`textured`), or .obj files, where N files are N motion keyframes (the
-reference loader's rule), with the textures their .mtl files name. The
-.obj camera defaults to the reference app's framing, eye (5,5,5) toward
-(0,1,0) at fov 45 (rendertoy3c_tpu/app/cli.py:192-197); `--eye --lookat
---fov` override it.
+(`textured`), .obj files, where N files are N motion keyframes (the
+reference loader's rule), with the textures their .mtl files name, or
+one .gltf/.glb file (io/gltf.py), whose animation clip `--animation`
+(default 0) is sampled at each time stamp of `--anim-times T0,T1,...`,
+one motion keyframe a stamp (none: the static pose), as the reference's
+CLI does (:89-94, :180-190). The .obj camera defaults to the reference
+app's framing, eye (5,5,5) toward (0,1,0) at fov 45 (rendertoy3c_tpu/
+app/cli.py:192-197), a glTF scene's to its first camera or that framing;
+`--eye --lookat --fov` override it. The glTF point lights are loaded
+and not used: the path renderer has none (the reference hands them only
+to its direct renderer).
 `--tracer` picks the tracer as the reference's CLI does (:303-349):
 `auto` (default) tunes the pool for the card and takes trace/auto.py's
-ladder; `pallas` the fused pipeline where it shades the scene, else the
+ladder, which sends a scene of more than 2 keys to the stacked hierwalk
+(K9 with segment offsets) past 16384 faces and to the brute tracer below.
+Here the port departs from the reference's CLI, which sends every scene
+of more than 2 keys to the brute tracer (:286-300), a route its own note
+(integrate/path.py:1474-1478) says faults on ~50k faces; `--tracer brute`
+takes it. `pallas` the fused pipeline where it shades the scene, else the
 bare MT tracer (K1/K2, K3), on the Morton order past 512 static faces;
 `hierwalk` the bare hierarchical walk (K9) on the SAH split order;
 `residentwalk` the resident-table block walk (K8) on the split order at
@@ -85,8 +100,13 @@ def build_parser() -> argparse.ArgumentParser:
                                 description="Progressive Monte-Carlo path "
                                 "tracer (PyTorch + CUDA port)")
     p.add_argument("--scene", nargs="+", required=True,
-                   help="cornell, textured, or .obj path(s): N files = N "
-                   "motion keyframes")
+                   help="cornell, textured, .obj path(s): N files = N "
+                   "motion keyframes, or one .gltf/.glb file")
+    p.add_argument("--anim-times", default=None, metavar="T0[,T1,...]",
+                   help="glTF animation time stamps (seconds); each becomes "
+                   "one motion keyframe")
+    p.add_argument("--animation", type=int, default=0,
+                   help="glTF animation clip index for --anim-times")
     p.add_argument("--size", default="768x768", help="WxH")
     p.add_argument("--spp", type=int, default=8, help="samples per launch")
     p.add_argument("--subframes", type=int, default=16,
@@ -135,22 +155,32 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def load_scene(names):
-    """(meshes, textures, camera) of a builtin scene or of .obj keyframes
+def load_scene(names, anim_times=None, animation: int = 0):
+    """(meshes, textures, camera) of a builtin scene, of .obj keyframes or
+    of a glTF file sampled at `anim_times` ("T0,T1,..." or None)
     (rendertoy3c_tpu/app/cli.py:157-198)."""
     if names == ["cornell"]:
         meshes, camera = cornell_box()
         return meshes, [], camera
     if names == ["textured"]:
         return textured_quad_scene()
+    default_camera = Camera(eye=(5.0, 5.0, 5.0), lookat=(0.0, 1.0, 0.0),
+                            fov_y=45.0)
+    if len(names) == 1 and names[0].endswith((".gltf", ".glb")):
+        from ..io.gltf import load_gltf
+
+        times = (tuple(float(x) for x in anim_times.split(","))
+                 if anim_times else None)
+        meshes, textures, cameras, _ = load_gltf(names[0], times=times,
+                                                 animation=animation)
+        return meshes, textures, cameras[0] if cameras else default_camera
     if not all(n.endswith(".obj") for n in names):
-        raise SystemExit(f"--scene: expected cornell, textured or .obj "
-                         f"files, got {names}")
+        raise SystemExit(f"--scene: expected cornell, textured, .obj "
+                         f"files or one .gltf/.glb file, got {names}")
     from ..io.obj import load_obj
 
     meshes, textures = load_obj(names)
-    return meshes, textures, Camera(eye=(5.0, 5.0, 5.0),
-                                    lookat=(0.0, 1.0, 0.0), fov_y=45.0)
+    return meshes, textures, default_camera
 
 
 def pick_tracer(kind: str, scene, cfg, device):
@@ -279,7 +309,8 @@ def _render(args, w: int, h: int, device, mesh) -> int:
                        pool_pixel_major=args.integrator == "pool",
                        flush_every=args.flush_every,
                        light_sampler=args.light_sampler, aov=args.aov)
-    meshes, textures, camera = load_scene(args.scene)
+    meshes, textures, camera = load_scene(args.scene, args.anim_times,
+                                          args.animation)
     if args.eye:
         camera.eye = args.eye
     if args.lookat:

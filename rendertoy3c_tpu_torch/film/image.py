@@ -6,9 +6,10 @@ Port of `write_png`, `write_ppm`, `write_exr` and `read_png` (here
 rendertoy3c_tpu/film/image.py: PNG through stdlib zlib with no row filter,
 binary P6 PPM, and uncompressed float32 scanline OpenEXR, byte for byte the
 reference's files. Input goes through PIL when it imports, else through
-stdlib decoders of what a texture is likely to be (`read_image_stdlib`), so
-textures load on a machine without Pillow and decode to the array PIL's
-`convert("RGBA")` gives:
+stdlib decoders of what a texture is likely to be (`read_image_stdlib`;
+`decode_image_bytes` for an image already in memory, inside a .glb or a
+data URI), so textures load on a machine without Pillow and decode to the
+array PIL's `convert("RGBA")` gives:
 
   * PNG: grey, grey+alpha, RGB, RGBA and palette images at every bit depth
     PNG allows, non-interlaced or Adam7-interlaced. 16-bit samples keep
@@ -135,13 +136,21 @@ def read_image_stdlib(path: str) -> np.ndarray:
     Raises ValueError on anything else."""
     with open(path, "rb") as f:
         data = f.read()
+    return decode_image_bytes(data, path)
+
+
+def decode_image_bytes(data: bytes, name: str, tga: bool | None = None):
+    """`read_image_stdlib` on bytes already read (an image inside a GLB or
+    a data URI): PNG and BMP by their signatures, TGA where `tga` is true
+    or, with tga None, where `name` ends in .tga or .tpic. `name` names
+    the image in errors. Raises ValueError on anything else."""
     if data[:8] == b"\x89PNG\r\n\x1a\n":
-        return _decode_png(data, path)
+        return _decode_png(data, name)
     if data[:2] == b"BM":
-        return _decode_bmp(data, path)
-    if path.lower().endswith((".tga", ".tpic")):
-        return _decode_tga(data, path)
-    raise ValueError(f"{path}: no stdlib decoder for this image format")
+        return _decode_bmp(data, name)
+    if tga or (tga is None and name.lower().endswith((".tga", ".tpic"))):
+        return _decode_tga(data, name)
+    raise ValueError(f"{name}: no stdlib decoder for this image format")
 
 
 def _rgba(img: np.ndarray) -> np.ndarray:

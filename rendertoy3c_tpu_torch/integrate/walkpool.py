@@ -27,7 +27,11 @@ The lane state is structure-of-arrays (`WalkState`): the scratch ray
 [W, 8] row-major (32 contiguous bytes per lane), the per-lane scalars [W],
 the pending-children entries [n_levels, fanout, W] and bases
 [n_levels, W]; per path, misc C-major [P, MW, W] (K6's transposed input),
-the rays [P, W, 8] and the scalars [P, W].
+the rays [P, W, 8] and the scalars [P, W]. A bare walk (no paths) over
+the stacked segment tables of an N-key scene (trace/hierwalk.py
+`build_hier_table_nkey`) adds each lane's segment row offset `wseg` [W]
+to its row gathers; the pool itself, as the reference's, takes at most 2
+keys.
 
 Left out, raising NotImplementedError with their ROADMAP item: the classic
 P = 1 pool `_render_walkpool` (:578, A18; integrate/path.py) and the XLA
@@ -110,6 +114,10 @@ class WalkState:
     inst_cur: torch.Tensor  # [W] i32
     wb_inst: torch.Tensor  # [W] i32
     hinst: torch.Tensor  # [P, W] i32
+    # a bare walk over a stacked N-key table (trace/hierwalk.py
+    # build_hier_table_nkey): the row offset of each lane's segment, added
+    # to every row gather and to nothing else
+    wseg: torch.Tensor  # [W] i32
 
     @property
     def paths(self) -> int:
@@ -159,7 +167,8 @@ def new_walk_state(w: int, n_levels: int, fanout: int, paths: int,
         o_cur=torch.zeros((w, 3), **f32), d_cur=torch.zeros((w, 3), **f32),
         inst_cur=torch.full((w,), -1, **i32),
         wb_inst=torch.full((w,), -1, **i32),
-        hinst=torch.full((paths, w), -1, **i32))
+        hinst=torch.full((paths, w), -1, **i32),
+        wseg=torch.zeros(w, **i32))
 
 
 # ------------------------------------------------ K9's plain version
@@ -194,7 +203,9 @@ def _walk_round(tab: HierTable, s: WalkState, motion: bool) -> None:
     place. Closest lanes (wmode False) keep the best (t, prim, u, v) and
     prune by it; shadow lanes set wfound on any hit in range and stop.
     Lanes with cur < 0 only have their entries pruned, which leaves a
-    finished walk's entries all _BIG."""
+    finished walk's entries all _BIG. On a stacked N-key table every row
+    gather adds the lane's segment offset wseg (hierwalk.py:563-564 of the
+    reference); the levels are told by the segment-local row."""
     fanout = tab.fanout
     cur = s.cur
     o, d = s.ray[:, 0:3], s.ray[:, 3:6]
@@ -204,7 +215,10 @@ def _walk_round(tab: HierTable, s: WalkState, motion: bool) -> None:
     inv = _safe_inv(d)
     lane = torch.arange(fanout, device=cur.device)[:, None]
 
-    rows = tab.table[torch.clamp(cur, min=0).to(torch.int64)]
+    idx = torch.clamp(cur, min=0)
+    if tab.n_seg > 1:
+        idx = idx + s.wseg
+    rows = tab.table[idx.to(torch.int64)]
     is_leaf = rows[:, _L_TYPE] > 0.5
     first = rows[:, _L_FIRST].to(torch.int32)
 
@@ -404,7 +418,14 @@ def walk_rounds(s: WalkState, tab, motion: bool, rounds: int,
     stash, inline gate) over every lane, in place on `s`, over a HierTable
     (K9) or an InstHierTable (K9-inst, `motion`: 2-key instance rows). The
     CUDA kernel (kernels/csrc/walk.cu) for CUDA tensors,
-    `_pipe_rounds_ref` on the CPU or with `plain`."""
+    `_pipe_rounds_ref` on the CPU or with `plain`. A stacked N-key table
+    (n_seg > 1) takes bare walks only (no paths: the walk pool, as the
+    reference's, takes at most 2 keys), each lane's gathers offset by its
+    wseg; K9 gets a null offset pointer for any other table."""
+    seg = getattr(tab, "n_seg", 1) > 1
+    if seg and s.paths:
+        raise ValueError("walk_rounds: a stacked N-key table walks bare "
+                         "walks only; the walk pool takes at most 2 keys")
     if plain or s.cur.device.type == "cpu":
         _pipe_rounds_ref(s, tab, motion, rounds)
         return
@@ -422,7 +443,7 @@ def walk_rounds(s: WalkState, tab, motion: bool, rounds: int,
                         s.ptime, s.btime, s.hray, s.ht, s.hu, s.hv, s.o_cur,
                         s.d_cur)
     kbuild.require_cuda("walk_rounds", s.cur, s.wslot, s.wb_prim, s.bases,
-                        s.hprim, s.inst_cur, s.wb_inst, s.hinst,
+                        s.hprim, s.inst_cur, s.wb_inst, s.hinst, s.wseg,
                         dtype=torch.int32)
     kbuild.require_cuda("walk_rounds", s.wmode, s.wfound, s.pmode, s.pvalid,
                         s.hfound, s.hmode, s.hvalid, dtype=torch.bool)
@@ -431,24 +452,28 @@ def walk_rounds(s: WalkState, tab, motion: bool, rounds: int,
     hi = [0] * MAX_LEVELS
     for lv, (a, b) in enumerate(tab.level_bounds()):
         lo[lv], hi[lv] = a, b
+    ptrs = {name: t.data_ptr() for name, t in s.tensors()}
+    ptrs["wseg"] = ptrs["wseg"] if seg else None
     p = kbuild.WalkParams(
         w=w, n_levels=n_levels, fanout=fanout, paths=s.paths,
         misc_w=s.mc.shape[1], rounds=rounds, motion=int(motion),
         n_world=tab.n_world if inst else 0,
-        level_lo=tuple(lo), level_hi=tuple(hi),
-        **{name: t.data_ptr() for name, t in s.tensors()})
+        level_lo=tuple(lo), level_hi=tuple(hi), **ptrs)
     index, stream = kbuild.launch_target(s.cur.device)
     err = kbuild.library().rt3c_walk_rounds(index, p, tab.table.data_ptr(),
                                             stream)
     kbuild.check(err, "walk_rounds")
     if inst:
         walk_rounds.inst_launches += 1
+    elif seg:
+        walk_rounds.seg_launches += 1
     else:
         walk_rounds.launches += 1
 
 
 walk_rounds.launches = 0  # K9
 walk_rounds.inst_launches = 0  # K9-inst
+walk_rounds.seg_launches = 0  # K9 with segment offsets (N-key tables)
 
 
 # ---------------------------------------------------------- the pipeline

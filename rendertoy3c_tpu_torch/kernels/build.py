@@ -95,7 +95,7 @@ class WalkParams(ctypes.Structure):
     table's shape, the rounds of one launch and the walk pool's state
     tensors (integrate/walkpool.py `WalkState`, in its field order);
     n_world > 0 takes K9-inst over an instanced table of n_world world
-    levels."""
+    levels; wseg is null but for a stacked N-key table."""
 
     _fields_ = [
         ("w", ctypes.c_int), ("n_levels", ctypes.c_int),
@@ -108,7 +108,7 @@ class WalkParams(ctypes.Structure):
         "wb_u", "wb_v", "ents", "bases", "mc", "nrays", "nee", "pray",
         "ptime", "pmode", "pvalid", "btime", "hray", "ht", "hprim", "hu",
         "hv", "hfound", "hmode", "hvalid", "rows", "o_cur", "d_cur",
-        "inst_cur", "wb_inst", "hinst")]
+        "inst_cur", "wb_inst", "hinst", "wseg")]
 
 
 class TexParams(ctypes.Structure):

@@ -115,6 +115,15 @@
 //     slot's owner writes _BIG into it.
 // K9 and K9-inst run the same rounds per lane as before; only who does
 // which part of a round changed.
+//
+// N-key motion (kSeg, p.wseg not null): a bare walk (no paths) over the
+// stacked segment tables of trace/hierwalk.py `build_hier_table_nkey`,
+// replacing the per-ray row offset of the reference's `_walk`
+// (hierwalk.py:563-564). Lane i's every row gather reads row cur +
+// wseg[i] of its segment; cur, the level bounds and the child pointers
+// (lane 126) stay segment-local, so the offset goes on at the gather and
+// nowhere else. Its time is the segment's local time. A null wseg
+// compiles the kernels without it, as they were.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -172,6 +181,7 @@ struct WalkParams {
   int* inst_cur;           // [W] that space's instance, -1 = world
   int* wb_inst;            // [W] the best hit's instance
   int* hinst;              // [P, W] a finished closest walk's instance
+  const int* wseg;         // [W] segment row offset (N-key), or null
 };
 
 constexpr int L_INST = 12;    // static instance row: its id
@@ -313,7 +323,8 @@ __device__ __forceinline__ float4 row_part(const float* __restrict__ table,
 
 // ML: the levels a launch may hold (4 or 8, the table's n_levels or more):
 // the per-level loops unroll over ML, so the entries stay in registers.
-template <bool kInst, int ML>
+// kSeg: each lane's gathers add its segment offset p.wseg[i].
+template <bool kInst, int ML, bool kSeg = false>
 __global__ void __launch_bounds__(WALK_BLOCK, WALK_MIN_CTAS)
     walk_kernel(const WalkParams p, const float* __restrict__ table) {
   constexpr int LANES = WALK_BLOCK / 32;
@@ -362,9 +373,11 @@ __global__ void __launch_bounds__(WALK_BLOCK, WALK_MIN_CTAS)
     // 1 / d of the space the lane walks in, for its slab tests
     float inv[3];
     inverse(kInst ? d_cur : ray + 3, inv);
+    // the lane's segment rows: added at the gather only
+    const int seg = kSeg ? p.wseg[i] : 0;
 
     // the row of max(cur, 0): the launch below starts a walk at row 0
-    float4 next = row_part(table, cur > 0 ? cur : 0, k);
+    float4 next = row_part(table, (cur > 0 ? cur : 0) + seg, k);
 
     for (int r = 0; r < p.rounds; ++r) {
       // the warp's last reads of the row and the leader's writes to the
@@ -534,7 +547,7 @@ __global__ void __launch_bounds__(WALK_BLOCK, WALK_MIN_CTAS)
         }
       }
       if (walking) cur = nxt;
-      next = row_part(table, cur > 0 ? cur : 0, k);
+      next = row_part(table, (cur > 0 ? cur : 0) + seg, k);
 
       // ---- 3./4. stash a finished closest walk, gate a shadow walk
       const bool stash = cur < 0 && wslot >= 0;
@@ -606,14 +619,16 @@ __global__ void __launch_bounds__(WALK_BLOCK, WALK_MIN_CTAS)
 
 }  // namespace rt3c
 
-// table: the hier table [n_rows, 128] f32, or (p->n_world > 0) the
-// instanced table, which K9-inst walks. Returns a CUDA error code.
+// table: the hier table [n_rows, 128] f32 (the stacked segment tables
+// where p->wseg is not null), or (p->n_world > 0) the instanced table,
+// which K9-inst walks. Returns a CUDA error code.
 extern "C" int rt3c_walk_rounds(int device, const rt3c::WalkParams* p,
                                 const float* table, void* stream) {
   if (p->w < 0 || p->n_levels < 0 ||
       p->n_levels > rt3c::WALK_MAX_LEVELS || p->fanout < 1 ||
       p->fanout > rt3c::WALK_MAX_FANOUT || p->paths < 0 || p->rounds < 0 ||
-      p->misc_w < 16 || p->n_world < 0 || p->n_world > p->n_levels)
+      p->misc_w < 16 || p->n_world < 0 || p->n_world > p->n_levels ||
+      (p->wseg && (p->n_world > 0 || p->paths > 0)))
     return (int)cudaErrorInvalidValue;
   if (p->w == 0 || p->rounds == 0) return 0;
   const cudaError_t dev_err = cudaSetDevice(device);
@@ -626,6 +641,9 @@ extern "C" int rt3c_walk_rounds(int device, const rt3c::WalkParams* p,
     return (int)cudaGetLastError();
   };
   const bool few = p->n_levels <= 4;
+  if (p->wseg)
+    return few ? run(walk_kernel<false, 4, true>)
+               : run(walk_kernel<false, 8, true>);
   if (p->n_world > 0)
     return few ? run(walk_kernel<true, 4>) : run(walk_kernel<true, 8>);
   return few ? run(walk_kernel<false, 4>) : run(walk_kernel<false, 8>);

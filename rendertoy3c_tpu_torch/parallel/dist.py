@@ -161,9 +161,10 @@ def prepare_tracer_factory(scene, cfg: RenderConfig, kind: str = "auto", *,
     (trace/instanced_mt.py), else the instanced walk pool, the instanced
     walk under the external pipeline, or the bare instanced walk.
 
-    What the port has not ported raises NotImplementedError naming its
-    item: the leaf walk (A17) and the hierarchical walk of more than 2
-    keys (A5)."""
+    A scene of more than 2 keys takes "hierwalk" (the stacked segment
+    tables) past 16384 faces and "brute" below, as the reference's
+    (:152-176). What the port has not ported raises NotImplementedError
+    naming its item: the leaf walk (A17)."""
     from ..accel.lbvh import morton_order_scene, split_order_scene
     from ..integrate.walkpool import (LEAFWALK_MIN_FACES,
                                       make_inst_walkpool_pipeline,

@@ -29,15 +29,32 @@ reference would:
                                          tracer (make_mt_tracer) +
                                          ExternalPipeline
   up to 16384 faces otherwise        -> the bare MT tracer (:190-195)
+  more than 2 keys (piecewise-linear vertex motion), not instanced:
+    more than 16384 faces             -> SAH split order (leaf 7), then
+                                         the bare hierwalk tracer over the
+                                         stacked segment tables (K9 with
+                                         segment offsets) under the
+                                         general pool or the wave
+                                         integrator (:160-181); never the
+                                         walk pool or K6, which take 1 or 2
+                                         keys (pallas_shade.py:1118, 1465)
+    up to 16384 faces                 -> the brute tracer: the route of
+                                         the reference's render when its
+                                         ladder offers no tracer
+                                         (integrate/path.py:1472-1488) and
+                                         of its parallel/dist.py:175-176;
+                                         its TPU ladder itself raises here
+                                         (make_pallas_mt_tracer's
+                                         ValueError, ROADMAP C11)
 
 A bare (closest, any) tracer renders under the general pool or the wave
 integrator (integrate/path.py `_render_pool`, `_trace_block`), whose
 shading (`_shade_and_nee`) covers the scenes the kernels refuse: emissive
 and roughness textures, normal maps without images, the physical
-throughput model, scenes without lights. 2-key scenes of the MT band keep
-their face order, as in the reference. What stays out raises
-NotImplementedError naming the ROADMAP item that adds it: more than 2
-keys (A5; for instances, C1) and the walk pool's XLA shade stage
+throughput model, scenes without lights. Motion scenes of the MT band
+keep their face order, as in the reference. What stays out raises
+NotImplementedError naming the ROADMAP item that adds it: instanced
+scenes of more than 2 keys (C1) and the walk pool's XLA shade stage
 (A22). Returns (scene, tracer): always render the returned scene, whose
 face order matches the tracer's tables.
 """
@@ -54,6 +71,7 @@ from ..integrate.walkpool import (LEAFWALK_MIN_FACES,
 from .hier_instanced import (baked_world_eligible, make_inst_hierwalk_tracer,
                              split_order_instanced)
 from .hierwalk import HIER_LEAF, HIER_LEAF_MOTION, make_hierwalk_tracer
+from .intersect import make_bruteforce_tracer
 from .mt import make_mt_tracer
 from .shade import (ExternalPipeline, FusedPipeline, external_unsupported,
                     fused_unsupported)
@@ -117,9 +135,10 @@ def choose_tracer(scene, cfg, device):
     if _is_instanced(scene):
         return _choose_instanced(scene, cfg, device)
     if scene.num_keys > 2:
-        raise NotImplementedError(
-            "more than 2 motion keys need the N-key brute tracer and the "
-            "stacked segment tables (ROADMAP A5)")
+        if scene.num_faces > LEAFWALK_MIN_FACES:
+            scene = split_order_scene(scene, leaf=HIER_LEAF_MOTION)
+            return scene, make_hierwalk_tracer(scene, device)
+        return scene, make_bruteforce_tracer(scene, chunk=cfg.tri_chunk)
     if scene.num_faces > LEAFWALK_MIN_FACES:
         leaf = HIER_LEAF if scene.num_keys == 1 else HIER_LEAF_MOTION
         scene = split_order_scene(scene, leaf=leaf)

@@ -3,15 +3,17 @@ band (scenes of more than 16384 faces).
 
 Port of rendertoy3c_tpu/trace/hierwalk.py: the row layout and constants,
 `HierTable` (:84), `_dp_group_sizes` (:147), `_dir_half_area_sum` (:187),
-`build_hier_table` (:215, host numpy), and the per-round arithmetic as
-plain torch: `_leaf_mt` (:438), `_dir_entries` (:479), `_safe_inv` (:514)
-and `_prune_cut` (:518). `trace_closest_hier` and `trace_any_hier`
-(:675, :696) run the walk round (K9, integrate/walkpool.py
-`walk_rounds`, or its plain version) to completion over a ray batch; they
-serve the hierwalk gate, the tests and `make_hierwalk_tracer` (:709), the
-bare tracer of the wave integrator and the general pool. The pool
-integrator's render path is the walk pool (integrate/walkpool.py), which
-runs the same round inside its pool.
+`build_hier_table` (:215, host numpy), the stacked segment tables of
+N-key motion `build_hier_table_nkey` (:390) with their per-ray pick
+`_seg_select` (:429), and the per-round arithmetic as plain torch:
+`_leaf_mt` (:438), `_dir_entries` (:479), `_safe_inv` (:514) and
+`_prune_cut` (:518). `trace_closest_hier` and `trace_any_hier` (:675,
+:696) run the walk round (K9, integrate/walkpool.py `walk_rounds`, or its
+plain version) to completion over a ray batch; they serve the hierwalk
+gate, the tests and `make_hierwalk_tracer` (:709), the bare tracer of the
+wave integrator and the general pool. The pool integrator's render path
+is the walk pool (integrate/walkpool.py), which runs the same round
+inside its pool.
 
 Table layout: one 128-f32 row per node, the directory levels first (root =
 row 0), the leaves last. A leaf row holds HIER_LEAF (14) triangles inline
@@ -27,10 +29,16 @@ lane per child and axis: lo in the low 16 bits, hi in the high 16, each
 rounded outward (`_bf16_outward` :108, `_pack_bf16_lohi` :122), so the
 boxes only loosen.
 
-Not ported, raising NotImplementedError with their ROADMAP item from
+A scene of N > 2 keys (piecewise-linear vertex motion, the reference's N
+.obj keyframes) stacks N - 1 two-key segment tables (keys k, k + 1) of one
+shared level structure, `seg_rows` rows each: a ray at time t walks
+segment s = clip(floor(t (N - 1)), 0, N - 2) at the local time
+t (N - 1) - s, every row gather offset by s * seg_rows (WalkState.wseg).
+Levels, leaf start and child pointers stay segment-local.
+
+Not ported, raising NotImplementedError with its ROADMAP item from
 `build_hier_table`: the flat tables' 32-wide directories (FANOUT32, which
-only an env knob of the reference reaches there) and the stacked segment
-tables of more than 2 keys (`build_hier_table_nkey`).
+only an env knob of the reference reaches there).
 """
 from __future__ import annotations
 
@@ -66,6 +74,10 @@ class HierTable:
     leaf_start: int  # first leaf row; leaves end the table
     num_faces: int  # faces the table covers (padding faces past it)
     fanout: int = FANOUT  # children per directory row
+    # N-key motion: rows of one segment table (0 = a single table) and
+    # the segments stacked (build_hier_table_nkey)
+    seg_rows: int = 0
+    n_seg: int = 1
 
     @property
     def n_levels(self) -> int:
@@ -247,12 +259,9 @@ def build_hier_table(geom, num_faces: int, num_keys: int = 1,
     All-zero faces (the padding of a variable ordering) stay out of the
     leaf boxes. fanout=0 picks 16 with fixed blocks or 20 with DP groups
     by the smaller directory half-area sum of fixed grouping."""
-    if num_keys > 2:
-        raise NotImplementedError(
-            "more than 2 motion keys need the stacked segment tables of "
-            "build_hier_table_nkey (ROADMAP A5)")
     if num_keys != 1 and num_keys != 2:
-        raise ValueError("hier table supports 1 or 2 motion keys")
+        raise ValueError("hier table supports 1 or 2 motion keys; more keys "
+                         "take build_hier_table_nkey")
     if fanout == FANOUT32:
         raise NotImplementedError(
             "the bf16-packed 32-wide directories (FANOUT32) are not ported "
@@ -321,6 +330,49 @@ def build_hier_table(geom, num_faces: int, num_keys: int = 1,
     return HierTable(table=torch.as_tensor(table, device=device),
                      level_starts=starts, leaf_start=leaf_start,
                      num_faces=f, fanout=fanout)
+
+
+def build_hier_table_nkey(geom, num_faces: int, num_keys: int,
+                          fanout: int = FANOUT, device="cpu") -> HierTable:
+    """N-key piecewise-linear vertex motion (hierwalk.py:390-426 of the
+    reference): one 2-key segment table per pair of keys (k, k + 1), built
+    at the fixed `fanout` with fixed groups (allow_var=False), so that
+    every segment has the same level structure, stacked row-wise. A ray's
+    segment is then a row offset (`_seg_select`). Raises ValueError for
+    num_keys <= 2 and for fanout 0 (the auto pick could differ between
+    segments)."""
+    if num_keys <= 2:
+        raise ValueError("build_hier_table_nkey needs num_keys > 2")
+    if fanout == 0:
+        raise ValueError(
+            "build_hier_table_nkey requires a fixed fanout (got 0 = auto); "
+            "all motion segments must share one level structure")
+    tabs = []
+    for k in range(num_keys - 1):
+        seg = geom._replace(**{name: getattr(geom, name)[k:k + 2] for name in
+                               ("v0", "e1", "e2", "n0", "n1", "n2")})
+        tabs.append(build_hier_table(seg, num_faces, num_keys=2,
+                                     fanout=fanout, allow_var=False))
+    t0 = tabs[0]
+    if any(t.level_starts != t0.level_starts or t.leaf_start != t0.leaf_start
+           for t in tabs[1:]):
+        raise AssertionError("segment tables differ in their levels")
+    return HierTable(table=torch.cat([t.table for t in tabs]).to(device),
+                     level_starts=t0.level_starts, leaf_start=t0.leaf_start,
+                     num_faces=num_faces, fanout=t0.fanout,
+                     seg_rows=int(t0.table.shape[0]), n_seg=num_keys - 1)
+
+
+def _seg_select(tab: HierTable, time, r: int, device):
+    """(row offset [R] i32, local time [R] f32) of each ray's segment of a
+    stacked table (hierwalk.py:429-435): ts = t * n_seg, s = clip(floor(ts),
+    0, n_seg - 1), local time ts - s; time None is t = 0."""
+    t = torch.broadcast_to(torch.as_tensor(
+        0.0 if time is None else time, dtype=torch.float32, device=device),
+        (r,))
+    ts = t * float(tab.n_seg)
+    s = torch.clamp(torch.floor(ts).to(torch.int32), 0, tab.n_seg - 1)
+    return s * tab.seg_rows, ts - s.to(torch.float32)
 
 
 # ------------------------------------------------------- plain arithmetic
@@ -423,8 +475,10 @@ def _walk(tab, o, d, tmin, tmax, count, any_mode: bool, time=None,
     """Run the walk round (integrate/walkpool.py `walk_rounds`: K9 on a
     CUDA device, its plain version on the CPU or with `plain`; K9-inst
     for an instanced table) to completion over a ray batch, 16 rounds per
-    launch. walk_fn replaces walk_rounds (same signature). Returns the
-    final walk state."""
+    launch. On a stacked N-key table each ray walks its segment
+    (`_seg_select`: the row offset in wseg, the local time in wtime).
+    walk_fn replaces walk_rounds (same signature). Returns the final walk
+    state."""
     from ..integrate.walkpool import new_walk_state, walk_rounds
 
     walk_fn = walk_fn or walk_rounds
@@ -441,6 +495,9 @@ def _walk(tab, o, d, tmin, tmax, count, any_mode: bool, time=None,
     # an instanced walk starts in world space
     s.o_cur.copy_(s.ray[:, 0:3])
     s.d_cur.copy_(s.ray[:, 3:6])
+    if getattr(tab, "n_seg", 1) > 1:
+        seg_off, time = _seg_select(tab, time, r, dev)
+        s.wseg.copy_(seg_off)
     if time is not None:
         s.wtime.copy_(torch.broadcast_to(torch.as_tensor(time, **f32), (r,)))
     s.cur.copy_(torch.where(live, 0, -1).to(torch.int32))
@@ -455,7 +512,8 @@ def _walk(tab, o, d, tmin, tmax, count, any_mode: bool, time=None,
 def trace_closest_hier(tab: HierTable, o, d, tmin, tmax, count=None,
                        time=None, plain: bool = False) -> Hit:
     """Closest hit by the hierarchical walk (only the first `count` rays
-    are live). time [R] selects the 2-key leaf layout."""
+    are live). time [R] selects the 2-key leaf layout (on a stacked N-key
+    table, the segment and its local time)."""
     s = _walk(tab, o, d, tmin, tmax, count, False, time, plain)
     valid = (s.wb_prim >= 0) & (s.wb_prim < tab.num_faces)
     zero = torch.zeros_like(s.wb_u)
@@ -472,16 +530,21 @@ def trace_any_hier(tab: HierTable, o, d, tmin, tmax, count=None, time=None,
 
 
 def make_hierwalk_tracer(scene, device, plain: bool = False):
-    """(closest, any_hit) over the hierarchical walk of a static or 2-key
-    scene (hierwalk.py:709 of the reference), each f(o, d, tmin, tmax,
-    time, count=None); a 2-key scene walks at each ray's time (0 when
-    time is None). Order the scene with split_order_scene(scene,
-    leaf=HIER_LEAF or HIER_LEAF_MOTION) first. The walk is K9 on a CUDA
-    device, its plain version on the CPU or with `plain`. More than 2
-    keys raise NotImplementedError (ROADMAP A5)."""
-    tab = build_hier_table(scene.geom, scene.num_faces,
-                           num_keys=scene.num_keys, device=device)
-    motion = scene.num_keys == 2
+    """(closest, any_hit) over the hierarchical walk of a scene of any
+    number of keys (hierwalk.py:709-741 of the reference), each f(o, d,
+    tmin, tmax, time, count=None); a motion scene walks at each ray's time
+    (0 when time is None), a scene of more than 2 keys on the stacked
+    segment tables of build_hier_table_nkey. Order the scene with
+    split_order_scene(scene, leaf=HIER_LEAF or HIER_LEAF_MOTION) first.
+    The walk is K9 on a CUDA device, its plain version on the CPU or with
+    `plain`. The table is `closest.table`."""
+    if scene.num_keys > 2:
+        tab = build_hier_table_nkey(scene.geom, scene.num_faces,
+                                    scene.num_keys, device=device)
+    else:
+        tab = build_hier_table(scene.geom, scene.num_faces,
+                               num_keys=scene.num_keys, device=device)
+    motion = scene.num_keys >= 2
 
     def time_col(time, o):
         if not motion:
@@ -498,4 +561,5 @@ def make_hierwalk_tracer(scene, device, plain: bool = False):
         return trace_any_hier(tab, o, d, tmin, tmax, count,
                               time_col(time, o), plain)
 
+    closest.table = tab
     return closest, any_hit

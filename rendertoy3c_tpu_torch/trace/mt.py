@@ -563,11 +563,13 @@ def make_mt_tracer(scene, device, plain: bool = False):
     """(closest, any_hit) over the MT kernels, each called as
     f(o, d, tmin, tmax, time, count=None): K1/K2 for a static scene (time
     ignored), K3 for a 2-key scene. Only the real faces enter the soup.
-    plain=True runs the kernels' plain versions on any device."""
+    plain=True runs the kernels' plain versions on any device. More than
+    2 keys raise ValueError, as the reference's make_pallas_mt_tracer
+    (pallas_mt.py:430-432): such scenes take the brute tracer
+    (trace/intersect.py) or the stacked hierwalk."""
     if scene.num_keys > 2:
-        raise NotImplementedError(
-            "the MT tracers take at most 2 motion keys; more keys need the "
-            "N-key brute tracer (ROADMAP A5)")
+        raise ValueError(
+            "the MT tracer supports <= 2 motion keys; use the brute tracer")
     device = torch.device(device)
     if scene.num_keys == 2:
         table = build_motion_soup(scene.geom, device,

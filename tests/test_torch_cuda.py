@@ -1366,6 +1366,96 @@ def test_walk_kernel_group_corners_match_plain_version(dev, case, w):
     assert bool(s.hvalid.any()) or w < 17
 
 
+def _nkey_grid_scene(num_keys=4):
+    """_box_grid_scene with num_keys keys: each key shifts every face by
+    a seeded step, so the segments lie apart."""
+    import dataclasses
+
+    scene = _box_grid_scene()
+    g = scene.geom
+    rng = np.random.default_rng(12)
+    v0 = [np.asarray(g.v0[0])]
+    for _ in range(1, num_keys):
+        v0.append(v0[-1] + rng.uniform(-0.4, 0.4, 3).astype(np.float32))
+    geom = g._replace(v0=np.stack(v0), **{
+        k: np.concatenate([np.asarray(getattr(g, k))[:1]] * num_keys)
+        for k in ("e1", "e2", "n0", "n1", "n2")})
+    return dataclasses.replace(scene, geom=geom, num_keys=num_keys)
+
+
+@pytest.mark.parametrize("w", [1, 100, 8192 + 37])
+def test_walk_kernel_segment_offsets_match_plain_version(dev, w):
+    """K9 with segment offsets (a 4-key scene's stacked segment tables):
+    every launch of a closest and a shadow walk over w rays, half at
+    times 0, 1/3, 2/3 and 1 and half at uniform random times, against
+    walk_rounds(plain=True) from the same state, every state column bit
+    for bit; the walks' hits against the brute tracer's N-key lerp."""
+    from rendertoy3c_tpu_torch.accel.lbvh import split_order_scene
+    from rendertoy3c_tpu_torch.integrate import walkpool
+    from rendertoy3c_tpu_torch.trace import hierwalk
+    from rendertoy3c_tpu_torch.trace.intersect import (
+        trace_any_bruteforce, trace_closest_bruteforce)
+
+    scene = split_order_scene(_nkey_grid_scene(),
+                              leaf=hierwalk.HIER_LEAF_MOTION)
+    tab = hierwalk.build_hier_table_nkey(scene.geom, scene.num_faces,
+                                         scene.num_keys, device=dev)
+    o, d = _rays(w, 21 + w, (-1, 0.2, -1), (9, 4, 9))
+    o, d = torch.as_tensor(o, device=dev), torch.as_tensor(d, device=dev)
+    rng = np.random.default_rng(w)
+    t = rng.uniform(0, 1, w).astype(np.float32)
+    t[np.arange(w) % 8 < 4] = np.float32([0, 1 / 3, 2 / 3, 1])[
+        np.arange(w)[np.arange(w) % 8 < 4] % 8]
+    t = torch.as_tensor(t, device=dev)
+    tmax = torch.as_tensor(rng.uniform(0.5, 10, w).astype(np.float32),
+                           device=dev)
+    launches = []
+
+    def both(s, tab, motion, k, plain=False):
+        got, want = s.clone(), s.clone()
+        walkpool.walk_rounds(got, tab, motion, k)
+        walkpool.walk_rounds(want, tab, motion, k, plain=True)
+        for (name, a), (_, b) in zip(got.tensors(), want.tensors()):
+            assert torch.equal(a.reshape(-1).view(torch.uint8),
+                               b.reshape(-1).view(torch.uint8)), name
+        launches.append(k)
+        for (_, a), (_, b) in zip(s.tensors(), want.tensors()):
+            a.copy_(b)
+
+    walkpool.walk_rounds.seg_launches = 0
+    s = hierwalk._walk(tab, o, d, 1e-3, 1e16, None, False, t, walk_fn=both)
+    sa = hierwalk._walk(tab, o, d, 1e-3, tmax, None, True, t, walk_fn=both)
+    assert walkpool.walk_rounds.seg_launches == len(launches) >= 2
+    brute = trace_closest_bruteforce(scene, o, d, 1e-3, 1e16, time=t)
+    prim = torch.where(s.wb_prim < tab.num_faces, s.wb_prim, -1)
+    assert torch.equal(prim, brute.prim)
+    assert torch.equal(sa.wfound, trace_any_bruteforce(scene, o, d, 1e-3,
+                                                       tmax, time=t))
+    assert w < 100 or (prim >= 0).float().mean() > 0.2
+
+
+def test_walk_kernel_null_offset_ignores_the_segment_column(dev):
+    """On a single-segment table walk_rounds hands K9 a null offset: a
+    state whose wseg column holds garbage walks bit for bit as with wseg
+    zero, and as the plain version."""
+    from rendertoy3c_tpu_torch.integrate import walkpool
+
+    tab, motion = _corner_table("flat_2key_f20", dev)
+    s, _ = _corner_state(tab, 4096, 5, dev, False)
+    junk = s.clone()
+    junk.wseg.copy_(torch.randint(1, 1 << 20, junk.wseg.shape,
+                                  dtype=torch.int32, device=dev))
+    walkpool.walk_rounds(s, tab, motion, 16)
+    want = junk.clone()
+    walkpool.walk_rounds(junk, tab, motion, 16)
+    walkpool.walk_rounds(want, tab, motion, 16, plain=True)
+    for (name, a), (_, b), (_, c) in zip(s.tensors(), junk.tensors(),
+                                         want.tensors()):
+        if name != "wseg":
+            assert torch.equal(a.view(torch.uint8), b.view(torch.uint8)), name
+        assert torch.equal(b.view(torch.uint8), c.view(torch.uint8)), name
+
+
 @pytest.mark.parametrize("motion", [False, True])
 def test_inst_hier_tracers_match_plain_versions(dev, motion):
     """trace_closest_inst_hier / trace_any_inst_hier on K9-inst against

@@ -8,12 +8,14 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from inst_util import to_port_iscene
 from rendertoy3c_tpu.integrate.config import RenderConfig as JConfig
 from rendertoy3c_tpu.parallel import dist as jdist
 from rendertoy3c_tpu_torch.integrate.config import RenderConfig
 from rendertoy3c_tpu_torch.parallel import dist
+from rendertoy3c_tpu_torch.trace.intersect import make_bruteforce_tracer
 from torch_port_util import cornell_pair
 
 
@@ -91,6 +93,8 @@ def test_routing_matches_reference(cornell, inst_cornell, scene_name, kind,
 
 
 def test_leafwalk_and_three_key_hierwalk_raise(cornell):
+    """kind="leafwalk" raises naming A17; kind="hierwalk" on a 3-key
+    scene, which raised naming A5, now builds the stacked walk."""
     _, ts = cornell
     cfg = RenderConfig(**_cfg())
     with pytest.raises(NotImplementedError, match="A17"):
@@ -100,5 +104,20 @@ def test_leafwalk_and_three_key_hierwalk_raise(cornell):
         ts, num_keys=3, geom=g._replace(**{
             k: np.concatenate([getattr(g, k)] * 3)
             for k in ("v0", "e1", "e2", "n0", "n1", "n2")}))
-    with pytest.raises(NotImplementedError, match="A5"):
-        dist.prepare_tracer_factory(three, cfg, "hierwalk", device="cpu")
+    # 3 keys (A5, ported): the "hierwalk" factory walks the stacked
+    # segment tables, and traces as the brute tracer
+    ordered, fac = dist.prepare_tracer_factory(three, cfg, "hierwalk",
+                                               device="cpu")
+    closest, any_hit = fac(ordered, None, cfg)
+    rng = np.random.default_rng(9)
+    o = torch.tensor(rng.uniform(-0.9, 0.9, (256, 3)), dtype=torch.float32)
+    o[:, 1] = 1.0
+    d = torch.tensor(rng.normal(size=(256, 3)), dtype=torch.float32)
+    d = d / d.norm(dim=1, keepdim=True)
+    tm = torch.tensor(rng.random(256), dtype=torch.float32)
+    want = make_bruteforce_tracer(ordered)
+    hit = closest(o, d, 1e-3, 1e16, tm)
+    assert torch.equal(hit.prim, want[0](o, d, 1e-3, 1e16, tm).prim)
+    assert (hit.prim >= 0).float().mean() > 0.5
+    assert torch.equal(any_hit(o, d, 1e-3, 0.5, tm),
+                       want[1](o, d, 1e-3, 0.5, tm))

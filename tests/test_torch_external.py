@@ -254,15 +254,22 @@ def _principled_grid_pair():
                             fov_y=50.0))
 
 
-def _three_key_town(tmp_path):
+def _three_key_town(tmp_path, pkg="torch"):
+    """The town's keyframes 0, 1, 0 (3 keys), untextured, loaded by the
+    port ("torch") or the reference ("jax")."""
+    from rendertoy3c_tpu.io.obj import load_obj as j_load_obj
+    from rendertoy3c_tpu.scene.scene import build_scene as j_build_scene
+
     paths, _ = generate_town(str(tmp_path), faces_target=FACES,
                              two_key=True)
-    meshes, _ = load_obj([paths[0], paths[1], paths[0]])
+    load, build = ((load_obj, build_scene) if pkg == "torch"
+                   else (j_load_obj, j_build_scene))
+    meshes, _ = load([paths[0], paths[1], paths[0]])
     for m in meshes:
         m.material = dataclasses.replace(
             m.material, diffuse_texture_id=-1, emissive_texture_id=-1,
             roughness_texture_id=-1, normal_texture_id=-1)
-    return build_scene(meshes)
+    return build(meshes)
 
 
 def _textured_town(tmp_path):
@@ -297,9 +304,29 @@ def test_out_of_slice_raises_naming_roadmap_item(towns, tmp_path, case,
     sample-major pools through the external pipeline (A8), the textured
     town through the external pipeline's textured K6 (A12's textures), a
     principled scene, the power pick (A12's dispatch and power sampler)
-    and AOV (A13) as the reference renders them (`_match_external`), and a
+    and AOV (A13) as the reference renders them (`_match_external`), a
     scene of more than 16384 faces takes the walk pool (A17/A18;
-    tests/test_torch_walk_ladder.py holds what that band still refuses)."""
+    tests/test_torch_walk_ladder.py holds what that band still refuses),
+    and the 3-key town (A5) takes the brute tracer and renders as the
+    reference's on the CPU, its brute tracer under the general pool, by
+    the strict rule of `_match_external`."""
+    if case == "three_keys":
+        ts, js = _three_key_town(tmp_path), _three_key_town(tmp_path, "jax")
+        assert ts.num_keys == 3 and ts.num_faces <= shade.EXTERNAL_MAX_FACES
+        cfg = RenderConfig(**KW)
+        ordered, tracer = choose_tracer(ts, cfg, "cpu")
+        assert ordered is ts and isinstance(tracer, tuple)
+        cam = towns[True][2]
+        f_ref, s_ref = j_render_frame(js, cam.params(), JConfig(**KW))
+        f, s = render_frame(ts, cam.params(), cfg, device="cpu")
+        a, b = f.accum.numpy(), np.asarray(f_ref.accum)
+        assert np.isclose(a, b, rtol=3e-5, atol=3e-5).mean() > 0.98
+        np.testing.assert_allclose(a.mean(), b.mean(), rtol=5e-3)
+        assert np.isfinite(a).all() and a.mean() > 0.05
+        for got, want in ((s.radiance_rays, s_ref.radiance_rays),
+                          (s.shadow_rays, s_ref.shadow_rays)):
+            assert abs(int(got) - int(want)) <= 0.02 * int(want) + 16
+        return
     if case == "principled":
         _match_external(*_principled_grid_pair(), KW)
         return
@@ -312,9 +339,6 @@ def test_out_of_slice_raises_naming_roadmap_item(towns, tmp_path, case,
     if case == "17k_faces":
         scene = build_scene(_lit_box_grid(38))
         assert scene.num_faces > shade.EXTERNAL_MAX_FACES
-    elif case == "three_keys":
-        scene = _three_key_town(tmp_path)
-        assert scene.num_keys == 3
     elif case == "textured_obj":
         scene = _textured_town(tmp_path)
         assert scene.textured

@@ -8,13 +8,15 @@ calls it with on_tpu=True; the port applies it on the CUDA device); the
 rounds between boundaries resolve as the reference's _render_pipepool
 resolves walk_phase_every (walkpool.py:1037-1054); the CLI renders a
 .obj of more than 16384 faces through the walk pool. The classic P = 1
-pool, the 32-wide bf16 directories, more than 2 keys and the XLA shade
-stage raise NotImplementedError naming their ROADMAP item."""
+pool, the 32-wide bf16 directories and the XLA shade stage raise
+NotImplementedError naming their ROADMAP item; a scene of more than 2
+keys takes the bare hierwalk over the stacked segment tables."""
 import dataclasses
 from types import SimpleNamespace
 
 import numpy as np
 import pytest
+import torch
 
 from rendertoy3c_tpu.integrate.config import RenderConfig as JConfig
 from rendertoy3c_tpu.trace.auto import tune_config as j_tune_config
@@ -26,6 +28,7 @@ from rendertoy3c_tpu_torch.integrate.walkpool import (WalkPoolPipeline,
 from rendertoy3c_tpu_torch.scene.builtin import cornell_box
 from rendertoy3c_tpu_torch.scene.scene import build_scene
 from rendertoy3c_tpu_torch.trace import hierwalk
+from rendertoy3c_tpu_torch.trace.intersect import make_bruteforce_tracer
 from rendertoy3c_tpu_torch.trace.auto import (LEAFWALK_MIN_FACES,
                                               choose_tracer, tune_config)
 from torch_port_util import lit_grid_scene
@@ -93,7 +96,31 @@ def test_negative_phase_rounds_raise():
     ("pool_paths_1", "A18"), ("fanout_32", "A17"), ("three_keys", "A5"),
     ("xla_shade_stage", "A22")])
 def test_what_the_walk_band_still_refuses(grid, case, item):
+    """P = 1, FANOUT32 and the XLA shade stage raise naming their item;
+    3 keys (A5, ported) take the bare hierwalk over the stacked segment
+    tables, never the walk pool."""
     cfg = RenderConfig(**POOL)
+    if case == "three_keys":
+        g = _two_key(grid)
+        g = dataclasses.replace(g, num_keys=3, geom=g.geom._replace(
+            **{k: np.concatenate([getattr(g.geom, k),
+                                  getattr(g.geom, k)[:1]])
+               for k in ("v0", "e1", "e2", "n0", "n1", "n2")}))
+        ordered, tracer = choose_tracer(g, cfg, "cpu")
+        assert isinstance(tracer, tuple) and len(tracer) == 2
+        assert ordered.num_keys == 3 and ordered.num_faces >= g.num_faces
+        tab = hierwalk.build_hier_table_nkey(ordered.geom, ordered.num_faces,
+                                             3)
+        assert tab.n_seg == 2 and tab.table.shape[0] == 2 * tab.seg_rows
+        rng = np.random.default_rng(3)
+        o = torch.tensor(rng.uniform((0, 30, 0), (40, 30, 40), (64, 3)),
+                         dtype=torch.float32)
+        d = torch.tensor([[0.0, -1.0, 0.0]] * 64)
+        tm = torch.tensor(rng.random(64), dtype=torch.float32)
+        hit = tracer[0](o, d, 1e-3, 1e16, tm)
+        want = make_bruteforce_tracer(ordered)[0](o, d, 1e-3, 1e16, tm)
+        assert torch.equal(hit.prim, want.prim) and (hit.prim >= 0).any()
+        return
     with pytest.raises(NotImplementedError, match=item):
         if case == "pool_paths_1":
             scene = build_scene(cornell_box()[0])
@@ -104,13 +131,6 @@ def test_what_the_walk_band_still_refuses(grid, case, item):
         elif case == "fanout_32":
             hierwalk.build_hier_table(grid.geom, grid.num_faces,
                                       fanout=hierwalk.FANOUT32)
-        elif case == "three_keys":
-            g = _two_key(grid)
-            g = dataclasses.replace(g, num_keys=3, geom=g.geom._replace(
-                **{k: np.concatenate([getattr(g.geom, k),
-                                      getattr(g.geom, k)[:1]])
-                   for k in ("v0", "e1", "e2", "n0", "n1", "n2")}))
-            choose_tracer(g, cfg, "cpu")
         else:
             choose_tracer(grid, dataclasses.replace(
                 cfg, throughput_model="physical"), "cpu")

@@ -203,8 +203,8 @@ def to_port_hier_table(jtab):
     """The port's HierTable carrying a reference HierTable's arrays."""
     from rendertoy3c_tpu_torch.trace.hierwalk import HierTable
 
-    assert jtab.n_seg == 1, "the stacked N-key tables are not ported"
     return HierTable(table=torch.as_tensor(np.array(jtab.table)),
                      level_starts=tuple(jtab.level_starts),
                      leaf_start=int(jtab.leaf_start),
-                     num_faces=int(jtab.num_faces), fanout=int(jtab.fanout))
+                     num_faces=int(jtab.num_faces), fanout=int(jtab.fanout),
+                     seg_rows=int(jtab.seg_rows), n_seg=int(jtab.n_seg))
