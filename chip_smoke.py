@@ -282,7 +282,36 @@ a JSON summary. Phases:
      --anim-times 0,1 (its motion variant) and 0,0.5,1 (3 keys: the brute
      tracer): every pixel finite, the kernels launched where the route
      has them, and the gate of phase 4 at 96^2 of each against the plain
-     versions.
+     versions;
+ 45. environment maps: a seeded procedural HDR lat-long sky, 2048 x 1024
+     float RGB (env_sky: a gradient, a darker ground, smooth cloud noise,
+     a sun of ~1e3 against a sky of ~1), written as an uncompressed EXR
+     by the port's write_exr to a temporary directory; the Cornell box
+     through the CLI with --env sky.exr --env-scale 1 at 768^2, 8 spp,
+     depth 16 (2 subframes, the second timed): route the bare MT tracer
+     (K1/K2, choose_tracer's answer checked) under the general pool, K1
+     and K2 launches, subframe seconds and Mray/s, every pixel finite;
+     then the gate of phase 4 against the same scene on the brute
+     tracer;
+ 46. the walk pool's general shade stage (integrate/walkpool.py
+     general_shade: the scenes K6 does not shade): BASELINE config 2's
+     textured 50000-face town (58054 faces) lit by that sky and its own
+     lamps, as phase 27 at tune_config's pool (walk_path, which fails a
+     path whose stage differs from the one its eligibility names, and one
+     under the general stage that launches K6): the stage (kernel=False),
+     K9 launches, subframe seconds, Mray/s and the idle share of the
+     profiled warm-up; K9 teacher-forced on its 4 recorded boundary
+     states as phase 24 (every state column bit-equal), timed and
+     bounded; the gate of phase 4 against the box-culled brute tracer
+     (culled_brute) under the general pool;
+ 47. `multi_instance_large` (the baked world table, K9) with
+     throughput_model="physical" at 768^2, 8 spp, depth 16 (the general
+     stage): stage, K9 launches and Mray/s; K9 on its recorded states as
+     phase 46; the general stage on the card against the same stage on
+     CPU copies of its 4 recorded boundary inputs (the seed, depth, pixel
+     and sample columns bit-equal; the decisions equal and every other
+     float within rtol 1e-4, atol 1e-5, the CPU test's tolerance against
+     the reference, on all but a few lanes: STAGE_FLIPS, STAGE_OFF).
 
 Each kernel's bound is the larger of the bytes it must move over 3.35 TB/s
 and the operations its inputs need over the 67 TFLOP/s fp32 peak outside
@@ -300,8 +329,8 @@ phase 6 and before the towns, the textured towns' phase 15 right after
 phase 8, their phases 16-17 after phase 10, the principled towns' phases
 18-20 and the towns' phases 21-23 after them, then phases 24-27 (24's
 gate, 26, 27, then 24's and 25's checks on 27's states), phases 28-31,
-phases 32-35, phases 37-40, and phases 42-44 last (phase 36's paths
-run after phase 12, phase 41 after phase 14).
+phases 32-35, phases 37-40, phases 42-44, and phases 45-47 last (phase
+36's paths run after phase 12, phase 41 after phase 14).
 Any failed phase exits non-zero. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -2240,7 +2269,7 @@ def plain_walk_pipe(pipe):
 
     return dataclasses.replace(
         pipe, walk_fn=functools.partial(walkpool.walk_rounds, plain=True),
-        shade_fn=shade.external_shade_ref)
+        shade_fn=shade.external_shade_ref if pipe.kernel else pipe.shade_fn)
 
 
 def phase_hier_gate(dev, scenes):
@@ -2351,14 +2380,17 @@ def walk_path(name, scene, camera, dev, smi, change, timed=TIMED, phase=27,
               need=("walk_rounds", "external_shade"), profile=True):
     """A walk-band main path through make_render_fn over choose_tracer's
     pipeline (with tune_config): 1 warm-up subframe, during which K9's
-    (K9-inst's) states and K6's inputs at WALK_SNAPSHOTS boundaries are
-    recorded, profiled (its idle share against the untraced timed
-    subframes), then `timed` subframes with the launch counters zeroed
-    just before (timed=0: the warm-up subframe only, its launches
-    counted, no profile; profile=False: no profile, as full_size).
-    Fails unless every
-    counter of `need` (WALK_COUNTERS' names) is above 0. Returns
-    {launches, states, shade, pipe, film}."""
+    (K9-inst's) states and the shade stage's inputs at WALK_SNAPSHOTS
+    boundaries are recorded, profiled (its idle share against the
+    untraced timed subframes), then `timed` subframes with the launch
+    counters zeroed just before (timed=0: the warm-up subframe only, its
+    launches counted, no profile; profile=False: no profile, as
+    full_size). Fails unless every counter of `need` (WALK_COUNTERS'
+    names) is above 0, and unless the pipeline's shade stage is the one
+    the scene's eligibility names (K6 where trace/shade.py shading_checks
+    pass, else the general stage, which launches no K6). Returns
+    {launches, states, shade, pipe, film, scene}: `scene` the ordered
+    scene the path rendered."""
     import dataclasses
 
     import torch
@@ -2374,6 +2406,12 @@ def walk_path(name, scene, camera, dev, smi, change, timed=TIMED, phase=27,
     t0 = time.perf_counter()
     scene, pipe = choose_tracer(scene, cfg, dev)
     order_s = time.perf_counter() - t0
+    eligible = shade._first_failed(shade.shading_checks(scene, cfg)) is None
+    check(pipe.kernel == eligible
+          and (pipe.shade_fn is shade.external_shade) == eligible,
+          f"{name}: the shade stage is {'K6' if pipe.kernel else 'general'}"
+          f", its eligibility names {'K6' if eligible else 'general'}")
+    stage_fn = pipe.shade_fn
     rec = dict(on=True, boundary=0, states=[], shade=[], state=None)
 
     def walk_fn(s, tab, motion, k):
@@ -2387,8 +2425,8 @@ def walk_path(name, scene, camera, dev, smi, change, timed=TIMED, phase=27,
         if rec["on"] and rec["boundary"] in WALK_SNAPSHOTS:
             rec["shade"].append((rays.clone(), hit4.clone(), misc.clone(),
                                  None if inst is None else inst.clone()))
-        return shade.external_shade(rays, hit4, misc, tables, config,
-                                    transposed=transposed, inst=inst)
+        return stage_fn(rays, hit4, misc, tables, config,
+                        transposed=transposed, inst=inst)
 
     pipe = dataclasses.replace(pipe, walk_fn=walk_fn, shade_fn=shade_fn)
     step = make_render_fn(scene, cfg, tracer=pipe, device=dev)
@@ -2415,7 +2453,9 @@ def walk_path(name, scene, camera, dev, smi, change, timed=TIMED, phase=27,
              f"pool {cfg.ray_block} flush {cfg.flush_every} "
              f"({scene.num_faces} faces in split order, {pipe.n_levels} "
              f"levels, fanout {pipe.fanout}; ordered and tabled in "
-             f"{order_s:.2f} s) on {smi}: warm-up {warm_s:.3f} s"
+             f"{order_s:.2f} s; shade stage "
+             f"{'K6' if pipe.kernel else 'general'}, kernel={pipe.kernel}) "
+             f"on {smi}: warm-up {warm_s:.3f} s"
              + (" (traced)" if prof else "")]
     if timed:
         zero()
@@ -2444,6 +2484,9 @@ def walk_path(name, scene, camera, dev, smi, change, timed=TIMED, phase=27,
             f"{[p['rays'] for p in per]}")
     for n in need:
         check(launches[n] > 0, f"{name}: the main path launched {n} no time")
+    if not pipe.kernel:
+        check(launches["external_shade"] + launches["external_shade_inst"]
+              == 0, f"{name}: K6 launched under the general shade stage")
     img = film.accum
     check(bool(torch.isfinite(img).all())
           and tuple(img.shape) == (cfg.height, cfg.width, 3),
@@ -2454,13 +2497,14 @@ def walk_path(name, scene, camera, dev, smi, change, timed=TIMED, phase=27,
     if timed:
         idle = profile_report(
             prof, warm_s, float(np.median(secs)), phase,
-            ("walk_kernel", "external_shade_kernel"),
+            ("walk_kernel",) + (("external_shade_kernel",) if pipe.kernel
+                                else ()),
             what="the warm-up subframe") if profile else None
         PATHS[name] = (float(np.median(rates)), idle)
     return dict(launches=launches, states=rec["states"], shade=rec["shade"],
                 pipe=dataclasses.replace(pipe, walk_fn=walkpool.walk_rounds,
-                                         shade_fn=shade.external_shade),
-                film=film)
+                                         shade_fn=stage_fn),
+                film=film, scene=scene)
 
 
 def k9_work(s, pipe, rounds):
@@ -2701,8 +2745,9 @@ def phase_k6t(dev, label, paths, phase=25):
 
 
 def walk_band(dev, smi, t_start):
-    """Phases 24-27 on the hierwalk band. Returns the entries of the
-    "kernels" line: K9 and K6 on C-major misc in its four variants."""
+    """Phases 24-27 on the hierwalk band. Returns (the entries of the
+    "kernels" line: K9 and K6 on C-major misc in its four variants; the
+    scenes of walk_scenes)."""
     t0 = time.perf_counter()
     scenes = walk_scenes()
     print(f"phase 24 walk scenes generated and loaded in "
@@ -2775,7 +2820,7 @@ def walk_band(dev, smi, t_start):
                                     for p in group.values()), res))
     print(f"phases 24-27 done; {time.perf_counter() - t_start:.1f} s since "
           "the start")
-    return entries
+    return entries, scenes
 
 
 # ---------------------------------------------------------------- phase 28+
@@ -4475,6 +4520,244 @@ def gltf_paths(dev, smi, phase=44):
     return out
 
 
+# ---------------------------------------------------------------- phase 45+
+# environment maps and the walk pool's general shade stage: a seeded
+# procedural HDR lat-long sky (rows x columns; float RGB written as an
+# uncompressed EXR by the port's write_exr) with a sun of ~1e3 against a
+# sky of ~1, toward ENV_SUN (behind the Cornell camera, so that light
+# enters the box's open side)
+ENV_SIZE = (1024, 2048)
+ENV_SUN = (0.3, 0.5, 0.8)
+ENV_SUN_DEG = 1.5  # the sun's angular radius
+# the general stage on the card against the CPU (phase 47): the misc
+# columns of integer arithmetic (seed, depth, pixel, sample) bit-equal on
+# every lane; the decisions (prev_delta, alive after the roulette,
+# want_shadow) equal on all but STAGE_FLIPS of the live lanes, and every
+# float of the other lanes within STAGE_TOL (the CPU test's tolerance,
+# against the JAX one) on all but STAGE_OFF of them. The card's torch and
+# the CPU's differ in the last ulps of sin, cos, acos and atan2 and where
+# CUDA divides by a scalar's reciprocal; a lane whose sampled cosine is
+# near 0 amplifies that, and a lane at its decision's edge flips. On the
+# CPU, one-ulp nudges of those functions' results in 30% of the elements
+# left 1 flip and 15-29 lanes beyond STAGE_TOL of ~125000 a boundary.
+STAGE_INT = (0, 8, 13, 14)
+STAGE_DECISIONS = (7, 9, 15)
+STAGE_TOL = dict(rtol=1e-4, atol=1e-5)
+STAGE_FLIPS = 5e-4
+STAGE_OFF = 1e-3
+
+
+def env_sky(seed=SEED + 45):
+    """[H, W, 3] float32 radiance of the sky (see ENV_SIZE): a horizon to
+    zenith gradient, a darker ground, seeded smooth cloud noise, and the
+    sun's disc (1000, 950, 850) with a halo."""
+    h, w = ENV_SIZE
+    rng = np.random.default_rng(seed)
+    theta = (np.arange(h, dtype=np.float64) + 0.5) / h * np.pi
+    phi = ((np.arange(w, dtype=np.float64) + 0.5) / w - 0.5) * 2 * np.pi
+    st = np.sin(theta)[:, None]
+    # the direction of each texel, as scene/envmap.py sample_env_map maps
+    # it: u from atan2(x, -z), v from acos(y)
+    d = np.stack([st * np.sin(phi)[None], np.broadcast_to(
+        np.cos(theta)[:, None], (h, w)), -st * np.cos(phi)[None]], axis=-1)
+    y = d[..., 1:2]
+    horizon, zenith = np.array([0.9, 0.95, 1.05]), np.array([0.25, 0.45, 1.0])
+    ground = np.array([0.25, 0.22, 0.18])
+    sky = np.where(y >= 0, horizon + (zenith - horizon) * np.sqrt(
+        np.clip(y, 0, 1)), ground * (0.6 + 0.4 * np.exp(8 * np.minimum(y,
+                                                                      0))))
+    coarse = rng.uniform(0, 1, (h // 64 + 2, w // 64 + 2))
+    rows = np.array([np.interp(np.arange(w) / 64, np.arange(w // 64 + 2), r)
+                     for r in coarse])
+    cloud = np.array([np.interp(np.arange(h) / 64, np.arange(h // 64 + 2), c)
+                      for c in rows.T]).T
+    sky = sky * (1 + 0.3 * cloud[..., None] * (y > 0))
+    sun = np.asarray(ENV_SUN) / np.linalg.norm(ENV_SUN)
+    cosang = d @ sun
+    disc = cosang >= np.cos(np.radians(ENV_SUN_DEG))
+    sky = sky + np.array([1000.0, 950.0, 850.0]) * disc[..., None]
+    sky = sky + 20.0 * np.exp((cosang[..., None] - 1.0) * 400.0)
+    return sky.astype(np.float32)
+
+
+def env_cornell_path(dev, smi, sky_path, phase=45):
+    """Phase 45: the env-lit Cornell box through the CLI (see the module
+    note). Returns the CLI's seconds."""
+    import torch
+
+    from rendertoy3c_tpu_torch.app import cli
+    from rendertoy3c_tpu_torch.film.image import load_image
+    from rendertoy3c_tpu_torch.integrate.config import RenderConfig
+    from rendertoy3c_tpu_torch.scene.envmap import build_env_map
+    from rendertoy3c_tpu_torch.scene.scene import build_scene
+    from rendertoy3c_tpu_torch.trace import mt
+    from rendertoy3c_tpu_torch.trace.auto import choose_tracer
+    from rendertoy3c_tpu_torch.trace.intersect import make_bruteforce_tracer
+
+    meshes, _, camera = cli.load_scene(["cornell"])
+    scene = build_scene(meshes, env_map=build_env_map(load_image(sky_path),
+                                                      device=dev))
+    # the CLI's config (its ray_block 65536), through its tracer choice
+    cfg = RenderConfig(**dict(MAIN, ray_block=1 << 16))
+    _, tracer = choose_tracer(scene, cfg, dev)
+    check(isinstance(tracer, tuple)
+          and tracer[0].__qualname__.startswith("make_mt_tracer"),
+          f"phase {phase}: choose_tracer gave {type(tracer).__name__}, not "
+          "the bare MT tracer")
+    del tracer
+    subframes, captured = [], {}
+    make, save = cli.make_render_fn, cli.save
+
+    def timed_make(*a, **kw):
+        step = make(*a, **kw)
+
+        def run(cam, film):
+            t0 = time.perf_counter()
+            film, stats = step(cam, film)
+            torch.cuda.synchronize()
+            subframes.append((time.perf_counter() - t0,
+                              int(stats.radiance_rays)
+                              + int(stats.shadow_rays),
+                              mt.mt_closest.launches, mt.mt_any.launches))
+            return film, stats
+        return run
+
+    def keep(path, radiance, film):
+        captured["img"] = radiance.clone()
+        save(path, radiance, film)
+
+    out = os.path.join(os.path.dirname(sky_path), "cornell_env.png")
+    cli.make_render_fn, cli.save = timed_make, keep
+    mt.mt_closest.launches = mt.mt_any.launches = 0
+    t0 = time.perf_counter()
+    try:
+        rc = cli.main(["--scene", "cornell", "--env", sky_path,
+                       "--env-scale", "1", "--size",
+                       f"{MAIN['width']}x{MAIN['height']}", "--spp",
+                       str(MAIN["samples_per_launch"]), "--subframes", "2",
+                       "--max-depth", str(MAIN["max_depth"]), "-o", out])
+    finally:
+        cli.make_render_fn, cli.save = make, save
+    cli_s = time.perf_counter() - t0
+    closest, any_hit = mt.mt_closest.launches, mt.mt_any.launches
+    img = captured.get("img")
+    check(rc == 0 and img is not None and len(subframes) == 2
+          and bool(torch.isfinite(img).all())
+          and tuple(img.shape) == (MAIN["height"], MAIN["width"], 3),
+          f"phase {phase}: CLI exit {rc}, image not finite or missing")
+    check(closest > 0 and any_hit > 0, f"phase {phase}: the CLI launched "
+          f"K1 {closest} and K2 {any_hit} times")
+    warm_s, timed_s = subframes[0][0], subframes[1][0]
+    rays = subframes[1][1]
+    mray = rays / timed_s / 1e6
+    print(f"phase {phase} env-lit Cornell (a {ENV_SIZE[1]}x{ENV_SIZE[0]} "
+          f"HDR sky EXR, --env-scale 1) through the CLI at "
+          f"{MAIN['width']}x{MAIN['height']} {MAIN['samples_per_launch']}spp "
+          f"depth {MAIN['max_depth']} pool 65536 on {smi}: route the bare MT "
+          f"tracer (K1/K2) under the general pool; CLI {cli_s:.3f} s for 2 "
+          f"subframes; warm-up {warm_s:.3f} s, timed subframe {timed_s:.3f} "
+          f"s, {mray:.6g} Mray/s ({rays} rays); K1 {closest} and K2 "
+          f"{any_hit} launches ({subframes[0][2]} and {subframes[0][3]} in "
+          f"the warm-up); image mean {float(img.mean()):.6f}")
+    PATHS["env-lit cornell"] = (mray, None)
+    gate(scene, camera, dev, "env-lit Cornell, bare MT (K1/K2) against the "
+         "brute tracer, general pool", phase,
+         tracers=(None, make_bruteforce_tracer(scene)))
+    return cli_s
+
+
+def general_stage_on_cpu(path, phase: int, label: str):
+    """The general shade stage on the card against the same stage on CPU
+    copies of a walk path's recorded boundary inputs, by the rule of
+    STAGE_INT .. STAGE_OFF."""
+    from rendertoy3c_tpu_torch.integrate.path import general_tables
+
+    pipe = path["pipe"]
+    tables = general_tables(path["scene"], "cpu")
+    flips = off = live_n = 0
+    for rays, hit4, misc, inst in path["shade"]:
+        got = [g.cpu().numpy() for g in pipe.shade(rays, hit4, misc, inst)]
+        want = [w.numpy() for w in pipe.shade_fn(
+            rays.cpu(), hit4.cpu(), misc.cpu(), tables, pipe.shade_config,
+            transposed=True, **({"inst": inst.cpu()} if pipe.instanced
+                                else {}))]
+        for c in STAGE_INT:
+            check(np.array_equal(got[1][c].view(np.uint32),
+                                 want[1][c].view(np.uint32)),
+                  f"phase {phase} {label}: misc column {c} of the card's "
+                  "general stage differs from the CPU's")
+        live = misc[9].cpu().numpy() > 0
+        flip = np.zeros_like(live)
+        for c in STAGE_DECISIONS:
+            flip |= got[1][c] != want[1][c]
+        close = np.ones_like(live)
+        for g, w in ((got[0], want[0]), (got[1].T, want[1].T),
+                     (got[2], want[2])):
+            close &= (np.isclose(g, w, **STAGE_TOL)
+                      | (np.isnan(g) & np.isnan(w))).all(axis=1)
+        flips += int((flip & live).sum())
+        off += int((~close & ~flip).sum())
+        live_n += int(live.sum())
+    lanes = len(path["shade"]) * path["shade"][0][0].shape[0]
+    check(flips <= STAGE_FLIPS * live_n and off <= STAGE_OFF * lanes,
+          f"phase {phase} {label}: the card's general stage against the "
+          f"CPU's: {flips} decisions flipped of {live_n} live lanes, {off} "
+          f"lanes beyond rtol 1e-4, atol 1e-5 of {lanes}")
+    print(f"phase {phase} {label}: the general stage on the card against "
+          f"the CPU on {len(path['shade'])} recorded boundaries, {lanes} "
+          f"lanes: seed, depth, pixel and sample bit-equal; {flips} "
+          f"decisions flipped of {live_n} live lanes; {off} lanes beyond "
+          "rtol 1e-4, atol 1e-5")
+
+
+def env_band(dev, smi, town, field, t_start):
+    """Phases 45-47: environment maps on the bare MT rung and the walk
+    pool, and the walk pool's general shade stage (see the module note).
+    town: (scene, camera) of the textured 50000-face town; field: those of
+    multi_instance_large."""
+    import dataclasses
+
+    from rendertoy3c_tpu_torch.film.image import write_exr
+    from rendertoy3c_tpu_torch.scene.envmap import build_env_map
+
+    t0 = time.perf_counter()
+    sky = env_sky()
+    with tempfile.TemporaryDirectory(prefix="rt3c_env_") as tmp:
+        sky_path = os.path.join(tmp, "sky.exr")
+        write_exr(sky_path, sky)
+        print(f"phase 45 sky {ENV_SIZE[1]}x{ENV_SIZE[0]} written in "
+              f"{time.perf_counter() - t0:.2f} s ({os.path.getsize(sky_path)}"
+              f" bytes; mean {float(sky.mean()):.4f}, max "
+              f"{float(sky.max()):.1f})")
+        env_cornell_path(dev, smi, sky_path)
+    print(f"phase 45 done; {time.perf_counter() - t_start:.1f} s since the "
+          "start")
+
+    # ---- phase 46: the textured town under the sky, the general stage
+    scene, camera = town
+    scene = dataclasses.replace(scene, env=build_env_map(sky, device=dev))
+    name = "env-lit textured town"
+    path = walk_path(name, scene, camera, dev, smi, {}, phase=46,
+                     need=("walk_rounds",))
+    phase_k9(dev, {name: path}, "K9 (general stage)", 46)
+    gate(path["scene"], camera, dev, "env-lit textured town, the walk pool "
+         "(K9, general stage) against the box-culled brute tracer under the "
+         "general pool", 46, tracers=(None, culled_brute(path["scene"])))
+    del path
+    print(f"phase 46 done; {time.perf_counter() - t_start:.1f} s since the "
+          "start")
+
+    # ---- phase 47: multi_instance_large, physical throughput
+    name = "multi_instance_large physical"
+    path = walk_path(name, *field, dev, smi,
+                     {"throughput_model": "physical"}, phase=47,
+                     need=("walk_rounds",), profile=False)
+    phase_k9(dev, {name: path}, "K9 (baked world table, general stage)", 47)
+    general_stage_on_cpu(path, 47, name)
+    print(f"phase 47 done; {time.perf_counter() - t_start:.1f} s since the "
+          "start")
+
+
 def main() -> int:
     import torch
 
@@ -4837,7 +5120,7 @@ def main() -> int:
               f"s; {time.perf_counter() - t_start:.1f} s since the start")
 
         # ---- phases 24-27: the hierwalk band
-        walk_entries = walk_band(dev, smi, t_start)
+        walk_entries, w_scenes = walk_band(dev, smi, t_start)
 
         # ---- phases 28-31: trace-time instancing
         inst_entries, field_in, i_scenes = inst_band(dev, smi, t_start)
@@ -4865,6 +5148,12 @@ def main() -> int:
         gltf_paths(dev, smi)
         print(f"phase 44 done; {time.perf_counter() - t_start:.1f} s since "
               "the start")
+
+        # ---- phases 45-47: environment maps and the general shade stage
+        t0 = time.perf_counter()
+        env_band(dev, smi, w_scenes["textured town"],
+                 i_scenes["multi_instance_large"], t_start)
+        print(f"phases 45-47 done in {time.perf_counter() - t0:.1f} s")
 
     except PhaseFailed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)

@@ -10,6 +10,8 @@ Port of the path-render subset of rendertoy3c_tpu/app/cli.py:
       -o out.png --device cuda
   python -m rendertoy3c_tpu_torch.app.cli --scene x.glb \\
       --anim-times 0,0.5,1 -o out.png --device cuda
+  python -m rendertoy3c_tpu_torch.app.cli --scene cornell --env sky.exr \\
+      --env-scale 1 --throughput physical -o out.png --device cuda
 
 `--scene` takes the builtin Cornell box, the builtin textured quad
 (`textured`), .obj files, where N files are N motion keyframes (the
@@ -41,7 +43,11 @@ A24) and exit with an error naming the item.
 It renders on the pool (pixel-major) or the wave integrator
 (`--integrator`) with the reference CLI's names and
 defaults for --max-depth (32), --seed (0), --ray-block (65536),
---flush-every (0 = auto), --light-sampler (uniform or power), --aov (the
+--flush-every (0 = auto), --light-sampler (uniform or power),
+--throughput (reference or physical), --env IMG and --env-scale S (a
+lat-long environment map, .exr, .ppm or any image read_image reads,
+times S, which the miss lanes sample instead of the constant ambient, as
+the reference CLI's :85-88, :271-278), --aov (the
 first-hit albedo and normal guide buffers) and --denoise N (N a-trous
 iterations before saving, guided by the AOV buffers when --aov is on), and
 writes the image in the format its extension names, as the reference's
@@ -132,6 +138,14 @@ def build_parser() -> argparse.ArgumentParser:
                    "frame and pool size")
     p.add_argument("--light-sampler", choices=["uniform", "power"],
                    default="uniform")
+    p.add_argument("--throughput", choices=["reference", "physical"],
+                   default="reference",
+                   help="the closest-hit throughput model: the shipped "
+                   "shader's (reference) or the physical one")
+    p.add_argument("--env", default=None, metavar="IMG",
+                   help="lat-long environment map (.exr/.png/.ppm) used by "
+                        "the miss program instead of the constant ambient")
+    p.add_argument("--env-scale", type=float, default=1.0)
     p.add_argument("--denoise", type=int, default=0, metavar="N",
                    help="apply N a-trous denoiser iterations before saving "
                         "(uses the AOV guide buffers when --aov is on)")
@@ -308,7 +322,8 @@ def _render(args, w: int, h: int, device, mesh) -> int:
                        ray_block=args.ray_block, integrator=args.integrator,
                        pool_pixel_major=args.integrator == "pool",
                        flush_every=args.flush_every,
-                       light_sampler=args.light_sampler, aov=args.aov)
+                       light_sampler=args.light_sampler,
+                       throughput_model=args.throughput, aov=args.aov)
     meshes, textures, camera = load_scene(args.scene, args.anim_times,
                                           args.animation)
     if args.eye:
@@ -318,7 +333,14 @@ def _render(args, w: int, h: int, device, mesh) -> int:
     if args.fov:
         camera.fov_y = args.fov
     camera.aspect_ratio = w / h
-    scene = build_scene(meshes, textures=textures or None)
+    env_map = None
+    if args.env:
+        from ..film.image import load_image
+        from ..scene.envmap import build_env_map
+
+        env_map = build_env_map(load_image(args.env), scale=args.env_scale,
+                                device=device)
+    scene = build_scene(meshes, textures=textures or None, env_map=env_map)
     tracer = None
     if args.tracer == "auto":
         # the walk band's pool width and cadence on the card (as the

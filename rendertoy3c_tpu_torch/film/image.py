@@ -5,7 +5,9 @@ Port of `write_png`, `write_ppm`, `write_exr` and `read_png` (here
 `read_image`, since it reads more than PNG) of
 rendertoy3c_tpu/film/image.py: PNG through stdlib zlib with no row filter,
 binary P6 PPM, and uncompressed float32 scanline OpenEXR, byte for byte the
-reference's files. Input goes through PIL when it imports, else through
+reference's files; and of its `read_ppm`, `read_exr` (uncompressed
+scanline HALF and FLOAT channels) and `load_image`, which picks the reader
+by extension. Other input goes through PIL when it imports, else through
 stdlib decoders of what a texture is likely to be (`read_image_stdlib`;
 `decode_image_bytes` for an image already in memory, inside a .glb or a
 data URI), so textures load on a machine without Pillow and decode to the
@@ -119,6 +121,108 @@ def write_exr(path: str, rgb_f32: np.ndarray) -> None:
 
 
 # ---------------------------------------------------------------- input
+def read_ppm(path: str) -> np.ndarray:
+    """Read a binary P6 PPM of maxval 255 (comments allowed in the
+    header) to [H, W, 3] uint8 (image.py:51-73)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    tokens = []
+    i = 0
+    while len(tokens) < 4:
+        while i < len(data) and data[i:i + 1].isspace():
+            i += 1
+        if data[i:i + 1] == b"#":
+            while i < len(data) and data[i] != 0x0A:
+                i += 1
+            continue
+        j = i
+        while j < len(data) and not data[j:j + 1].isspace():
+            j += 1
+        if j == i:
+            raise ValueError(f"{path}: truncated PPM header")
+        tokens.append(data[i:j])
+        i = j
+    i += 1  # the single whitespace after maxval
+    if tokens[0] != b"P6" or tokens[3] != b"255":
+        raise ValueError(f"{path}: only binary P6 PPMs of maxval 255 are "
+                         "read")
+    w, h = int(tokens[1]), int(tokens[2])
+    return np.frombuffer(data, np.uint8, count=w * h * 3,
+                         offset=i).reshape(h, w, 3)
+
+
+_EXR_BYTES = {1: 2, 2: 4}  # HALF, FLOAT
+
+
+def read_exr(path: str) -> np.ndarray:
+    """Read an uncompressed scanline OpenEXR of HALF and FLOAT channels
+    (write_exr's files and their like) to [H, W, C] float32, the channels
+    R, G, B, A first where present, then the others in the file's order
+    (image.py:224-283). Each chunk is found through the offset table."""
+    with open(path, "rb") as f:
+        data = f.read()
+    magic, _version = struct.unpack_from("<iI", data, 0)
+    if magic != _EXR_MAGIC:
+        raise ValueError(f"{path}: not an OpenEXR file")
+    pos = 8
+    channels = []  # (name, pixel type)
+    compression, box = 0, None
+    while data[pos] != 0:
+        zn = data.index(b"\x00", pos)
+        name = data[pos:zn].decode()
+        zt = data.index(b"\x00", zn + 1)
+        (ln,) = struct.unpack_from("<I", data, zt + 1)
+        payload = data[zt + 5:zt + 5 + ln]
+        pos = zt + 5 + ln
+        if name == "channels":
+            cp = 0
+            while payload[cp] != 0:
+                cz = payload.index(b"\x00", cp)
+                ptype, _, xs, ys = struct.unpack_from("<iiii", payload,
+                                                      cz + 1)
+                if ptype not in _EXR_BYTES or (xs, ys) != (1, 1):
+                    raise ValueError(f"{path}: channel of pixel type "
+                                     f"{ptype}, sampling {xs}x{ys}; only "
+                                     "unsampled HALF and FLOAT are read")
+                channels.append((payload[cp:cz].decode(), ptype))
+                cp = cz + 17
+        elif name == "compression":
+            compression = payload[0]
+        elif name == "dataWindow":
+            box = struct.unpack("<iiii", payload)
+    if compression != 0 or box is None:
+        raise ValueError(f"{path}: only uncompressed scanline EXRs are read")
+    x0, y0, x1, y1 = box
+    w, h = x1 - x0 + 1, y1 - y0 + 1
+    offsets = struct.unpack_from("<" + "Q" * h, data, pos + 1)
+    out = {name: np.empty((h, w), np.float32) for name, _ in channels}
+    for off in offsets:
+        y, _size = struct.unpack_from("<ii", data, off)
+        p = off + 8
+        for name, ptype in channels:
+            n = w * _EXR_BYTES[ptype]
+            row = np.frombuffer(data, np.float32 if ptype == 2
+                                else np.float16, count=w, offset=p)
+            out[name][y - y0] = row
+            p += n
+    order = [c for c in ("R", "G", "B", "A") if c in out]
+    order += [c for c, _ in channels if c not in order]
+    return np.stack([out[c] for c in order], axis=-1)
+
+
+def load_image(path: str) -> np.ndarray:
+    """An image by its extension (sutil::loadImage's dispatch,
+    image.py:286-293): .exr through read_exr ([H, W, C] float32), .ppm
+    through read_ppm ([H, W, 3] uint8), anything else through read_image
+    ([H, W, 4] uint8 RGBA)."""
+    p = path.lower()
+    if p.endswith(".exr"):
+        return read_exr(path)
+    if p.endswith(".ppm"):
+        return read_ppm(path)
+    return read_image(path)
+
+
 def read_image(path: str) -> np.ndarray:
     """Read an image to [H, W, 4] uint8 RGBA, row 0 at the top: PIL when it
     imports, else `read_image_stdlib`."""

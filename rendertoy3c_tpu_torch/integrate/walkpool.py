@@ -2,8 +2,9 @@
 more than 16384 faces), whose pool step is one traversal round.
 
 Port of rendertoy3c_tpu/integrate/walkpool.py: `WalkPoolPipeline` (:116),
-`make_walkpool_pipeline` (:151) with the kernel shade stage, `_walk_round`
-(:363) and `_render_pipepool` (:982) for P >= 2 paths per lane. Every pool
+`make_walkpool_pipeline` (:151) and `make_inst_walkpool_pipeline` (:182)
+with both shade stages, `_walk_round` (:363), `_walk_round_inst` (:456)
+and `_render_pipepool` (:982) for P >= 2 paths per lane. Every pool
 lane owns one walk scratch (the resumable ordered-DFS state of
 trace/hierwalk.py) that P paths share: a round launches a pending walk of
 one of the lane's paths into a free scratch, advances it by one round
@@ -12,9 +13,11 @@ directory's slab tests, then the ordered pop), stashes a finished closest
 walk into its path's columns and gates a finished shadow walk inline (the
 pending NEE term added unless occluded, the bounce pended). Every K
 rounds a phase boundary shades the stashed closest hits (K6 on C-major
-misc, trace/shade.py `external_shade(transposed=True)`), pends the shadow
-walks, retires and refills paths; every `flush_every` boundaries the
-retire stash flushes into the image.
+misc, trace/shade.py `external_shade(transposed=True)`, or for the
+scenes K6 does not shade the general stage `general_shade`, the port of
+`_make_xla_shade_stage` (:255), in torch ops), pends the shadow walks,
+retires and refills paths; every `flush_every` boundaries the retire
+stash flushes into the image.
 
 K9 (kernels/csrc/walk.cu) runs the K rounds between two boundaries in one
 launch, a group of threads per lane; `_pipe_rounds_ref` is its plain version
@@ -33,12 +36,11 @@ the stacked segment tables of an N-key scene (trace/hierwalk.py
 to its row gathers; the pool itself, as the reference's, takes at most 2
 keys.
 
-Left out, raising NotImplementedError with their ROADMAP item: the classic
-P = 1 pool `_render_walkpool` (:578, A18; integrate/path.py) and the XLA
-shade stage `_make_xla_shade_stage` (:255, A22); not reached, the
-instanced round `_walk_round_inst` (:456, A20). The reference's TPU-only
-mechanisms have no counterpart: the round unroll, the held-walk
-(non-inline) gate, the walk chunking and the RT3C_* switches.
+Left out, raising NotImplementedError with its ROADMAP item: the classic
+P = 1 pool `_render_walkpool` (:578, A18; integrate/path.py). The
+reference's TPU-only mechanisms have no counterpart: the round unroll,
+the held-walk (non-inline) gate, the walk chunking and the RT3C_*
+switches.
 """
 from __future__ import annotations
 
@@ -49,6 +51,7 @@ import torch
 
 from ..kernels import build as kbuild
 from ..math import rng
+from ..math.vec import luminance
 from ..scene.camera import camera_ray_dir
 from ..trace.hier_instanced import _L_FIRST as _LI_FIRST
 from ..trace.hier_instanced import _L_TYPE as _LI_TYPE
@@ -59,9 +62,11 @@ from ..trace.hier_instanced import (InstHierTable, _inst_space,
 from ..trace.hierwalk import (_BIG, _L_FIRST, _L_TYPE, HierTable, _dir_entries,
                               _leaf_mt, _prune_cut, _safe_inv,
                               build_hier_table)
+from ..trace.intersect import Hit
 from ..trace.shade import (ACC_COLS, AOV_COLS, ExternalTables, ShadeConfig,
-                           _first_failed, _slice_checks, external_shade,
-                           inst_transform_rows, misc_width, shade_tables_for)
+                           _first_failed, external_shade, inst_transform_rows,
+                           misc_width, route_checks, shade_tables_for,
+                           shading_checks)
 
 # past this many (effective) faces the per-ray walk takes over from the MT
 # band, and a static instance field takes the baked world table
@@ -478,23 +483,135 @@ walk_rounds.seg_launches = 0  # K9 with segment offsets (N-key tables)
 
 # ---------------------------------------------------------- the pipeline
 @dataclass(frozen=True)
+class GeneralStageConfig:
+    """The general shade stage's parameters: the render config and
+    whether the scene has 2 keys (the shadow ray then carries its time)."""
+
+    cfg: object  # the RenderConfig
+    motion: bool
+
+
+def general_shade(rays, hit4, misc_t, tables, config: GeneralStageConfig,
+                  transposed: bool = True, inst=None):
+    """The walk pool's general shade stage (walkpool.py :255-360,
+    `_make_xla_shade_stage`), for the scenes K6 does not shade
+    (trace/shade.py shading_checks: environment maps, emissive and
+    roughness textures, normal maps without images, the physical
+    throughput model, scenes without lights), in torch ops on the lanes'
+    device: no kernel of the reference shades them. It has K6's interface
+    on C-major misc: rays [W, 8], hit4 [W, 4] (t, prim, u, v), misc_t
+    [MW, W] and, for an instanced scene, inst [W]; it returns (rays
+    [W, 8], misc [MW + 8, W], shadow [W, 8 | 16]) column for column as K6
+    writes them. `tables` are integrate/path.py's GeneralTables.
+
+    integrate/path.py `_shade_and_nee` shades every lane with a stub
+    occlusion tracer that captures the shadow ray; the Russian roulette
+    draw follows at the same stream position (its value never depended
+    on the occlusion), and the pending NEE term leaves through misc
+    columns MW to MW + 2 with 5 zero columns after it. A lane that wants
+    no shadow ray gets a shadow tmax of 0."""
+    # deferred: integrate/path.py imports this module
+    from .path import _miss_radiance, _shade_and_nee
+
+    if not transposed:
+        raise ValueError("general_shade takes the walk pool's C-major misc")
+    cfg = config.cfg
+    misc = misc_t.transpose(0, 1)
+    r = rays.shape[0]
+    dev = rays.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    org, d = rays[:, 0:3], rays[:, 3:6]
+    seed = rng.bits_to_state(misc[:, 0])
+    alive = misc[:, 9] > 0
+    depth = misc[:, 8]
+    prev_delta = misc[:, 7] > 0
+    atten = misc[:, 1:4]
+    last_atten = misc[:, 4:7]
+    hit = Hit(t=hit4[:, 0], prim=hit4[:, 1].to(torch.int32), u=hit4[:, 2],
+              v=hit4[:, 3],
+              inst=None if inst is None else inst.to(torch.int32))
+    cap = {}
+
+    def stub_any(p, ldir, tmin_s, tmax_s, time_s, count=None):
+        cap.update(p=p, ldir=ldir, tmax=tmax_s, time=time_s)
+        return torch.zeros(r, dtype=torch.bool, device=dev)
+
+    (seed, emitted, radiance, norg, ndir, atten_factor, want_shadow,
+     is_delta, sh_albedo, sh_normal) = _shade_and_nee(
+        tables, cfg, stub_any, hit, org, d, seed, alive)
+    is_hit = hit.prim >= 0
+    adv = alive & is_hit
+
+    # the pending NEE term rides extra columns; the acc takes the emission
+    # and the miss background now (K6's external branch)
+    nee = radiance * last_atten
+    bg = torch.tensor(cfg.bg_radiance, **f32)
+    miss_rad = _miss_radiance(tables, bg, d)
+    see_emit = is_hit & ((depth == 0) | prev_delta)
+    contrib = (torch.where(see_emit[:, None], emitted, 0.0)
+               + torch.where(is_hit[:, None], 0.0, miss_rad) * last_atten)
+
+    new_at = torch.where(adv[:, None], atten * atten_factor, atten)
+    new_last = torch.where(alive[:, None], new_at, last_atten)
+    p_rr = luminance(new_at)
+    seed, u_rr = rng.rnd_masked(seed, adv)
+    survive = adv & (u_rr <= p_rr)
+    new_at = torch.where(survive[:, None],
+                         new_at / torch.clamp(p_rr, min=1e-12)[:, None],
+                         new_at)
+    acc_new = misc[:, 10:13] + torch.where(alive[:, None], contrib, 0.0)
+    depth_new = depth + alive.to(torch.float32)
+    alive_new = survive & (depth_new < float(cfg.max_depth))
+    pdelta_new = torch.where(alive, is_delta, prev_delta)
+
+    rays_out = torch.cat([torch.where(survive[:, None], norg, org),
+                          torch.where(survive[:, None], ndir, d),
+                          rays[:, 6:8]], dim=1)
+    cols = [rng.state_to_bits(seed)[:, None], new_at, new_last,
+            pdelta_new.to(torch.float32)[:, None], depth_new[:, None],
+            alive_new.to(torch.float32)[:, None], acc_new, misc[:, 13:15],
+            want_shadow.to(torch.float32)[:, None]]
+    if cfg.aov:
+        first = (adv & (depth == 0))[:, None]
+        cols += [misc[:, 16:19] + torch.where(first, sh_albedo, 0.0),
+                 misc[:, 19:22] + torch.where(first, sh_normal, 0.0),
+                 torch.zeros((r, 2), **f32)]
+    cols += [torch.where(want_shadow[:, None], nee, 0.0),
+             torch.zeros((r, 5), **f32)]
+    misc_out = torch.cat(cols, dim=1).transpose(0, 1).contiguous()
+
+    tmax_s = torch.where(want_shadow, cap["tmax"], 0.0)
+    sh_cols = [cap["p"], cap["ldir"],
+               torch.full((r, 1), cfg.shadow_tmin, **f32), tmax_s[:, None]]
+    if config.motion:
+        sh_cols += [cap["time"][:, None], torch.zeros((r, 7), **f32)]
+    return rays_out, misc_out, torch.cat(sh_cols, dim=1)
+
+
+@dataclass(frozen=True)
 class WalkPoolPipeline:
-    """The hier table, K6's tables and the launch functions of the walk
-    pool, on one device. Build it with make_walkpool_pipeline (or
-    make_inst_walkpool_pipeline) over the split-ordered scene that
-    choose_tracer returns with it."""
+    """The hier table, the shade stage's tables and the launch functions
+    of the walk pool, on one device. Build it with make_walkpool_pipeline
+    (or make_inst_walkpool_pipeline) over the split-ordered scene that
+    choose_tracer returns with it. `kernel` records the shade stage,
+    picked when the pipeline is built by what the scene needs (walkpool.py
+    :131): K6 (external_shade, True) or the general stage (general_shade,
+    False) for the scenes K6 does not shade."""
 
     table: HierTable | InstHierTable
     num_faces: int  # faces of the ordered scene (hits past it are misses)
     motion: bool  # 2-key scene: leaf rows lerped by the walk's time
-    shade_tables: ExternalTables
-    shade_config: ShadeConfig
+    shade_tables: object  # K6's ExternalTables, or the GeneralTables
+    shade_config: object  # K6's ShadeConfig, or a GeneralStageConfig
     misc_w: int  # 16, or 24 with the AOV rows
     shadow_w: int  # 8, or 16 with the shadow ray's time (motion)
     device: torch.device
+    kernel: bool = True  # K6 shades, else the general stage
     walk_fn: object = walk_rounds  # K9, or _pipe_rounds_ref-like
-    shade_fn: object = external_shade  # K6, or external_shade_ref
-    # a trace-time instanced scene: K6 takes each hit's instance
+    # K6 (or external_shade_ref) with kernel, else general_shade
+    shade_fn: object = external_shade
+    # a trace-time instanced scene: the shade stage takes each hit's
+    # instance
     instanced: bool = False
     # > 0: the walk rides a baked world table whose hits encode
     # eff = instance * inst_stride + face (decoded before shading)
@@ -509,9 +626,9 @@ class WalkPoolPipeline:
         return self.table.fanout
 
     def shade(self, rays, hit4, misc_t, inst=None):
-        """K6 on C-major misc [MW, W]: (rays [W, 8], misc [MW + 8, W],
-        shadow [W, 8 | 16]); inst [W] int32: an instanced scene's hit
-        instances."""
+        """The shade stage on C-major misc [MW, W]: (rays [W, 8], misc
+        [MW + 8, W], shadow [W, 8 | 16]); inst [W] int32: an instanced
+        scene's hit instances."""
         kw = dict(inst=inst) if self.instanced else {}
         return self.shade_fn(rays, hit4, misc_t, self.shade_tables,
                              self.shade_config, transposed=True, **kw)
@@ -522,12 +639,6 @@ class WalkPoolPipeline:
 
 def _shade_stage(scene, cfg, device):
     """(ExternalTables, ShadeConfig) of K6 for the walk pool's scene."""
-    reason = _first_failed(_slice_checks(scene, cfg))
-    if reason is not None:
-        # the reference shades such scenes in its XLA stage (:255)
-        raise NotImplementedError(
-            f"{reason}; the walk pool's XLA shade stage for such scenes is "
-            "not ported yet (ROADMAP A22)")
     attr_t, lights_t, tex, params_base = shade_tables_for(scene, device)
     inst_rows = None
     if hasattr(scene, "instance_mesh"):
@@ -545,13 +656,35 @@ def _shade_stage(scene, cfg, device):
     return tables, config
 
 
+def _pick_stage(scene, cfg, device, shade_fn):
+    """(kernel, tables, config, shade function) of the walk pool's shade
+    stage for `scene`: K6's tables and `shade_fn` when K6 shades the
+    scene, else integrate/path.py's GeneralTables and general_shade, as
+    the reference picks its stage (walkpool.py :169, :236). The wave
+    integrator and more than 2 keys are refused."""
+    reason = _first_failed(route_checks(scene, cfg))
+    if reason is not None:
+        raise NotImplementedError(f"{reason}; the walk pool takes the pool "
+                                  "integrator and at most 2 keys")
+    if _first_failed(shading_checks(scene, cfg)) is not None:
+        # deferred: integrate/path.py imports this module
+        from .path import general_tables
+
+        config = GeneralStageConfig(cfg=cfg, motion=scene.num_keys == 2)
+        return False, general_tables(scene, device), config, general_shade
+    return (True, *_shade_stage(scene, cfg, device), shade_fn)
+
+
 def make_walkpool_pipeline(scene, cfg, device, walk_fn=walk_rounds,
                            shade_fn=external_shade) -> WalkPoolPipeline:
-    """The node table (fanout auto) and K6's tables for `scene`, already
-    split-ordered. walk_fn / shade_fn default to the kernels' wrappers,
-    which run the plain versions on CPU tensors."""
+    """The node table (fanout auto) and the shade stage's tables for
+    `scene`, already split-ordered (walkpool.py :151-172). walk_fn and
+    shade_fn (K6's, where K6 shades the scene; else general_shade) default
+    to the kernels' wrappers, which run the plain versions on CPU
+    tensors."""
     device = torch.device(device)
-    tables, config = _shade_stage(scene, cfg, device)
+    kernel, tables, config, shade_fn = _pick_stage(scene, cfg, device,
+                                                   shade_fn)
     motion = scene.num_keys == 2
     tab = build_hier_table(scene.geom, scene.num_faces,
                            num_keys=scene.num_keys, fanout=POOL_DIR_FANOUT,
@@ -560,7 +693,7 @@ def make_walkpool_pipeline(scene, cfg, device, walk_fn=walk_rounds,
         table=tab, num_faces=tab.num_faces, motion=motion,
         shade_tables=tables, shade_config=config,
         misc_w=misc_width(cfg.aov), shadow_w=16 if motion else 8,
-        device=device, walk_fn=walk_fn, shade_fn=shade_fn)
+        device=device, kernel=kernel, walk_fn=walk_fn, shade_fn=shade_fn)
 
 
 def make_inst_walkpool_pipeline(iscene, cfg, device, walk_fn=walk_rounds,
@@ -571,13 +704,16 @@ def make_inst_walkpool_pipeline(iscene, cfg, device, walk_fn=walk_rounds,
     of more than LEAFWALK_MIN_FACES effective faces that
     baked_world_eligible admits walks a baked world table on K9 (`bake`
     True / False forces it either way, for the tests); any other walks
-    the instanced table on K9-inst. K6 transforms each hit's normal by
-    its instance's rows either way."""
+    the instanced table on K9-inst. The shade stage (K6, which transforms
+    each hit's normal by its instance's rows, or the general stage, as
+    make_walkpool_pipeline picks it) takes each hit's instance either
+    way."""
     if iscene.num_keys > 2:
         raise ValueError("the instanced walk pool takes at most 2 transform "
                          "keys (ROADMAP C1)")
     device = torch.device(device)
-    tables, config = _shade_stage(iscene, cfg, device)
+    kernel, tables, config, shade_fn = _pick_stage(iscene, cfg, device,
+                                                   shade_fn)
     motion = iscene.num_keys == 2
     eff_faces = sum(iscene.mesh_ranges[m][1] for m in iscene.instance_mesh)
     if bake is None:
@@ -592,8 +728,9 @@ def make_inst_walkpool_pipeline(iscene, cfg, device, walk_fn=walk_rounds,
     return WalkPoolPipeline(
         table=tab, num_faces=num_faces, motion=motion, shade_tables=tables,
         shade_config=config, misc_w=misc_width(cfg.aov),
-        shadow_w=16 if motion else 8, device=device, walk_fn=walk_fn,
-        shade_fn=shade_fn, instanced=True, inst_stride=stride)
+        shadow_w=16 if motion else 8, device=device, kernel=kernel,
+        walk_fn=walk_fn, shade_fn=shade_fn, instanced=True,
+        inst_stride=stride)
 
 
 def phase_rounds(cfg, n_levels: int, spacewalk: bool = False) -> int:

@@ -7,9 +7,10 @@ scene sampling the mesh's vertex track and the instance's transform track
 clamped to their last key, normals by the inverse-transpose; the same
 face order, the face axis padded to FACE_ALIGN with degenerate (never
 hit) faces, and the texture atlas with the `any_uv_transform` and
-`any_normal_map` flags.
-Arrays stay numpy on the host; the tracers build device tables from them
-with an explicit `device=`.
+`any_normal_map` flags, and the optional environment map `env`.
+Arrays stay numpy on the host (the environment map is a tensor on the
+device build_env_map was given); the tracers build device tables from
+them with an explicit `device=`.
 
 `scene_from_numpy` takes the arrays of a reference Scene (as numpy) and
 returns this package's Scene, so a test can carry one scene across.
@@ -94,6 +95,9 @@ class Scene:
     num_materials: int = 0
     any_uv_transform: bool = False  # a material transforms its uvs
     any_normal_map: bool = False  # a material has a normal map
+    # the lat-long environment map of the miss program (scene/envmap.py
+    # EnvMap), None for the constant ambient (scene.py:105-107)
+    env: object = None
 
     def __post_init__(self):
         if self.atlas is None:
@@ -151,12 +155,15 @@ def build_material_table(materials: Sequence[Material]) -> MaterialTable:
 def build_scene(meshes: Sequence[Mesh],
                 instances: Sequence[Instance] | None = None,
                 textures: Sequence | None = None,
-                emissive_threshold: float = 1e-5) -> Scene:
+                emissive_threshold: float = 1e-5,
+                env_map=None) -> Scene:
     """Flatten meshes placed by `instances` (default: one identity
     instance per mesh, src/wavefront.cpp:141-147) into a world-space
     scene. textures: the images the materials' texture ids index ([h, w,
     4] uint8 arrays or TextureImage entries), packed into the scene's
-    atlas. An instance with both vertex motion and matrix motion raises
+    atlas. env_map: the scene's environment map (scene/envmap.py
+    build_env_map), which the miss lanes sample instead of the constant
+    ambient. An instance with both vertex motion and matrix motion raises
     ValueError: their product is not linear in t."""
     meshes = [m.with_computed_normals() for m in meshes]
     if instances is None:
@@ -246,7 +253,8 @@ def build_scene(meshes: Sequence[Mesh],
                  any_uv_transform=any(m.has_uv_transform()
                                       for m in materials),
                  any_normal_map=any(m.normal_texture_id >= 0
-                                    for m in materials))
+                                    for m in materials),
+                 env=env_map)
 
 
 def scene_from_numpy(geom: Mapping[str, np.ndarray],

@@ -19,8 +19,11 @@ reference would:
                                       -> SAH split order (leaf 14, or 7
                                          for 2 keys), then the walk pool
                                          (integrate/walkpool.py) under the
-                                         pool integrator, the bare
-                                         hierwalk tracer under the wave
+                                         pool integrator (K6 shading,
+                                         or the general shade stage
+                                         where K6 does not shade the
+                                         scene), the bare hierwalk
+                                         tracer under the wave
                                          integrator (:157-181)
   static scene of more than 512 faces -> Morton face order first (:183-188)
   up to 16384 faces, static or 2-key, the pool with a ray_block multiple
@@ -49,14 +52,17 @@ reference would:
 
 A bare (closest, any) tracer renders under the general pool or the wave
 integrator (integrate/path.py `_render_pool`, `_trace_block`), whose
-shading (`_shade_and_nee`) covers the scenes the kernels refuse: emissive
-and roughness textures, normal maps without images, the physical
-throughput model, scenes without lights. Motion scenes of the MT band
+shading (`_shade_and_nee`) covers the scenes the kernels refuse
+(trace/shade.py shading_checks): environment maps, emissive and
+roughness textures, normal maps without images, the physical throughput
+model, scenes without lights. Past 16384 (effective) faces the walk pool
+shades such scenes in its general stage (integrate/walkpool.py
+general_shade, `WalkPoolPipeline.kernel` False), the same shading on its
+lanes, as the reference's XLA stage does. Motion scenes of the MT band
 keep their face order, as in the reference. What stays out raises
 NotImplementedError naming the ROADMAP item that adds it: instanced
-scenes of more than 2 keys (C1) and the walk pool's XLA shade stage
-(A22). Returns (scene, tracer): always render the returned scene, whose
-face order matches the tracer's tables.
+scenes of more than 2 keys (C1). Returns (scene, tracer): always render
+the returned scene, whose face order matches the tracer's tables.
 """
 from __future__ import annotations
 

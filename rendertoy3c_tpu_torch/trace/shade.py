@@ -246,17 +246,26 @@ def shade_tables_for(scene, device, f_limit: int | None = None):
     return attr_t, lights_t, tex, params_base
 
 
-def _slice_checks(scene, cfg):
-    """(failed, reason) pairs shared by both pipelines' gates: what the
-    kernels do not shade. The tracer choice sends such scenes to a bare
-    tracer, shaded by integrate/path.py `_shade_and_nee` (the walk pool
-    refuses them, ROADMAP A22)."""
-    general = "shaded outside the kernels (integrate/path.py _shade_and_nee)"
+def route_checks(scene, cfg):
+    """(failed, reason) pairs of what no pipeline takes: the wave
+    integrator and more than 2 keys, which bare tracers render."""
     return (
         (cfg.integrator != "pool",
          "the wave integrator renders bare tracers only"),
         (scene.num_keys > 2, "more than 2 motion keys need the N-key "
          "brute tracer (ROADMAP A5)"),
+    )
+
+
+def shading_checks(scene, cfg):
+    """(failed, reason) pairs of what the kernels do not shade, as the
+    reference's eligibility refuses it (pallas_shade.py:1116-1128,
+    :1459-1481). The tracer choice sends such scenes to a bare tracer up to
+    16384 faces and past them to the walk pool's general shade stage
+    (integrate/walkpool.py general_shade), both shaded by
+    integrate/path.py `_shade_and_nee` in torch ops."""
+    general = "shaded outside the kernels (integrate/path.py _shade_and_nee)"
+    return (
         (texture_state(scene) == "unsupported", "emissive and roughness "
          f"textures are {general}"),
         (scene.any_normal_map and texture_state(scene) != "diffuse",
@@ -264,7 +273,15 @@ def _slice_checks(scene, cfg):
         (cfg.throughput_model != "reference",
          f"the physical throughput model is {general}"),
         (scene.num_lights < 1, f"scenes without lights are {general}"),
+        (getattr(scene, "env", None) is not None,
+         f"environment maps are {general}"),
     )
+
+
+def _slice_checks(scene, cfg):
+    """The checks both pipelines' gates share: route_checks, then
+    shading_checks."""
+    return route_checks(scene, cfg) + shading_checks(scene, cfg)
 
 
 def fused_unsupported(scene, cfg) -> str | None:

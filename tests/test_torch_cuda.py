@@ -1942,3 +1942,143 @@ def test_external_shade_kernel_at_pool_sizes(dev, variant, layout, n):
     assert getattr(shade.external_shade, counter) == before + 1
     _bits_equal(got, shade.external_shade_ref(*a, transposed=transposed,
                                               inst=inst))
+
+
+# ------------------------------------ environment maps, the general stage
+def _sky(h=64, w=128, seed=0):
+    """A seeded lat-long HDR sky: a gradient, noise and a sun of ~1e3."""
+    r = np.random.default_rng(seed)
+    v = np.linspace(0, 1, h, dtype=np.float32)[:, None, None]
+    img = (np.float32([0.3, 0.5, 0.9]) * (1.2 - v)
+           + r.uniform(0, 0.2, (h, w, 3)).astype(np.float32))
+    img[h // 4, w // 3] = (1000.0, 950.0, 800.0)
+    return img
+
+
+def test_env_map_sampling_on_the_card_matches_the_cpu(dev):
+    """sample_env_map on the card against the CPU on 65536 seeded
+    directions, the poles and both sides of the atan2 seam: within
+    rtol = atol = 1e-5 of the map's largest value (the two devices' atan2
+    and acos may differ in the last ulps)."""
+    from rendertoy3c_tpu_torch.scene.envmap import (build_env_map,
+                                                    env_map_to,
+                                                    sample_env_map)
+
+    img = _sky()
+    env = build_env_map(img, 1.5, device="cpu")
+    r = np.random.default_rng(3)
+    d = r.normal(size=(65536, 3))
+    d[:6] = [[0, 1, 0], [0, -1, 0], [0, 0, 1], [-0.0, 0, 1], [1e-7, 0, 1],
+             [-1e-7, 0, 1]]
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    want = sample_env_map(env, torch.as_tensor(d))
+    got = sample_env_map(env_map_to(env, dev),
+                         torch.as_tensor(d, device=dev)).cpu()
+    scale = float(env.data.abs().max())
+    np.testing.assert_allclose(got.numpy() / scale, want.numpy() / scale,
+                               rtol=1e-5, atol=1e-5)
+
+
+def _general_stage_pipe(case, dev, cfg):
+    """(scene, camera, walk pool) of a general-stage case: the 24 x 24 box
+    field (K9) and its 2-key form (K9 motion) under an env map, and the
+    instance field at grid 4 (K9-inst) and its baked table (K9) under the
+    physical throughput model."""
+    import dataclasses
+
+    from rendertoy3c_tpu_torch.integrate import walkpool
+    from rendertoy3c_tpu_torch.scene.envmap import build_env_map
+
+    if case in ("env_field", "env_field_2key"):
+        scene, cam = _walk_pool_scene(case[4:])
+        scene = dataclasses.replace(scene, env=build_env_map(
+            _sky(), device=dev))
+        return scene, cam, walkpool.make_walkpool_pipeline(scene, cfg, dev)
+    cfg = dataclasses.replace(cfg, throughput_model="physical")
+    scene, cam, pipe = _inst_pipe("baked" if case == "physical_baked"
+                                  else "field", dev, cfg)
+    return scene, cam, pipe
+
+
+@pytest.mark.parametrize("case", ["env_field", "env_field_2key",
+                                  "physical_inst_field", "physical_baked"])
+def test_walk_kernels_under_the_general_stage_match_plain_versions(dev, case):
+    """K9 and K9-inst on walk-pool states recorded at boundaries 1, 4 and
+    7 of a 64^2 render whose shade stage is the general one (kernel
+    False): one launch against its plain version on a clone, every state
+    column bit for bit; and the general stage on the card against the
+    same stage on CPU copies of those boundaries' inputs: the seed, depth,
+    pixel and sample columns bit-equal; the decisions (prev_delta, alive,
+    want_shadow) equal on all but 0.05% of the live lanes and every other
+    float within rtol = 1e-4, atol = 1e-5 (the CPU test's tolerance
+    against the reference) on all but 0.1% of the lanes: the card's sin,
+    cos, acos, atan2 and scalar divisions differ from the CPU's in the
+    last ulps, which an ill-conditioned lane amplifies (chip_smoke.py
+    STAGE_FLIPS, STAGE_OFF)."""
+    import dataclasses
+
+    from rendertoy3c_tpu_torch.integrate import walkpool
+    from rendertoy3c_tpu_torch.integrate.path import general_tables
+
+    cfg = RenderConfig(width=64, height=64, samples_per_launch=2,
+                       max_depth=6, ray_block=2048, integrator="pool",
+                       pool_pixel_major=True)
+    scene, cam, pipe = _general_stage_pipe(case, dev, cfg)
+    assert not pipe.kernel and pipe.shade_fn is walkpool.general_shade
+    states, inputs = [], []
+
+    def record(s, tab, motion, k):
+        if len(states) < 8:
+            states.append(s.clone())
+        walkpool.walk_rounds(s, tab, motion, k)
+
+    def record_shade(rays, hit4, misc, tables, config, transposed,
+                     inst=None):
+        if len(inputs) < 8:
+            inputs.append((rays.clone(), hit4.clone(), misc.clone(),
+                           None if inst is None else inst.clone()))
+        return walkpool.general_shade(rays, hit4, misc, tables, config,
+                                      transposed, inst)
+
+    launches = (walkpool.walk_rounds.launches,
+                walkpool.walk_rounds.inst_launches)
+    walkpool._render_pipepool(scene, cfg, cam.params(), dataclasses.replace(
+        pipe, walk_fn=record, shade_fn=record_shade), torch.arange(64 * 64),
+        0)
+    inst_walk = case == "physical_inst_field"
+    assert (walkpool.walk_rounds.inst_launches > launches[1]) == inst_walk
+    assert (walkpool.walk_rounds.launches > launches[0]) != inst_walk
+    k = 20 if inst_walk else 16
+    for s in states[1::3]:
+        got, want = s.clone(), s.clone()
+        walkpool.walk_rounds(got, pipe.table, pipe.motion, k)
+        walkpool.walk_rounds(want, pipe.table, pipe.motion, k, plain=True)
+        for (name, a), (_, b) in zip(got.tensors(), want.tensors()):
+            assert torch.equal(a.view(torch.uint8), b.view(torch.uint8)), name
+    cpu_tables = general_tables(scene, "cpu")
+    flips = off = live_n = lanes = 0
+    for rays, hit4, misc, inst in inputs[1::3]:
+        got = walkpool.general_shade(rays, hit4, misc, pipe.shade_tables,
+                                     pipe.shade_config, True, inst)
+        want = walkpool.general_shade(
+            rays.cpu(), hit4.cpu(), misc.cpu(), cpu_tables,
+            pipe.shade_config, True, None if inst is None else inst.cpu())
+        got = [g.cpu().numpy() for g in got]
+        want = [w.numpy() for w in want]
+        for c in (0, 8, 13, 14):
+            np.testing.assert_array_equal(got[1][c].view(np.uint32),
+                                          want[1][c].view(np.uint32))
+        live = misc[9].cpu().numpy() > 0
+        flip = np.zeros_like(live)
+        for c in (7, 9, 15):
+            flip |= got[1][c] != want[1][c]
+        close = np.ones_like(live)
+        for g, w in ((got[0], want[0]), (got[1].T, want[1].T),
+                     (got[2], want[2])):
+            close &= (np.isclose(g, w, rtol=1e-4, atol=1e-5)
+                      | (np.isnan(g) & np.isnan(w))).all(axis=1)
+        flips += int((flip & live).sum())
+        off += int((~close & ~flip).sum())
+        live_n += int(live.sum())
+        lanes += live.size
+    assert flips <= 5e-4 * live_n and off <= 1e-3 * lanes, (flips, off)

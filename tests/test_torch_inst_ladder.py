@@ -1,7 +1,8 @@
 """Instanced scenes in the port's tracer ladder, as the reference's
 trace/auto.py routes them (:56-76, :117-150), BASELINE config 3 (bench's
 multi_instance_tlas, baked by build_scene) on the fused pipeline, and the
-instanced cases the port refuses, each naming its ROADMAP item."""
+instanced cases the port refuses, each naming its ROADMAP item, or routes
+where it once refused them."""
 import dataclasses
 
 import numpy as np
@@ -114,10 +115,11 @@ def test_baseline_config3_renders_on_the_fused_pipeline():
     ("three_keys", "C1"), ("wave", "A6/A7"), ("no_lights_tracetime", "A7"),
     ("physical_field", "A22")])
 def test_out_of_slice_raises_naming_roadmap_item(scenes, case, item):
-    """More than 2 keys (C1) and the walk pool's XLA shade stage (A22)
-    still raise; the wave integrator and a scene without lights (A6/A7,
-    ported) take the bare instanced walk tracer, as the reference routes
-    them."""
+    """More than 2 keys (C1) still raise; the wave integrator and a scene
+    without lights (A6/A7, ported) take the bare instanced walk tracer, as
+    the reference routes them; the physical throughput model on the baked
+    578-instance field (A22, ported) takes the walk pool with the general
+    shade stage, as the reference's takes its XLA stage."""
     js, ts = scenes["field" if case == "physical_field" else "cornell9"]
     kw = dict(POOL, width=16, height=16)
     if case == "three_keys":
@@ -133,6 +135,14 @@ def test_out_of_slice_raises_naming_roadmap_item(scenes, case, item):
         _, want = j_choose(js, JConfig(**kw), on_tpu=True)
         _, got = choose_tracer(ts, RenderConfig(**kw), "cpu")
         assert isinstance(want, tuple) and isinstance(got, tuple)
+        return
+    if item == "A22":
+        _, want = j_choose(js, JConfig(**kw), on_tpu=True)
+        _, got = choose_tracer(ts, RenderConfig(**kw), "cpu")
+        assert isinstance(want, JWalkPool) and isinstance(got,
+                                                          WalkPoolPipeline)
+        assert not want.kernel and not got.kernel
+        assert got.inst_stride == want.inst_stride > 0
         return
     with pytest.raises(NotImplementedError, match=item):
         choose_tracer(ts, RenderConfig(**kw), "cpu")

@@ -8,9 +8,10 @@ calls it with on_tpu=True; the port applies it on the CUDA device); the
 rounds between boundaries resolve as the reference's _render_pipepool
 resolves walk_phase_every (walkpool.py:1037-1054); the CLI renders a
 .obj of more than 16384 faces through the walk pool. The classic P = 1
-pool, the 32-wide bf16 directories and the XLA shade stage raise
-NotImplementedError naming their ROADMAP item; a scene of more than 2
-keys takes the bare hierwalk over the stacked segment tables."""
+pool and the 32-wide bf16 directories raise NotImplementedError naming
+their ROADMAP item; a scene of more than 2 keys takes the bare hierwalk
+over the stacked segment tables, and a scene K6 does not shade the walk
+pool's general shade stage."""
 import dataclasses
 from types import SimpleNamespace
 
@@ -96,10 +97,18 @@ def test_negative_phase_rounds_raise():
     ("pool_paths_1", "A18"), ("fanout_32", "A17"), ("three_keys", "A5"),
     ("xla_shade_stage", "A22")])
 def test_what_the_walk_band_still_refuses(grid, case, item):
-    """P = 1, FANOUT32 and the XLA shade stage raise naming their item;
-    3 keys (A5, ported) take the bare hierwalk over the stacked segment
-    tables, never the walk pool."""
+    """P = 1 and FANOUT32 raise naming their item; 3 keys (A5, ported)
+    take the bare hierwalk over the stacked segment tables, never the walk
+    pool; a scene K6 does not shade (here the physical throughput model;
+    A22, ported) takes the walk pool with the general shade stage."""
     cfg = RenderConfig(**POOL)
+    if case == "xla_shade_stage":
+        ordered, pipe = choose_tracer(grid, dataclasses.replace(
+            cfg, throughput_model="physical"), "cpu")
+        assert isinstance(pipe, WalkPoolPipeline) and not pipe.kernel
+        assert pipe.num_faces == ordered.num_faces >= grid.num_faces
+        assert choose_tracer(grid, cfg, "cpu")[1].kernel
+        return
     if case == "three_keys":
         g = _two_key(grid)
         g = dataclasses.replace(g, num_keys=3, geom=g.geom._replace(
@@ -128,12 +137,9 @@ def test_what_the_walk_band_still_refuses(grid, case, item):
             path.render_pixels(scene, dataclasses.replace(cfg, pool_paths=1),
                                cornell_box()[1].params(), pipe,
                                np.arange(256), 0)
-        elif case == "fanout_32":
+        else:
             hierwalk.build_hier_table(grid.geom, grid.num_faces,
                                       fanout=hierwalk.FANOUT32)
-        else:
-            choose_tracer(grid, dataclasses.replace(
-                cfg, throughput_model="physical"), "cpu")
 
 
 def test_cli_renders_a_large_obj_through_the_walk_pool(tmp_path,

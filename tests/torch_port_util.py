@@ -208,3 +208,14 @@ def to_port_hier_table(jtab):
                      leaf_start=int(jtab.leaf_start),
                      num_faces=int(jtab.num_faces), fanout=int(jtab.fanout),
                      seg_rows=int(jtab.seg_rows), n_seg=int(jtab.n_seg))
+
+
+def hdr_sky(h=16, w=32, seed=0):
+    """A seeded lat-long sky: a smooth gradient, noise and a small sun of
+    ~1e3 against a sky of ~1."""
+    r = np.random.default_rng(seed)
+    v = np.linspace(0, 1, h, dtype=np.float32)[:, None, None]
+    img = (np.float32([0.3, 0.5, 0.9]) * (1.2 - v)
+           + r.uniform(0, 0.2, (h, w, 3)).astype(np.float32))
+    img[h // 4, w // 3] = (1000.0, 950.0, 800.0)
+    return img.astype(np.float32)
